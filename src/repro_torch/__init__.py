@@ -1,0 +1,18 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
+
+The same StitchIR, the same pass pipeline and the same planner decisions
+as the JAX reference, with the two Pallas code generators rewritten as
+CUDA C++ generators (``core/codegen.py``, built by ``core/cuda_build.py``).
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``), where every kernel runs its plain PyTorch version.
+The package imports torch and numpy, never jax and nothing of ``repro``.
+"""
+from .core import (  # noqa: F401
+    CompiledModule,
+    CompileStats,
+    GraphBuilder,
+    Module,
+    StitchOptions,
+    compile_module,
+    reference_execute,
+)

@@ -1,0 +1,334 @@
+"""The FusionStitching compiler facade of the port — ``repro/core/compiler.py``.
+
+``compile_module`` builds the compilation state, runs the default pass
+pipeline and returns a ``CompiledModule`` wrapping the planned executable
+and its stats.  It compiles for the card unless the caller asks for the
+CPU: ``device=None`` means ``"cuda"``, a missing card raises, and
+``device="cpu"`` runs every kernel's plain version.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .codegen import StitchedKernel
+from .executor import StitchedExecutable, resolve_device
+from .fusion import FusionPlan, constant_like
+from .ir import COLLECTIVE_OPCODES, LOOPS_ITEM, SHARDING_ITEM
+from .perf_library import PerfLibrary
+from .pipeline import CompilationState, default_pipeline
+from .schedule import REPLICATED
+from .signature import KernelCache
+from .xla_baseline import xla_baseline_kernel_count
+
+
+@dataclass
+class StitchOptions:
+    """The reference's options minus those of the passes this slice leaves
+    out (``jit_replay``, ``autotune``, ``measure_repeats``,
+    ``tuning_store_path``, ``mesh_axes``, ``verify``) and minus
+    ``interpret``: the compile's device takes its place."""
+
+    fuse_dot: bool = True                    # user decision (paper §2.1)
+    vmem_limit: int = 4 * 1024 * 1024        # scratch budget per kernel
+    replicate_limit: int = 512 * 1024
+    max_blocks: int = 4096
+    ew_footprint_limit: int = 64 * 1024 * 1024
+    max_fusion_ops: int = 256
+    perf_library_path: Optional[str] = None
+    kernel_cache_path: Optional[str] = None  # persistent tuning records
+    dedup_kernels: bool = True               # fusion-signature kernel reuse
+    # "cost": candidate-plan exploration under the shared LatencyModel with
+    # the greedy result as the floor; "greedy": the paper's Algorithm 1.
+    planner: str = "cost"
+    # Multi-phase stitching: groups with no single consistent schedule
+    # lower as ONE kernel of sequential phases (planner="cost" only).
+    enable_stitching: bool = True
+    stitch_replicate_limit: Optional[int] = None
+    stitch_max_blocks: int = 64
+
+    VALID_PLANNERS = ("cost", "greedy")
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.planner not in self.VALID_PLANNERS:
+            raise ValueError(
+                f"unknown planner {self.planner!r}; valid choices: "
+                f"{', '.join(self.VALID_PLANNERS)}"
+            )
+        for name in ("vmem_limit", "replicate_limit", "max_blocks",
+                     "ew_footprint_limit", "max_fusion_ops",
+                     "stitch_max_blocks"):
+            v = getattr(self, name)
+            if v < 0:
+                raise ValueError(f"{name} must be >= 0, got {v}")
+        if self.stitch_replicate_limit is not None and self.stitch_replicate_limit < 0:
+            raise ValueError(
+                f"stitch_replicate_limit must be >= 0 (or None), got "
+                f"{self.stitch_replicate_limit}"
+            )
+
+
+@dataclass
+class FusionReport:
+    name: str
+    num_ops: int
+    blocks: int
+    cost_s: float
+    scratch_bytes: int
+    shared_bytes: int
+    num_shrinks: int
+    roots: List[str]
+    cached: bool = False                     # kernel reused via signature
+    signature: str = ""
+    num_phases: int = 1                      # >1 = multi-phase stitched kernel
+    interface_bytes: int = 0                 # staged phase-boundary buffers
+    model_cost_s: Optional[float] = None
+
+
+@dataclass
+class CompileStats:
+    stitched_kernels: int
+    standalone_kernels: int
+    library_calls: int
+    xla_baseline_kernels: int
+    predicted_time_s: float
+    library_time_s: float = 0.0
+    reports: List[FusionReport] = field(default_factory=list)
+    kernel_cache_hits: int = 0               # fusion instances served by cache
+    kernel_cache_misses: int = 0             # unique fusions tuned this compile
+    tuning_disk_hits: int = 0                # tuning searches skipped (warm disk)
+    unique_kernels: int = 0                  # distinct kernels backing the fusions
+    kernels_emitted: int = 0                 # CUDA kernels emitted THIS compile
+    compile_time_s: float = 0.0
+    build_time_s: float = 0.0                # nvcc time inside this compile
+    pass_times: Dict[str, float] = field(default_factory=dict)
+    planner_mode: str = "greedy"
+    plans_explored: int = 0
+    plans_rejected: int = 0
+    planner_splits: int = 0
+    planner_merges: int = 0
+    planner_packs: int = 0
+    planner_stitches: int = 0
+    stitch_lowered_kernels: int = 0          # instances using the stitched emitter
+    stitch_phases_total: int = 0
+    stitch_interface_bytes: int = 0
+    planner_predicted_s: float = 0.0         # modeled latency, committed plan
+    greedy_predicted_s: float = 0.0          # modeled latency, floor plan
+    greedy_kernels: int = 0
+    planner_kernels: int = 0
+    unfused_kernels: int = 0                 # launches with no fusion at all
+    replay_mode: str = "eager"               # the only replay of this slice
+    eager_dispatches_per_call: int = 0       # steps the eager loop runs
+    device: str = "cuda"
+
+    @property
+    def fusion_ratio(self) -> float:
+        """paper Fig. 7: our kernel count / XLA baseline kernel count."""
+        ours = self.stitched_kernels + self.standalone_kernels
+        return ours / self.xla_baseline_kernels if self.xla_baseline_kernels else 1.0
+
+    @property
+    def launches_saved_vs_unfused(self) -> int:
+        return self.unfused_kernels - (self.stitched_kernels + self.standalone_kernels)
+
+    @property
+    def launches_saved_vs_greedy(self) -> int:
+        return self.greedy_kernels - (self.stitched_kernels + self.standalone_kernels)
+
+    @property
+    def cache_hit_rate(self) -> float:
+        total = self.kernel_cache_hits + self.kernel_cache_misses
+        return self.kernel_cache_hits / total if total else 0.0
+
+    @property
+    def smem_average(self) -> float:
+        allocs = [r.scratch_bytes for r in self.reports]
+        return float(np.mean(allocs)) if allocs else 0.0
+
+    @property
+    def smem_max(self) -> int:
+        return max((r.scratch_bytes for r in self.reports), default=0)
+
+    @property
+    def total_shrinks(self) -> int:
+        return sum(r.num_shrinks for r in self.reports)
+
+    @property
+    def shared_ratio(self) -> float:
+        tot = sum(r.scratch_bytes for r in self.reports)
+        sh = sum(r.shared_bytes for r in self.reports)
+        return sh / tot if tot else 0.0
+
+
+class CompiledModule:
+    def __init__(self, executable: StitchedExecutable, stats: CompileStats,
+                 cuda_source: str = ""):
+        self.executable = executable
+        self.stats = stats
+        self.cuda_source = cuda_source    # the compile's one .cu
+
+    @property
+    def kernels(self) -> List[StitchedKernel]:
+        """One kernel per unique signature, in plan order."""
+        seen, out = set(), []
+        for k in self.executable.kernels.values():
+            if id(k.fn) not in seen:
+                seen.add(id(k.fn))
+                out.append(k)
+        return out
+
+    def __call__(self, feeds):
+        return self.executable(feeds)
+
+
+def build_outputs(state: CompilationState) -> None:
+    """FinalizePass body: final FusionPlan, planned executable, stats."""
+    lib = state.library
+    kernels: Dict[str, StitchedKernel] = {}
+    reports: List[FusionReport] = []
+    predicted = 0.0
+    final_fusions = []
+    stitched_instances = 0
+    stitch_phases_total = 0
+    stitch_iface_bytes = 0
+    for p in state.planned:
+        kernels[p.fusion.name] = p.kernel
+        final_fusions.append(p.fusion)
+        predicted += p.entry.cost_s
+        mem = p.entry.memory
+        st = p.entry.stitched
+        if st is not None:
+            stitched_instances += 1
+            stitch_phases_total += st.num_phases
+            stitch_iface_bytes += st.interface_bytes
+        reports.append(
+            FusionReport(
+                p.fusion.name,
+                len(p.fusion.members),
+                p.entry.blocks,
+                p.entry.cost_s,
+                mem.total_bytes,
+                mem.shared_bytes,
+                mem.num_shrinks,
+                [r.name for r in p.fusion.roots],
+                cached=p.cache_hit,
+                signature=p.entry.signature,
+                num_phases=st.num_phases if st is not None else 1,
+                interface_bytes=st.interface_bytes if st is not None else 0,
+                model_cost_s=p.entry.model_cost_s,
+            )
+        )
+
+    plan = FusionPlan(
+        final_fusions,
+        state.fusion_plan.standalone + state.demoted,
+        state.module,
+        planner=state.fusion_plan.planner,
+    )
+    library_time = 0.0
+    for s in plan.standalone:
+        # standalone kernels are costed as single-op launches; library-call
+        # time is tracked separately (paper Fig. 6/8 methodology)
+        t = lib.model.kernel_time(1, lib.model.op_time(s, REPLICATED, 1))
+        if s.is_library_call:
+            library_time += t
+        else:
+            predicted += t
+
+    executable = StitchedExecutable(state.module, plan, kernels, state.device)
+    st = executable.launch_stats()
+    hits = sum(1 for p in state.planned if p.cache_hit)
+    unfused = sum(
+        1
+        for i in state.module.instructions
+        if i.opcode not in ("parameter", "constant")
+        and not constant_like(i)
+        and not i.is_library_call
+    )
+    pstats = state.fusion_plan.planner
+    state.executable = executable
+    state.stats = CompileStats(
+        stitched_kernels=st.stitched_kernels,
+        standalone_kernels=st.standalone_kernels,
+        library_calls=st.library_calls,
+        xla_baseline_kernels=xla_baseline_kernel_count(state.module),
+        predicted_time_s=predicted,
+        library_time_s=library_time,
+        reports=reports,
+        kernel_cache_hits=hits,
+        kernel_cache_misses=len(state.planned) - hits,
+        tuning_disk_hits=sum(1 for p in state.planned if p.tuned_from_disk),
+        unique_kernels=len({id(p.entry) for p in state.planned}),
+        kernels_emitted=sum(1 for p in state.planned if p.is_representative),
+        build_time_s=state.build_s,
+        planner_mode=pstats.mode if pstats else "greedy",
+        plans_explored=pstats.plans_explored if pstats else 0,
+        plans_rejected=pstats.plans_rejected if pstats else 0,
+        planner_splits=pstats.splits_taken if pstats else 0,
+        planner_merges=pstats.merges_taken if pstats else 0,
+        planner_packs=pstats.packs_taken if pstats else 0,
+        planner_stitches=pstats.stitches_taken if pstats else 0,
+        stitch_lowered_kernels=stitched_instances,
+        stitch_phases_total=stitch_phases_total,
+        stitch_interface_bytes=stitch_iface_bytes,
+        planner_predicted_s=pstats.predicted_s if pstats else 0.0,
+        greedy_predicted_s=pstats.greedy_predicted_s if pstats else 0.0,
+        greedy_kernels=pstats.greedy_kernels if pstats else 0,
+        planner_kernels=pstats.planned_kernels if pstats else 0,
+        unfused_kernels=unfused,
+        eager_dispatches_per_call=st.eager_dispatches_per_call,
+        device=str(state.device),
+    )
+
+
+def compile_module(
+    module,
+    options: Optional[StitchOptions] = None,
+    kernel_cache: Optional[KernelCache] = None,
+    device=None,
+) -> CompiledModule:
+    """Compile a StitchIR module through the default pass pipeline.
+
+    ``device`` is where the plan runs: the card (``"cuda"``, the default),
+    where every generated kernel is built with nvcc and launched, or
+    ``"cpu"``, where each kernel runs its plain PyTorch version.  Library
+    dots run as ``torch.matmul`` in full f32: a compile for the card sets
+    ``torch.backends.cuda.matmul.allow_tf32 = False``.  ``kernel_cache``
+    may be shared across compiles so structurally identical fusions reuse
+    tuned schedules and emitted kernels.
+    """
+    opts = options or StitchOptions()
+    dev = resolve_device(device)
+    for instr in module.instructions:
+        if instr.opcode in ("call", "get"):
+            raise NotImplementedError(f"{instr.name}: loops are ported by {LOOPS_ITEM}")
+        if instr.opcode in COLLECTIVE_OPCODES:
+            raise NotImplementedError(f"{instr.name}: collectives are ported by {SHARDING_ITEM}")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    library = PerfLibrary(opts.perf_library_path)
+    state = CompilationState(
+        module=module,
+        options=opts,
+        library=library,
+        kernel_cache=(
+            kernel_cache if kernel_cache is not None else KernelCache(opts.kernel_cache_path)
+        ),
+        device=dev,
+    )
+    default_pipeline().run(state)
+    state.stats.compile_time_s = time.perf_counter() - t0
+    state.stats.pass_times = dict(state.pass_times)
+    if opts.perf_library_path:
+        state.library.save()
+    if opts.kernel_cache_path:
+        state.kernel_cache.save()
+    return CompiledModule(state.executable, state.stats, state.cuda_source)

@@ -1,0 +1,114 @@
+"""Build and load the generated CUDA sources: nvcc into a shared library
+with a plain C interface, loaded with ``ctypes``.
+
+Every library lands in ``build/repro_torch/<sha256>.so`` under the root of
+the checkout, keyed by the hash of its source and of the nvcc command, so a
+source is compiled once per checkout and ``python3 chip_smoke.py`` alone
+builds everything it runs.  The command targets ``sm_90a`` and does not
+pass ``--use_fast_math``: the kernels keep IEEE division, square roots and
+the accurate transcendental functions.  ``-Xptxas -v`` adds each kernel's
+register, shared-memory and spill counts to the build log.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the toolkit's
+    default location, else ``nvcc`` on the PATH."""
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if os.path.isfile(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the toolkit")
+    return found
+
+
+def _key(source: str) -> str:
+    header = (CSRC / "stitch_runtime.cuh").read_text()
+    blob = "\0".join([source, header, " ".join(NVCC_FLAGS)])
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def library_path(source: str) -> Path:
+    return BUILD_DIR / f"{_key(source)}.so"
+
+
+def _command(nvcc: str, cu: Path, out: Path) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(cu)]
+
+
+def build_all(sources: Sequence[str]) -> Dict[str, str]:
+    """Build every source not built yet, one nvcc each, all started
+    together.  Returns the build log (nvcc's output) of each library this
+    call built, by library path; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    running: List[Tuple[Path, Path, subprocess.Popen]] = []
+    seen = set()
+    try:
+        for src in sources:
+            so = library_path(src)
+            if so.exists() or so in seen:
+                continue
+            seen.add(so)
+            nvcc = nvcc or nvcc_path()
+            cu = so.with_suffix(".cu")
+            cu.write_text(src)
+            fd, tmp = tempfile.mkstemp(prefix=so.stem + ".", suffix=".so.tmp", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                _command(nvcc, cu, Path(tmp)), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            )
+            running.append((so, Path(tmp), proc))
+        logs: Dict[str, str] = {}
+        failed = []
+        for so, tmp, proc in running:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{so.with_suffix('.cu')}:\n{out}")
+                tmp.unlink(missing_ok=True)
+                continue
+            os.replace(tmp, so)
+            logs[str(so)] = out
+    finally:
+        for _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(source: str) -> Tuple[ctypes.CDLL, float]:
+    """The loaded library of ``source`` and the seconds this call spent
+    building it (about 0 when it was built before)."""
+    t0 = time.perf_counter()
+    build_all([source])
+    built_s = time.perf_counter() - t0
+    return ctypes.CDLL(str(library_path(source))), built_s

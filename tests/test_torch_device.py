@@ -1,0 +1,67 @@
+"""The port stands alone and runs where it is told to.
+
+* Importing every ``repro_torch`` module loads neither jax nor ``repro``.
+* ``compile_module`` and ``reference_execute`` target the card by default
+  and raise when there is none; they never fall back to the CPU.
+* A kernel wrapper launches on CUDA tensors, runs its plain version on CPU
+  tensors, and refuses tensors on any other device.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import compile_module, reference_execute
+from repro_torch.graphs import nmt_graph, random_feeds
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks", "graphs"))
+print(len(names), leaked)
+sys.exit(1 if leaked or len(names) < 15 else 0)
+"""
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    r = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+        env=env, timeout=120,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = nmt_graph()
+    with pytest.raises(RuntimeError, match="cuda"):
+        compile_module(module)
+    with pytest.raises(RuntimeError, match="cuda"):
+        reference_execute(module, random_feeds(module, np.random.RandomState(0)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        compile_module(module, device="meta")
+    assert compile_module(module, device="cpu").stats.device == "cpu"
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    compiled = compile_module(nmt_graph(), device="cpu")
+    (kernel,) = compiled.kernels
+    meta = [torch.empty(i.shape, device="meta") for i in kernel.inputs]
+    with pytest.raises(ValueError, match="meta"):
+        kernel(*meta)
+    cpu = [torch.zeros(i.shape) for i in kernel.inputs]
+    outs = kernel(*cpu)
+    assert [tuple(o.shape) for o in outs] == [tuple(r.shape) for r in kernel.outputs]
+    assert kernel.fn.launches == 0          # the plain version is not a launch
+    with pytest.raises(RuntimeError, match="no CUDA library"):
+        kernel.fn.launch(*cpu, device=torch.device("cpu"))
