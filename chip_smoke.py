@@ -26,11 +26,36 @@ Phases, each fatal on failure:
    gives each kernel's device time, and each graph's device kernels and
    device time per call, from which its device idle share follows.
 
-The line before the last is one JSON object with a ``kernels`` list (one
-entry per emitter, ``emit_fusion`` and ``emit_stitched_fusion``); the last
-line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes every
-per-graph and per-kernel number as JSON.  Exits non-zero with no result
-when no card is present.
+6. kernels — the hand-written kernels of ``repro_torch.kernels`` through
+   their public entry point ``repro_torch.kernels.ops``, at the full width
+   of granite-moe-3b-a800m: rmsnorm, the sampler's softmax over the vocab,
+   causal GQA prefill attention, GQA decode attention over a KV cache with
+   seeded lengths, and the MoE router gate.  The counters are set to 0
+   just before those five calls and must read exactly one launch each
+   just after.  Then the small shapes of ``tests/test_kernels.py`` (f32,
+   G = 8, D = 8 and 16, non-causal, E = 8..64 with k = 1..8), each call one
+   more launch, and calls the small sweep of the test file leaves out:
+   flash and decode attention at D = 32 and 128 in f32 and bf16 (the
+   default blocks, whose K/V tiles need more than 48 KB of shared memory at
+   D = 128), flash with block_q != block_k, and softmax and rmsnorm at 16
+   and 32 rows per block.  Every call is held against its plain version on
+   the same inputs.  The small shapes keep the test file's rtol = atol:
+   2e-5 in f32 and 3e-2 in bf16, 2e-4 and 5e-2 for attention.  At full
+   width the limits follow from the outputs they check (``FULL_TOL``).  The
+   gate's indices may differ from the plain version's only
+   where the two picks' probabilities are within 2e-6 (``expf`` on the card
+   and torch's ``exp`` round differently); the count of such picks is
+   printed.  At full width: CUDA-event times of the kernel, of its plain
+   version and of one PyTorch library call that computes the same function
+   (timed only: the port never calls it), the profiler's device time, and
+   the bound: bytes over 3.35 TB/s or operations over the peak of their
+   type (989 TFLOP/s bf16 for attention, 67 TFLOP/s f32 otherwise).
+
+The line before the last is one JSON object with a ``kernels`` list: one
+entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``) and one
+per hand-written kernel; the last line is ``{"ok": true, "device":
+{...}}``.  ``--out`` also writes every per-graph and per-kernel number as
+JSON.  Exits non-zero with no result when no card is present.
 """
 import argparse
 import json
@@ -45,6 +70,13 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # H100 SXM data-sheet peaks (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+# granite-moe-3b-a800m, written out because this script imports nothing of
+# the JAX package: src/repro/configs/granite_moe_3b_a800m.py:5-10 and the
+# bf16 dtype and norm_eps of src/repro/configs/base.py:50-51
+GRANITE = dict(d_model=1536, heads=24, kv_heads=8, head_dim=64, experts=40,
+               top_k=8, vocab=49155, norm_eps=1e-6)
 
 # Outputs are held at rtol = atol = TOL: the kernels accumulate sums and
 # dot products in f32 in another order than torch's reductions and matmul,
@@ -60,6 +92,30 @@ WARMUP = 10
 CALLS = 200          # timed calls of a compiled graph, a kernel or the oracle
 PLAIN_CALLS = 20     # timed calls of a plain (block-interpreted) kernel
 PROFILED_CALLS = 20  # calls traced by torch.profiler for device times
+KERNEL_CALLS = 50    # timed calls of a hand-written kernel or its library call
+FULL_PLAIN_CALLS = 5  # timed calls of a hand-written kernel's plain version
+
+# kernel vs plain version in phase 6 (tests/test_kernels.py:16,70,82): the
+# kernels sum in another order than torch, and cast to bf16 once at the end
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+ATTENTION_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+GATE_TIE = 2e-6      # gate picks may swap only between probabilities this close
+
+# (rtol, atol) of each full-width call.  The kernel and its plain version
+# both compute in f32 and round once to the output dtype, so a bf16 output
+# may differ by one bf16 ulp (at most 2**-7 of the value, hence rtol 1e-2)
+# where the f32 values straddle a rounding boundary; atol only covers the
+# f32 difference near 0.  Output scales at these shapes: softmax over
+# 49,155 entries has a mean of 2.0e-5; causal attention over 2048 keys and
+# decode over ~2,300 keys give |o| of a few 1e-2 on most rows; rmsnorm and
+# the gate's weights are of order 1 and 1e-1.
+FULL_TOL = {
+    "stitched_rmsnorm": (1e-2, 1e-4),
+    "stitched_softmax": (2e-5, 1e-9),
+    "stitched_flash_attention": (1e-2, 1e-4),
+    "stitched_decode_attention": (1e-2, 1e-4),
+    "stitched_moe_gate": (2e-5, 1e-6),
+}
 
 
 def degenerate_mask(graph, root, feeds, out_shape):
@@ -143,6 +199,280 @@ def device_profile(fn, calls):
     return n / calls, by_name
 
 
+# the __global__ function of each hand-written kernel, as the profiler names it
+DEVICE_KERNEL = {
+    "stitched_rmsnorm": "sx_rmsnorm_kernel",
+    "stitched_softmax": "sx_softmax_kernel",
+    "stitched_flash_attention": "sx_flash_kernel",
+    "stitched_decode_attention": "sx_decode_kernel",
+    "stitched_moe_gate": "sx_moe_gate_kernel",
+}
+
+
+def compare(got, want, tol):
+    """Largest |got - want|, and whether shapes, dtypes and values agree at
+    ``tol = (rtol, atol)`` (NaN only where the plain version has NaN)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf"), False
+    g, w = got.double(), want.double()
+    rtol, atol = tol
+    ok = bool(torch.isclose(g, w, rtol=rtol, atol=atol, equal_nan=True).all())
+    both = ~(g.isnan() & w.isnan())
+    return (float((g - w)[both].abs().max()) if bool(both.any()) else 0.0), ok
+
+
+def compare_gate(logits, got, want, tol):
+    """The gate's weights at ``tol``, and its indices: a pick may
+    differ from the plain version's only where the plain probabilities of
+    the two experts are within GATE_TIE.  Returns (error, ok, differing picks)."""
+    from repro_torch.kernels.ref import softmax_ref
+
+    (w, i), (w2, i2) = got, want
+    err, ok = compare(w, w2, tol)
+    if i.shape != i2.shape or i.dtype != i2.dtype:
+        return err, False, -1
+    p = softmax_ref(logits.float())
+    differ = i != i2
+    gap = (p.gather(1, i.long()) - p.gather(1, i2.long())).abs()[differ]
+    ok = ok and (not bool(differ.any()) or float(gap.max()) <= GATE_TIE)
+    return err, ok, int(differ.sum())
+
+
+def kernels_phase(dev):
+    """Phase 6 (see the module docstring).  Returns the five hand-written
+    kernels' entries of the kernels line and one row per call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    kernels = ops.KERNELS
+    rng = np.random.RandomState(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, dtype):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev).to(dtype)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # ---- the full-width calls: one per kernel -------------------------------------
+    g = GRANITE
+    D, Hq, Hkv, d = g["head_dim"], g["heads"], g["kv_heads"], g["d_model"]
+    full = []
+    x, gamma = randn((8, 512, d), bf16), randn((d,), bf16)
+    full.append(dict(
+        kernel="stitched_rmsnorm", label=f"x{tuple(x.shape)} bf16",
+        call=lambda: ops.rmsnorm(x, gamma, eps=g["norm_eps"]),
+        plain=lambda: ref.rmsnorm_ref(x, gamma, g["norm_eps"]),
+        library=(lambda: F.rms_norm(x, (d,), gamma, g["norm_eps"])) if hasattr(F, "rms_norm") else None, bytes=nbytes(x, gamma, x), ops=4 * x.numel(), peak=F32_OPS_PER_S,
+    ))
+    lg = randn((16, g["vocab"]), f32)
+    full.append(dict(
+        kernel="stitched_softmax", label=f"logits{tuple(lg.shape)} f32",
+        call=lambda: ops.softmax(lg), plain=lambda: ref.softmax_ref(lg),
+        library=lambda: torch.softmax(lg, dim=-1), bytes=nbytes(lg, lg), ops=4 * lg.numel(), peak=F32_OPS_PER_S,
+    ))
+    S = 2048
+    q, k, v = randn((1, Hq, S, D), bf16), randn((1, Hkv, S, D), bf16), randn((1, Hkv, S, D), bf16)
+    full.append(dict(
+        kernel="stitched_flash_attention", label=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal",
+        call=lambda: ops.attention(q, k, v, causal=True),
+        plain=lambda: ref.attention_ref(q, k, v, causal=True),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), bytes=nbytes(q, k, v, q),
+        ops=4 * Hq * D * S * (S + 1) // 2, peak=BF16_OPS_PER_S,
+    ))
+    B, Sc = 16, 4096
+    qd = randn((B, Hq, D), bf16)
+    kc, vc = randn((B, Hkv, Sc, D), bf16), randn((B, Hkv, Sc, D), bf16)
+    lengths = torch.as_tensor(rng.randint(1, Sc + 1, size=B), dtype=torch.int32, device=dev)
+    valid = int(lengths.sum())
+    mask = (torch.arange(Sc, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    full.append(dict(
+        kernel="stitched_decode_attention",
+        label=f"q{tuple(qd.shape)} kv{tuple(kc.shape)} bf16, {valid} valid keys",
+        call=lambda: ops.attention_decode(qd, kc, vc, lengths),
+        plain=lambda: ref.decode_attention_ref(qd, kc, vc, lengths),
+        library=lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+        # the keys these lengths make valid, read once: count what the data needs
+        bytes=nbytes(qd, lengths, qd) + 2 * Hkv * D * kc.element_size() * valid,
+        ops=4 * Hq * D * valid, peak=BF16_OPS_PER_S,
+    ))
+    gl = randn((4096, g["experts"]), f32)
+    top_k = g["top_k"]
+
+    def gate_library():
+        w, i = torch.topk(torch.softmax(gl, dim=-1), top_k, dim=-1)
+        return w / w.sum(dim=-1, keepdim=True), i
+
+    full.append(dict(
+        kernel="stitched_moe_gate", label=f"logits{tuple(gl.shape)} f32 top{top_k}",
+        call=lambda: ops.moe_gate(gl, top_k), plain=lambda: ref.moe_gate_ref(gl, top_k),
+        library=gate_library, logits=gl,
+        bytes=nbytes(gl) + gl.shape[0] * top_k * 8, ops=gl.numel() * (4 + top_k), peak=F32_OPS_PER_S,
+    ))
+    for c in full:
+        c["tol"] = FULL_TOL[c["kernel"]]
+
+    # ---- the small shapes of tests/test_kernels.py ---------------------------------
+    small = []
+
+    def add(kernel, label, call, plain, tol, **extra):
+        small.append(dict(kernel=kernel, label=label, call=call, plain=plain, tol=(tol, tol), **extra))
+
+    for dtype, name in ((f32, "float32"), (bf16, "bfloat16")):
+        for shape in [(8, 16), (4, 8, 32), (2, 3, 5, 64), (16, 128)]:
+            t = randn(shape, dtype)
+            add("stitched_softmax", f"{shape} {name}", lambda t=t: ops.softmax(t),
+                lambda t=t: ref.softmax_ref(t), KERNEL_TOL[name])
+        for shape in [(4, 32), (2, 8, 64), (3, 5, 128)]:
+            t, gm = randn(shape, dtype), randn(shape[-1:], dtype)
+            add("stitched_rmsnorm", f"{shape} {name}", lambda t=t, gm=gm: ops.rmsnorm(t, gm),
+                lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm), KERNEL_TOL[name])
+    for br in (1, 2, 4, 8):
+        t = randn((8, 24), f32)
+        add("stitched_softmax", f"(8, 24) block_rows={br}", lambda t=t, br=br: ops.softmax(t, block_rows=br),
+            lambda t=t: ref.softmax_ref(t), KERNEL_TOL["float32"])
+    for (b, hq, hkv, s, dd) in [(1, 2, 2, 16, 8), (2, 4, 2, 32, 16), (1, 8, 1, 16, 8)]:
+        for causal in (True, False):
+            qs, ks, vs = randn((b, hq, s, dd), f32), randn((b, hkv, s, dd), f32), randn((b, hkv, s, dd), f32)
+            add("stitched_flash_attention", f"{(b, hq, hkv, s, dd)} causal={causal}",
+                lambda qs=qs, ks=ks, vs=vs, c=causal: ops.attention(qs, ks, vs, causal=c, block_q=8, block_k=8),
+                lambda qs=qs, ks=ks, vs=vs, c=causal: ref.attention_ref(qs, ks, vs, causal=c),
+                ATTENTION_TOL["float32"])
+    qs, ks, vs = randn((1, 2, 16, 8), bf16), randn((1, 2, 16, 8), bf16), randn((1, 2, 16, 8), bf16)
+    add("stitched_flash_attention", "(1, 2, 2, 16, 8) bfloat16",
+        lambda: ops.attention(qs, ks, vs, causal=True, block_q=8, block_k=8),
+        lambda: ref.attention_ref(qs, ks, vs, causal=True), ATTENTION_TOL["bfloat16"])
+    for (b, hq, hkv, s, dd) in [(2, 4, 2, 32, 8), (1, 8, 1, 64, 16), (3, 2, 2, 16, 8)]:
+        qq, kk, vv = randn((b, hq, dd), f32), randn((b, hkv, s, dd), f32), randn((b, hkv, s, dd), f32)
+        ln = torch.as_tensor(rng.randint(1, s + 1, size=b), dtype=torch.int32, device=dev)
+        add("stitched_decode_attention", f"{(b, hq, hkv, s, dd)} lengths={ln.tolist()}",
+            lambda qq=qq, kk=kk, vv=vv, ln=ln: ops.attention_decode(qq, kk, vv, ln, block_k=8),
+            lambda qq=qq, kk=kk, vv=vv, ln=ln: ref.decode_attention_ref(qq, kk, vv, ln),
+            ATTENTION_TOL["float32"])
+    # beyond the test file: the other head dims the kernels are built for,
+    # at the default blocks (at D = 128 the flash K/V tiles take 128 KB of
+    # shared memory), flash with block_q != block_k, and 16 and 32 rows per
+    # block for the row kernels
+    for dd in (32, 128):
+        for dtype, name in ((f32, "float32"), (bf16, "bfloat16")):
+            qs, ks, vs = randn((1, 4, 256, dd), dtype), randn((1, 2, 256, dd), dtype), randn((1, 2, 256, dd), dtype)
+            add("stitched_flash_attention", f"(1, 4, 2, 256, {dd}) {name} causal default blocks",
+                lambda qs=qs, ks=ks, vs=vs: ops.attention(qs, ks, vs, causal=True),
+                lambda qs=qs, ks=ks, vs=vs: ref.attention_ref(qs, ks, vs, causal=True),
+                ATTENTION_TOL[name])
+            qq, kk, vv = randn((2, 4, dd), dtype), randn((2, 2, 512, dd), dtype), randn((2, 2, 512, dd), dtype)
+            ln = torch.as_tensor(rng.randint(1, 513, size=2), dtype=torch.int32, device=dev)
+            add("stitched_decode_attention", f"(2, 4, 2, 512, {dd}) {name} lengths={ln.tolist()}",
+                lambda qq=qq, kk=kk, vv=vv, ln=ln: ops.attention_decode(qq, kk, vv, ln),
+                lambda qq=qq, kk=kk, vv=vv, ln=ln: ref.decode_attention_ref(qq, kk, vv, ln),
+                ATTENTION_TOL[name])
+    for bq, bk, causal in ((8, 16, True), (16, 8, True), (8, 32, False)):
+        qs, ks, vs = randn((1, 4, 64, 16), f32), randn((1, 2, 64, 16), f32), randn((1, 2, 64, 16), f32)
+        add("stitched_flash_attention", f"(1, 4, 2, 64, 16) block_q={bq} block_k={bk} causal={causal}",
+            lambda qs=qs, ks=ks, vs=vs, bq=bq, bk=bk, c=causal:
+                ops.attention(qs, ks, vs, causal=c, block_q=bq, block_k=bk),
+            lambda qs=qs, ks=ks, vs=vs, c=causal: ref.attention_ref(qs, ks, vs, causal=c),
+            ATTENTION_TOL["float32"])
+    for br, shape in ((16, (64, 24)), (32, (64, 24)), (16, (32, 300))):
+        t, gm = randn(shape, f32), randn(shape[-1:], f32)
+        add("stitched_softmax", f"{shape} block_rows={br}", lambda t=t, br=br: ops.softmax(t, block_rows=br),
+            lambda t=t: ref.softmax_ref(t), KERNEL_TOL["float32"])
+        add("stitched_rmsnorm", f"{shape} block_rows={br}",
+            lambda t=t, gm=gm, br=br: ops.rmsnorm(t, gm, block_rows=br),
+            lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm), KERNEL_TOL["float32"])
+    gate_cases = [(16, 8, 2), (32, 40, 8), (8, 16, 1), (64, 64, 4)]
+    gate_cases += [(32, g["experts"], kk) for kk in range(1, 9)]
+    for (t, e, kk) in gate_cases:
+        lt = randn((t, e), f32)
+        add("stitched_moe_gate", f"T={t} E={e} k={kk}",
+            lambda lt=lt, kk=kk: ops.moe_gate(lt, kk, block_tokens=8),
+            lambda lt=lt, kk=kk: ref.moe_gate_ref(lt, kk), KERNEL_TOL["float32"], logits=lt)
+
+    # ---- the main path: one launch of each kernel at full width -------------------
+    for kern in kernels.values():
+        kern.launches = 0
+    outs = [c["call"]() for c in full]
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    if sorted(c["kernel"] for c in full) != sorted(kernels) or set(launches.values()) != {1}:
+        raise SystemExit(f"kernels: launches at full width {launches}, expected one each")
+    for c, out in zip(full, outs, strict=True):
+        c["out"], c["full_width"] = out, True
+    for c in small:
+        kern = kernels[c["kernel"]]
+        before = kern.launches
+        c["out"] = c["call"]()
+        if kern.launches != before + 1:
+            raise SystemExit(f"{c['kernel']} {c['label']}: {kern.launches - before} launches, expected 1")
+    torch.cuda.synchronize()
+    print(f"kernels: main path {sum(launches.values())} launches at full width, one of each "
+          f"of {len(kernels)} kernels; {len(small)} small calls, one launch each")
+
+    # ---- right: every call against its plain version on the same inputs -----------
+    rows, gate_differ = [], 0
+    for c in full + small:
+        want = c["plain"]()
+        if "logits" in c:
+            err, ok, n = compare_gate(c["logits"], c["out"], want, c["tol"])
+            gate_differ += max(n, 0)
+        else:
+            err, ok = compare(c["out"], want, c["tol"])
+        if not ok:
+            raise SystemExit(f"{c['kernel']} {c['label']}: kernel vs plain {err:.3e} over "
+                             f"(rtol, atol)={c['tol']}")
+        mag = (want[0] if isinstance(want, tuple) else want).float().abs().nan_to_num()
+        c["err"], c["out_scale"], c["out_median"] = err, float(mag.max()), float(mag.median())
+        rows.append({"kernel": c["kernel"], "shape": c["label"], "full_width": "full_width" in c,
+                     "max_abs_err": err, "max_abs_out": c["out_scale"],
+                     "median_abs_out": c["out_median"], "tolerance": list(c["tol"])})
+    for c in full:
+        results = c["out"] if isinstance(c["out"], tuple) else (c["out"],)
+        if not all(bool(torch.isfinite(o.float()).all()) for o in results):
+            raise SystemExit(f"{c['kernel']} {c['label']}: non-finite output")
+    print(f"right: {len(full) + len(small)} calls of the 5 hand-written kernels agree with their "
+          f"plain versions; MoE gate picks that differ between near-equal probabilities: {gate_differ}")
+
+    # ---- numbers at full width -------------------------------------------------------
+    entries = []
+    for c in full:
+        kern = kernels[c["kernel"]]
+        ms = time_ms(c["call"], KERNEL_CALLS)
+        _, by_name = device_profile(c["call"], PROFILED_CALLS)
+        device_us = sum(t for name, t in by_name.items() if DEVICE_KERNEL[kern.name] in name)
+        plain_ms = time_ms(c["plain"], FULL_PLAIN_CALLS)
+        library_ms = time_ms(c["library"], KERNEL_CALLS) if c["library"] else None
+        b_ms, o_ms = 1e3 * c["bytes"] / HBM_BYTES_PER_S, 1e3 * c["ops"] / c["peak"]
+        entry = {
+            "name": kern.name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{kern.source.path.name}",
+            "replaces": kern.replaces, "launches": launches[kern.name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == kern.name),
+            "ms": ms, "plain_ms": plain_ms,
+            # None where the profiler recorded no device time for it
+            "device_ms": device_us / 1e3 if device_us else None,
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": library_ms, "shape": c["label"], "tolerance": list(c["tol"]),
+            "full_width_err": c["err"], "max_abs_out": c["out_scale"],
+            "median_abs_out": c["out_median"],
+        }
+        entries.append(entry)
+        print(
+            f"kernel {kern.name} {c['label']}: launches={entry['launches']} ms={ms:.4f} "
+            f"device_ms={entry['device_ms'] or 'not measured'} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms if library_ms is not None else 'none'} "
+            f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}) err={entry['max_abs_err']:.2e} "
+            f"full_width_err={c['err']:.3e} |out| max={c['out_scale']:.3e} "
+            f"median={c['out_median']:.3e} (rtol, atol)={c['tol']}"
+        )
+    return entries, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -157,6 +487,7 @@ def main(argv=None) -> int:
     from repro_torch.core import compile_module, cuda_build, reference_execute
     from repro_torch.core.codegen import REPLACES
     from repro_torch.graphs import ALL_GRAPHS, random_feeds
+    from repro_torch.kernels.cuda import SOURCES as HAND_SOURCES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -177,10 +508,10 @@ def main(argv=None) -> int:
     sources = [compile_module(g(), device="cpu").cuda_source for g in ALL_GRAPHS.values()]
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    logs = cuda_build.build_all(sources)
+    logs = cuda_build.build_all(sources + [src.path.read_text() for src in HAND_SOURCES])
     build_s = time.perf_counter() - t0
     print(f"build: planned 10 graphs in {plan_s:.2f} s; nvcc built {len(logs)} libraries "
-          f"in parallel in {build_s:.2f} s")
+          f"(the graphs' and {len(HAND_SOURCES)} hand-written) in parallel in {build_s:.2f} s")
     for log in logs.values():
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -331,11 +662,16 @@ def main(argv=None) -> int:
             "library_ms": None,
             "unique_kernels": len(mine), "tolerance": TOL,
         })
+
+    # ---- 6. kernels ---------------------------------------------------------------
+    hand_entries, hand_calls = kernels_phase(dev)
+    entries += hand_entries
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s,
-                       "graphs": per_graph, "kernels": rows, "emitters": entries}, f, indent=1)
+                       "graphs": per_graph, "kernels": rows, "emitters": entries,
+                       "hand_kernel_calls": hand_calls}, f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

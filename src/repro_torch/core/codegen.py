@@ -46,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .device import input_device, resolve_device
 from .fusion import FusedComputation
 from .ir import Instruction, apply_op, broadcast_in_dim, iota, torch_dtype
 from .memory import MemoryPlan, StitchedMemoryPlan
@@ -717,7 +718,8 @@ class KernelProgram:
     """One generated kernel: its CUDA source, its plain version, and the
     launch counter.  Calling it dispatches on the inputs' device: CPU
     tensors go to the plain version, CUDA tensors to the kernel, anything
-    else raises.  ``launches`` counts kernel launches only."""
+    else raises.  A call with no inputs runs on ``device``, which defaults
+    to the card.  ``launches`` counts kernel launches only."""
 
     def __init__(self, name: str, source: str, emitter: str, plain: Callable,
                  inputs: Sequence[Instruction], outputs: Sequence[Instruction],
@@ -740,17 +742,9 @@ class KernelProgram:
         self._launch = fn
 
     def __call__(self, *args, device=None):
-        devices = {a.device for a in args}
-        if len(devices) > 1:
-            raise ValueError(f"{self.name}: inputs on several devices {devices}")
-        dev = devices.pop() if devices else torch.device(device or "cpu")
+        dev = input_device(self.name, args) if args else resolve_device(device)
         if dev.type == "cpu":
             return self.plain(*args, device=dev)
-        if dev.type != "cuda":
-            raise ValueError(
-                f"{self.name}: inputs on {dev}; the kernel runs on cuda and "
-                "its plain version on cpu"
-            )
         return self.launch(*args, device=dev)
 
     def launch(self, *args, device) -> Tuple[torch.Tensor, ...]:

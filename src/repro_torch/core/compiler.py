@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from .codegen import StitchedKernel
-from .executor import StitchedExecutable, resolve_device
+from .device import resolve_device
+from .executor import StitchedExecutable
 from .fusion import FusionPlan, constant_like
 from .ir import COLLECTIVE_OPCODES, LOOPS_ITEM, SHARDING_ITEM
 from .perf_library import PerfLibrary

@@ -1,10 +1,15 @@
-"""Build and load the generated CUDA sources: nvcc into a shared library
-with a plain C interface, loaded with ``ctypes``.
+"""Build and load the CUDA sources: nvcc into a shared library with a
+plain C interface, loaded with ``ctypes``.
 
-Every library lands in ``build/repro_torch/<sha256>.so`` under the root of
-the checkout, keyed by the hash of its source and of the nvcc command, so a
-source is compiled once per checkout and ``python3 chip_smoke.py`` alone
-builds everything it runs.  The command targets ``sm_90a`` and does not
+A source is the text of one translation unit: generated
+(``core/codegen.py``) or read from a hand-written ``.cu`` under ``csrc/``
+(``repro_torch.kernels``).  Every library lands in
+``build/repro_torch/<sha256>.so`` under the root of the checkout, keyed by
+the hash of its source, of every ``csrc/`` header it includes (directly or
+through another header) and of the nvcc command, so a source is compiled
+once per checkout, again whenever it or a header changes, and
+``python3 chip_smoke.py`` alone builds everything it runs.  The command
+targets ``sm_90a`` and does not
 pass ``--use_fast_math``: the kernels keep IEEE division, square roots and
 the accurate transcendental functions.  ``-Xptxas -v`` adds each kernel's
 register, shared-memory and spill counts to the build log.
@@ -14,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -46,9 +52,26 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(text: str) -> List[Path]:
+    """Every header under ``csrc/`` that ``text`` includes, directly or
+    through another header, each once, in the order first reached."""
+    found: List[Path] = []
+    pending = [text]
+    while pending:
+        for name in _INCLUDE.findall(pending.pop()):
+            path = CSRC / name
+            if path.is_file() and path not in found:
+                found.append(path)
+                pending.append(path.read_text())
+    return found
+
+
 def _key(source: str) -> str:
-    header = (CSRC / "stitch_runtime.cuh").read_text()
-    blob = "\0".join([source, header, " ".join(NVCC_FLAGS)])
+    headers = [h.read_text() for h in included_headers(source)]
+    blob = "\0".join([source, *headers, " ".join(NVCC_FLAGS)])
     return hashlib.sha256(blob.encode()).hexdigest()
 
 

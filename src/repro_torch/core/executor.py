@@ -23,24 +23,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .codegen import StitchedKernel
+from .device import resolve_device
 from .fusion import FusionPlan, constant_like
 from .ir import LOOPS_ITEM, Instruction, Module, apply_op, torch_dtype
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for the CPU.  A missing card is an error, never a silent CPU run."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {str(dev)!r} requested but torch.cuda.is_available() "
-                "is False; pass device='cpu' to run the plain kernels"
-            )
-        return dev
-    if dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
-    return dev
 
 
 def as_feed(value, dtype, device) -> torch.Tensor:
