@@ -31,25 +31,32 @@ Phases, each fatal on failure:
    of granite-moe-3b-a800m: rmsnorm, the sampler's softmax over the vocab,
    causal GQA prefill attention, GQA decode attention over a KV cache with
    seeded lengths, and the MoE router gate.  The counters are set to 0
-   just before those five calls and must read exactly one launch each
-   just after.  Then the small shapes of ``tests/test_kernels.py`` (f32,
-   G = 8, D = 8 and 16, non-causal, E = 8..64 with k = 1..8), each call one
-   more launch, and calls the small sweep of the test file leaves out:
-   flash and decode attention at D = 32 and 128 in f32 and bf16 (the
-   default blocks, whose K/V tiles need more than 48 KB of shared memory at
-   D = 128), flash with block_q != block_k, and softmax and rmsnorm at 16
-   and 32 rows per block.  Every call is held against its plain version on
-   the same inputs.  The small shapes keep the test file's rtol = atol:
-   2e-5 in f32 and 3e-2 in bf16, 2e-4 and 5e-2 for attention.  At full
-   width the limits follow from the outputs they check (``FULL_TOL``).  The
-   gate's indices may differ from the plain version's only
-   where the two picks' probabilities are within 2e-6 (``expf`` on the card
-   and torch's ``exp`` round differently); the count of such picks is
-   printed.  At full width: CUDA-event times of the kernel, of its plain
-   version and of one PyTorch library call that computes the same function
-   (timed only: the port never calls it), the profiler's device time, and
-   the bound: bytes over 3.35 TB/s or operations over the peak of their
-   type (989 TFLOP/s bf16 for attention, 67 TFLOP/s f32 otherwise).
+   just before those five calls and must read just after one launch each,
+   two for decode (its split and combine kernels), through the expected
+   launchers (``launchers``: bf16 flash on the tensor-core kernel).  Then
+   the small shapes of ``tests/test_kernels.py`` (f32, G = 8, D = 8 and 16,
+   non-causal, E = 8..64 with k = 1..8), each call through its expected
+   launchers (f32 flash on the f32 kernel), and calls the small sweep of
+   the test file leaves out: flash and decode attention at D = 32 and 128
+   in f32 and bf16 (the default blocks, whose f32 K/V tiles need more than
+   48 KB of shared memory at D = 128), flash with block_q != block_k, bf16
+   flash at S = 48 and 80 (not multiples of its 64-row tile) with D = 8, 16
+   and 64 and G = 8, bf16 decode at lengths 0, 1, split - 1, split, split
+   + 1 and S with G = 1, 3 and 8 and D = 64 and 128, and softmax and
+   rmsnorm at 16 and 32 rows per block.  Every call is held against its
+   plain version on the same inputs.  The small shapes keep the test
+   file's rtol = atol: 2e-5 in f32 and 3e-2 in bf16, 2e-4 and 5e-2 for
+   attention.  At full width the limits follow from the outputs they check
+   (``FULL_TOL``).  The gate's indices may differ from the plain version's
+   only where the two picks' probabilities are within 2e-6 (``expf`` on
+   the card and torch's ``exp`` round differently); the count of such
+   picks is printed.  At full width: CUDA-event times of the kernel, of its
+   plain version and of one PyTorch library call that computes the same
+   function (timed only: the port never calls it), the profiler's device
+   time of the kernel and of the library call (the sum over every device
+   kernel each runs), and the bound: bytes over 3.35 TB/s or operations
+   over the peak of their type (989 TFLOP/s bf16 for attention, 67 TFLOP/s
+   f32 otherwise).
 
 The line before the last is one JSON object with a ``kernels`` list: one
 entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``) and one
@@ -199,14 +206,34 @@ def device_profile(fn, calls):
     return n / calls, by_name
 
 
-# the __global__ function of each hand-written kernel, as the profiler names it
+# the __global__ functions of each hand-written kernel, as the profiler names
+# them; a call's device time is the sum over all of them
 DEVICE_KERNEL = {
-    "stitched_rmsnorm": "sx_rmsnorm_kernel",
-    "stitched_softmax": "sx_softmax_kernel",
-    "stitched_flash_attention": "sx_flash_kernel",
-    "stitched_decode_attention": "sx_decode_kernel",
-    "stitched_moe_gate": "sx_moe_gate_kernel",
+    "stitched_rmsnorm": ("sx_rmsnorm_kernel",),
+    "stitched_softmax": ("sx_softmax_kernel",),
+    "stitched_flash_attention": ("sx_flash_kernel", "sx_flash_mma_kernel"),
+    "stitched_decode_attention": ("sx_decode_split_kernel", "sx_decode_combine_kernel"),
+    "stitched_moe_gate": ("sx_moe_gate_kernel",),
 }
+
+
+def device_us_of(kernel, by_name):
+    """Device microseconds per call of a hand-written kernel's __global__s."""
+    return sum(t for name, t in by_name.items() if any(g in name for g in DEVICE_KERNEL[kernel]))
+
+
+def launchers(kernel, dtype):
+    """The launchers one call of a kernel runs, each once: flash attention
+    runs the tensor-core kernel in bf16 and the f32 kernel in f32, decode
+    attention its split and combine kernels, every other kernel one."""
+    import torch
+
+    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    if kernel == "stitched_flash_attention":
+        return {"sx_flash_mma_attention_bf16" if sfx == "bf16" else "sx_flash_attention_f32": 1}
+    if kernel == "stitched_decode_attention":
+        return {f"sx_decode_split_{sfx}": 1, f"sx_decode_combine_{sfx}": 1}
+    return None
 
 
 def compare(got, want, tol):
@@ -248,6 +275,7 @@ def kernels_phase(dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stitched_attention import decode_splits
 
     kernels = ops.KERNELS
     rng = np.random.RandomState(0)
@@ -283,7 +311,7 @@ def kernels_phase(dev):
         call=lambda: ops.attention(q, k, v, causal=True),
         plain=lambda: ref.attention_ref(q, k, v, causal=True),
         library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), bytes=nbytes(q, k, v, q),
-        ops=4 * Hq * D * S * (S + 1) // 2, peak=BF16_OPS_PER_S,
+        ops=4 * Hq * D * S * (S + 1) // 2, peak=BF16_OPS_PER_S, dtype=bf16,
     ))
     B, Sc = 16, 4096
     qd = randn((B, Hq, D), bf16)
@@ -300,7 +328,7 @@ def kernels_phase(dev):
             qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
         # the keys these lengths make valid, read once: count what the data needs
         bytes=nbytes(qd, lengths, qd) + 2 * Hkv * D * kc.element_size() * valid,
-        ops=4 * Hq * D * valid, peak=BF16_OPS_PER_S,
+        ops=4 * Hq * D * valid, peak=BF16_OPS_PER_S, dtype=bf16,
     ))
     gl = randn((4096, g["experts"]), f32)
     top_k = g["top_k"]
@@ -343,18 +371,19 @@ def kernels_phase(dev):
             add("stitched_flash_attention", f"{(b, hq, hkv, s, dd)} causal={causal}",
                 lambda qs=qs, ks=ks, vs=vs, c=causal: ops.attention(qs, ks, vs, causal=c, block_q=8, block_k=8),
                 lambda qs=qs, ks=ks, vs=vs, c=causal: ref.attention_ref(qs, ks, vs, causal=c),
-                ATTENTION_TOL["float32"])
+                ATTENTION_TOL["float32"], dtype=f32)
     qs, ks, vs = randn((1, 2, 16, 8), bf16), randn((1, 2, 16, 8), bf16), randn((1, 2, 16, 8), bf16)
     add("stitched_flash_attention", "(1, 2, 2, 16, 8) bfloat16",
-        lambda: ops.attention(qs, ks, vs, causal=True, block_q=8, block_k=8),
-        lambda: ref.attention_ref(qs, ks, vs, causal=True), ATTENTION_TOL["bfloat16"])
+        lambda qs=qs, ks=ks, vs=vs: ops.attention(qs, ks, vs, causal=True, block_q=8, block_k=8),
+        lambda qs=qs, ks=ks, vs=vs: ref.attention_ref(qs, ks, vs, causal=True),
+        ATTENTION_TOL["bfloat16"], dtype=bf16)
     for (b, hq, hkv, s, dd) in [(2, 4, 2, 32, 8), (1, 8, 1, 64, 16), (3, 2, 2, 16, 8)]:
         qq, kk, vv = randn((b, hq, dd), f32), randn((b, hkv, s, dd), f32), randn((b, hkv, s, dd), f32)
         ln = torch.as_tensor(rng.randint(1, s + 1, size=b), dtype=torch.int32, device=dev)
         add("stitched_decode_attention", f"{(b, hq, hkv, s, dd)} lengths={ln.tolist()}",
             lambda qq=qq, kk=kk, vv=vv, ln=ln: ops.attention_decode(qq, kk, vv, ln, block_k=8),
             lambda qq=qq, kk=kk, vv=vv, ln=ln: ref.decode_attention_ref(qq, kk, vv, ln),
-            ATTENTION_TOL["float32"])
+            ATTENTION_TOL["float32"], dtype=f32)
     # beyond the test file: the other head dims the kernels are built for,
     # at the default blocks (at D = 128 the flash K/V tiles take 128 KB of
     # shared memory), flash with block_q != block_k, and 16 and 32 rows per
@@ -365,20 +394,44 @@ def kernels_phase(dev):
             add("stitched_flash_attention", f"(1, 4, 2, 256, {dd}) {name} causal default blocks",
                 lambda qs=qs, ks=ks, vs=vs: ops.attention(qs, ks, vs, causal=True),
                 lambda qs=qs, ks=ks, vs=vs: ref.attention_ref(qs, ks, vs, causal=True),
-                ATTENTION_TOL[name])
+                ATTENTION_TOL[name], dtype=dtype)
             qq, kk, vv = randn((2, 4, dd), dtype), randn((2, 2, 512, dd), dtype), randn((2, 2, 512, dd), dtype)
             ln = torch.as_tensor(rng.randint(1, 513, size=2), dtype=torch.int32, device=dev)
             add("stitched_decode_attention", f"(2, 4, 2, 512, {dd}) {name} lengths={ln.tolist()}",
                 lambda qq=qq, kk=kk, vv=vv, ln=ln: ops.attention_decode(qq, kk, vv, ln),
                 lambda qq=qq, kk=kk, vv=vv, ln=ln: ref.decode_attention_ref(qq, kk, vv, ln),
-                ATTENTION_TOL[name])
+                ATTENTION_TOL[name], dtype=dtype)
     for bq, bk, causal in ((8, 16, True), (16, 8, True), (8, 32, False)):
         qs, ks, vs = randn((1, 4, 64, 16), f32), randn((1, 2, 64, 16), f32), randn((1, 2, 64, 16), f32)
         add("stitched_flash_attention", f"(1, 4, 2, 64, 16) block_q={bq} block_k={bk} causal={causal}",
             lambda qs=qs, ks=ks, vs=vs, bq=bq, bk=bk, c=causal:
                 ops.attention(qs, ks, vs, causal=c, block_q=bq, block_k=bk),
             lambda qs=qs, ks=ks, vs=vs, c=causal: ref.attention_ref(qs, ks, vs, causal=c),
-            ATTENTION_TOL["float32"])
+            ATTENTION_TOL["float32"], dtype=f32)
+    # the edges of the attention kernels' tiles and splits: bf16 flash at S =
+    # 48 and 80 (not multiples of its 64-row tiles), D = 8 (padded to 16), 16
+    # and 64, G = 8; bf16 decode at lengths 0 (NaN in both versions), 1,
+    # split - 1, split, split + 1 and S, G = 1, 3 and 8, D = 64 and 128
+    for s in (48, 80):
+        for dd in (8, 16, 64):
+            for causal in (True, False):
+                qs, ks, vs = randn((1, 8, s, dd), bf16), randn((1, 1, s, dd), bf16), randn((1, 1, s, dd), bf16)
+                add("stitched_flash_attention", f"(1, 8, 1, {s}, {dd}) bfloat16 causal={causal}",
+                    lambda qs=qs, ks=ks, vs=vs, c=causal: ops.attention(qs, ks, vs, causal=c),
+                    lambda qs=qs, ks=ks, vs=vs, c=causal: ref.attention_ref(qs, ks, vs, causal=c),
+                    ATTENTION_TOL["bfloat16"], dtype=bf16)
+    sd = 512
+    split = decode_splits(sd)[0]
+    edge_lengths = [0, 1, split - 1, split, split + 1, sd]
+    for gg in (1, 3, 8):
+        for dd in (64, 128):
+            nb = len(edge_lengths)
+            qq, kk, vv = randn((nb, 2 * gg, dd), bf16), randn((nb, 2, sd, dd), bf16), randn((nb, 2, sd, dd), bf16)
+            ln = torch.tensor(edge_lengths, dtype=torch.int32, device=dev)
+            add("stitched_decode_attention", f"({nb}, {2 * gg}, 2, {sd}, {dd}) bfloat16 lengths={edge_lengths}",
+                lambda qq=qq, kk=kk, vv=vv, ln=ln: ops.attention_decode(qq, kk, vv, ln),
+                lambda qq=qq, kk=kk, vv=vv, ln=ln: ref.decode_attention_ref(qq, kk, vv, ln),
+                ATTENTION_TOL["bfloat16"], dtype=bf16)
     for br, shape in ((16, (64, 24)), (32, (64, 24)), (16, (32, 300))):
         t, gm = randn(shape, f32), randn(shape[-1:], f32)
         add("stitched_softmax", f"{shape} block_rows={br}", lambda t=t, br=br: ops.softmax(t, block_rows=br),
@@ -394,25 +447,38 @@ def kernels_phase(dev):
             lambda lt=lt, kk=kk: ops.moe_gate(lt, kk, block_tokens=8),
             lambda lt=lt, kk=kk: ref.moe_gate_ref(lt, kk), KERNEL_TOL["float32"], logits=lt)
 
-    # ---- the main path: one launch of each kernel at full width -------------------
+    # ---- the main path: one call of each kernel at full width -----------------------
+    def expect(c):
+        """The launches of one call of ``c``: each launcher's count, or None
+        for a kernel with one launcher."""
+        return launchers(c["kernel"], c.get("dtype"))
+
     for kern in kernels.values():
-        kern.launches = 0
+        kern.launches, kern.by_symbol = 0, {}
     outs = [c["call"]() for c in full]
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
-    if sorted(c["kernel"] for c in full) != sorted(kernels) or set(launches.values()) != {1}:
-        raise SystemExit(f"kernels: launches at full width {launches}, expected one each")
+    want = {c["kernel"]: sum((expect(c) or {"": 1}).values()) for c in full}
+    if sorted(want) != sorted(kernels) or launches != want:
+        raise SystemExit(f"kernels: launches at full width {launches}, expected {want}")
+    for c in full:
+        if expect(c) and kernels[c["kernel"]].by_symbol != expect(c):
+            raise SystemExit(f"{c['kernel']}: launchers {kernels[c['kernel']].by_symbol}, "
+                             f"expected {expect(c)}")
     for c, out in zip(full, outs, strict=True):
         c["out"], c["full_width"] = out, True
     for c in small:
         kern = kernels[c["kernel"]]
-        before = kern.launches
+        before, by = kern.launches, dict(kern.by_symbol)
         c["out"] = c["call"]()
-        if kern.launches != before + 1:
-            raise SystemExit(f"{c['kernel']} {c['label']}: {kern.launches - before} launches, expected 1")
+        ran = {k: n - by.get(k, 0) for k, n in kern.by_symbol.items() if n != by.get(k, 0)}
+        n_want = sum((expect(c) or {"": 1}).values())
+        if kern.launches - before != n_want or (expect(c) and ran != expect(c)):
+            raise SystemExit(f"{c['kernel']} {c['label']}: launched {ran}, "
+                             f"expected {expect(c) or n_want}")
     torch.cuda.synchronize()
-    print(f"kernels: main path {sum(launches.values())} launches at full width, one of each "
-          f"of {len(kernels)} kernels; {len(small)} small calls, one launch each")
+    print(f"kernels: main path {sum(launches.values())} launches at full width ({launches}); "
+          f"{len(small)} small calls, each through its expected launchers")
 
     # ---- right: every call against its plain version on the same inputs -----------
     rows, gate_differ = [], 0
@@ -444,9 +510,12 @@ def kernels_phase(dev):
         kern = kernels[c["kernel"]]
         ms = time_ms(c["call"], KERNEL_CALLS)
         _, by_name = device_profile(c["call"], PROFILED_CALLS)
-        device_us = sum(t for name, t in by_name.items() if DEVICE_KERNEL[kern.name] in name)
+        device_us = device_us_of(kern.name, by_name)
         plain_ms = time_ms(c["plain"], FULL_PLAIN_CALLS)
         library_ms = time_ms(c["library"], KERNEL_CALLS) if c["library"] else None
+        # the library call's device time: every device kernel it runs
+        library_device_us = (sum(device_profile(c["library"], PROFILED_CALLS)[1].values())
+                             if c["library"] else None)
         b_ms, o_ms = 1e3 * c["bytes"] / HBM_BYTES_PER_S, 1e3 * c["ops"] / c["peak"]
         entry = {
             "name": kern.name, "route": "cuda",
@@ -457,7 +526,10 @@ def kernels_phase(dev):
             # None where the profiler recorded no device time for it
             "device_ms": device_us / 1e3 if device_us else None,
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": library_ms, "shape": c["label"], "tolerance": list(c["tol"]),
+            "library_ms": library_ms,
+            # None where there is no library call or the profiler recorded no device time
+            "library_device_ms": library_device_us / 1e3 if library_device_us else None,
+            "shape": c["label"], "tolerance": list(c["tol"]),
             "full_width_err": c["err"], "max_abs_out": c["out_scale"],
             "median_abs_out": c["out_median"],
         }
@@ -466,6 +538,7 @@ def kernels_phase(dev):
             f"kernel {kern.name} {c['label']}: launches={entry['launches']} ms={ms:.4f} "
             f"device_ms={entry['device_ms'] or 'not measured'} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms if library_ms is not None else 'none'} "
+            f"library_device_ms={entry['library_device_ms'] or 'not measured'} "
             f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}) err={entry['max_abs_err']:.2e} "
             f"full_width_err={c['err']:.3e} |out| max={c['out_scale']:.3e} "
             f"median={c['out_median']:.3e} (rtol, atol)={c['tol']}"

@@ -11,7 +11,7 @@ builds and never falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -46,13 +46,15 @@ def _ctype(arg):
 class HandKernel:
     """One hand-written kernel: ``name``, the ``CudaSource`` that holds it,
     the TPU kernel it ``replaces`` (file:line of its ``pallas_call``), and
-    ``launches``, which counts kernel launches and nothing else."""
+    ``launches``, which counts kernel launches and nothing else, in all and
+    by launcher (``by_symbol``)."""
 
     def __init__(self, name: str, source: CudaSource, replaces: str):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.by_symbol: Dict[str, int] = {}
 
     def launch(self, symbol: str, *args, device: torch.device) -> None:
         """Call the launcher ``symbol`` with ``args`` (tensors pass their
@@ -75,6 +77,7 @@ class HandKernel:
         if rc != 0:
             raise RuntimeError(f"{self.name}: {symbol} failed with cudaError {rc}")
         self.launches += 1
+        self.by_symbol[symbol] = self.by_symbol.get(symbol, 0) + 1
 
 
 ROWWISE = CudaSource("stitched_rowwise.cu")

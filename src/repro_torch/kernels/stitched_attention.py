@@ -3,23 +3,33 @@
 The reference streams KV blocks through VMEM along a sequential grid axis
 and carries the online-softmax state (m, l, acc) in scratch from one grid
 step to the next.  CUDA blocks run in no order and carry nothing, so in
-the two hand-written kernels (``csrc/stitched_attention.cu``) the KV loop
-runs inside each block:
+the hand-written kernels (``csrc/stitched_attention.cu``) the KV loop runs
+inside each block:
 
-  * ``flash_attention`` — prefill: one block per (q tile, query head,
-    sequence), one thread per query row, K/V tiles staged in shared memory;
-    causal tiles wholly above the diagonal are skipped.
+  * ``flash_attention`` — prefill, bound by operations.  bf16 runs
+    ``sx_flash_mma_kernel``: both products on the tensor cores (``mma.sync``
+    m16n8k16, f32 sums), a block of 4 warps per 64 query rows, bf16 K/V
+    tiles of 64 keys double-buffered in shared memory by ``cp.async``, the
+    heaviest causal q tiles first.  f32 runs ``sx_flash_kernel`` (one
+    thread per query row, f32 FMAs): the tensor cores at f32 would be TF32,
+    outside the f32 limits.  Causal tiles wholly above the diagonal
+    are skipped by both.  One launch per call.
   * ``decode_attention`` — one new token per sequence against a KV cache
-    with per-sequence valid ``lengths``: one block per (query head,
-    sequence), each warp an online softmax over its runs of keys, merged at
-    the end.
+    with per-sequence valid ``lengths``, bound by bytes.  Two launches per
+    call: ``sx_decode_split_kernel``, one block per (split of
+    ``DECODE_SPLIT`` keys, kv head, sequence) serving all G query heads of
+    its kv head, so each valid key and value row is read once, with
+    16-byte loads; then ``sx_decode_combine_kernel`` merges the splits'
+    (acc, m, l) from an f32 scratch whose shape follows S alone.
+    ``lengths`` stays on the card: the wrapper never reads it.
 
-GQA maps query head h to kv head h // (Hq // Hkv).  All arithmetic is f32
-whatever the I/O dtype.
+GQA maps query head h to kv head h // (Hq // Hkv).  All sums are f32
+whatever the I/O dtype; bf16 flash gives the tensor cores the softmax
+weights as two bf16 terms (hi + lo), which keeps about 16 bits of each.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,8 +45,10 @@ DECODE = HandKernel(
 )
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # the head dims the kernels are instantiated for
-MAX_BLOCK_Q = 256                  # SX_FLASH_MAX_BQ: one thread per query row
+MAX_BLOCK_Q = 256                  # SX_FLASH_MAX_BQ: one thread per query row (f32 flash)
 SMEM_BYTES = 232_448               # shared memory one block may use on Hopper
+DECODE_SPLIT = 256                 # SX_DECODE_MAX_SPLIT: keys of one decode split at most
+ALIGN = 16                         # bytes: the kernels read rows with 16-byte loads
 
 
 def _check_qkv(name: str, q, k, v, q_dims: int) -> None:
@@ -56,6 +68,20 @@ def _check_qkv(name: str, q, k, v, q_dims: int) -> None:
         raise ValueError(f"{name}: head dim {D}; the kernels take {HEAD_DIMS}")
 
 
+def _check_aligned(name: str, **tensors) -> None:
+    for what, t in tensors.items():
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: {what} is not {ALIGN}-byte aligned")
+
+
+def decode_splits(S: int) -> Tuple[int, int]:
+    """Keys per split and the number of splits of decode's first kernel:
+    a function of the cache length S alone, so the scratch's shape never
+    depends on ``lengths``, which stays on the card."""
+    split = min(DECODE_SPLIT, S)
+    return split, -(-S // split)
+
+
 def flash_attention(
     q: torch.Tensor,               # (B, Hq, S, D)
     k: torch.Tensor,               # (B, Hkv, S, D)
@@ -65,8 +91,11 @@ def flash_attention(
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
-    """Prefill attention, causal or not, in tiles of ``block_q`` query rows
-    and ``block_k`` keys; S must be a multiple of both."""
+    """Prefill attention, causal or not.  ``block_q`` and ``block_k`` keep
+    the reference's signature and its check that S is a multiple of both;
+    they size the tiles of the f32 kernel only.  The bf16 kernel takes 64
+    query rows and 64 keys at a time whatever their value, and masks an S
+    that is not a multiple of 64."""
     name = FLASH.name
     _check_qkv(name, q, k, v, 4)
     B, Hq, S, D = q.shape
@@ -76,19 +105,27 @@ def flash_attention(
     bq, bk = min(block_q, S), min(block_k, S)
     if bq < 1 or bk < 1 or S % bq or S % bk:
         raise ValueError(f"{name}: S {S} is not a multiple of block_q {bq} and block_k {bk}")
-    if bq > MAX_BLOCK_Q:
-        raise ValueError(f"{name}: block_q {bq} > {MAX_BLOCK_Q} query rows per block")
-    if 2 * 4 * bk * D > SMEM_BYTES:
-        raise ValueError(f"{name}: K and V tiles of {bk}x{D} f32 exceed {SMEM_BYTES} bytes")
+    if q.dtype == torch.float32:
+        if bq > MAX_BLOCK_Q:
+            raise ValueError(f"{name}: block_q {bq} > {MAX_BLOCK_Q} query rows per block")
+        if 2 * 4 * bk * D > SMEM_BYTES:
+            raise ValueError(f"{name}: K and V tiles of {bk}x{D} f32 exceed {SMEM_BYTES} bytes")
     dev = input_device(name, [q, k, v])
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
     ATTENTION.load()
     o = torch.empty_like(q)
-    FLASH.launch(
-        f"sx_flash_attention_{DTYPE_SUFFIX[q.dtype]}", q, k, v, o,
-        B, Hq, k.shape[1], S, D, bq, bk, int(bool(causal)), float(scale), device=dev,
-    )
+    if q.dtype == torch.bfloat16:  # the tensor cores
+        _check_aligned(name, q=q, k=k, v=v, o=o)
+        FLASH.launch(
+            "sx_flash_mma_attention_bf16", q, k, v, o,
+            B, Hq, k.shape[1], S, D, int(bool(causal)), float(scale), device=dev,
+        )
+    else:  # f32 FMAs on the CUDA cores
+        FLASH.launch(
+            "sx_flash_attention_f32", q, k, v, o,
+            B, Hq, k.shape[1], S, D, bq, bk, int(bool(causal)), float(scale), device=dev,
+        )
     return o
 
 
@@ -103,8 +140,8 @@ def decode_attention(
     """Attention of one query token per sequence over the first
     ``lengths[b]`` keys of its cache; NaN where ``lengths[b] == 0``, as in
     the reference.  ``block_k`` keeps the reference's signature and its
-    check that it divides S; the kernel's warps walk the keys in runs of 32
-    whatever its value."""
+    check that it divides S; the kernels split the cache into
+    ``decode_splits(S)`` whatever its value."""
     name = DECODE.name
     _check_qkv(name, q, k, v, 3)
     check_tensor(name, "lengths", lengths, dtypes=(torch.int32,))
@@ -120,9 +157,15 @@ def decode_attention(
     if dev.type == "cpu":
         return decode_attention_ref(q, k, v, lengths, scale=scale)
     ATTENTION.load()
+    _check_aligned(name, k=k, v=v)
+    split, nsplit = decode_splits(S)
+    # each (sequence, query head, split): acc[D], then m and l
+    part = torch.empty((B, Hq, nsplit, D + 2), dtype=torch.float32, device=q.device)
     o = torch.empty_like(q)
+    sfx = DTYPE_SUFFIX[q.dtype]
     DECODE.launch(
-        f"sx_decode_attention_{DTYPE_SUFFIX[q.dtype]}", q, k, v, lengths, o,
-        B, Hq, k.shape[1], S, D, float(scale), device=dev,
+        f"sx_decode_split_{sfx}", q, k, v, lengths, part,
+        B, Hq, k.shape[1], S, D, split, nsplit, float(scale), device=dev,
     )
+    DECODE.launch(f"sx_decode_combine_{sfx}", part, o, B, Hq, D, nsplit, device=dev)
     return o

@@ -17,7 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.core import cuda_build
-from repro_torch.kernels import cuda, ops
+from repro_torch.kernels import cuda, ops, stitched_attention
 
 REPO = Path(__file__).resolve().parents[1]
 F32, BF16 = ("float32", jnp.float32, torch.float32), ("bfloat16", jnp.bfloat16, torch.bfloat16)
@@ -65,7 +65,8 @@ def test_rmsnorm_matches_reference(rng, shape, dtype):
 
 
 # ---------------------------------------------------------------- attention
-@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 2, 2, 16, 8), (2, 4, 2, 32, 16), (1, 8, 1, 16, 8)])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 2, 2, 16, 8), (2, 4, 2, 32, 16), (1, 8, 1, 16, 8),
+                                         (1, 8, 1, 48, 8), (1, 8, 1, 80, 16)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_reference(rng, B, Hq, Hkv, S, D, causal):
     jq, tq = _both(rng, (B, Hq, S, D))
@@ -82,6 +83,18 @@ def test_flash_attention_bf16_matches_reference(rng):
     _close(got, jops.attention(jq, jk, jv, causal=True, block_q=8, block_k=8), ATTN_TOL["bfloat16"])
 
 
+# S = 48 and 80 are not multiples of the bf16 kernel's 64-row tiles
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 8, 1, 48, 16), (1, 8, 1, 80, 64), (1, 3, 1, 48, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_edges_match_reference(rng, B, Hq, Hkv, S, D, causal):
+    jq, tq = _both(rng, (B, Hq, S, D), BF16)
+    jk, tk = _both(rng, (B, Hkv, S, D), BF16)
+    jv, tv = _both(rng, (B, Hkv, S, D), BF16)
+    got = ops.attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    _close(got, jops.attention(jq, jk, jv, causal=causal), ATTN_TOL["bfloat16"])
+
+
 @pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 4, 2, 32, 8), (1, 8, 1, 64, 16), (3, 2, 2, 16, 8)])
 def test_decode_attention_matches_reference(rng, B, Hq, Hkv, S, D):
     jq, tq = _both(rng, (B, Hq, D))
@@ -91,6 +104,24 @@ def test_decode_attention_matches_reference(rng, B, Hq, Hkv, S, D):
     got = ops.attention_decode(tq, tk, tv, torch.tensor(lengths), block_k=8)
     want = jops.attention_decode(jq, jk, jv, jnp.asarray(lengths), block_k=8)
     _close(got, want, ATTN_TOL["float32"])
+
+
+# lengths at the edges of the kernel's splits: 0 (NaN in both), 1, split - 1,
+# split, split + 1 and S, at G = 1, 3 and 8
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=lambda d: d[0])
+def test_decode_attention_split_edges_match_reference(rng, G, dtype):
+    S, D = 512, 16
+    split = stitched_attention.decode_splits(S)[0]
+    lengths = np.array([0, 1, split - 1, split, split + 1, S], np.int32)
+    B = len(lengths)
+    jq, tq = _both(rng, (B, 2 * G, D), dtype)
+    jk, tk = _both(rng, (B, 2, S, D), dtype)
+    jv, tv = _both(rng, (B, 2, S, D), dtype)
+    got = ops.attention_decode(tq, tk, tv, torch.tensor(lengths))
+    want = jops.attention_decode(jq, jk, jv, jnp.asarray(lengths))
+    assert bool(got[0].isnan().all()) and np.isnan(np.asarray(want[0], np.float32)).all()
+    _close(got, want, ATTN_TOL[dtype[0]])
 
 
 def test_decode_matches_prefill_last_token(rng):
@@ -261,3 +292,136 @@ def test_hand_written_sources_include_the_shared_headers():
         assert names == ["hand_kernels.cuh", "stitch_runtime.cuh"]
         launchers = re.findall(r'extern "C" int (\w+)\(', source.path.read_text())
         assert launchers and all(n.endswith(("_f32", "_bf16")) for n in launchers)
+
+
+# ---------------------------------------------- the attention wrappers' launch plans
+class _RecordingLibrary:
+    """Stands in for a loaded CUDA library: each launcher records its name
+    and the C values it was called with, and returns cudaSuccess."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, symbol):
+        calls = self.calls
+
+        def launcher(*values):
+            calls.append((symbol, values))
+            return 0
+
+        return launcher
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The attention wrappers as they run on the card, with their launches
+    recorded instead of made: the library is a ``_RecordingLibrary`` and
+    the inputs count as CUDA tensors."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(cuda.ATTENTION, "lib", lib)
+    monkeypatch.setattr(stitched_attention, "input_device", lambda name, ts: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    return lib
+
+
+@pytest.mark.parametrize("dtype, symbol", [
+    (torch.bfloat16, "sx_flash_mma_attention_bf16"),
+    (torch.float32, "sx_flash_attention_f32"),
+])
+def test_flash_launches_the_tensor_core_kernel_in_bf16_only(recorded, dtype, symbol):
+    q, k, v = _t(1, 6, 80, 64, dtype=dtype), _t(1, 2, 80, 64, dtype=dtype), _t(1, 2, 80, 64, dtype=dtype)
+    before = ops.KERNELS["stitched_flash_attention"].launches
+    ops.attention(q, k, v, causal=True)
+    assert [c[0] for c in recorded.calls] == [symbol]
+    assert ops.KERNELS["stitched_flash_attention"].launches == before + 1
+    values = recorded.calls[0][1]
+    # q, k, v, o, then B, Hq, Hkv, S, D; the current stream comes last
+    assert values[:3] == tuple(t.data_ptr() for t in (q, k, v))
+    assert values[4:9] == (1, 6, 2, 80, 64) and values[-1] == 0
+
+
+@pytest.mark.parametrize("op", ["flash", "decode"])
+def test_misaligned_rows_are_refused_before_a_launch(recorded, op):
+    """The attention kernels read rows with 16-byte loads: a contiguous view
+    that starts 2 bytes into its storage is refused, not launched."""
+    def at_offset(*shape):
+        return torch.zeros(int(np.prod(shape)) + 1, dtype=torch.bfloat16)[1:].view(*shape)
+
+    if op == "flash":
+        call = lambda: ops.attention(_t(1, 2, 16, 8, dtype=torch.bfloat16), at_offset(1, 2, 16, 8),
+                                     _t(1, 2, 16, 8, dtype=torch.bfloat16))
+    else:
+        call = lambda: ops.attention_decode(_t(1, 2, 8, dtype=torch.bfloat16), at_offset(1, 2, 16, 8),
+                                            _t(1, 2, 16, 8, dtype=torch.bfloat16), _t(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call()
+    assert recorded.calls == []
+
+
+class _DeviceOnly(torch.Tensor):
+    """A tensor that may not be read on the host, as ``lengths`` on the card."""
+
+    def _host(self, *args, **kwargs):
+        raise AssertionError("lengths was read on the host")
+
+    item = tolist = cpu = numpy = _host
+    __int__ = __index__ = __bool__ = __float__ = _host
+
+
+@pytest.mark.parametrize("S, split, nsplit", [(16, 16, 1), (256, 256, 1), (512, 256, 2), (4096, 256, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_launches_split_then_combine(recorded, monkeypatch, S, split, nsplit, dtype):
+    B, Hq, Hkv, D = 3, 6, 2, 64
+    scratch = []
+    empty = torch.empty
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        scratch.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    lengths = torch.tensor([0, 1, S], dtype=torch.int32).as_subclass(_DeviceOnly)
+    q, k, v = _t(B, Hq, D, dtype=dtype), _t(B, Hkv, S, D, dtype=dtype), _t(B, Hkv, S, D, dtype=dtype)
+    kernel = ops.KERNELS["stitched_decode_attention"]
+    before = kernel.launches
+    o = ops.attention_decode(q, k, v, lengths)
+    sfx = cuda.DTYPE_SUFFIX[dtype]
+    assert [c[0] for c in recorded.calls] == [f"sx_decode_split_{sfx}", f"sx_decode_combine_{sfx}"]
+    assert kernel.launches == before + 2
+    # the scratch: f32 (B, Hq, splits, D + 2), a function of S alone
+    assert stitched_attention.decode_splits(S) == (split, nsplit)
+    [part] = [t for t in scratch if t.dtype == torch.float32 and t.dim() == 4]
+    assert tuple(part.shape) == (B, Hq, nsplit, D + 2)
+    (_, split_args), (_, combine_args) = recorded.calls
+    assert split_args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                              part.data_ptr(), B)
+    assert split_args[6:11] == (Hq, Hkv, S, D, split) and split_args[11] == nsplit
+    assert combine_args == (part.data_ptr(), o.data_ptr(), B, Hq, D, nsplit, 0)  # 0: the stream
+
+
+def test_bf16_softmax_weights_need_two_terms_at_full_width_limits(rng):
+    """Why bf16 flash attention puts P into its P V product as two bf16
+    terms (``csrc/stitched_attention.cu``).  With hi = bf16(p) alone, each
+    weight moves by up to 2**-9 of itself, and outputs near 0 leave the
+    full-width limit of ``chip_smoke.py`` (rtol 1e-2, atol 1e-4); with lo =
+    bf16(p - hi) added, none does.  Plain torch on the tensor cores'
+    rounding, causal, D = 64, bf16 q, k and v."""
+    H, S, D = 4, 256, 64
+    q, k, v = (torch.tensor(rng.randn(H, S, D).astype(np.float32)).bfloat16().float()
+               for _ in range(3))
+    s = (q @ k.transpose(1, 2)) * D ** -0.5
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    want = ((p @ v) / l).bfloat16().double()
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+
+    def outside(o):
+        return int((~torch.isclose(o.bfloat16().double(), want, rtol=1e-2, atol=1e-4)).sum())
+
+    assert outside((hi @ v) / l) > 0.01 * want.numel()
+    assert outside((hi @ v + lo @ v) / l) == 0
