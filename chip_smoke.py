@@ -33,7 +33,9 @@ Phases, each fatal on failure:
    seeded lengths, and the MoE router gate.  The counters are set to 0
    just before those five calls and must read just after one launch each,
    two for decode (its split and combine kernels), through the expected
-   launchers (``launchers``: bf16 flash on the tensor-core kernel).  Then
+   launchers (``launchers``: bf16 flash on the tensor-core kernel, RMSNorm
+   on its 16-byte kernel ``sx_rmsnorm_vec_kernel``), and the gate's grid
+   must hold at least 132 blocks (one per SM).  Then
    the small shapes of ``tests/test_kernels.py`` (f32, G = 8, D = 8 and 16,
    non-causal, E = 8..64 with k = 1..8), each call through its expected
    launchers (f32 flash on the f32 kernel), and calls the small sweep of
@@ -42,8 +44,14 @@ Phases, each fatal on failure:
    48 KB of shared memory at D = 128), flash with block_q != block_k, bf16
    flash at S = 48 and 80 (not multiples of its 64-row tile) with D = 8, 16
    and 64 and G = 8, bf16 decode at lengths 0, 1, split - 1, split, split
-   + 1 and S with G = 1, 3 and 8 and D = 64 and 128, and softmax and
-   rmsnorm at 16 and 32 rows per block.  Every call is held against its
+   + 1 and S with G = 1, 3 and 8 and D = 64 and 128, softmax and
+   rmsnorm at 16 and 32 rows per block, the gate at E = 32, 33, 64, 65,
+   128 and 256 (1, 2, 4 and 8 slots a lane), at T = 4100 (a short last
+   block) and on rows whose softmax is NaN (a NaN logit, a +inf logit,
+   only -inf) in f32 and bf16, and rmsnorm on its scalar kernel
+   ``sx_rmsnorm_kernel`` (bf16 d = 300, a view 2 bytes off 16, d = 16,392
+   past the width held in registers) and on its 16-byte kernel at f32 d =
+   1536 and bf16 d = 16,384.  Every call is held against its
    plain version on the same inputs.  The small shapes keep the test
    file's rtol = atol: 2e-5 in f32 and 3e-2 in bf16, 2e-4 and 5e-2 for
    attention.  At full width the limits follow from the outputs they check
@@ -56,15 +64,19 @@ Phases, each fatal on failure:
    time of the kernel and of the library call (the sum over every device
    kernel each runs), and the bound: bytes over 3.35 TB/s or operations
    over the peak of their type (989 TFLOP/s bf16 for attention, 67 TFLOP/s
-   f32 otherwise).
+   f32 otherwise).  RMSNorm's 25 MB fit in the 50 MB L2, so its device
+   time and ``F.rms_norm``'s are also taken over a rotation of 8 inputs
+   (101 MB of x), where each call finds its x in device memory.
 
 The line before the last is one JSON object with a ``kernels`` list: one
 entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``) and one
 per hand-written kernel; the last line is ``{"ok": true, "device":
 {...}}``.  ``--out`` also writes every per-graph and per-kernel number as
-JSON.  Exits non-zero with no result when no card is present.
+JSON, with nvcc's register, shared-memory and spill lines.  Exits
+non-zero with no result when no card is present.
 """
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -101,6 +113,7 @@ PLAIN_CALLS = 20     # timed calls of a plain (block-interpreted) kernel
 PROFILED_CALLS = 20  # calls traced by torch.profiler for device times
 KERNEL_CALLS = 50    # timed calls of a hand-written kernel or its library call
 FULL_PLAIN_CALLS = 5  # timed calls of a hand-written kernel's plain version
+COLD_ROTATION = 8    # full-width RMSNorm inputs cycled to time it with a cold L2
 
 # kernel vs plain version in phase 6 (tests/test_kernels.py:16,70,82): the
 # kernels sum in another order than torch, and cast to bf16 once at the end
@@ -209,7 +222,7 @@ def device_profile(fn, calls):
 # the __global__ functions of each hand-written kernel, as the profiler names
 # them; a call's device time is the sum over all of them
 DEVICE_KERNEL = {
-    "stitched_rmsnorm": ("sx_rmsnorm_kernel",),
+    "stitched_rmsnorm": ("sx_rmsnorm_vec_kernel", "sx_rmsnorm_kernel"),
     "stitched_softmax": ("sx_softmax_kernel",),
     "stitched_flash_attention": ("sx_flash_kernel", "sx_flash_mma_kernel"),
     "stitched_decode_attention": ("sx_decode_split_kernel", "sx_decode_combine_kernel"),
@@ -222,10 +235,11 @@ def device_us_of(kernel, by_name):
     return sum(t for name, t in by_name.items() if any(g in name for g in DEVICE_KERNEL[kernel]))
 
 
-def launchers(kernel, dtype):
+def launchers(kernel, dtype, scalar=False):
     """The launchers one call of a kernel runs, each once: flash attention
     runs the tensor-core kernel in bf16 and the f32 kernel in f32, decode
-    attention its split and combine kernels, every other kernel one."""
+    attention its split and combine kernels, RMSNorm its 16-byte kernel
+    unless ``scalar`` (rows it cannot serve), softmax and the gate one."""
     import torch
 
     sfx = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -233,7 +247,9 @@ def launchers(kernel, dtype):
         return {"sx_flash_mma_attention_bf16" if sfx == "bf16" else "sx_flash_attention_f32": 1}
     if kernel == "stitched_decode_attention":
         return {f"sx_decode_split_{sfx}": 1, f"sx_decode_combine_{sfx}": 1}
-    return None
+    if kernel == "stitched_rmsnorm":
+        return {f"sx_rmsnorm_{sfx}" if scalar else f"sx_rmsnorm_vec_{sfx}": 1}
+    return {f"sx_{kernel.removeprefix('stitched_')}_{sfx}": 1}
 
 
 def compare(got, want, tol):
@@ -276,6 +292,7 @@ def kernels_phase(dev):
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.stitched_attention import decode_splits
+    from repro_torch.kernels.stitched_moe_gate import gate_grid
 
     kernels = ops.KERNELS
     rng = np.random.RandomState(0)
@@ -297,6 +314,7 @@ def kernels_phase(dev):
         call=lambda: ops.rmsnorm(x, gamma, eps=g["norm_eps"]),
         plain=lambda: ref.rmsnorm_ref(x, gamma, g["norm_eps"]),
         library=(lambda: F.rms_norm(x, (d,), gamma, g["norm_eps"])) if hasattr(F, "rms_norm") else None, bytes=nbytes(x, gamma, x), ops=4 * x.numel(), peak=F32_OPS_PER_S,
+        dtype=bf16,
     ))
     lg = randn((16, g["vocab"]), f32)
     full.append(dict(
@@ -356,11 +374,11 @@ def kernels_phase(dev):
         for shape in [(8, 16), (4, 8, 32), (2, 3, 5, 64), (16, 128)]:
             t = randn(shape, dtype)
             add("stitched_softmax", f"{shape} {name}", lambda t=t: ops.softmax(t),
-                lambda t=t: ref.softmax_ref(t), KERNEL_TOL[name])
+                lambda t=t: ref.softmax_ref(t), KERNEL_TOL[name], dtype=dtype)
         for shape in [(4, 32), (2, 8, 64), (3, 5, 128)]:
             t, gm = randn(shape, dtype), randn(shape[-1:], dtype)
             add("stitched_rmsnorm", f"{shape} {name}", lambda t=t, gm=gm: ops.rmsnorm(t, gm),
-                lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm), KERNEL_TOL[name])
+                lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm), KERNEL_TOL[name], dtype=dtype)
     for br in (1, 2, 4, 8):
         t = randn((8, 24), f32)
         add("stitched_softmax", f"(8, 24) block_rows={br}", lambda t=t, br=br: ops.softmax(t, block_rows=br),
@@ -446,23 +464,61 @@ def kernels_phase(dev):
         add("stitched_moe_gate", f"T={t} E={e} k={kk}",
             lambda lt=lt, kk=kk: ops.moe_gate(lt, kk, block_tokens=8),
             lambda lt=lt, kk=kk: ref.moe_gate_ref(lt, kk), KERNEL_TOL["float32"], logits=lt)
+    # where the redesigned gate and RMSNorm split: the gate's slots a lane
+    # (E = 32/33, 64/65, 128, 256), a T that leaves its last block short,
+    # and the rows of tests/test_torch_kernels.py whose softmax is NaN (a
+    # NaN logit, a +inf logit, only -inf) beside finite rows, f32 and bf16;
+    # RMSNorm's scalar kernel (bf16 d = 300, a view 2 bytes off 16, a row
+    # past the 32 KB held in registers) and its 16-byte kernel at f32 d =
+    # 1536 (two warps a row) and at the widest row held (bf16 d = 16,384)
+    for e in (32, 33, 64, 65, 128, 256):
+        lt = randn((64, e), f32)
+        add("stitched_moe_gate", f"T=64 E={e} k=8",
+            lambda lt=lt: ops.moe_gate(lt, 8), lambda lt=lt: ref.moe_gate_ref(lt, 8),
+            KERNEL_TOL["float32"], logits=lt)
+    lt = randn((4100, g["experts"]), f32)
+    add("stitched_moe_gate", "T=4100 E=40 k=8 (last block 4 tokens short)",
+        lambda lt=lt: ops.moe_gate(lt, 8), lambda lt=lt: ref.moe_gate_ref(lt, 8),
+        KERNEL_TOL["float32"], logits=lt)
+    for dtype, name in ((f32, "float32"), (bf16, "bfloat16")):
+        for e, kk in ((8, 3), (40, 8)):
+            lt = randn((8, e), f32)
+            lt[1, 3], lt[3, e - 1], lt[5], lt[6, 2] = float("nan"), float("inf"), float("-inf"), float("-inf")
+            lt = lt.to(dtype)
+            add("stitched_moe_gate", f"T=8 E={e} k={kk} {name} NaN/inf rows",
+                lambda lt=lt, kk=kk: ops.moe_gate(lt, kk), lambda lt=lt, kk=kk: ref.moe_gate_ref(lt, kk),
+                KERNEL_TOL["float32"], logits=lt, dtype=dtype)
+    t, gm = randn((64, 300), bf16), randn((300,), bf16)
+    add("stitched_rmsnorm", "(64, 300) bfloat16 (scalar kernel)", lambda t=t, gm=gm: ops.rmsnorm(t, gm),
+        lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm), KERNEL_TOL["bfloat16"], dtype=bf16, scalar=True)
+    t, gm = randn((64 * 1536 + 1,), bf16)[1:].view(64, 1536), randn((1536,), bf16)
+    add("stitched_rmsnorm", "(64, 1536) bfloat16 view 2 bytes off 16 (scalar kernel)",
+        lambda t=t, gm=gm: ops.rmsnorm(t, gm), lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm),
+        KERNEL_TOL["bfloat16"], dtype=bf16, scalar=True)
+    t, gm = randn((8, 16392), bf16), randn((16392,), bf16)
+    add("stitched_rmsnorm", "(8, 16392) bfloat16 past the held width (scalar kernel)",
+        lambda t=t, gm=gm: ops.rmsnorm(t, gm), lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm),
+        KERNEL_TOL["bfloat16"], dtype=bf16, scalar=True)
+    for shape, dtype, name in (((512, 1536), f32, "float32"), ((8, 16384), bf16, "bfloat16")):
+        t, gm = randn(shape, dtype), randn(shape[-1:], dtype)
+        add("stitched_rmsnorm", f"{shape} {name}", lambda t=t, gm=gm: ops.rmsnorm(t, gm),
+            lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm), KERNEL_TOL[name], dtype=dtype)
 
     # ---- the main path: one call of each kernel at full width -----------------------
     def expect(c):
-        """The launches of one call of ``c``: each launcher's count, or None
-        for a kernel with one launcher."""
-        return launchers(c["kernel"], c.get("dtype"))
+        """The launches of one call of ``c``: each launcher's count."""
+        return launchers(c["kernel"], c.get("dtype"), c.get("scalar", False))
 
     for kern in kernels.values():
         kern.launches, kern.by_symbol = 0, {}
     outs = [c["call"]() for c in full]
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
-    want = {c["kernel"]: sum((expect(c) or {"": 1}).values()) for c in full}
+    want = {c["kernel"]: sum(expect(c).values()) for c in full}
     if sorted(want) != sorted(kernels) or launches != want:
         raise SystemExit(f"kernels: launches at full width {launches}, expected {want}")
     for c in full:
-        if expect(c) and kernels[c["kernel"]].by_symbol != expect(c):
+        if kernels[c["kernel"]].by_symbol != expect(c):
             raise SystemExit(f"{c['kernel']}: launchers {kernels[c['kernel']].by_symbol}, "
                              f"expected {expect(c)}")
     for c, out in zip(full, outs, strict=True):
@@ -472,13 +528,15 @@ def kernels_phase(dev):
         before, by = kern.launches, dict(kern.by_symbol)
         c["out"] = c["call"]()
         ran = {k: n - by.get(k, 0) for k, n in kern.by_symbol.items() if n != by.get(k, 0)}
-        n_want = sum((expect(c) or {"": 1}).values())
-        if kern.launches - before != n_want or (expect(c) and ran != expect(c)):
-            raise SystemExit(f"{c['kernel']} {c['label']}: launched {ran}, "
-                             f"expected {expect(c) or n_want}")
+        if kern.launches - before != sum(expect(c).values()) or ran != expect(c):
+            raise SystemExit(f"{c['kernel']} {c['label']}: launched {ran}, expected {expect(c)}")
     torch.cuda.synchronize()
+    gate_block, gate_blocks = gate_grid(gl.shape[0], 256)
+    if gate_blocks < 132:
+        raise SystemExit(f"stitched_moe_gate: {gate_blocks} blocks at full width, expected >= 132")
     print(f"kernels: main path {sum(launches.values())} launches at full width ({launches}); "
-          f"{len(small)} small calls, each through its expected launchers")
+          f"{len(small)} small calls, each through its expected launchers; the gate's grid "
+          f"{gate_blocks} blocks of {gate_block} tokens")
 
     # ---- right: every call against its plain version on the same inputs -----------
     rows, gate_differ = [], 0
@@ -505,6 +563,25 @@ def kernels_phase(dev):
           f"plain versions; MoE gate picks that differ between near-equal probabilities: {gate_differ}")
 
     # ---- numbers at full width -------------------------------------------------------
+    def cold_l2(c):
+        """RMSNorm's and F.rms_norm's device ms over a rotation of
+        COLD_ROTATION inputs of the full-width shape (8 x 12.6 MB, twice the
+        50 MB L2), so each call finds its x in device memory, not in L2."""
+        gen = torch.Generator(device=dev).manual_seed(1)
+        xs = [torch.randn(x.shape, generator=gen, device=dev).to(bf16) for _ in range(COLD_ROTATION)]
+        turn = itertools.count()
+        kern_us = device_us_of("stitched_rmsnorm", device_profile(
+            lambda: ops.rmsnorm(xs[next(turn) % COLD_ROTATION], gamma, eps=g["norm_eps"]),
+            PROFILED_CALLS)[1])
+        lib_us = (sum(device_profile(
+            lambda: F.rms_norm(xs[next(turn) % COLD_ROTATION], (d,), gamma, g["norm_eps"]),
+            PROFILED_CALLS)[1].values()) if c["library"] else 0.0)
+        print(f"kernel stitched_rmsnorm {c['label']} over {COLD_ROTATION} inputs (cold L2): "
+              f"device_ms={kern_us / 1e3 if kern_us else 'not measured'} "
+              f"library_device_ms={lib_us / 1e3 if lib_us else 'not measured'}")
+        return {"cold_device_ms": kern_us / 1e3 if kern_us else None,
+                "library_cold_device_ms": lib_us / 1e3 if lib_us else None}
+
     entries = []
     for c in full:
         kern = kernels[c["kernel"]]
@@ -533,6 +610,8 @@ def kernels_phase(dev):
             "full_width_err": c["err"], "max_abs_out": c["out_scale"],
             "median_abs_out": c["out_median"],
         }
+        if kern.name == "stitched_rmsnorm":
+            entry.update(cold_l2(c))
         entries.append(entry)
         print(
             f"kernel {kern.name} {c['label']}: launches={entry['launches']} ms={ms:.4f} "
@@ -585,10 +664,11 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"build: planned 10 graphs in {plan_s:.2f} s; nvcc built {len(logs)} libraries "
           f"(the graphs' and {len(HAND_SOURCES)} hand-written) in parallel in {build_s:.2f} s")
-    for log in logs.values():
-        for line in log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    ptxas = [line.split("ptxas info    :")[-1].strip()
+             for log in logs.values() for line in log.splitlines()
+             if "Compiling entry" in line or "Used" in line or "spill" in line]
+    for line in ptxas:
+        print("  ptxas:", line)
     graphs = {}
     for name, build in ALL_GRAPHS.items():
         module = build()
@@ -742,7 +822,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s,
+            json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
                        "graphs": per_graph, "kernels": rows, "emitters": entries,
                        "hand_kernel_calls": hand_calls}, f, indent=1)
     print(f"card: {smi}")

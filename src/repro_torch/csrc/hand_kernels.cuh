@@ -1,6 +1,7 @@
 // Helpers shared by the hand-written kernels of repro_torch.kernels
-// (stitched_rowwise.cu, stitched_attention.cu), and the warp-level PTX
-// instructions of the attention kernels (cp.async, ldmatrix, mma.sync).
+// (stitched_rowwise.cu, stitched_attention.cu), the warp votes of the MoE
+// gate (redux.sync, ballot, ffs) and the warp-level PTX instructions of the
+// attention kernels (cp.async, ldmatrix, mma.sync).
 //
 // Every kernel reads float or bf16, computes in f32 and casts once when it
 // stores, as the Pallas kernels it replaces do.  bf16 stores round to
@@ -57,6 +58,47 @@ SX_D float sx_group_reduce(float v, int group, float* red, Op op) {
   v = red[first];
   for (int w = 1; w < warps; ++w) v = op(v, red[first + w]);
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// Warp votes of the MoE gate: one instruction each on sm_80+ (redux.sync,
+// vote.ballot, the bit scan of __ffs).  Where __CUDA_ARCH__ is not defined
+// each does the same work with shuffles, as the PTX helpers below do.  All
+// 32 lanes must take part.
+
+// The largest `v` over the warp's 32 lanes, in every lane.
+SX_D unsigned sx_warp_max_u32(unsigned v) {
+#ifdef __CUDA_ARCH__
+  return __reduce_max_sync(SX_FULL_MASK, v);
+#else
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned w = __shfl_xor_sync(SX_FULL_MASK, v, o);
+    v = w > v ? w : v;
+  }
+  return v;
+#endif
+}
+
+// Bit i set where lane i's `pred` holds, in every lane.
+SX_D unsigned sx_ballot(bool pred) {
+#ifdef __CUDA_ARCH__
+  return __ballot_sync(SX_FULL_MASK, pred);
+#else
+  unsigned b = 0;
+  for (int i = 0; i < 32; ++i) b |= (unsigned)__shfl_sync(SX_FULL_MASK, (unsigned)pred, i) << i;
+  return b;
+#endif
+}
+
+// 1 + the position of the lowest set bit of `b`, 0 for b == 0.
+SX_D int sx_ffs(unsigned b) {
+#ifdef __CUDA_ARCH__
+  return __ffs(b);
+#else
+  for (int i = 0; i < 32; ++i)
+    if ((b >> i) & 1u) return i + 1;
+  return 0;
+#endif
 }
 
 // ---------------------------------------------------------------------------

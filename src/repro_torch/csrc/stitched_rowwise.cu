@@ -4,29 +4,53 @@
 //
 // stitched_softmax replaces repro/kernels/stitched_softmax.py
 //   stitched_softmax (_softmax_kernel).
+//   Bound by bytes: a handful of f32 operations per element.  A group of
+//   32..1024 threads owns a row and walks it with a block stride, so a
+//   warp's loads are neighbouring addresses; the row's max and sum are f32
+//   warp-shuffle reductions, merged across the group's warps in shared
+//   memory.  The row is not staged: softmax reads x again in its sum and
+//   write passes (a 49,155-wide f32 vocab row is 196 KB, most of a block's
+//   shared memory, while the re-reads hit L2).  A block holds
+//   `rows_per_block` rows, so narrow rows still fill whole warps.
+//
 // stitched_rmsnorm replaces repro/kernels/stitched_rmsnorm.py
 //   stitched_rmsnorm (_rmsnorm_kernel).
-//   Both are bound by bytes: a handful of f32 operations per element.  A
-//   group of 32..1024 threads owns a row and walks it with a block stride,
-//   so a warp's loads are neighbouring addresses; the row's max and sum
-//   are f32 warp-shuffle reductions, merged across the group's warps in
-//   shared memory.  The row is not staged: softmax reads x again in its
-//   sum and write passes (a 49,155-wide f32 vocab row is 196 KB, most of a
-//   block's shared memory, while the re-reads hit L2).  A block holds
-//   `rows_per_block` rows, so narrow rows still fill whole warps.
+//   Bound by bytes: x read once, y written once, four f32 operations per
+//   element.  sx_rmsnorm_vec_kernel moves 16 bytes a thread (8 bf16 or 4
+//   f32) and holds its share of the row in registers, VPL <= 8 vectors a
+//   lane, between the sum of squares and the write, so x is read once.  A
+//   group of 1..8 warps owns a row (at d = 1536 bf16 one warp, 6 vectors a
+//   lane; wider rows merge the group's sums in shared memory).  The grid is
+//   as many 256-thread blocks as fit on the card at once; their row groups
+//   stride over the rows and load their share of gamma once, into
+//   registers.  y = (x * inv) * gamma with inv = 1 / sqrtf(ms + eps), one
+//   rounding to the output type.  Rows that 16-byte accesses cannot serve
+//   (d * itemsize not a multiple of 16, x or gamma not 16-byte aligned) or
+//   cannot hold (more than 32 KB) take sx_rmsnorm_kernel, the row layout of
+//   softmax, which reads x twice; the wrapper chooses before the launch.
 //
 // stitched_moe_gate replaces repro/kernels/stitched_moe_gate.py
 //   stitched_moe_gate (_gate_kernel).
-//   Bound by bytes (E logits in, 2k values out per token).  A warp owns a
-//   token and its lanes hold the E <= 256 logits, eight a lane at most.
-//   Softmax by shuffles, then top_k rounds of a warp argmax in which the
-//   larger probability wins and the lower expert index breaks ties (NaN
-//   above all, as jnp.argmax), the pick lowered by 2.0 as the Pallas
-//   kernel does, then the k weights renormalised by their sum, added in
+//   Bound by bytes (E logits in, 2k values out per token: 0.92 MB at 4096
+//   x 40 f32, top-8), which few instructions per token reach.  A warp owns
+//   a token and 8 warps make a block, so 4096 tokens make 512 blocks; a
+//   tail of T that leaves a block short is guarded.  Its lanes hold the E
+//   <= 256 logits in SLOTS = ceil(E / 32) rounded up to 1, 2, 4 or 8
+//   registers, a template parameter, so at E = 40 each loop runs 2 slots.
+//   Softmax by shuffles (accurate expf, each lane's slots summed in order,
+//   then the butterfly), then top_k argmax rounds.  Each probability is
+//   mapped to an unsigned key in the argmax's order (NaN above every
+//   number, -0 equal to +0), so a round is one redux.sync max of the keys
+//   and a ballot per slot until one holds that key, whose lowest lane
+//   (__ffs) is the lowest expert index: ties go to the lower index.  The
+//   pick is lowered by 2.0 as the Pallas kernel does (a NaN stays NaN and
+//   is picked again), and the k weights are divided by their sum, added in
 //   pick order.
 //
 // Each launcher is extern "C", one per element type, and returns
 // cudaGetLastError() so a refused launch reaches the Python wrapper.
+
+#include <atomic>
 
 #include "hand_kernels.cuh"
 
@@ -68,6 +92,7 @@ extern "C" int sx_softmax_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int row
 }
 
 // ---------------------------------------------------------------- rmsnorm
+// The scalar kernel: any d, any alignment; x read twice.
 template <typename T>
 __global__ void __launch_bounds__(1024) sx_rmsnorm_kernel(
     const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ y, int cols,
@@ -107,104 +132,276 @@ extern "C" int sx_rmsnorm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gamm
   return sx_rmsnorm_launch(x, gamma, y, rows, cols, rows_per_block, threads, eps, stream);
 }
 
-// ---------------------------------------------------------------- moe gate
-constexpr int SX_GATE_PER_LANE = 8;  // logits a lane holds: E <= 256
+// The 16-byte kernel.  One uint4 holds SxVec16<T>::N elements, in order.
+constexpr int SX_RMS_THREADS = 256;  // threads of one block; a lane holds VPL <= 8 vectors
 
-// Does (a, ia) rank above (b, ib)?  An index below 0 is no candidate.
-SX_D bool sx_gate_above(float a, int ia, float b, int ib) {
-  if (ia < 0) return false;
-  if (ib < 0) return true;
-  const bool na = a != a, nb = b != b;
-  if (na != nb) return na;
-  if (!na && a != b) return a > b;
-  return ia < ib;
+template <typename T>
+struct SxVec16;
+
+template <>
+struct SxVec16<float> {
+  static constexpr int N = 4;
+  SX_D static void unpack(const uint4& v, float (&f)[N]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+  SX_D static uint4 pack(const float (&f)[N]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct SxVec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  SX_D static void unpack(const uint4& v, float (&f)[N]) {
+    f[0] = sx_bf16_lo(v.x);
+    f[1] = sx_bf16_hi(v.x);
+    f[2] = sx_bf16_lo(v.y);
+    f[3] = sx_bf16_hi(v.y);
+    f[4] = sx_bf16_lo(v.z);
+    f[5] = sx_bf16_hi(v.z);
+    f[6] = sx_bf16_lo(v.w);
+    f[7] = sx_bf16_hi(v.w);
+  }
+  SX_D static uint4 pack(const float (&f)[N]) {
+    return make_uint4(sx_pack_bf16x2(f[0], f[1]), sx_pack_bf16x2(f[2], f[3]),
+                      sx_pack_bf16x2(f[4], f[5]), sx_pack_bf16x2(f[6], f[7]));
+  }
+};
+
+// A group of `warps_per_row` warps owns a row; lane t of the group holds
+// the row's vectors t, t + group, ... (VPL of them), so a warp's loads are
+// neighbouring 16-byte words.  The block's row groups stride over the rows
+// together (the loop bound is the same for the whole block, so the group
+// merge may synchronise the block).
+template <typename T, int VPL>
+__global__ void __launch_bounds__(SX_RMS_THREADS) sx_rmsnorm_vec_kernel(
+    const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ y, int rows, int cols,
+    int warps_per_row, float eps) {
+  using V = SxVec16<T>;
+  __shared__ float red[SX_RMS_THREADS / 32];
+  const int group = 32 * warps_per_row;
+  const int t = threadIdx.x % group;
+  const int rows_per_block = blockDim.x / group;
+  const int nv = cols / V::N;
+  uint4 gv[VPL];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = t + group * j;
+    if (c < nv) gv[j] = reinterpret_cast<const uint4*>(gamma)[c];
+  }
+  for (long long base = (long long)blockIdx.x * rows_per_block; base < rows;
+       base += (long long)gridDim.x * rows_per_block) {
+    const long long row = base + threadIdx.x / group;
+    const bool live = row < rows;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * cols);
+    uint4 xv[VPL];
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      const int c = t + group * j;
+      if (live && c < nv) xv[j] = xr[c];
+    }
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      if (live && t + group * j < nv) {
+        float f[V::N];
+        V::unpack(xv[j], f);
+#pragma unroll
+        for (int i = 0; i < V::N; ++i) ss += f[i] * f[i];
+      }
+    }
+    ss = sx_group_reduce(ss, group, red, SxSum());
+    const float inv = 1.0f / sqrtf(ss / (float)cols + eps);  // IEEE, as jax.lax.rsqrt
+    uint4* yr = reinterpret_cast<uint4*>(y + row * cols);
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      const int c = t + group * j;
+      if (live && c < nv) {
+        float f[V::N], g[V::N];
+        V::unpack(xv[j], f);
+        V::unpack(gv[j], g);
+#pragma unroll
+        for (int i = 0; i < V::N; ++i) f[i] = f[i] * inv * g[i];
+        yr[c] = V::pack(f);
+      }
+    }
+  }
+}
+
+// As many blocks as the card holds at once, at most one per row group.
+// The runtime is asked once per device and block size (the occupancy query
+// costs the host about as much as the launch); the grid changes only the
+// speed, since the row groups stride over every row.
+template <typename T, int VPL>
+static int sx_rmsnorm_vec_launch_vpl(const T* x, const T* gamma, T* y, int rows, int cols,
+                                     int warps_per_row, int rows_per_block, float eps,
+                                     cudaStream_t stream) {
+  constexpr int kDevices = 16;
+  static std::atomic<int> resident[kDevices][SX_RMS_THREADS / 32];  // 0: not asked yet
+  const int threads = 32 * warps_per_row * rows_per_block;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int held = dev < kDevices ? resident[dev][threads / 32 - 1].load(std::memory_order_relaxed) : 0;
+  if (held == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sx_rmsnorm_vec_kernel<T, VPL>, threads, 0);
+    held = sms * per_sm > 0 ? sms * per_sm : 1;
+    if (dev < kDevices) resident[dev][threads / 32 - 1].store(held, std::memory_order_relaxed);
+  }
+  const int want = (rows + rows_per_block - 1) / rows_per_block;
+  const int blocks = want < held ? want : held;
+  sx_rmsnorm_vec_kernel<T, VPL><<<blocks, threads, 0, stream>>>(
+      x, gamma, y, rows, cols, warps_per_row, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-__global__ void __launch_bounds__(1024) sx_moe_gate_kernel(
-    const T* __restrict__ logits, float* __restrict__ w, int* __restrict__ idx, int E,
-    int top_k, int tokens_per_block) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x / 32;
-  for (int i = threadIdx.x / 32; i < tokens_per_block; i += warps) {
-    const long long tok = (long long)blockIdx.x * tokens_per_block + i;
-    const T* xt = logits + tok * E;
-    float p[SX_GATE_PER_LANE];
-    float m = sx_lowest<float>();
-#pragma unroll
-    for (int j = 0; j < SX_GATE_PER_LANE; ++j) {
-      const int e = lane + 32 * j;
-      p[j] = e < E ? sx_load(xt + e) : 0.0f;
-      if (e < E) m = sx_max(m, p[j]);
-    }
-    m = sx_warp_reduce(m, SxMax());
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < SX_GATE_PER_LANE; ++j) {
-      if (lane + 32 * j < E) {
-        p[j] = expf(p[j] - m);
-        s += p[j];
-      }
-    }
-    s = sx_warp_reduce(s, SxSum());
-#pragma unroll
-    for (int j = 0; j < SX_GATE_PER_LANE; ++j) p[j] = p[j] / s;
+static int sx_rmsnorm_vec_launch(const T* x, const T* gamma, T* y, int rows, int cols,
+                                 int warps_per_row, int rows_per_block, float eps, void* stream) {
+  const int nv = cols / SxVec16<T>::N;
+  const int vpl = (nv + 32 * warps_per_row - 1) / (32 * warps_per_row);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vpl) {
+    case 1: return sx_rmsnorm_vec_launch_vpl<T, 1>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    case 2: return sx_rmsnorm_vec_launch_vpl<T, 2>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    case 3: return sx_rmsnorm_vec_launch_vpl<T, 3>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    case 4: return sx_rmsnorm_vec_launch_vpl<T, 4>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    case 5: return sx_rmsnorm_vec_launch_vpl<T, 5>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    case 6: return sx_rmsnorm_vec_launch_vpl<T, 6>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    case 7: return sx_rmsnorm_vec_launch_vpl<T, 7>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    case 8: return sx_rmsnorm_vec_launch_vpl<T, 8>(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
-    float total = 0.0f, my_w = 0.0f;
-    int my_i = 0;
-    for (int r = 0; r < top_k; ++r) {
-      float bv = 0.0f;
-      int bi = -1;
+extern "C" int sx_rmsnorm_vec_f32(const float* x, const float* gamma, float* y, int rows,
+                                  int cols, int warps_per_row, int rows_per_block, float eps,
+                                  void* stream) {
+  return sx_rmsnorm_vec_launch(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, stream);
+}
+
+extern "C" int sx_rmsnorm_vec_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gamma,
+                                   __nv_bfloat16* y, int rows, int cols, int warps_per_row,
+                                   int rows_per_block, float eps, void* stream) {
+  return sx_rmsnorm_vec_launch(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, stream);
+}
+
+// ---------------------------------------------------------------- moe gate
+constexpr int SX_GATE_WARPS = 8;  // tokens of one block, a warp each
+
+// p as an unsigned key in the argmax's order: NaN above every number, then
+// the floats in their order, -0 the key of +0.  No key is 0, so 0 marks a
+// slot that holds no expert.
+SX_D unsigned sx_gate_key(float v) {
+  if (v != v) return 0xffffffffu;
+  const unsigned u = v == 0.0f ? 0u : __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The number a key stands for; the NaN key gives a NaN.
+SX_D float sx_gate_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+template <typename T, int SLOTS>
+__global__ void __launch_bounds__(32 * SX_GATE_WARPS) sx_moe_gate_kernel(
+    const T* __restrict__ logits, float* __restrict__ w, int* __restrict__ idx, int tokens,
+    int E, int top_k, int tokens_per_block) {
+  const int lane = threadIdx.x & 31;
+  const long long tok = (long long)blockIdx.x * tokens_per_block + threadIdx.x / 32;
+  if (tok >= tokens) return;  // the tail of T: whole warps leave
+  const T* xt = logits + tok * E;
+  float p[SLOTS];
+  float m = sx_lowest<float>();
 #pragma unroll
-      for (int j = 0; j < SX_GATE_PER_LANE; ++j) {
-        const int e = lane + 32 * j;
-        if (e < E && sx_gate_above(p[j], e, bv, bi)) {
-          bv = p[j];
-          bi = e;
-        }
-      }
+  for (int j = 0; j < SLOTS; ++j) {
+    const int e = lane + 32 * j;
+    p[j] = e < E ? sx_load(xt + e) : 0.0f;
+    if (e < E) m = sx_max(m, p[j]);
+  }
+  m = sx_warp_reduce(m, SxMax());
+  float s = 0.0f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(SX_FULL_MASK, bv, o);
-        const int oi = __shfl_xor_sync(SX_FULL_MASK, bi, o);
-        if (sx_gate_above(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      total += bv;
-      if (lane == r) {
-        my_w = bv;
-        my_i = bi;
-      }
+  for (int j = 0; j < SLOTS; ++j) {
+    if (lane + 32 * j < E) {
+      p[j] = expf(p[j] - m);
+      s += p[j];
+    }
+  }
+  s = sx_warp_reduce(s, SxSum());
+  unsigned key[SLOTS];
 #pragma unroll
-      for (int j = 0; j < SX_GATE_PER_LANE; ++j) {
-        if (lane + 32 * j == bi) p[j] -= 2.0f;
+  for (int j = 0; j < SLOTS; ++j) {
+    p[j] = p[j] / s;
+    key[j] = lane + 32 * j < E ? sx_gate_key(p[j]) : 0u;
+  }
+
+  float total = 0.0f, my_w = 0.0f;
+  int my_i = 0;
+  for (int r = 0; r < top_k; ++r) {
+    unsigned best = key[0];
+#pragma unroll
+    for (int j = 1; j < SLOTS; ++j) best = key[j] > best ? key[j] : best;
+    best = sx_warp_max_u32(best);
+    int bi = 0;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const unsigned holders = sx_ballot(key[j] == best);  // the same in every lane
+      if (holders) {
+        bi = 32 * j + sx_ffs(holders) - 1;
+        break;
       }
     }
-    if (lane < top_k) {
-      w[tok * top_k + lane] = my_w / total;
-      idx[tok * top_k + lane] = my_i;
+    const float bv = sx_gate_value(best);
+    total += bv;
+    if (lane == r) {
+      my_w = bv;
+      my_i = bi;
     }
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      if (lane + 32 * j == bi) {
+        p[j] -= 2.0f;
+        key[j] = sx_gate_key(p[j]);
+      }
+    }
+  }
+  if (lane < top_k) {
+    w[tok * top_k + lane] = my_w / total;
+    idx[tok * top_k + lane] = my_i;
   }
 }
 
 template <typename T>
 static int sx_moe_gate_launch(const T* logits, float* w, int* idx, int tokens, int E, int top_k,
-                              int tokens_per_block, int threads, void* stream) {
-  sx_moe_gate_kernel<T><<<tokens / tokens_per_block, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(logits, w, idx, E, top_k,
-                                                               tokens_per_block);
+                              int tokens_per_block, int blocks, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 32 * tokens_per_block;
+  const int slots = (E + 31) / 32;
+  if (slots <= 1) {
+    sx_moe_gate_kernel<T, 1><<<blocks, threads, 0, s>>>(logits, w, idx, tokens, E, top_k, tokens_per_block);
+  } else if (slots <= 2) {
+    sx_moe_gate_kernel<T, 2><<<blocks, threads, 0, s>>>(logits, w, idx, tokens, E, top_k, tokens_per_block);
+  } else if (slots <= 4) {
+    sx_moe_gate_kernel<T, 4><<<blocks, threads, 0, s>>>(logits, w, idx, tokens, E, top_k, tokens_per_block);
+  } else {
+    sx_moe_gate_kernel<T, 8><<<blocks, threads, 0, s>>>(logits, w, idx, tokens, E, top_k, tokens_per_block);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int sx_moe_gate_f32(const float* logits, float* w, int* idx, int tokens, int E,
-                               int top_k, int tokens_per_block, int threads, void* stream) {
-  return sx_moe_gate_launch(logits, w, idx, tokens, E, top_k, tokens_per_block, threads, stream);
+                               int top_k, int tokens_per_block, int blocks, void* stream) {
+  return sx_moe_gate_launch(logits, w, idx, tokens, E, top_k, tokens_per_block, blocks, stream);
 }
 
 extern "C" int sx_moe_gate_bf16(const __nv_bfloat16* logits, float* w, int* idx, int tokens,
-                                int E, int top_k, int tokens_per_block, int threads,
+                                int E, int top_k, int tokens_per_block, int blocks,
                                 void* stream) {
-  return sx_moe_gate_launch(logits, w, idx, tokens, E, top_k, tokens_per_block, threads, stream);
+  return sx_moe_gate_launch(logits, w, idx, tokens, E, top_k, tokens_per_block, blocks, stream);
 }

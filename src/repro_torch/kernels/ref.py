@@ -76,12 +76,26 @@ def moe_gate_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Router: softmax over experts, take top-k, renormalize the k weights.
 
-    Returns (weights (T, k) f32, indices (T, k) int32), indices sorted by
-    descending weight, and of equal weights the lower index first (as
-    ``jax.lax.top_k``; ``torch.topk`` promises no order among ties, a
-    stable sort does).
+    Returns (weights (T, k) f32, indices (T, k) int32), as the Pallas
+    kernel computes them (``repro/kernels/stitched_moe_gate.py:18-39``):
+    ``top_k`` rounds of an argmax in which NaN ranks above every number
+    and the lower index wins ties, each round lowering its pick by 2.0,
+    then the weights divided by their sum, added in pick order.  A row
+    with a NaN or +inf logit, or of -inf logits only, is NaN after the
+    softmax, so its picks are index 0, k times, with NaN weights.
     """
-    p = softmax_ref(logits.float())
-    w, idx = torch.sort(p, dim=-1, descending=True, stable=True)
-    w, idx = w[:, :top_k], idx[:, :top_k]
-    return w / w.sum(dim=-1, keepdim=True), idx.to(torch.int32)
+    cur = softmax_ref(logits.float())
+    rows = torch.arange(cur.shape[0], device=cur.device)
+    total = torch.zeros(cur.shape[0], dtype=torch.float32, device=cur.device)
+    picks_w, picks_i = [], []
+    for _ in range(top_k):
+        nan = cur.isnan()
+        # argmax returns the first of equal maxima; a NaN ranks above all
+        i = torch.where(nan.any(-1), nan.to(torch.uint8).argmax(-1), cur.argmax(-1))
+        w = cur[rows, i]
+        picks_w.append(w)
+        picks_i.append(i)
+        total = total + w
+        cur = cur.index_put((rows, i), w - 2.0)
+    w = torch.stack(picks_w, dim=-1) / total[:, None]
+    return w, torch.stack(picks_i, dim=-1).to(torch.int32)

@@ -17,7 +17,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.core import cuda_build
-from repro_torch.kernels import cuda, ops, stitched_attention
+from repro_torch.kernels import cuda, ops, stitched_attention, stitched_moe_gate, stitched_rmsnorm
 
 REPO = Path(__file__).resolve().parents[1]
 F32, BF16 = ("float32", jnp.float32, torch.float32), ("bfloat16", jnp.bfloat16, torch.bfloat16)
@@ -198,6 +198,31 @@ def test_moe_gate_ties_go_to_the_lower_index():
     torch.testing.assert_close(w, torch.full((4, 3), 1 / 3))
 
 
+@pytest.mark.parametrize("E", [8, 40])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=lambda d: d[0])
+def test_moe_gate_nan_and_inf_rows_match_reference(rng, E, k, dtype):
+    """Rows with a NaN logit, a +inf logit, only -inf logits (each NaN
+    across the row after the softmax) and one -inf among finite logits,
+    beside finite rows.  The Pallas kernel picks the lowest NaN index
+    again and again (NaN - 2.0 is NaN); the port's indices must be the
+    same, with NaN weights exactly where the reference has them."""
+    x = rng.randn(8, E).astype(np.float32)
+    x[1, 3] = np.nan
+    x[3, E - 1] = np.inf
+    x[5] = -np.inf
+    x[6, 2] = -np.inf
+    tl = torch.tensor(x).to(dtype[2])
+    w, i = ops.moe_gate(tl, top_k=k)
+    jw, ji = jops.moe_gate(jnp.asarray(tl.float().numpy()), top_k=k)
+    jw = np.asarray(jw)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    assert i[[1, 3, 5]].tolist() == [[0] * k] * 3
+    np.testing.assert_array_equal(w.isnan().numpy(), np.isnan(jw))
+    assert np.isnan(jw[[1, 3, 5]]).all() and not np.isnan(jw[[0, 2, 4, 6, 7]]).any()
+    _close(w, jw, TOL["float32"])
+
+
 # ------------------------------------------------------- the port's contract
 def _t(*shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype)
@@ -294,7 +319,7 @@ def test_hand_written_sources_include_the_shared_headers():
         assert launchers and all(n.endswith(("_f32", "_bf16")) for n in launchers)
 
 
-# ---------------------------------------------- the attention wrappers' launch plans
+# ---------------------------------------------------- the wrappers' launch plans
 class _RecordingLibrary:
     """Stands in for a loaded CUDA library: each launcher records its name
     and the C values it was called with, and returns cudaSuccess."""
@@ -314,12 +339,14 @@ class _RecordingLibrary:
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """The attention wrappers as they run on the card, with their launches
-    recorded instead of made: the library is a ``_RecordingLibrary`` and
+    """The attention, gate and RMSNorm wrappers as they run on the card,
+    with their launches recorded instead of made: the library is a ``_RecordingLibrary`` and
     the inputs count as CUDA tensors."""
     lib = _RecordingLibrary()
-    monkeypatch.setattr(cuda.ATTENTION, "lib", lib)
-    monkeypatch.setattr(stitched_attention, "input_device", lambda name, ts: torch.device("cuda"))
+    for source in (cuda.ATTENTION, cuda.ROWWISE):
+        monkeypatch.setattr(source, "lib", lib)
+    for module in (stitched_attention, stitched_moe_gate, stitched_rmsnorm):
+        monkeypatch.setattr(module, "input_device", lambda name, ts: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
@@ -425,3 +452,70 @@ def test_bf16_softmax_weights_need_two_terms_at_full_width_limits(rng):
 
     assert outside((hi @ v) / l) > 0.01 * want.numel()
     assert outside((hi @ v + lo @ v) / l) == 0
+
+
+@pytest.mark.parametrize("T, block_tokens, per_block, blocks", [
+    (4096, 256, 8, 512),   # full width: the grid fills the 132 SMs
+    (4096, 4, 4, 1024),    # block_tokens caps the tokens of a block
+    (12, 256, 8, 2),       # 12 tokens: the second block is 4 short
+    (13, 256, 8, 2),
+])
+def test_gate_launches_a_warp_per_token(recorded, T, block_tokens, per_block, blocks):
+    E, k = 40, 8
+    logits = _t(T, E)
+    kernel = ops.KERNELS["stitched_moe_gate"]
+    before, by = kernel.launches, dict(kernel.by_symbol)
+    w, i = ops.moe_gate(logits, top_k=k, block_tokens=block_tokens)
+    assert [c[0] for c in recorded.calls] == ["sx_moe_gate_f32"]
+    assert kernel.launches == before + 1
+    assert kernel.by_symbol["sx_moe_gate_f32"] == by.get("sx_moe_gate_f32", 0) + 1
+    # logits, w, idx, then T, E, top_k, tokens per block, blocks; the stream last
+    assert recorded.calls[0][1] == (logits.data_ptr(), w.data_ptr(), i.data_ptr(),
+                                    T, E, k, per_block, blocks, 0)
+    assert per_block <= stitched_moe_gate.GATE_WARPS and per_block * blocks >= T
+    if T == 4096 and block_tokens == 256:
+        assert blocks >= 132
+
+
+def _misaligned(*shape, dtype):
+    """A contiguous view that starts 2 bytes into its storage."""
+    return torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)[1:].view(*shape)
+
+
+@pytest.mark.parametrize("make_x, dtype, symbol, plan", [
+    # x (4096, 1536) bf16: a warp a row, 8 rows a block
+    (lambda dt: _t(4096, 1536, dtype=dt), torch.bfloat16, "sx_rmsnorm_vec_bf16", (1, 8)),
+    # 1536 f32 is 384 words: two warps a row, 4 rows a block
+    (lambda dt: _t(64, 1536, dtype=dt), torch.float32, "sx_rmsnorm_vec_f32", (2, 4)),
+    # 16,384 bf16 is the widest row held: 8 warps, 1 row a block
+    (lambda dt: _t(2, 16384, dtype=dt), torch.bfloat16, "sx_rmsnorm_vec_bf16", (8, 1)),
+    # the scalar kernel: 600 bytes a row, 2 bytes off 16, too wide
+    (lambda dt: _t(4, 300, dtype=dt), torch.bfloat16, "sx_rmsnorm_bf16", None),
+    (lambda dt: _misaligned(4, 1536, dtype=dt), torch.bfloat16, "sx_rmsnorm_bf16", None),
+    (lambda dt: _t(2, 16392, dtype=dt), torch.bfloat16, "sx_rmsnorm_bf16", None),
+], ids=["4096x1536-bf16", "64x1536-f32", "2x16384-bf16", "4x300-bf16", "misaligned-bf16",
+        "2x16392-bf16"])
+def test_rmsnorm_takes_the_16_byte_kernel_where_it_can(recorded, make_x, dtype, symbol, plan):
+    x = make_x(dtype)
+    rows, cols = x.shape
+    gamma = _t(cols, dtype=dtype)
+    kernel = ops.KERNELS["stitched_rmsnorm"]
+    before, by = kernel.launches, dict(kernel.by_symbol)
+    y = ops.rmsnorm(x, gamma, eps=1e-6)
+    assert [c[0] for c in recorded.calls] == [symbol]
+    assert kernel.launches == before + 1
+    assert kernel.by_symbol[symbol] == by.get(symbol, 0) + 1
+    values = recorded.calls[0][1]
+    assert values[:5] == (x.data_ptr(), gamma.data_ptr(), y.data_ptr(), rows, cols)
+    assert values[-2] == pytest.approx(1e-6) and values[-1] == 0
+    if plan is not None:
+        # the warps that own a row, and the rows a block holds
+        assert values[5:7] == plan
+        assert 32 * plan[0] * plan[1] == stitched_rmsnorm.VEC_THREADS
+
+
+def test_rmsnorm_block_rows_caps_the_16_byte_kernels_rows(recorded):
+    x, gamma = _t(64, 1536, dtype=torch.bfloat16), _t(1536, dtype=torch.bfloat16)
+    ops.rmsnorm(x, gamma, block_rows=2)
+    ops.rmsnorm(x, gamma, block_rows=32)
+    assert [c[1][5:7] for c in recorded.calls] == [(1, 2), (1, 8)]
