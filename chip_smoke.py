@@ -17,14 +17,23 @@ Phases, each fatal on failure:
    every unique kernel at least once;
 4. right — each graph's outputs against the port's ``reference_execute`` on
    the card (one torch op per instruction), and every unique kernel against
-   its plain version on the card, on the inputs the main path gave it;
+   its plain version on the card, on the inputs the main path gave it.
+   Then the stitched compiles beside the main path (``STITCHED_COMPILES``):
+   StitchPipe under ``stitch_max_blocks`` 1 and 4 and ``max_blocks`` 8 and
+   64 (phase 0 in 1, 4, 8 and 16 plan blocks; at 1 its slots outgrow shared
+   memory and live in the workspace) and the (32, 48) break module of
+   ``tests/test_stitching.py``, built with the port's own ``trace``, phases
+   of 2 and 1 plan blocks.  Each takes one launch and is held against its
+   plain version at ``TOL``;
 5. numbers — CUDA-event times: microseconds per call of each compiled graph
    and of ``reference_execute``, and per launch of each kernel and of its
    plain version, beside the kernel's bound (bytes in and out over 3.35
    TB/s, or f32 operations over 67 TFLOP/s, whichever is larger).  Back to
    back, these launches are paced by the host, so ``torch.profiler`` also
    gives each kernel's device time, and each graph's device kernels and
-   device time per call, from which its device idle share follows.
+   device time per call, from which its device idle share follows, and the
+   device time of each graph's unfused ``reference_execute`` (the yardstick
+   of StitchPipe's stitched kernel).
 
 6. kernels — the hand-written kernels of ``repro_torch.kernels`` through
    their public entry point ``repro_torch.kernels.ops``, at the full width
@@ -34,7 +43,8 @@ Phases, each fatal on failure:
    just before those five calls and must read just after one launch each,
    two for decode (its split and combine kernels), through the expected
    launchers (``launchers``: bf16 flash on the tensor-core kernel, RMSNorm
-   on its 16-byte kernel ``sx_rmsnorm_vec_kernel``), and the gate's grid
+   on its 16-byte kernel ``sx_rmsnorm_vec_kernel``, the vocab softmax on
+   its cluster kernel ``sx_softmax_cluster_kernel``), and the gate's grid
    must hold at least 132 blocks (one per SM).  Then
    the small shapes of ``tests/test_kernels.py`` (f32, G = 8, D = 8 and 16,
    non-causal, E = 8..64 with k = 1..8), each call through its expected
@@ -51,7 +61,12 @@ Phases, each fatal on failure:
    only -inf) in f32 and bf16, and rmsnorm on its scalar kernel
    ``sx_rmsnorm_kernel`` (bf16 d = 300, a view 2 bytes off 16, d = 16,392
    past the width held in registers) and on its 16-byte kernel at f32 d =
-   1536 and bf16 d = 16,384.  Every call is held against its
+   1536 and bf16 d = 16,384, and softmax where its cluster kernel
+   splits: rows that start off 16 bytes (r % 4 != 0 at 49,155 and 10,001
+   columns), widths 4,095 (the row kernel), 4,096 and 4,097 (the cluster),
+   131,072 (the widest cluster row) and 131,073 (the row kernel again),
+   bf16 at full width, rows with one block's slice wholly -inf, and rows
+   that are NaN across (a NaN, a +inf, only -inf).  Every call is held against its
    plain version on the same inputs.  The small shapes keep the test
    file's rtol = atol: 2e-5 in f32 and 3e-2 in bf16, 2e-4 and 5e-2 for
    attention.  At full width the limits follow from the outputs they check
@@ -120,6 +135,44 @@ COLD_ROTATION = 8    # full-width RMSNorm inputs cycled to time it with a cold L
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 ATTENTION_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 GATE_TIE = 2e-6      # gate picks may swap only between probabilities this close
+
+
+def softmax_transpose(b, x, g):
+    """The break module of tests/test_stitching.py: a row softmax feeding a
+    2-D transpose, a schedule break once (32, 48) passes the replicate limit."""
+    scaled = x * b.broadcast(g, x.shape, (1,))
+    mx = b.reduce(scaled, (1,), "max")
+    e = b.exp(scaled - b.broadcast(mx, x.shape, (0,)))
+    s = b.reduce(e, (1,), "sum")
+    p = e / b.broadcast(s, x.shape, (0,))
+    t = b.transpose(p, (1, 0))
+    return b.tanh(t) * 0.5
+
+
+# stitched compiles beside the main path: (label, module, StitchOptions fields,
+# plan blocks of each phase)
+STITCHED_COMPILES = [
+    ("StitchPipe stitch_max_blocks=1", "StitchPipe", {"stitch_max_blocks": 1}, [1, 1]),
+    ("StitchPipe stitch_max_blocks=4", "StitchPipe", {"stitch_max_blocks": 4}, [4, 1]),
+    ("StitchPipe max_blocks=8", "StitchPipe", {"max_blocks": 8}, [8, 1]),
+    ("StitchPipe max_blocks=64", "StitchPipe", {"max_blocks": 64}, [16, 1]),
+    ("break (32, 48) max_blocks=32 replicate_limit=1024", "break",
+     {"max_blocks": 32, "replicate_limit": 1024}, [2, 1]),
+]
+
+
+def stitched_compile(module_name, opts, device):
+    """One of STITCHED_COMPILES, compiled for ``device``."""
+    import numpy as np
+
+    from repro_torch.core import StitchOptions, compile_module, trace
+    from repro_torch.graphs import ALL_GRAPHS
+
+    if module_name == "break":
+        module = trace(softmax_transpose, ("x", (32, 48), np.float32), ("g", (48,), np.float32))
+    else:
+        module = ALL_GRAPHS[module_name]()
+    return compile_module(module, StitchOptions(**opts), device=device)
 
 # (rtol, atol) of each full-width call.  The kernel and its plain version
 # both compute in f32 and round once to the output dtype, so a bf16 output
@@ -223,7 +276,7 @@ def device_profile(fn, calls):
 # them; a call's device time is the sum over all of them
 DEVICE_KERNEL = {
     "stitched_rmsnorm": ("sx_rmsnorm_vec_kernel", "sx_rmsnorm_kernel"),
-    "stitched_softmax": ("sx_softmax_kernel",),
+    "stitched_softmax": ("sx_softmax_kernel", "sx_softmax_cluster_kernel"),
     "stitched_flash_attention": ("sx_flash_kernel", "sx_flash_mma_kernel"),
     "stitched_decode_attention": ("sx_decode_split_kernel", "sx_decode_combine_kernel"),
     "stitched_moe_gate": ("sx_moe_gate_kernel",),
@@ -235,11 +288,12 @@ def device_us_of(kernel, by_name):
     return sum(t for name, t in by_name.items() if any(g in name for g in DEVICE_KERNEL[kernel]))
 
 
-def launchers(kernel, dtype, scalar=False):
+def launchers(kernel, dtype, scalar=False, cluster=False):
     """The launchers one call of a kernel runs, each once: flash attention
     runs the tensor-core kernel in bf16 and the f32 kernel in f32, decode
     attention its split and combine kernels, RMSNorm its 16-byte kernel
-    unless ``scalar`` (rows it cannot serve), softmax and the gate one."""
+    unless ``scalar`` (rows it cannot serve), softmax its cluster kernel
+    where ``cluster`` (wide rows) and its row kernel else, the gate one."""
     import torch
 
     sfx = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -249,6 +303,8 @@ def launchers(kernel, dtype, scalar=False):
         return {f"sx_decode_split_{sfx}": 1, f"sx_decode_combine_{sfx}": 1}
     if kernel == "stitched_rmsnorm":
         return {f"sx_rmsnorm_{sfx}" if scalar else f"sx_rmsnorm_vec_{sfx}": 1}
+    if kernel == "stitched_softmax":
+        return {f"sx_softmax_cluster_{sfx}" if cluster else f"sx_softmax_{sfx}": 1}
     return {f"sx_{kernel.removeprefix('stitched_')}_{sfx}": 1}
 
 
@@ -321,6 +377,7 @@ def kernels_phase(dev):
         kernel="stitched_softmax", label=f"logits{tuple(lg.shape)} f32",
         call=lambda: ops.softmax(lg), plain=lambda: ref.softmax_ref(lg),
         library=lambda: torch.softmax(lg, dim=-1), bytes=nbytes(lg, lg), ops=4 * lg.numel(), peak=F32_OPS_PER_S,
+        cluster=True,
     ))
     S = 2048
     q, k, v = randn((1, Hq, S, D), bf16), randn((1, Hkv, S, D), bf16), randn((1, Hkv, S, D), bf16)
@@ -504,10 +561,34 @@ def kernels_phase(dev):
         add("stitched_rmsnorm", f"{shape} {name}", lambda t=t, gm=gm: ops.rmsnorm(t, gm),
             lambda t=t, gm=gm: ref.rmsnorm_ref(t, gm), KERNEL_TOL[name], dtype=dtype)
 
+    # where softmax's cluster kernel splits: rows off 16 bytes, the widths
+    # around its threshold and past what a cluster holds, bf16 at full
+    # width, one block's slice wholly -inf, rows NaN across
+    vocab = g["vocab"]
+    eighth = -(-vocab // 8)
+    for shape, dtype, name, cluster in (
+            ((5, vocab), f32, "float32", True), ((3, 10001), f32, "float32", True),
+            ((4, 4095), f32, "float32", False), ((4, 4096), f32, "float32", True),
+            ((4, 4097), f32, "float32", True), ((2, 131072), f32, "float32", True),
+            ((2, 131073), f32, "float32", False), ((16, vocab), bf16, "bfloat16", True)):
+        t = randn(shape, dtype)
+        add("stitched_softmax", f"{shape} {name}", lambda t=t: ops.softmax(t),
+            lambda t=t: ref.softmax_ref(t), KERNEL_TOL[name], dtype=dtype, cluster=cluster)
+    for dtype, name in ((f32, "float32"), (bf16, "bfloat16")):
+        t = randn((8, vocab), f32)
+        t[0, :eighth] = float("-inf")                 # block 0's slice
+        t[1, eighth:2 * eighth] = float("-inf")       # block 1's slice
+        t[2, 7 * eighth:] = float("-inf")             # the last, shorter slice
+        t[3, 5], t[4, 9], t[5] = float("nan"), float("inf"), float("-inf")
+        t = t.to(dtype)
+        add("stitched_softmax", f"(8, {vocab}) {name} -inf slices, NaN/+inf/-inf rows",
+            lambda t=t: ops.softmax(t), lambda t=t: ref.softmax_ref(t), KERNEL_TOL[name],
+            dtype=dtype, cluster=True)
+
     # ---- the main path: one call of each kernel at full width -----------------------
     def expect(c):
         """The launches of one call of ``c``: each launcher's count."""
-        return launchers(c["kernel"], c.get("dtype"), c.get("scalar", False))
+        return launchers(c["kernel"], c.get("dtype"), c.get("scalar", False), c.get("cluster", False))
 
     for kern in kernels.values():
         kern.launches, kern.by_symbol = 0, {}
@@ -658,12 +739,14 @@ def main(argv=None) -> int:
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
     sources = [compile_module(g(), device="cpu").cuda_source for g in ALL_GRAPHS.values()]
+    extra = [stitched_compile(name, opts, "cpu").cuda_source for _, name, opts, _ in STITCHED_COMPILES]
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    logs = cuda_build.build_all(sources + [src.path.read_text() for src in HAND_SOURCES])
+    logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
     build_s = time.perf_counter() - t0
-    print(f"build: planned 10 graphs in {plan_s:.2f} s; nvcc built {len(logs)} libraries "
-          f"(the graphs' and {len(HAND_SOURCES)} hand-written) in parallel in {build_s:.2f} s")
+    print(f"build: planned 10 graphs and {len(extra)} more stitched compiles in {plan_s:.2f} s; "
+          f"nvcc built {len(logs)} libraries (the compiles' and {len(HAND_SOURCES)} "
+          f"hand-written) in parallel in {build_s:.2f} s")
     ptxas = [line.split("ptxas info    :")[-1].strip()
              for log in logs.values() for line in log.splitlines()
              if "Compiling entry" in line or "Used" in line or "spill" in line]
@@ -746,6 +829,35 @@ def main(argv=None) -> int:
     print(f"right: 10 graphs vs reference_execute and {len(rows)} kernels vs their plain "
           f"versions on the card, within rtol=atol={TOL} ({DEGENERATE_TOL} on Speech's "
           "degenerate columns)")
+    stitched_rows = []
+    rng = np.random.RandomState(1)
+    for label, name, opts, blocks in STITCHED_COMPILES:
+        compiled = stitched_compile(name, opts, dev)
+        (kernel,) = [k for k in compiled.kernels if k.fn.emitter == "emit_stitched_fusion"]
+        if [p.solution.blocks for p in kernel.stitched.phases] != blocks:
+            raise SystemExit(f"{label}: phases of {[p.solution.blocks for p in kernel.stitched.phases]} "
+                             f"plan blocks, expected {blocks}")
+        a = [torch.as_tensor(rng.uniform(-1, 1, shape).astype(np.float32), device=dev)
+             for shape, _ in kernel.fn.in_specs]
+        kernel.fn.launches = 0
+        got = kernel.fn(*a)
+        torch.cuda.synchronize()
+        if kernel.fn.launches != 1:
+            raise SystemExit(f"{label}: {kernel.fn.launches} launches, expected 1")
+        want = kernel.fn.plain(*a, device=dev)
+        err, ok = 0.0, True
+        for g, w in zip(got, want, strict=True):
+            e, o = max_err(g, w, None)
+            err, ok = max(err, e), ok and o and bool(torch.isfinite(g).all())
+        if not ok:
+            raise SystemExit(f"{label} {kernel.fn.name}: kernel vs plain {err:.3e}")
+        _, by_name = device_profile(lambda p=kernel.fn, a=a: p.launch(*a, device=dev), PROFILED_CALLS)
+        device_us = sum(t for k, t in by_name.items() if kernel.fn.name in k) or None
+        stitched_rows.append({"compile": label, "kernel": kernel.fn.name, "phase_blocks": blocks,
+                              "workspace_bytes": kernel.fn.workspace_bytes, "max_abs_err": err,
+                              "device_us": device_us})
+        print(f"stitched compile {label}: {kernel.fn.name} phases of {blocks} plan blocks, one "
+              f"launch, err={err:.2e} device_us={device_us or 'not measured'}")
 
     # ---- 5. numbers -------------------------------------------------------------
     for row, (prog, a) in zip(rows, timed, strict=True):
@@ -774,13 +886,18 @@ def main(argv=None) -> int:
         seen, by_name = device_profile(lambda c=compiled, f=dfeeds: c(f), PROFILED_CALLS)
         device_us = sum(by_name.values()) or None
         idle = 1.0 - device_us / us if device_us else None
+        # the unfused path's device time: every device kernel its torch ops run
+        ref_seen, ref_by_name = device_profile(
+            lambda m=module, f=dfeeds: reference_execute(m, f, device=dev), PROFILED_CALLS)
+        ref_device_us = sum(ref_by_name.values()) or None
         per_graph.append({
             "graph": name, "us_per_call": us, "reference_us_per_call": ref_us,
             "fused_kernels": st.stitched_kernels, "standalone": st.standalone_kernels,
             "library_dots": st.library_calls, "unique_kernels": st.unique_kernels,
             "xla_baseline_kernels": st.xla_baseline_kernels, "planned_launches": planned,
             "profiler_device_kernels": seen, "device_us_per_call": device_us,
-            "device_idle_share": idle,
+            "device_idle_share": idle, "reference_device_kernels": ref_seen,
+            "reference_device_us_per_call": ref_device_us,
         })
         print(
             f"graph {name}: us_per_call={us:.1f} reference_us_per_call={ref_us:.1f} "
@@ -788,7 +905,9 @@ def main(argv=None) -> int:
             f"library={st.library_calls} planned_launches={planned} "
             f"profiler_device_kernels={seen if seen else 'none seen'} "
             f"device_us_per_call={device_us or 'not measured'} "
-            f"idle_share={idle if idle is not None else 'not measured'}"
+            f"idle_share={idle if idle is not None else 'not measured'} "
+            f"reference_device_kernels={ref_seen if ref_seen else 'none seen'} "
+            f"reference_device_us_per_call={ref_device_us or 'not measured'}"
         )
 
     entries = []
@@ -815,6 +934,11 @@ def main(argv=None) -> int:
             "library_ms": None,
             "unique_kernels": len(mine), "tolerance": TOL,
         })
+        if emitter == "emit_stitched_fusion":
+            # the same graphs unfused (reference_execute), device time per pass
+            ref_us = [g["reference_device_us_per_call"] for g in per_graph
+                      if g["graph"] in {r["graph"] for r in mine}]
+            entries[-1]["unfused_device_ms"] = sum(ref_us) / 1e3 if all(ref_us) else None
 
     # ---- 6. kernels ---------------------------------------------------------------
     hand_entries, hand_calls = kernels_phase(dev)
@@ -824,6 +948,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
                        "graphs": per_graph, "kernels": rows, "emitters": entries,
+                       "stitched_compiles": stitched_rows,
                        "hand_kernel_calls": hand_calls}, f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))

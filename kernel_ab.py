@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Device times of the port's kernels in several checkouts, in turns, on one card.
+
+    python3 kernel_ab.py [--rounds N] [--out PATH] DIR [DIR ...]
+
+Each DIR is the root of a checkout of this repository, for instance a
+``git archive`` of the parent commit and one of the change, unpacked into
+``build/``.  Round r runs every checkout once, in the given order on even
+rounds and reversed on odd ones (A B, B A, ...), each in a process of its
+own that imports that checkout's ``repro_torch`` and builds its kernels
+into that checkout's ``build/``.  A run prints one JSON line: the checkout,
+nvidia-smi's SM clock, power draw and temperature just before, and
+torch.profiler's device microseconds per call (20 calls after 50 warm-up
+calls) of StitchPipe's stitched kernel and of each hand-written kernel of
+``repro_torch.kernels.ops`` at the full-width shapes of ``chip_smoke.py``
+phase 6.  The last line gives each kernel's median over the rounds per
+checkout.  Exits non-zero when no card is present.
+"""
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CALLS, WARMUP = 20, 50
+
+
+def measure(root):
+    """One run in checkout ``root``: a dict of device us per kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import GRANITE   # puts this checkout's src on the path: root's goes first
+
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.core import compile_module
+    from repro_torch.graphs import ALL_GRAPHS
+    from repro_torch.kernels import ops
+
+    if not os.path.abspath(ops.__file__).startswith(os.path.join(root, "src")):
+        raise SystemExit(f"kernel_ab: imported {ops.__file__}, not the checkout {root}")
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+
+    def randn(shape, dtype):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev).to(dtype)
+
+    def device_us(fn, names):
+        for _ in range(WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and any(n in e.name for n in names)) / CALLS
+
+    g, bf16, f32 = GRANITE, torch.bfloat16, torch.float32
+    stitch = compile_module(ALL_GRAPHS["StitchPipe"](), device=dev)
+    (kernel,) = stitch.kernels
+    feeds = [torch.as_tensor(rng.uniform(-1, 1, s).astype(np.float32), device=dev)
+             for s, _ in kernel.fn.in_specs]
+    x, gamma = randn((8, 512, g["d_model"]), bf16), randn((g["d_model"],), bf16)
+    logits = randn((16, g["vocab"]), f32)
+    S, D = 2048, g["head_dim"]
+    q = randn((1, g["heads"], S, D), bf16)
+    k, v = randn((1, g["kv_heads"], S, D), bf16), randn((1, g["kv_heads"], S, D), bf16)
+    qd = randn((16, g["heads"], D), bf16)
+    kc, vc = randn((16, g["kv_heads"], 4096, D), bf16), randn((16, g["kv_heads"], 4096, D), bf16)
+    lengths = torch.as_tensor(rng.randint(1, 4097, size=16), dtype=torch.int32, device=dev)
+    gl = randn((4096, g["experts"]), f32)
+    calls = {
+        "emit_stitched_fusion": (lambda: kernel.fn.launch(*feeds, device=dev), (kernel.fn.name,)),
+        "stitched_rmsnorm": (lambda: ops.rmsnorm(x, gamma, eps=g["norm_eps"]), ("sx_rmsnorm",)),
+        "stitched_softmax": (lambda: ops.softmax(logits), ("sx_softmax",)),
+        "stitched_flash_attention": (lambda: ops.attention(q, k, v, causal=True), ("sx_flash",)),
+        "stitched_decode_attention": (lambda: ops.attention_decode(qd, kc, vc, lengths), ("sx_decode",)),
+        "stitched_moe_gate": (lambda: ops.moe_gate(gl, g["top_k"]), ("sx_moe_gate",)),
+    }
+    return {name: device_us(fn, names) for name, (fn, names) in calls.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--out", help="also write every run as JSON here")
+    ap.add_argument("--measure", help=argparse.SUPPRESS)   # one run, in a process of its own
+    ap.add_argument("dirs", nargs="*")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if args.measure:
+        print(json.dumps(measure(os.path.abspath(args.measure))))
+        return 0
+    if not args.dirs:
+        ap.error("name at least one checkout")
+    smi = ["nvidia-smi", "--format=csv,noheader"]
+    card = subprocess.run(smi + ["--query-gpu=name,power.limit"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+    print(f"card: {card}")
+    runs = []
+    for r in range(args.rounds):
+        for d in (args.dirs if r % 2 == 0 else args.dirs[::-1]):
+            clocks = subprocess.run(smi + ["--query-gpu=clocks.sm,power.draw,temperature.gpu"],
+                                    capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+            proc = subprocess.run([sys.executable, os.path.join(HERE, "kernel_ab.py"), "--measure",
+                                   os.path.abspath(d)],
+                                  capture_output=True, text=True, cwd=HERE, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                raise SystemExit(f"kernel_ab: the run in {d} failed with exit {proc.returncode}")
+            run = {"round": r, "checkout": d, "clocks": clocks,
+                   "device_us": json.loads(proc.stdout.strip().splitlines()[-1])}
+            runs.append(run)
+            print(json.dumps(run))
+    medians = {d: {k: statistics.median(run["device_us"][k] for run in runs if run["checkout"] == d)
+                   for k in runs[0]["device_us"]} for d in args.dirs}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "runs": runs, "medians": medians}, f, indent=1)
+    print(json.dumps({"card": card, "medians": medians}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,11 +6,18 @@
 // without --use_fast_math, rsqrt is 1/sqrt (two correctly rounded steps,
 // not the approximate rsqrtf), gelu is the tanh form jax.nn.gelu uses by
 // default, and max/min propagate NaN like jnp.maximum/jnp.minimum.
+//
+// The stitched kernels (emit_stitched_fusion) also use the warp reduction
+// and the grid barrier below; their launchers cache each device's grid in
+// a std::atomic.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #define SX_D __device__ __forceinline__
 
@@ -84,3 +91,30 @@ template <> SX_D long long sx_fill<long long>() { return -9223372036854775807LL 
 template <> SX_D bool sx_lowest<bool>() { return false; }
 template <> SX_D bool sx_highest<bool>() { return true; }
 template <> SX_D bool sx_fill<bool>() { return true; }
+
+// ---------------------------------------------------------------------------
+// Cooperative reductions of the stitched kernels: the 32 lanes of a warp
+// combine their partial results by butterfly shuffles, so every lane ends
+// with the whole result.  All 32 lanes must take part.  bool travels as int.
+template <typename T> SX_D T sx_shfl_xor(T v, int mask) { return __shfl_xor_sync(0xffffffffu, v, mask); }
+template <> SX_D bool sx_shfl_xor<bool>(bool v, int mask) {
+  return __shfl_xor_sync(0xffffffffu, static_cast<int>(v), mask) != 0;
+}
+
+struct SxRedSum { template <typename T> SX_D T operator()(T a, T b) const { return a + b; } };
+struct SxRedProd { template <typename T> SX_D T operator()(T a, T b) const { return a * b; } };
+struct SxRedMax { template <typename T> SX_D T operator()(T a, T b) const { return sx_max(a, b); } };
+struct SxRedMin { template <typename T> SX_D T operator()(T a, T b) const { return sx_min(a, b); } };
+
+template <typename T, typename Op>
+SX_D T sx_warp_allreduce(T v, Op op) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = op(v, sx_shfl_xor(v, o));
+  return v;
+}
+
+// Every thread of the grid waits until all have arrived, and what any of
+// them wrote before is then visible to all.  The kernel must be launched by
+// cudaLaunchCooperativeKernel, which refuses a grid that cannot be resident
+// at once.
+SX_D void sx_grid_sync() { cooperative_groups::this_grid().sync(); }

@@ -4,14 +4,26 @@
 //
 // stitched_softmax replaces repro/kernels/stitched_softmax.py
 //   stitched_softmax (_softmax_kernel).
-//   Bound by bytes: a handful of f32 operations per element.  A group of
-//   32..1024 threads owns a row and walks it with a block stride, so a
-//   warp's loads are neighbouring addresses; the row's max and sum are f32
-//   warp-shuffle reductions, merged across the group's warps in shared
-//   memory.  The row is not staged: softmax reads x again in its sum and
-//   write passes (a 49,155-wide f32 vocab row is 196 KB, most of a block's
-//   shared memory, while the re-reads hit L2).  A block holds
-//   `rows_per_block` rows, so narrow rows still fill whole warps.
+//   Bound by bytes: a handful of f32 operations per element.  Wide rows
+//   (4,096 to 131,072 columns, the sampler's vocab rows) take
+//   sx_softmax_cluster_kernel: a thread-block cluster of 8 blocks owns a
+//   row, so 16 rows fill 128 of the 132 SMs.  Each block reads its slice
+//   of the row once, into registers (EPT values a thread, coalesced 4- or
+//   2-byte loads, so a row may start at any element), and forms the
+//   slice's max m_b and e = exp(x - m_b), kept in the registers, and sum s_b
+//   of e.  The 8 pairs go through distributed shared memory
+//   (cluster.map_shared_rank, one 8-byte read a peer); every block merges
+//   them into m = max m_b and s = sum s_b exp(m_b - m), where a slice that
+//   is wholly -inf (m_b = -inf, s_b = NaN) adds 0, and writes
+//   exp(x - m) / s as e * (exp(m_b - m) / s): one exp and one multiply an
+//   element in all.  A row that holds a NaN or +inf, or only -inf,
+//   stays NaN across, as in the reference.  Narrower rows, rows past what
+//   the cluster holds and an explicit block_rows take sx_softmax_kernel: a
+//   group of 32..1024 threads owns a row and walks it with a block stride,
+//   the row's max and sum are f32 warp-shuffle reductions merged across
+//   the group's warps in shared memory, x is read in the max, sum and
+//   write passes, and a block holds `rows_per_block` rows so narrow rows
+//   still fill whole warps.  The wrapper chooses before the launch.
 //
 // stitched_rmsnorm replaces repro/kernels/stitched_rmsnorm.py
 //   stitched_rmsnorm (_rmsnorm_kernel).
@@ -49,6 +61,8 @@
 //
 // Each launcher is extern "C", one per element type, and returns
 // cudaGetLastError() so a refused launch reaches the Python wrapper.
+
+#include <cooperative_groups.h>
 
 #include <atomic>
 
@@ -89,6 +103,137 @@ extern "C" int sx_softmax_f32(const float* x, float* y, int rows, int cols,
 extern "C" int sx_softmax_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int rows, int cols,
                                int rows_per_block, int threads, void* stream) {
   return sx_softmax_launch(x, y, rows, cols, rows_per_block, threads, stream);
+}
+
+// The cluster kernel: SX_SOFTMAX_CLUSTER_THREADS threads a block, a
+// cluster of gridDim.x / rows blocks a row (the launch's cluster
+// dimension), block `rank` of the cluster owning columns [rank * slice,
+// rank * slice + slice).  EPT >= slice / threads values a thread.
+constexpr int SX_SOFTMAX_CLUSTER_THREADS = 512;
+constexpr int SX_SOFTMAX_MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int kSxDevices = 16;  // devices whose launch checks are cached
+
+template <typename T, int EPT>
+__global__ void __launch_bounds__(SX_SOFTMAX_CLUSTER_THREADS) sx_softmax_cluster_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int cols, int slice) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float red[SX_SOFTMAX_CLUSTER_THREADS / 32];
+  __shared__ float2 part;  // this block's (m_b, s_b), read by the whole cluster
+  const int nblk = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long row = blockIdx.x / nblk;
+  const int lo = rank * slice;
+  const int hi = min(cols, lo + slice);
+  const T* xr = x + row * cols;
+  T* yr = y + row * cols;
+  float v[EPT];
+  float m = sx_lowest<float>();
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int c = lo + threadIdx.x + j * SX_SOFTMAX_CLUSTER_THREADS;
+    v[j] = c < hi ? sx_load(xr + c) : sx_lowest<float>();
+    m = sx_max(m, v[j]);
+  }
+  m = sx_group_reduce(m, SX_SOFTMAX_CLUSTER_THREADS, red, SxMax());
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    v[j] = expf(v[j] - m);  // kept for the write: e = exp(x - m_b)
+    if (lo + threadIdx.x + j * SX_SOFTMAX_CLUSTER_THREADS < hi) s += v[j];
+  }
+  s = sx_group_reduce(s, SX_SOFTMAX_CLUSTER_THREADS, red, SxSum());
+  if (threadIdx.x == 0) part = make_float2(m, s);
+  cluster.sync();  // every block's pair is written
+  float2 pairs[SX_SOFTMAX_MAX_CLUSTER];  // one distributed-shared read a peer
+  float mr = sx_lowest<float>();
+#pragma unroll
+  for (int r = 0; r < SX_SOFTMAX_MAX_CLUSTER; ++r) {
+    if (r < nblk) {
+      pairs[r] = *cluster.map_shared_rank(&part, r);
+      mr = sx_max(mr, pairs[r].x);
+    }
+  }
+  float sr = 0.0f;
+#pragma unroll
+  for (int r = 0; r < SX_SOFTMAX_MAX_CLUSTER; ++r) {
+    // a wholly -inf slice has s_b = NaN and weighs exp(-inf) = 0: it adds 0
+    if (r < nblk && pairs[r].x != sx_lowest<float>()) sr += pairs[r].y * expf(pairs[r].x - mr);
+  }
+  // exp(x - m) / s = e * scale.  A wholly -inf slice has e = NaN, and its
+  // outputs are exp(-inf - m) / s = scale itself (0, or NaN in a row that
+  // is -inf, NaN or +inf somewhere, as in the reference).
+  const float scale = expf(m - mr) / sr;
+  const bool empty = m == sx_lowest<float>();
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int c = lo + threadIdx.x + j * SX_SOFTMAX_CLUSTER_THREADS;
+    if (c < hi) sx_store(yr + c, empty ? scale : v[j] * scale);
+  }
+  cluster.sync();  // no block leaves while a peer may still read its pair
+}
+
+// One launch of `blocks_per_row` blocks a row as one cluster.  Whether such
+// a cluster fits on the card is asked once per device and instantiation
+// (cudaOccupancyMaxActiveClusters); where none fits the launch is refused
+// with cudaErrorInvalidClusterSize, never made another way.
+template <typename T, int EPT>
+static int sx_softmax_cluster_launch_ept(const T* x, T* y, int rows, int cols,
+                                         int blocks_per_row, int slice, cudaStream_t stream) {
+  static std::atomic<int> fits[kSxDevices];  // 0: not asked yet, 1: fits, -1: does not
+  void (*kernel)(const T*, T*, int, int) = sx_softmax_cluster_kernel<T, EPT>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows * blocks_per_row, 1, 1);
+  cfg.blockDim = dim3(SX_SOFTMAX_CLUSTER_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks_per_row;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int fit = dev < kSxDevices ? fits[dev].load(std::memory_order_relaxed) : 0;
+  if (fit == 0) {
+    int clusters = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fit = clusters > 0 ? 1 : -1;
+    if (dev < kSxDevices) fits[dev].store(fit, std::memory_order_relaxed);
+  }
+  if (fit < 0) return static_cast<int>(cudaErrorInvalidClusterSize);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, y, cols, slice);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int sx_softmax_cluster_launch(const T* x, T* y, int rows, int cols, int blocks_per_row,
+                                     int slice, void* stream) {
+  if (blocks_per_row < 1 || blocks_per_row > SX_SOFTMAX_MAX_CLUSTER)
+    return static_cast<int>(cudaErrorInvalidClusterSize);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ept = (slice + SX_SOFTMAX_CLUSTER_THREADS - 1) / SX_SOFTMAX_CLUSTER_THREADS;
+  if (ept <= 1) return sx_softmax_cluster_launch_ept<T, 1>(x, y, rows, cols, blocks_per_row, slice, s);
+  if (ept <= 2) return sx_softmax_cluster_launch_ept<T, 2>(x, y, rows, cols, blocks_per_row, slice, s);
+  if (ept <= 4) return sx_softmax_cluster_launch_ept<T, 4>(x, y, rows, cols, blocks_per_row, slice, s);
+  if (ept <= 8) return sx_softmax_cluster_launch_ept<T, 8>(x, y, rows, cols, blocks_per_row, slice, s);
+  if (ept <= 16) return sx_softmax_cluster_launch_ept<T, 16>(x, y, rows, cols, blocks_per_row, slice, s);
+  if (ept <= 32) return sx_softmax_cluster_launch_ept<T, 32>(x, y, rows, cols, blocks_per_row, slice, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int sx_softmax_cluster_f32(const float* x, float* y, int rows, int cols,
+                                      int blocks_per_row, int slice, void* stream) {
+  return sx_softmax_cluster_launch(x, y, rows, cols, blocks_per_row, slice, stream);
+}
+
+extern "C" int sx_softmax_cluster_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int rows,
+                                       int cols, int blocks_per_row, int slice, void* stream) {
+  return sx_softmax_cluster_launch(x, y, rows, cols, blocks_per_row, slice, stream);
 }
 
 // ---------------------------------------------------------------- rmsnorm
@@ -240,18 +385,17 @@ template <typename T, int VPL>
 static int sx_rmsnorm_vec_launch_vpl(const T* x, const T* gamma, T* y, int rows, int cols,
                                      int warps_per_row, int rows_per_block, float eps,
                                      cudaStream_t stream) {
-  constexpr int kDevices = 16;
-  static std::atomic<int> resident[kDevices][SX_RMS_THREADS / 32];  // 0: not asked yet
+  static std::atomic<int> resident[kSxDevices][SX_RMS_THREADS / 32];  // 0: not asked yet
   const int threads = 32 * warps_per_row * rows_per_block;
   int dev = 0;
   cudaGetDevice(&dev);
-  int held = dev < kDevices ? resident[dev][threads / 32 - 1].load(std::memory_order_relaxed) : 0;
+  int held = dev < kSxDevices ? resident[dev][threads / 32 - 1].load(std::memory_order_relaxed) : 0;
   if (held == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sx_rmsnorm_vec_kernel<T, VPL>, threads, 0);
     held = sms * per_sm > 0 ? sms * per_sm : 1;
-    if (dev < kDevices) resident[dev][threads / 32 - 1].store(held, std::memory_order_relaxed);
+    if (dev < kSxDevices) resident[dev][threads / 32 - 1].store(held, std::memory_order_relaxed);
   }
   const int want = (rows + rows_per_block - 1) / rows_per_block;
   const int blocks = want < held ? want : held;

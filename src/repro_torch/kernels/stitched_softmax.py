@@ -1,9 +1,19 @@
 """Stitched softmax — the port of ``repro/kernels/stitched_softmax.py``.
 
 The max-reduce / exp / sum-reduce / divide chain over the last dim as ONE
-hand-written CUDA kernel (``csrc/stitched_rowwise.cu``,
-``sx_softmax_kernel``): a group of threads owns each row, and a block
-holds ``rows_per_block`` rows.  Leading dims are flattened into rows.
+hand-written CUDA kernel launch (``csrc/stitched_rowwise.cu``).  Leading
+dims are flattened into rows, and the wrapper picks the kernel before the
+launch (``cluster_slice``):
+
+* rows of ``CLUSTER_MIN_COLS`` to ``CLUSTER_MAX_COLS`` columns, with
+  ``block_rows`` left to the wrapper, take ``sx_softmax_cluster_kernel``
+  (launchers ``sx_softmax_cluster_{f32,bf16}``): a cluster of
+  ``CLUSTER_BLOCKS`` blocks owns a row, each block reads its slice once
+  and the blocks merge their (max, sum) pairs through distributed shared
+  memory;
+* every other row takes ``sx_softmax_kernel`` (launchers
+  ``sx_softmax_{f32,bf16}``): a group of threads owns each row, and a block
+  holds ``rows_per_block`` rows.
 """
 from __future__ import annotations
 
@@ -23,6 +33,26 @@ KERNEL = HandKernel(
 ROWS_PER_BLOCK = (1, 2, 4, 8, 16, 32)
 #: columns per warp a row group aims at, up to 1024 threads in the block
 COLS_PER_WARP = 256
+
+#: blocks of one row's cluster (8, the portable maximum: 16 rows fill 128
+#: of the 132 SMs), threads of each (SX_SOFTMAX_CLUSTER_THREADS) and values
+#: a thread holds at most (the launcher's largest EPT)
+CLUSTER_BLOCKS = 8
+CLUSTER_THREADS = 512
+CLUSTER_MAX_PER_THREAD = 32
+#: narrower rows pack several to a block instead (under a value a thread)
+CLUSTER_MIN_COLS = CLUSTER_BLOCKS * CLUSTER_THREADS
+#: the widest row one cluster holds in registers
+CLUSTER_MAX_COLS = CLUSTER_BLOCKS * CLUSTER_THREADS * CLUSTER_MAX_PER_THREAD
+
+
+def cluster_slice(cols: int, block_rows: Optional[int]) -> Optional[int]:
+    """The columns each block of the cluster kernel owns, or None where the
+    row kernel serves these rows: an explicit ``block_rows``, or rows
+    outside ``CLUSTER_MIN_COLS``..``CLUSTER_MAX_COLS``."""
+    if block_rows is not None or not CLUSTER_MIN_COLS <= cols <= CLUSTER_MAX_COLS:
+        return None
+    return -(-cols // CLUSTER_BLOCKS)
 
 
 def row_threads(cols: int, rows_per_block: int) -> int:
@@ -68,8 +98,11 @@ def stitched_softmax(x: torch.Tensor, block_rows: Optional[int] = None) -> torch
         return softmax_ref(x)
     ROWWISE.load()
     y = torch.empty_like(x)
-    KERNEL.launch(
-        f"sx_softmax_{DTYPE_SUFFIX[x.dtype]}", x, y, rows, cols, br, row_threads(cols, br),
-        device=dev,
-    )
+    sfx = DTYPE_SUFFIX[x.dtype]
+    slice_cols = cluster_slice(cols, block_rows)
+    if slice_cols is not None:
+        KERNEL.launch(f"sx_softmax_cluster_{sfx}", x, y, rows, cols, CLUSTER_BLOCKS, slice_cols,
+                      device=dev)
+    else:
+        KERNEL.launch(f"sx_softmax_{sfx}", x, y, rows, cols, br, row_threads(cols, br), device=dev)
     return y

@@ -17,7 +17,8 @@ from graphs import ALL_GRAPHS, random_feeds
 from repro.core import StitchOptions as RefOptions
 from repro.core import compile_module as ref_compile
 from repro.core import reference_execute as ref_execute
-from repro_torch.core import compile_module, cuda_build
+from repro.core import trace as ref_trace
+from repro_torch.core import StitchOptions, codegen, compile_module, cuda_build
 from repro_torch.core.interop import module_from_reference
 
 TOL = 2e-5
@@ -102,11 +103,81 @@ def test_generated_source_has_one_kernel_per_unique_signature():
     assert "-shared" in cmd and "-fPIC" in cmd
 
 
-def test_stitched_source_loops_over_its_phases():
-    port = compile_module(module_from_reference(ALL_GRAPHS["StitchPipe"]()), device="cpu")
-    (kernel,) = port.kernels
-    assert kernel.num_phases == 2 and kernel.blocks == 17
-    src = port.cuda_source
-    assert "<<<1, 1024, 0," in src                    # one block, as grid=(1,)
-    assert "for (int b = 0; b < 16; ++b)" in src      # phase 0 loops its blocks
-    assert src.count("// phase ") == 2
+def _softmax_transpose(b, x, g):
+    """tests/test_stitching.py's break module: a row softmax feeding a 2-D
+    transpose, a schedule break once (32, 48) passes the replicate limit."""
+    scaled = x * b.broadcast(g, x.shape, (1,))
+    mx = b.reduce(scaled, (1,), "max")
+    e = b.exp(scaled - b.broadcast(mx, x.shape, (0,)))
+    s = b.reduce(e, (1,), "sum")
+    p = e / b.broadcast(s, x.shape, (0,))
+    t = b.transpose(p, (1, 0))
+    return b.tanh(t) * 0.5
+
+
+# stitched compiles: (module, options, plan blocks of each phase)
+STITCHED_CASES = {
+    "StitchPipe": (lambda: ALL_GRAPHS["StitchPipe"](), {}, [16, 1]),
+    "StitchPipe-stitch_max_blocks=1": (lambda: ALL_GRAPHS["StitchPipe"](), {"stitch_max_blocks": 1}, [1, 1]),
+    "StitchPipe-stitch_max_blocks=4": (lambda: ALL_GRAPHS["StitchPipe"](), {"stitch_max_blocks": 4}, [4, 1]),
+    "StitchPipe-max_blocks=8": (lambda: ALL_GRAPHS["StitchPipe"](), {"max_blocks": 8}, [8, 1]),
+    "StitchPipe-max_blocks=64": (lambda: ALL_GRAPHS["StitchPipe"](), {"max_blocks": 64}, [16, 1]),
+    "break-32x48": (
+        lambda: ref_trace(_softmax_transpose, ("x", (32, 48), jnp.float32), ("g", (48,), jnp.float32)),
+        {"max_blocks": 32, "replicate_limit": 1024}, [2, 1]),
+}
+
+
+@pytest.mark.parametrize("case", list(STITCHED_CASES))
+def test_stitched_source_loops_over_its_phases(case, rng):
+    """The stitched kernel is ONE cooperative launch over the grid: a grid
+    barrier between phases, each phase's ALLOC/SHARE slots in shared memory
+    (or, past what a block holds, a per-block workspace region) at the
+    bytes of the phase's memory plan, INLINE members composed into their
+    consumers with no tile written, and the plain version equal to the
+    JAX package's stitched Pallas kernel (interpret mode)."""
+    build, opts, phase_blocks = STITCHED_CASES[case]
+    ref_module = build()
+    ref = ref_compile(ref_module, RefOptions(**opts))
+    port = compile_module(module_from_reference(ref_module), StitchOptions(**opts), device="cpu")
+    (kernel,) = [k for k in port.kernels if k.fn.emitter == "emit_stitched_fusion"]
+    assert [p.solution.blocks for p in kernel.stitched.phases] == phase_blocks
+    assert kernel.blocks == sum(phase_blocks)
+    src = kernel.fn.source
+    assert src.count("__global__") == 1
+    assert src.count("cudaLaunchCooperativeKernel(") == 1 and "<<<" not in src
+    assert src.count("sx_grid_sync();") == kernel.num_phases - 1
+    threads = codegen.stitched_threads(kernel.plan)
+    assert f"__launch_bounds__({threads}) {kernel.fn.name}(" in src
+    smem = 0
+    for pk, pplan in enumerate(kernel.plan.phase_plans):
+        head = next(line for line in src.splitlines() if line.startswith(f"  // phase {pk}:"))
+        if not pplan.slots:
+            assert head.endswith("no slot: a pure map over the grid")
+        elif pplan.total_bytes <= codegen.SMEM_LIMIT:
+            assert head.endswith(f"slots {pplan.total_bytes} bytes in shared memory")
+            smem = max(smem, pplan.total_bytes)
+        else:
+            assert head.endswith(f"slots {pplan.total_bytes} bytes in a per-block workspace region")
+            blocks = kernel.stitched.phases[pk].solution.blocks
+            assert kernel.fn.workspace_bytes >= kernel.plan.interface_bytes + blocks * pplan.total_bytes
+    assert f"dim3({threads}), args, {smem}, " in src
+    # a tile is written for the ALLOC/SHARE members only, one loop each
+    label = {m.id: f"m{k}" for k, m in enumerate(kernel.fusion.members)}
+    for phase, pplan in zip(kernel.stitched.phases, kernel.plan.phase_plans, strict=True):
+        for m in phase.members:
+            kept = pplan.entries[m.id].action in ("ALLOC", "SHARE")
+            assert (f"// {label[m.id]} = " in src and "-> slot" in src.split(f"// {label[m.id]} = ")[1]
+                    .splitlines()[0]) == kept
+    writes = re.findall(r"\bp\d+s\d+\[[^\]]*\] = v;", src)
+    assert len(writes) == sum(pp.entries[m.id].action in ("ALLOC", "SHARE")
+                              for ph, pp in zip(kernel.stitched.phases, kernel.plan.phase_plans,
+                                                strict=True) for m in ph.members)
+    # the plain version against the JAX package's stitched kernel
+    (fname, ref_kernel), = ref.executable.kernels.items()
+    assert port.executable.kernels[fname].fn is kernel.fn
+    args = [rng.uniform(-1, 1, i.shape).astype(np.float32) for i in ref_kernel.inputs]
+    want = ref_kernel(*[jnp.asarray(a) for a in args])
+    got = kernel.fn.plain(*[torch.as_tensor(a) for a in args], device=torch.device("cpu"))
+    for g, w in zip(got, want, strict=True):
+        _close(g.numpy(), w, f"{case}:{fname}")

@@ -17,7 +17,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.core import cuda_build
-from repro_torch.kernels import cuda, ops, stitched_attention, stitched_moe_gate, stitched_rmsnorm
+from repro_torch.kernels import (
+    cuda, ops, stitched_attention, stitched_moe_gate, stitched_rmsnorm, stitched_softmax,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 F32, BF16 = ("float32", jnp.float32, torch.float32), ("bfloat16", jnp.bfloat16, torch.bfloat16)
@@ -45,6 +47,24 @@ def test_softmax_matches_reference(rng, shape, dtype):
     got = ops.softmax(tx)
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _close(got, jops.softmax(jx), TOL[dtype[0]])
+
+
+def test_softmax_full_width_with_masked_slices_matches_reference(rng):
+    """The sampler's rows at full width (16, 49155), where the card runs
+    the cluster kernel: the first eighth of row 0 (one block's slice) at
+    -inf, the second eighth of row 1, and rows that are NaN across (a NaN,
+    a +inf, only -inf), against the Pallas kernel in interpret mode."""
+    x = rng.randn(16, 49155).astype(np.float32)
+    eighth = -(-49155 // stitched_softmax.CLUSTER_BLOCKS)
+    x[0, :eighth] = -np.inf
+    x[1, eighth:2 * eighth] = -np.inf
+    x[3, 5], x[4, 7], x[5] = np.nan, np.inf, -np.inf
+    got = ops.softmax(torch.tensor(x))
+    want = np.asarray(jops.softmax(jnp.asarray(x)))
+    assert np.isnan(want[3:6]).all() and not np.isnan(np.delete(want, [3, 4, 5], axis=0)).any()
+    assert (want[0, :eighth] == 0).all() and (want[1, eighth:2 * eighth] == 0).all()
+    np.testing.assert_array_equal(got.isnan().numpy(), np.isnan(want))
+    _close(got, want, TOL["float32"])
 
 
 @pytest.mark.parametrize("block_rows", [1, 2, 4, 8])
@@ -339,13 +359,13 @@ class _RecordingLibrary:
 
 @pytest.fixture
 def recorded(monkeypatch):
-    """The attention, gate and RMSNorm wrappers as they run on the card,
+    """The attention, gate, RMSNorm and softmax wrappers as they run on the card,
     with their launches recorded instead of made: the library is a ``_RecordingLibrary`` and
     the inputs count as CUDA tensors."""
     lib = _RecordingLibrary()
     for source in (cuda.ATTENTION, cuda.ROWWISE):
         monkeypatch.setattr(source, "lib", lib)
-    for module in (stitched_attention, stitched_moe_gate, stitched_rmsnorm):
+    for module in (stitched_attention, stitched_moe_gate, stitched_rmsnorm, stitched_softmax):
         monkeypatch.setattr(module, "input_device", lambda name, ts: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -519,3 +539,44 @@ def test_rmsnorm_block_rows_caps_the_16_byte_kernels_rows(recorded):
     ops.rmsnorm(x, gamma, block_rows=2)
     ops.rmsnorm(x, gamma, block_rows=32)
     assert [c[1][5:7] for c in recorded.calls] == [(1, 2), (1, 8)]
+
+
+@pytest.mark.parametrize("shape, dtype, blocks_per_row, slice_cols", [
+    ((16, 49155), torch.float32, 8, 6145),     # full width: 16 clusters of 8, grid 128
+    ((16, 49155), torch.bfloat16, 8, 6145),
+    ((3, 4096), torch.float32, 8, 512),        # the narrowest cluster row: a value a thread
+    ((2, 131072), torch.float32, 8, 16384),    # the widest: 32 values a thread
+], ids=["16x49155-f32", "16x49155-bf16", "3x4096", "2x131072"])
+def test_wide_softmax_rows_take_the_cluster_kernel(recorded, shape, dtype, blocks_per_row, slice_cols):
+    x = _t(*shape, dtype=dtype)
+    kernel = ops.KERNELS["stitched_softmax"]
+    symbol = f"sx_softmax_cluster_{cuda.DTYPE_SUFFIX[dtype]}"
+    before, by = kernel.launches, dict(kernel.by_symbol)
+    y = ops.softmax(x)
+    assert [c[0] for c in recorded.calls] == [symbol]
+    assert kernel.launches == before + 1 and kernel.by_symbol[symbol] == by.get(symbol, 0) + 1
+    # x, y, rows, cols, blocks a row (the cluster), columns a block; the stream last
+    values = recorded.calls[0][1]
+    assert values == (x.data_ptr(), y.data_ptr(), *shape, blocks_per_row, slice_cols, 0)
+    assert blocks_per_row * slice_cols >= shape[1] > blocks_per_row * (slice_cols - 1)
+    assert -(-slice_cols // stitched_softmax.CLUSTER_THREADS) <= stitched_softmax.CLUSTER_MAX_PER_THREAD
+    if shape == (16, 49155):
+        assert shape[0] * blocks_per_row == 128   # the grid: 128 of the 132 SMs
+
+
+@pytest.mark.parametrize("shape, block_rows, plan", [
+    ((16, 4095), None, (1, 512)),       # narrower than the cluster's threads
+    ((8, 24), None, (8, 256)),          # narrow rows pack 8 to a block
+    ((2, 131073), None, (1, 1024)),     # wider than the cluster holds
+    ((16, 49155), 1, (1, 1024)),        # block_rows asks for the row kernel
+    ((16, 49155), 4, (4, 1024)),
+], ids=["16x4095", "8x24", "2x131073", "16x49155-block_rows=1", "16x49155-block_rows=4"])
+def test_other_softmax_rows_take_the_row_kernel(recorded, shape, block_rows, plan):
+    x = _t(*shape)
+    kernel = ops.KERNELS["stitched_softmax"]
+    before = kernel.by_symbol.get("sx_softmax_f32", 0)
+    y = ops.softmax(x, block_rows=block_rows)
+    assert [c[0] for c in recorded.calls] == ["sx_softmax_f32"]
+    assert kernel.by_symbol["sx_softmax_f32"] == before + 1
+    # x, y, rows, cols, rows a block, threads a block; the stream last
+    assert recorded.calls[0][1] == (x.data_ptr(), y.data_ptr(), *shape, *plan, 0)
