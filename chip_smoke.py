@@ -24,7 +24,14 @@ Phases, each fatal on failure:
    memory and live in the workspace) and the (32, 48) break module of
    ``tests/test_stitching.py``, built with the port's own ``trace``, phases
    of 2 and 1 plan blocks.  Each takes one launch and is held against its
-   plain version at ``TOL``;
+   plain version at ``TOL``.  Then the compiles in the dtypes the graphs do
+   not use (``DTYPE_COMPILES``): an add, a mul, two row reduces and a
+   convert in bf16 and in int8 through ``emit_fusion``, and the break
+   module in bf16 and an integer kin of it in int8 through
+   ``emit_stitched_fusion``, and a (128, 512) softmax in one plan block
+   whose slots pass a block's shared memory (``FUSION_COMPILES``): each
+   launch counted, every kernel held against its plain version and the
+   outputs against ``reference_execute``, bf16 at one ulp, int8 exactly;
 5. numbers — CUDA-event times: microseconds per call of each compiled graph
    and of ``reference_execute``, and per launch of each kernel and of its
    plain version, beside the kernel's bound (bytes in and out over 3.35
@@ -33,7 +40,9 @@ Phases, each fatal on failure:
    gives each kernel's device time, and each graph's device kernels and
    device time per call, from which its device idle share follows, and the
    device time of each graph's unfused ``reference_execute`` (the yardstick
-   of StitchPipe's stitched kernel).
+   of StitchPipe's stitched kernel).  Each ``emit_fusion`` kernel's line
+   also gives its members, plan blocks, grid, threads, bytes of shared
+   memory, and ``ptxas``'s registers and spill bytes.
 
 6. kernels — the hand-written kernels of ``repro_torch.kernels`` through
    their public entry point ``repro_torch.kernels.ops``, at the full width
@@ -159,6 +168,91 @@ STITCHED_COMPILES = [
     ("break (32, 48) max_blocks=32 replicate_limit=1024", "break",
      {"max_blocks": 32, "replicate_limit": 1024}, [2, 1]),
 ]
+
+
+def arith(b, x, y):
+    """An add, a mul, two row reduces and a convert to f32."""
+    s = (x + y) * y
+    return b.reduce(s, (1,), "sum"), b.reduce(s, (1,), "max"), b.convert(s, "float32")
+
+
+def int_break(b, x, g):
+    """The break module's integer kin: a row max feeding a transpose."""
+    s = x * b.broadcast(g, x.shape, (1,))
+    d = s - b.broadcast(b.reduce(s, (1,), "max"), x.shape, (0,))
+    t = b.transpose(d, (1, 0))
+    return t + t
+
+
+# compiles beside the main path in the dtypes the graphs do not use, each
+# through the emitter named: (label, module, dtype, StitchOptions fields,
+# emitter, (rtol, atol)).  bf16 values round where each member ends; a sum
+# accumulates in f32 in another order than torch's, and exp and tanh of the
+# card and of torch may differ by an f32 ulp, so either may tip a bf16
+# rounding: held at one bf16 ulp (2**-7), plus 2**-12 near 0.  int8 wraps
+# exactly.
+DTYPE_COMPILES = [
+    ("arith bf16 (64, 128)", "arith", "bfloat16", {}, "emit_fusion", (2.0 ** -7, 2.0 ** -12)),
+    ("arith int8 (64, 128)", "arith", "int8", {}, "emit_fusion", (0.0, 0.0)),
+    ("break bf16 (32, 48)", "break", "bfloat16", {"max_blocks": 32, "replicate_limit": 1024},
+     "emit_stitched_fusion", (2.0 ** -7, 2.0 ** -12)),
+    ("int break int8 (32, 48)", "int_break", "int8", {"max_blocks": 32, "replicate_limit": 1024},
+     "emit_stitched_fusion", (0.0, 0.0)),
+]
+# single-phase compiles beside the main path: a softmax whose one plan
+# block's slots (263,168 bytes) pass a block's shared memory, so they live
+# in a per-block workspace region
+FUSION_COMPILES = [("softmax (128, 512) max_blocks=1", "softmax", {"max_blocks": 1})]
+
+
+def dtype_compile(module_name, dtype, opts, device):
+    """One of DTYPE_COMPILES (or FUSION_COMPILES, in f32), compiled for ``device``."""
+    import numpy as np
+
+    from repro_torch.core import StitchOptions, compile_module, trace
+    from repro_torch.core.ir import BFLOAT16
+
+    dt = BFLOAT16 if dtype == "bfloat16" else np.dtype(dtype)
+    if module_name == "softmax":
+        module = trace(lambda b, x: b.softmax(x), ("x", (128, 512), dt))
+    elif module_name == "arith":
+        module = trace(arith, ("x", (64, 128), dt), ("y", (64, 128), dt))
+    else:
+        fn = softmax_transpose if module_name == "break" else int_break
+        module = trace(fn, ("x", (32, 48), dt), ("g", (48,), dt))
+    return module, compile_module(module, StitchOptions(**opts), device=device)
+
+
+def ptxas_by_kernel(logs):
+    """Registers and spill bytes of each kernel nvcc built, from its
+    ``-Xptxas -v`` lines: {name: {"registers": n, "spill_stores": n, ...}}."""
+    import re
+
+    out, name = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+            if m:
+                # a generated kernel by its own name, not the C++ mangled one
+                gen = re.search(r"stitch_[0-9a-f]{16}", m.group(1))
+                name = gen.group(0) if gen else m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def geometry(source):
+    """The launch a single-phase kernel's header states: grid, threads and
+    bytes of dynamic shared memory a block."""
+    import re
+
+    m = re.search(r"one launch of (\d+) blocks of (\d+) threads, (\d+) bytes of shared memory", source)
+    return {"grid": int(m.group(1)), "threads": int(m.group(2)), "smem_bytes": int(m.group(3))}
 
 
 def stitched_compile(module_name, opts, device):
@@ -740,11 +834,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sources = [compile_module(g(), device="cpu").cuda_source for g in ALL_GRAPHS.values()]
     extra = [stitched_compile(name, opts, "cpu").cuda_source for _, name, opts, _ in STITCHED_COMPILES]
+    extra += [dtype_compile(name, dt, opts, "cpu")[1].cuda_source
+              for _, name, dt, opts, _, _ in DTYPE_COMPILES]
+    extra += [dtype_compile(name, "float32", opts, "cpu")[1].cuda_source for _, name, opts in FUSION_COMPILES]
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
     build_s = time.perf_counter() - t0
-    print(f"build: planned 10 graphs and {len(extra)} more stitched compiles in {plan_s:.2f} s; "
+    print(f"build: planned 10 graphs and {len(extra)} more compiles in {plan_s:.2f} s; "
           f"nvcc built {len(logs)} libraries (the compiles' and {len(HAND_SOURCES)} "
           f"hand-written) in parallel in {build_s:.2f} s")
     ptxas = [line.split("ptxas info    :")[-1].strip()
@@ -752,6 +849,7 @@ def main(argv=None) -> int:
              if "Compiling entry" in line or "Used" in line or "spill" in line]
     for line in ptxas:
         print("  ptxas:", line)
+    regs = ptxas_by_kernel(logs)
     graphs = {}
     for name, build in ALL_GRAPHS.items():
         module = build()
@@ -823,7 +921,7 @@ def main(argv=None) -> int:
         rows.append({
             "graph": gname, "fusion": kernel.fusion.name, "kernel": prog.name,
             "emitter": prog.emitter, "blocks": kernel.blocks, "phases": kernel.num_phases,
-            "launches": launches[pid], "max_abs_err": err, "bytes": nbytes, "ops": ops,
+            "members": len(kernel.fusion.members), "launches": launches[pid], "max_abs_err": err, "bytes": nbytes, "ops": ops,
         })
         timed.append((prog, a))
     print(f"right: 10 graphs vs reference_execute and {len(rows)} kernels vs their plain "
@@ -859,6 +957,58 @@ def main(argv=None) -> int:
         print(f"stitched compile {label}: {kernel.fn.name} phases of {blocks} plan blocks, one "
               f"launch, err={err:.2e} device_us={device_us or 'not measured'}")
 
+    extra_rows = []
+    for label, name, dt, opts, emitter, tol in (
+            DTYPE_COMPILES + [(lb, nm, "float32", op, "emit_fusion", (TOL, TOL)) for lb, nm, op in FUSION_COMPILES]):
+        module, compiled = dtype_compile(name, dt, opts, dev)
+        if {k.fn.emitter for k in compiled.kernels} != {emitter}:
+            raise SystemExit(f"{label}: emitters {sorted({k.fn.emitter for k in compiled.kernels})}, "
+                             f"expected {emitter}")
+        feeds = {}
+        for p in module.parameters:
+            if dt == "int8":
+                feeds[p.name] = torch.as_tensor(rng.randint(-60, 120, p.shape).astype(np.int8), device=dev)
+            else:
+                f = torch.as_tensor(rng.uniform(-2, 2, p.shape).astype(np.float32), device=dev)
+                feeds[p.name] = f.to(torch.bfloat16) if dt == "bfloat16" else f
+        inputs = {}
+        for k in compiled.kernels:
+            k.fn.launches = 0
+
+            def record(*a, device, _fn=k.fn, _launch=k.fn.launch):
+                inputs.setdefault(id(_fn), [t.clone() for t in a])
+                return _launch(*a, device=device)
+            k.fn.launch = record
+        got = compiled(feeds)
+        torch.cuda.synchronize()
+        for k in compiled.kernels:
+            del k.fn.launch
+        n = sum(k.fn.launches for k in compiled.kernels)
+        if n != compiled.stats.stitched_kernels:
+            raise SystemExit(f"{label}: {n} launches, planned {compiled.stats.stitched_kernels}")
+        want = reference_execute(module, feeds, device=dev)
+        err, ok = 0.0, True
+        for root, w in want.items():
+            e, o = compare(got[root], w, tol)
+            err, ok = max(err, e), ok and o
+        # and each kernel against its plain version, on the inputs the run gave it
+        for k in compiled.kernels:
+            a = inputs[id(k.fn)]
+            for g, w in zip(k.fn.launch(*a, device=dev), k.fn.plain(*a, device=dev), strict=True):
+                e, o = compare(g, w, tol)
+                err, ok = max(err, e), ok and o
+        torch.cuda.synchronize()
+        if not ok:
+            raise SystemExit(f"{label}: kernels vs plain and reference_execute {err:.3e} over {tol}")
+        names = [k.fn.name for k in compiled.kernels]
+        _, by_name = device_profile(lambda c=compiled, f=feeds: c(f), PROFILED_CALLS)
+        device_us = sum(t for k, t in by_name.items() if any(nm in k for nm in names)) or None
+        extra_rows.append({"compile": label, "emitter": emitter, "kernels": names, "launches": n,
+                           "max_abs_err": err, "tolerance": tol, "device_us": device_us,
+                           "workspace_bytes": [k.fn.workspace_bytes for k in compiled.kernels]})
+        print(f"{emitter} compile {label}: {n} launches, vs plain and reference_execute "
+              f"err={err:.2e} (rtol, atol)={tol} device_us={device_us or 'not measured'}")
+
     # ---- 5. numbers -------------------------------------------------------------
     for row, (prog, a) in zip(rows, timed, strict=True):
         row["us"] = 1e3 * time_ms(lambda p=prog, a=a: p.launch(*a, device=dev), CALLS)
@@ -870,6 +1020,13 @@ def main(argv=None) -> int:
         o_us = 1e6 * row["ops"] / F32_OPS_PER_S
         row["bound_us"] = max(b_us, o_us)
         row["bound_by"] = "bytes" if b_us >= o_us else "operations"
+        if row["emitter"] == "emit_fusion":
+            row.update(geometry(prog.source), **regs.get(prog.name, {}))
+            print(f"  {row['graph']}:{row['fusion']} {prog.name}: {row['members']} members, "
+                  f"{row['blocks']} plan blocks, grid {row['grid']} x {row['threads']} threads, "
+                  f"{row['smem_bytes']} bytes of shared memory, "
+                  f"registers {row.get('registers', 'not built here')}, spill stores "
+                  f"{row.get('spill_stores', '-')} loads {row.get('spill_loads', '-')}")
         print(
             f"kernel {row['graph']}:{row['fusion']} {row['emitter']} {row['kernel']} "
             f"blocks={row['blocks']} launches/call={row['launches']} "
@@ -948,7 +1105,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
                        "graphs": per_graph, "kernels": rows, "emitters": entries,
-                       "stitched_compiles": stitched_rows,
+                       "stitched_compiles": stitched_rows, "extra_compiles": extra_rows,
                        "hand_kernel_calls": hand_calls}, f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))

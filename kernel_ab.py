@@ -11,10 +11,14 @@ own that imports that checkout's ``repro_torch`` and builds its kernels
 into that checkout's ``build/``.  A run prints one JSON line: the checkout,
 nvidia-smi's SM clock, power draw and temperature just before, and
 torch.profiler's device microseconds per call (20 calls after 50 warm-up
-calls) of StitchPipe's stitched kernel and of each hand-written kernel of
-``repro_torch.kernels.ops`` at the full-width shapes of ``chip_smoke.py``
-phase 6.  The last line gives each kernel's median over the rounds per
-checkout.  Exits non-zero when no card is present.
+calls) of each hand-written kernel of ``repro_torch.kernels.ops`` at the
+full-width shapes of ``chip_smoke.py`` phase 6 and of every generated kernel
+of the ten graphs (``GRAPH:FUSION``: the 19 unique ``emit_fusion`` kernels
+and StitchPipe's stitched one, ``emit_stitched_fusion``, on the inputs one
+call of its graph gives it), and each graph's device time per call, fused
+(``graph:GRAPH``) and unfused through ``reference_execute``
+(``unfused:GRAPH``).  The last line gives each number's median over the
+rounds per checkout.  Exits non-zero when no card is present.
 """
 import argparse
 import json
@@ -36,8 +40,8 @@ def measure(root):
     from chip_smoke import GRANITE   # puts this checkout's src on the path: root's goes first
 
     sys.path.insert(0, os.path.join(root, "src"))
-    from repro_torch.core import compile_module
-    from repro_torch.graphs import ALL_GRAPHS
+    from repro_torch.core import compile_module, reference_execute
+    from repro_torch.graphs import ALL_GRAPHS, random_feeds
     from repro_torch.kernels import ops
 
     if not os.path.abspath(ops.__file__).startswith(os.path.join(root, "src")):
@@ -49,7 +53,9 @@ def measure(root):
     def randn(shape, dtype):
         return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev).to(dtype)
 
-    def device_us(fn, names):
+    def device_us(fn, names=None):
+        """Device us per call of the kernels whose names hold one of
+        ``names`` (None: every device kernel the call runs)."""
         for _ in range(WARMUP):
             fn()
         torch.cuda.synchronize()
@@ -59,13 +65,30 @@ def measure(root):
             torch.cuda.synchronize()
         return sum(e.time_range.elapsed_us() for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and any(n in e.name for n in names)) / CALLS
+                   and (names is None or any(n in e.name for n in names))) / CALLS
+
+    # every generated kernel, on the inputs one call of its graph gives it
+    calls = {}
+    for gname, build in ALL_GRAPHS.items():
+        module = build()
+        compiled = compile_module(module, device=dev)
+        feeds = {k: torch.as_tensor(v, device=dev)
+                 for k, v in random_feeds(module, np.random.RandomState(0)).items()}
+        captured = {}
+        for k in compiled.kernels:
+            def record(*a, device, _k=k, _launch=k.fn.launch):
+                captured.setdefault(_k.fusion.name, (_k.fn, [t.clone() for t in a]))
+                return _launch(*a, device=device)
+            k.fn.launch = record
+        compiled(feeds)
+        for k in compiled.kernels:
+            del k.fn.launch
+        for fusion, (prog, a) in captured.items():
+            calls[f"{gname}:{fusion}"] = (lambda p=prog, a=a: p.launch(*a, device=dev), (prog.name,))
+        calls[f"graph:{gname}"] = (lambda c=compiled, f=feeds: c(f), None)
+        calls[f"unfused:{gname}"] = (lambda m=module, f=feeds: reference_execute(m, f, device=dev), None)
 
     g, bf16, f32 = GRANITE, torch.bfloat16, torch.float32
-    stitch = compile_module(ALL_GRAPHS["StitchPipe"](), device=dev)
-    (kernel,) = stitch.kernels
-    feeds = [torch.as_tensor(rng.uniform(-1, 1, s).astype(np.float32), device=dev)
-             for s, _ in kernel.fn.in_specs]
     x, gamma = randn((8, 512, g["d_model"]), bf16), randn((g["d_model"],), bf16)
     logits = randn((16, g["vocab"]), f32)
     S, D = 2048, g["head_dim"]
@@ -75,14 +98,13 @@ def measure(root):
     kc, vc = randn((16, g["kv_heads"], 4096, D), bf16), randn((16, g["kv_heads"], 4096, D), bf16)
     lengths = torch.as_tensor(rng.randint(1, 4097, size=16), dtype=torch.int32, device=dev)
     gl = randn((4096, g["experts"]), f32)
-    calls = {
-        "emit_stitched_fusion": (lambda: kernel.fn.launch(*feeds, device=dev), (kernel.fn.name,)),
+    calls.update({
         "stitched_rmsnorm": (lambda: ops.rmsnorm(x, gamma, eps=g["norm_eps"]), ("sx_rmsnorm",)),
         "stitched_softmax": (lambda: ops.softmax(logits), ("sx_softmax",)),
         "stitched_flash_attention": (lambda: ops.attention(q, k, v, causal=True), ("sx_flash",)),
         "stitched_decode_attention": (lambda: ops.attention_decode(qd, kc, vc, lengths), ("sx_decode",)),
         "stitched_moe_gate": (lambda: ops.moe_gate(gl, g["top_k"]), ("sx_moe_gate",)),
-    }
+    })
     return {name: device_us(fn, names) for name, (fn, names) in calls.items()}
 
 

@@ -5,11 +5,12 @@ generators write CUDA C++ instead, and every kernel keeps a plain PyTorch
 version beside it:
 
   * ``emit_fusion`` replaces ``repro/core/codegen.py:emit_fusion`` (its
-    ``pl.pallas_call`` at line 234).  One CUDA block runs one grid program
-    of the fusion's ``ScheduleSolution``: ``blockIdx.x`` plays the role of
-    the Pallas program id ``b``, and the schedule's block-index arithmetic
-    (``schedule.block_index``) is printed into the source with the shapes
-    baked in as constants.  Chunks divide exactly, so nothing is masked.
+    ``pl.pallas_call`` at line 234).  Each grid program of the fusion's
+    ``ScheduleSolution`` (a plan block) runs on one CUDA block, or on one
+    per group of members that share no value; the schedule's block-index
+    arithmetic (``schedule.block_index``) is printed into the source with
+    the shapes baked in as constants.  Chunks divide exactly, so nothing
+    is masked.
   * ``emit_stitched_fusion`` replaces ``emit_stitched_fusion`` (its
     ``pl.pallas_call`` at line 376).  Still ONE launch per stitched group,
     the paper's point, but not the reference's one program (``grid=(1,)``):
@@ -26,21 +27,35 @@ version beside it:
     tile.  A phase with slots deals its plan blocks over the grid, one
     plan block to a CUDA block at a time; a phase with no slot is a pure
     map whose elements stride over the whole grid.  Reduces are
-    cooperative: a warp per output element, shuffles to combine.
+    cooperative: a warp per output element, shuffles to combine (the
+    whole block where a plan block has fewer outputs than warps).
     Interface tensors are staged whole in the global workspace —
     StitchPipe's alone is 655,360 bytes, more than one block's 227 KB of
     shared memory — and re-tiled by their consumer phases.
 
-Design of ``emit_fusion`` (right first, fast later): every member's tile is
-a dense row-major array in the block's own region of a global workspace
-that the wrapper allocates.  Members run in topological order, each as a
-strided loop over its tile's elements with ``__syncthreads()`` after it.  A
-reduce or a fused dot gives each thread whole output elements and loops
-over the reduced extent with f32 accumulation (FMA for dots, no tensor
-cores, no TF32); the stitched kernel keeps that for dots.  Scalar constants
-are printed as exact hex-float literals.  These kernels read and write
-every member tile through global memory (L2 at these sizes), so what bounds
-them on the card is launch latency and memory traffic, not arithmetic.
+Design of ``emit_fusion``: one launch of the same phase emitter
+(``_Phase``) the stitched kernel runs each phase through, over the
+fusion's ``MemoryPlan``.  ALLOC/SHARE members live in the plan's slots, in
+dynamic shared memory at the plan's offsets (past ``SMEM_LIMIT``, in a
+per-block region of the workspace); INLINE members are composed into their
+consumers and write nothing; outputs are written straight to ``out*``.  A
+plan block's members run in order, each a fixed-count unrolled loop over
+its tile with a barrier after it.  Members that share no value form groups
+(``_independent_groups``), and each (plan block, group) pair runs on a
+CUDA block of its own: ReduceTowers' six towers on six SMs.  A reduce
+takes a warp per output, or, where a plan block has fewer outputs than
+warps, the whole block, partial results combined through shared memory.
+A fused dot gives each thread a 4 x 4 register tile of outputs with f32
+FMAs (no tensor cores, no TF32).  A fusion with no slot is a pure map over
+the grid.  Threads per block follow the plan (``fusion_threads``: 128 to
+512).  At these sizes what bounds the kernels on the card is latency: the
+launch, and the dependent loads and barriers between members.
+
+Every member computes in ``float`` (bf16, f16) or ``int`` (int8, uint8)
+where it is stored narrower and is rounded, or wrapped, to its dtype where
+it ends, composed or not, as the reference's per-instruction ``apply_op``
+does; a reduce over bf16 accumulates in float and rounds once.  Scalar
+constants are exact literals: hex floats, bf16 and f16 by their bits.
 
 The plain version of each kernel is a block interpreter over the port's
 ``apply_op``: ``for b in range(blocks)`` evaluates every member on its tile,
@@ -60,11 +75,21 @@ import torch
 
 from .device import input_device, resolve_device
 from .fusion import FusedComputation
-from .ir import Instruction, apply_op, broadcast_in_dim, iota, torch_dtype
+from .ir import (
+    BFLOAT16,
+    Instruction,
+    apply_op,
+    as_array,
+    broadcast_in_dim,
+    dtype_name,
+    iota,
+    torch_dtype,
+)
 from .memory import ALLOC, SHARE, MemoryPlan, StitchedMemoryPlan
 from .schedule import (
     REPLICATED,
     Sched,
+    PhaseSolution,
     ScheduleSolution,
     StitchedSolution,
     block_index,
@@ -78,8 +103,7 @@ REPLACES = {
     "emit_stitched_fusion": "src/repro/core/codegen.py:376",
 }
 
-FUSION_THREADS = 256      # threads per block of a single-phase kernel
-#: threads per block of a stitched kernel (``stitched_threads``)
+#: threads per block of a kernel (``stitched_threads``, ``fusion_threads``)
 STITCHED_MIN_THREADS, STITCHED_MAX_THREADS = 128, 512
 STITCHED_ELEMS_PER_THREAD = 16
 #: shared memory one H100 block may use (dynamic, past 48 KB only after
@@ -267,13 +291,27 @@ def _plain_stitched(fusion: FusedComputation, stitched: StitchedSolution,
 # CUDA C++ generation
 # --------------------------------------------------------------------------
 
+# each dtype's C type in memory, and the type its values are computed in:
+# bf16 and f16 compute in float, int8 and uint8 in int, and every member's
+# value is rounded (or wrapped) back to its dtype where the member ends, as
+# the reference's per-instruction ``apply_op`` does
 _C_TYPES = {
-    np.dtype(np.float32): "float",
-    np.dtype(np.float64): "double",
-    np.dtype(np.int32): "int",
-    np.dtype(np.int64): "long long",
-    np.dtype(np.bool_): "bool",
+    np.dtype(np.float32): ("float", "float"),
+    np.dtype(np.float64): ("double", "double"),
+    np.dtype(np.int32): ("int", "int"),
+    np.dtype(np.int64): ("long long", "long long"),
+    np.dtype(np.bool_): ("bool", "bool"),
+    np.dtype(np.float16): ("__half", "float"),
+    BFLOAT16: ("__nv_bfloat16", "float"),
+    np.dtype(np.int8): ("signed char", "int"),
+    np.dtype(np.uint8): ("unsigned char", "int"),
 }
+# storage -> compute, and compute -> storage (rounding to nearest even)
+_C_LOAD = {"__half": "__half2float({})", "__nv_bfloat16": "__bfloat162float({})",
+           "signed char": "static_cast<int>({})", "unsigned char": "static_cast<int>({})"}
+_C_STORE = {"__half": "__float2half_rn({})", "__nv_bfloat16": "__float2bfloat16_rn({})",
+            "signed char": "static_cast<signed char>({})",
+            "unsigned char": "static_cast<unsigned char>({})"}
 
 _INFIX = {
     "add": "+", "sub": "-", "mul": "*", "div": "/",
@@ -282,20 +320,53 @@ _INFIX = {
 }
 
 
-def _c_type(dtype) -> str:
+def _c_types(dtype) -> Tuple[str, str]:
     try:
         return _C_TYPES[np.dtype(dtype)]
     except KeyError:
         raise NotImplementedError(
-            f"the CUDA emitters take {sorted(str(d) for d in _C_TYPES)}, "
-            f"not {np.dtype(dtype)}"
+            f"the CUDA emitters take {sorted(dtype_name(d) for d in _C_TYPES)}, "
+            f"not {dtype_name(dtype)}"
         ) from None
 
 
+def _c_type(dtype) -> str:
+    """The C type of a ``dtype`` value in memory."""
+    return _c_types(dtype)[0]
+
+
+def _c_compute(dtype) -> str:
+    """The C type a ``dtype`` value is computed in."""
+    return _c_types(dtype)[1]
+
+
+def _c_load(dtype, x: str) -> str:
+    """``x``, a value as stored, in the type it is computed in."""
+    return _C_LOAD.get(_c_type(dtype), "{}").format(x)
+
+
+def _c_store(dtype, x: str) -> str:
+    """``x``, a computed value, in the type it is stored in."""
+    return _C_STORE.get(_c_type(dtype), "{}").format(x)
+
+
+def _c_round(dtype, x: str) -> str:
+    """``x`` rounded (or wrapped) to ``dtype``, in the type it is computed in."""
+    return x if _c_type(dtype) not in _C_STORE else _c_load(dtype, _c_store(dtype, x))
+
+
 def _c_literal(value, dtype) -> str:
-    """An exact C++ literal of one scalar: hex floats carry every bit."""
+    """An exact C++ literal of one scalar, in the type it is stored in: hex
+    floats carry every bit, bf16 and f16 are built from their bits."""
     dt = np.dtype(dtype)
+    if dt == BFLOAT16 or dt == np.float16:
+        bits = (torch.as_tensor(as_array(value, dt), dtype=torch_dtype(dt)).reshape(())
+                .view(torch.int16).item() & 0xFFFF)
+        fn = "__ushort_as_bfloat16" if dt == BFLOAT16 else "__ushort_as_half"
+        return f"{fn}(static_cast<unsigned short>(0x{bits:04x}))"
     v = np.asarray(value, dtype=dt).reshape(())
+    if dt == np.int8 or dt == np.uint8:
+        return f"static_cast<{_c_type(dt)}>({int(v)})"
     if dt == np.float32 or dt == np.float64:
         f = float(v)
         if math.isfinite(f):
@@ -371,17 +442,21 @@ def _dense_strides(shape) -> Tuple[int, ...]:
 @dataclass
 class _View:
     """How a consumer reads one operand: element ``idx`` of the tile it
-    needs is ``ptr[sum((offs[k] + idx[k]) * strides[k])]``, or a literal."""
+    needs is ``ptr[sum((offs[k] + idx[k]) * strides[k])]``, read as a
+    ``dtype`` value in the type it is computed in, or a literal."""
 
     shape: Tuple[int, ...]
     ptr: str = ""
     strides: Tuple[int, ...] = ()
     offs: Tuple = ()
     literal: str = ""
+    dtype: object = np.float32
 
     def at(self, idx) -> str:
-        if self.literal:
-            return self.literal
+        return self.literal or _c_load(self.dtype, self.ref(idx))
+
+    def ref(self, idx) -> str:
+        """The element itself, as stored: what a write assigns to."""
         ints, parts = 0, []
         for o, j, s in zip(self.offs, idx, self.strides, strict=True):
             t = _cmul(_cadd(o, j), s)
@@ -413,7 +488,8 @@ def _unravel(lines: List[str], var: str, shape, prefix: str, ind: str) -> List:
 
 
 # a reduce's accumulator: its start, each step, and the warp shuffle's
-# combine of two partial results (stitch_runtime.cuh)
+# combine of two partial results (stitch_runtime.cuh), in the type the
+# reduce computes in ({T})
 _REDUCE_INIT = {"sum": "static_cast<{T}>(0)", "mean": "static_cast<{T}>(0)",
                 "prod": "static_cast<{T}>(1)", "max": "sx_lowest<{T}>()",
                 "min": "sx_highest<{T}>()"}
@@ -426,19 +502,24 @@ _REDUCE_COMBINE = {"sum": "SxRedSum", "mean": "SxRedSum", "prod": "SxRedProd",
 def _value(m: Instruction, sched: Sched, ovs: List[_View], idx: List, b,
            lines: List[str], ind: str, lin: str = "i", sfx: str = "") -> str:
     """Emit the statements computing element ``idx`` of ``m``'s tile and
-    return the C expression of its value (the reference's ``_emit_instr``
-    and ``apply_op``, per element).  ``lin`` is the linear index of ``idx``
-    in the tile, and ``sfx`` keeps the names of the statements' variables
-    apart where several values are composed into one expression."""
+    return the C expression of its value, in the type ``m`` computes in and
+    not yet rounded to ``m.dtype`` (the reference's ``_emit_instr`` and
+    ``apply_op``, per element; reduces and dots have loops of their own).
+    ``lin`` is the linear index of ``idx`` in the tile, and ``sfx`` keeps
+    the names of the statements' variables apart where several values are
+    composed into one expression."""
     op, a = m.opcode, m.attrs
-    T = _c_type(m.dtype)
+    T = _c_compute(m.dtype)
     out_chunk = chunk_shape(m.shape, sched)
     if op == "constant":
-        return _c_literal(a["value"], m.dtype)
+        return _c_load(m.dtype, _c_literal(a["value"], m.dtype))
     if op == "elementwise":
         fn = a["fn"]
         x = ovs[0].at(idx)
         if fn == "convert":
+            if _c_compute(m.operands[0].dtype) in ("float", "double") and T in ("int", "long long"):
+                # jnp's float -> int: truncation, NaN gives 0, the rest saturates
+                return _c_load(m.dtype, f"sx_f2i<{_c_type(m.dtype)}>({x})")
             return f"static_cast<{T}>({x})"
         if fn == "not":
             return f"(!{x})"
@@ -478,33 +559,6 @@ def _value(m: Instruction, sched: Sched, ovs: List[_View], idx: List, b,
         d = a["dim"]
         off = _c_starts(m.shape, sched, b)[d] if sched.kind == "chunked" else 0
         return f"static_cast<{T}>({_cadd(off, idx[d])})"
-    if op == "reduce":
-        src = ovs[0]
-        rdims = tuple(a["dims"])
-        kept = [k for k in range(len(src.shape)) if k not in rdims]
-        extent = [src.shape[k] for k in rdims]
-        kind = a["kind"]
-        lines.append(f"{ind}{T} acc = {_REDUCE_INIT[kind].format(T=T)};")
-        lines.append(f"{ind}for (int r = 0; r < {_prod(extent)}; ++r) {{")
-        j: List = [0] * len(src.shape)
-        for kk, k in enumerate(kept):
-            j[k] = idx[kk]
-        for k, q in zip(rdims, _unravel(lines, "r", extent, "q", ind + "  "), strict=True):
-            j[k] = q
-        lines.append(f"{ind}  {_REDUCE_STEP[kind].format(x=src.at(j))}")
-        lines.append(f"{ind}}}")
-        if kind == "mean":
-            return f"(acc / static_cast<{T}>({_prod(extent)}))"
-        return "acc"
-    if op == "dot":
-        lhs, rhs = ovs
-        lines.append(f"{ind}{T} acc = static_cast<{T}>(0);")
-        lines.append(
-            f"{ind}for (int k = 0; k < {lhs.shape[-1]}; ++k) "
-            f"acc = sx_fma({lhs.at(list(idx[:-1]) + ['k'])}, "
-            f"{rhs.at(list(idx[:-2]) + ['k', idx[-1]])}, acc);"
-        )
-        return "acc"
     if op == "concat":
         d = a["dim"]
         edges = [0]
@@ -534,54 +588,30 @@ def _value(m: Instruction, sched: Sched, ovs: List[_View], idx: List, b,
         lines.append(f"{ind}long long {g} = static_cast<long long>({ind_view.at(idx[:r])});")
         lines.append(f"{ind}const bool {ok} = {g} >= -{n}LL && {g} < {n}LL;")
         lines.append(f"{ind}if ({g} < 0) {g} += {n}LL;")
-        return f"({ok} ? {table.at([g] + list(idx[r:]))} : sx_fill<{T}>())"
+        fill = _c_load(m.dtype, f"sx_fill<{_c_type(m.dtype)}>()")
+        return f"({ok} ? {table.at([g] + list(idx[r:]))} : {fill})"
     raise NotImplementedError(f"{m.name}: no CUDA emission for opcode {op!r}")
-
-
-def _member_loop(m: Instruction, sched: Sched, ovs: List[_View], b,
-                 tile: Optional[str], stores: List[Tuple[str, Tuple[int, ...]]],
-                 label: Dict[int, str], ind: str) -> List[str]:
-    """One member: a strided loop over its tile, writing the tile and any
-    full-shape destinations (fusion outputs, staged interfaces).  Comments
-    name values by ``label`` (ordinals, never ids), so structurally equal
-    fusions generate equal text and share one built library."""
-    out_chunk = chunk_shape(m.shape, sched)
-    what = m.opcode + (f":{m.attrs['fn']}" if "fn" in m.attrs else "")
-    ops = ", ".join(label[o.id] for o in m.operands)
-    lines = [f"{ind}// {label[m.id]} = {what}({ops}) on tile {list(out_chunk)}"]
-    lines.append(f"{ind}for (int i = threadIdx.x; i < {_prod(out_chunk)}; i += blockDim.x) {{")
-    body = ind + "  "
-    idx = _unravel(lines, "i", out_chunk, "o", body)
-    expr = _value(m, sched, ovs, idx, b, lines, body)
-    lines.append(f"{body}const {_c_type(m.dtype)} v = {expr};")
-    if tile is not None:
-        lines.append(f"{body}{tile}[i] = v;")
-    offs = _c_starts(m.shape, sched, b)
-    for ptr, full in stores:
-        dst = _View(out_chunk, ptr, _dense_strides(full), offs)
-        lines.append(f"{body}{dst.at(idx)} = v;")
-    lines.append(f"{ind}}}")
-    lines.append(f"{ind}__syncthreads();")
-    return lines
 
 
 def _tile_view(name: str, shape, stored: Sched, needed: Sched, opnd: Instruction, b,
                full: bool) -> _View:
     """The reference's ``_adapt`` as a view: ``full`` arrays (kernel inputs,
     staged interfaces) hold the whole tensor; tiles hold the stored chunk."""
+    dt = opnd.dtype
     if stored == needed:
         if full and stored.kind == "chunked":
             return _View(chunk_shape(opnd.shape, stored), name, _dense_strides(opnd.shape),
-                         _c_starts(opnd.shape, stored, b))
-        return _View(tuple(shape), name, _dense_strides(shape), (0,) * len(shape))
+                         _c_starts(opnd.shape, stored, b), dtype=dt)
+        return _View(tuple(shape), name, _dense_strides(shape), (0,) * len(shape), dtype=dt)
     if stored.kind == "replicated" and needed.kind == "chunked":
         return _View(chunk_shape(opnd.shape, needed), name, _dense_strides(opnd.shape),
-                     _c_starts(opnd.shape, needed, b))
+                     _c_starts(opnd.shape, needed, b), dtype=dt)
     raise ValueError(f"cannot adapt {opnd.name}: stored {stored}, needed {needed}")
 
 
 def _literal_view(m: Instruction, needed: Sched) -> _View:
-    return _View(chunk_shape(m.shape, needed), literal=_c_literal(m.attrs["value"], m.dtype))
+    return _View(chunk_shape(m.shape, needed),
+                 literal=_c_load(m.dtype, _c_literal(m.attrs["value"], m.dtype)))
 
 
 class _Workspace:
@@ -621,62 +651,96 @@ def _signature_c(inputs, roots, ws_restrict: bool = True) -> Tuple[List[str], Li
 
 
 def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
-                   threads: int) -> Tuple[str, str]:
-    """Name the kernel by the hash of its text and add its launcher."""
+                   threads: int, smem: int, static_smem: int) -> Tuple[str, str]:
+    """Name a single-phase kernel by the hash of its text and add its
+    launcher: one launch of ``grid`` blocks with ``smem`` bytes of dynamic
+    shared memory (where they and the ``static_smem`` bytes pass 48 KB,
+    the attribute is set once per device)."""
     params, lparams, casts = _signature_c(inputs, roots)
+    launcher = ['extern "C" int @K@_launch(']
+    launcher += [f"    {p}," for p in lparams] + ["    void* stream) {"]
+    if smem + static_smem > STATIC_SMEM_LIMIT:
+        launcher += [
+            f"  static std::atomic<int> ready[{GRID_CACHE_DEVICES}];  // 1: the attribute is set",
+            "  int dev = 0;",
+            "  cudaError_t e = cudaGetDevice(&dev);",
+            "  if (e != cudaSuccess) return static_cast<int>(e);",
+            f"  if (dev >= {GRID_CACHE_DEVICES} || !ready[dev].load(std::memory_order_relaxed)) {{",
+            f"    e = cudaFuncSetAttribute(@K@, cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
+            "    if (e != cudaSuccess) return static_cast<int>(e);",
+            f"    if (dev < {GRID_CACHE_DEVICES}) ready[dev].store(1, std::memory_order_relaxed);",
+            "  }",
+        ]
+    launcher += [f"  @K@<<<{grid}, {threads}, {smem}, static_cast<cudaStream_t>(stream)>>>("]
+    launcher += [f"      {c}," for c in casts[:-1]] + [f"      {casts[-1]});"]
+    launcher += ["  return static_cast<int>(cudaGetLastError());", "}", ""]
     text = "\n".join(
         [header, f"__global__ void __launch_bounds__({threads}) @K@("]
         + [f"    {p}," for p in params[:-1]] + [f"    {params[-1]}) {{"]
-        + body + ["}", ""]
-        + ['extern "C" int @K@_launch(']
-        + [f"    {p}," for p in lparams] + ["    void* stream) {"]
-        + [f"  @K@<<<{grid}, {threads}, 0, static_cast<cudaStream_t>(stream)>>>("]
-        + [f"      {c}," for c in casts[:-1]] + [f"      {casts[-1]});"]
-        + ["  return static_cast<int>(cudaGetLastError());", "}", ""]
+        + body + ["}", ""] + launcher
     )
     name = "stitch_" + hashlib.sha256(text.encode()).hexdigest()[:16]
     return name, text.replace("@K@", name)
 
 
-def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution):
-    members, inputs, roots = fusion.members, fusion.inputs, fusion.roots
-    assign = solution.assignment
-    blocks = solution.blocks
-    b = _Sym("b") if blocks > 1 else 0
+def _independent_groups(fusion: FusedComputation) -> List[List[int]]:
+    """The member ids of a fusion split into groups that share no value
+    (constants, read as literals, join none), each in topological order,
+    the groups in the order of their first member.  No group reads what
+    another writes, so each may run on a CUDA block of its own."""
+    parent = {m.id: m.id for m in fusion.members}
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for m in fusion.members:
+        if m.opcode == "constant":
+            continue
+        for o in m.operands:
+            if o.id in parent and o.opcode != "constant":
+                parent[find(o.id)] = find(m.id)
+    groups: Dict[int, List[int]] = {}
+    for m in fusion.members:
+        groups.setdefault(find(m.id), []).append(m.id)
+    return list(groups.values())
+
+
+def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: MemoryPlan):
+    inputs, roots = fusion.inputs, fusion.roots
     in_name = {i.id: f"in{k}" for k, i in enumerate(inputs)}
-    label = {**in_name, **{m.id: f"m{k}" for k, m in enumerate(members)}}
+    label = {**in_name, **{m.id: f"m{k}" for k, m in enumerate(fusion.members)}}
     out_of = {r.id: (f"out{k}", tuple(r.shape)) for k, r in enumerate(roots)}
-    ws = _Workspace()
-    tiles: Dict[int, str] = {}
-    for k, m in enumerate(members):
-        if m.opcode != "constant":
-            tiles[m.id] = ws.alloc(f"t{k}", m, chunk_shape(m.shape, assign[m.id]), "wsb", "  ")
-    body = ["  const int b = blockIdx.x;"] if blocks > 1 else []
-    body.append(f"  unsigned char* const wsb = ws + static_cast<size_t>(blockIdx.x) * {ws.size};")
-    body += ws.decls
-    const_ids = {m.id: m for m in members if m.opcode == "constant"}
-    for m in members:
-        sched = REPLICATED if m.id in const_ids else assign[m.id]
-        ovs = []
-        for o, ns in zip(m.operands, propagate(m, sched), strict=False):
-            if o.id in const_ids:
-                ovs.append(_literal_view(o, ns))
-            elif o.id in tiles:
-                ovs.append(_tile_view(tiles[o.id], chunk_shape(o.shape, assign[o.id]),
-                                      assign[o.id], ns, o, b, full=False))
-            else:
-                ovs.append(_tile_view(in_name[o.id], o.shape, assign.get(o.id, REPLICATED),
-                                      ns, o, b, full=True))
-        stores = [out_of[m.id]] if m.id in out_of else []
-        if m.id in const_ids and not stores:
-            continue  # read through its literal
-        body += _member_loop(m, sched, ovs, b, tiles.get(m.id), stores, label, "  ")
+    threads = fusion_threads(fusion, solution, plan)
+    _, size = _slot_layout(plan)
+    base, groups = None, None
+    if plan.slots:
+        # shared memory holds the slots and the block reduces' partials
+        base = "sx_smem" if size + reduce_part_bytes(threads) <= SMEM_LIMIT else "pr0"
+        groups = _independent_groups(fusion)
+    ph = _Phase(0, PhaseSolution(fusion.members, roots, solution), plan, threads,
+                in_name, {}, out_of, label, base, groups)
+    phase = ph.emit()
+    grid = max(1, ph.useful_blocks)
+    body = []
+    if base == "sx_smem":
+        body.append("  extern __shared__ __align__(16) unsigned char sx_smem[];")
+    elif base is not None:
+        body.append(f"  unsigned char* const pr0 = ws + static_cast<size_t>(blockIdx.x) * {size};")
+    if ph.part_bytes:
+        body.append(f"  __shared__ __align__(16) unsigned char sx_part[{ph.part_bytes}];")
+    body += phase
+    smem = size if base == "sx_smem" else 0
+    ws = size * grid if base == "pr0" else 0
     header = (
-        f"// emit_fusion: {len(members)} members, grid {blocks} "
-        f"(one block per schedule program), {ws.size} workspace bytes per block"
+        f"// emit_fusion: {len(fusion.members)} members, {solution.blocks} plan blocks, "
+        f"one launch of {grid} blocks of {threads} threads, {smem} bytes of shared memory "
+        f"a block, {ws} workspace bytes"
     )
-    name, text = _finish_source(header, body, inputs, roots, blocks, FUSION_THREADS)
-    return name, text, ws.size * blocks
+    name, text = _finish_source(header, body, inputs, roots, grid, threads, smem, ph.part_bytes)
+    return name, text, ws
 
 
 def _slot_layout(pplan: MemoryPlan) -> Tuple[List[int], int]:
@@ -690,6 +754,21 @@ def _slot_layout(pplan: MemoryPlan) -> Tuple[List[int], int]:
     return offs, size
 
 
+def reduce_part_bytes(threads: int) -> int:
+    """Static shared memory of a block reduce's partial results: one
+    8-byte value per warp."""
+    return threads // 32 * 8
+
+
+def _threads_for(work: int) -> int:
+    """The fewest threads, from 128 up to 512 in powers of two, that
+    ``work`` threads' worth of parallelism asks for."""
+    t = STITCHED_MIN_THREADS
+    while t < STITCHED_MAX_THREADS and t < work:
+        t *= 2
+    return t
+
+
 def stitched_threads(plan: StitchedMemoryPlan) -> int:
     """Threads of each block of a stitched kernel.  A plan block with slots
     runs on one CUDA block, so its threads are all the parallelism that
@@ -698,10 +777,31 @@ def stitched_threads(plan: StitchedMemoryPlan) -> int:
     512 is the cap because ``__launch_bounds__(512)`` still leaves 128
     registers a thread for the composed expressions."""
     largest = max((_prod(shape) for pp in plan.phase_plans for shape, _ in pp.slots), default=0)
-    t = STITCHED_MIN_THREADS
-    while t < STITCHED_MAX_THREADS and t * STITCHED_ELEMS_PER_THREAD < largest:
-        t *= 2
-    return t
+    return _threads_for(-(-largest // STITCHED_ELEMS_PER_THREAD))
+
+
+def fusion_threads(fusion: FusedComputation, solution: ScheduleSolution, plan: MemoryPlan) -> int:
+    """Threads of each block of a single-phase kernel, from its plan: the
+    fewest, from 128 up to 512, that leave every loop of a plan block (each
+    member that writes a slot or an output) at most
+    ``STITCHED_ELEMS_PER_THREAD`` elements, or a reduce's terms, a thread,
+    and give every reduce output a warp."""
+    roots = {r.id for r in fusion.roots}
+    want = 1
+    for m in fusion.members:
+        e = plan.entries.get(m.id)
+        kept = m.id in roots or (e is not None and e.action in (ALLOC, SHARE))
+        if m.opcode == "constant" or not kept:
+            continue
+        sched = solution.assignment[m.id]
+        n = _prod(chunk_shape(m.shape, sched))
+        if m.opcode == "reduce":
+            (ns,) = propagate(m, sched)
+            terms = _prod(chunk_shape(m.operands[0].shape, ns))
+            want = max(want, 32 * n, -(-terms // STITCHED_ELEMS_PER_THREAD))
+        else:
+            want = max(want, -(-n // STITCHED_ELEMS_PER_THREAD))
+    return _threads_for(want)
 
 
 def _lin(idx, shape) -> str:
@@ -750,7 +850,7 @@ class _Lazy:
     so no tile is written for it.  Reduces and dots are never INLINE where
     they have a user (the memory plan requires their buffers)."""
 
-    def __init__(self, phase: "_StitchedPhase", m: Instruction, stored: Sched, needed: Sched, b):
+    def __init__(self, phase: "_Phase", m: Instruction, stored: Sched, needed: Sched, b):
         self.phase, self.m, self.stored, self.needed, self.b = phase, m, stored, needed, b
         self.shape = chunk_shape(m.shape, needed)
 
@@ -768,11 +868,16 @@ class _Lazy:
         return self.phase.value(m, sched, j, _lin(j, chunk_shape(m.shape, sched)), self.phase.fresh())
 
 
-class _StitchedPhase:
-    """The CUDA text of one phase of a stitched kernel."""
+class _Phase:
+    """The CUDA text of one phase: a phase of a stitched kernel, or the
+    single phase of an ``emit_fusion`` kernel.  ``slot_base`` names where
+    the plan's ALLOC/SHARE slots live (None: the phase has no slot and is a
+    pure map over the grid).  ``groups``, for a single-phase kernel with
+    slots, splits the members into independent groups (``_independent_groups``),
+    each run by a CUDA block of its own for each plan block."""
 
     def __init__(self, pk: int, phase, pplan: MemoryPlan, threads: int, in_name, staged, out_of,
-                 label, slot_base: Optional[str]):
+                 label, slot_base: Optional[str], groups: Optional[List[List[int]]] = None):
         self.pk, self.phase, self.pplan, self.threads = pk, phase, pplan, threads
         self.assign = phase.solution.assignment
         self.blocks = phase.solution.blocks
@@ -782,6 +887,7 @@ class _StitchedPhase:
         self.const_ids = {m.id for m in phase.members if m.opcode == "constant"}
         self.offs, self.slot_bytes = _slot_layout(pplan)
         self.slot_base = slot_base            # None: a pure map, no slot
+        self.groups = groups
         self.slot_ptr: Dict[int, str] = {}    # slot index -> pointer name
         self.tiles: Dict[int, str] = {}       # ALLOC/SHARE member -> its slot
         for m in phase.members:
@@ -793,6 +899,7 @@ class _StitchedPhase:
         self.ind = ""
         self.n = 0
         self.useful_blocks = 0  # the most blocks this phase's loops keep busy
+        self.part_bytes = 0     # static shared memory of the block-wide reduces
 
     def fresh(self) -> str:
         self.n += 1
@@ -814,6 +921,7 @@ class _StitchedPhase:
         return _tile_view(src, o.shape, REPLICATED, ns, o, self.b, full=True)
 
     def value(self, m: Instruction, sched: Sched, idx, lin: str, sfx: str) -> str:
+        """Element ``idx`` of ``m``, rounded to its dtype where it ends."""
         ovs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
         before = len(self.lines)
         expr = _value(m, sched, ovs, idx, self.b, self.lines, self.ind, lin=lin, sfx=sfx)
@@ -822,7 +930,7 @@ class _StitchedPhase:
                 f"{m.name}: a concat of composed values that need statements "
                 "would run them for the pieces it does not take"
             )
-        return expr
+        return _c_round(m.dtype, expr)
 
     # ---- the loops ---------------------------------------------------------
     def _stores(self, m: Instruction, sched: Sched, idx, v: str) -> List[str]:
@@ -832,13 +940,13 @@ class _StitchedPhase:
             dests.append((self.staged[m.id], tuple(m.shape)))
         offs = _c_starts(m.shape, sched, self.b)
         out_chunk = chunk_shape(m.shape, sched)
-        return [f"{_View(out_chunk, p, _dense_strides(full), offs).at(idx)} = {v};"
+        return [f"{_View(out_chunk, p, _dense_strides(full), offs).ref(idx)} = {_c_store(m.dtype, v)};"
                 for p, full in dests]
 
     def _tile_write(self, m: Instruction, out_chunk, idx) -> Optional[str]:
         if m.id not in self.tiles:
             return None
-        return _View(out_chunk, self.tiles[m.id], _dense_strides(out_chunk), (0,) * len(out_chunk)).at(idx)
+        return _View(out_chunk, self.tiles[m.id], _dense_strides(out_chunk), (0,) * len(out_chunk)).ref(idx)
 
     def _check_own_slot(self, m: Instruction, write: Optional[str], text: str) -> None:
         """A SHARE member may read its slot's previous owner (through the
@@ -853,71 +961,113 @@ class _StitchedPhase:
                 f"{m.name}: reads its own slot {ptr} at another element than it writes"
             )
 
-    def _element_body(self, m: Instruction, sched: Sched, out_chunk, ind: str):
-        """Statements and value expression of element ``i`` of ``m``'s tile."""
-        self.lines, self.ind = [], ind
-        idx = _unravel(self.lines, "i", out_chunk, "o", ind)
-        T = _c_type(m.dtype)
-        if m.opcode == "dot":
-            lhs, rhs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
-            self.lines.append(f"{ind}{T} acc = static_cast<{T}>(0);")
-            self.lines.append(f"{ind}for (int k = 0; k < {lhs.shape[-1]}; ++k) {{")
-            self.ind = ind + "  "
-            a = lhs.at(list(idx[:-1]) + ["k"])
-            c = rhs.at(list(idx[:-2]) + ["k", idx[-1]])
-            self.lines.append(f"{ind}  acc = sx_fma({a}, {c}, acc);")
-            self.lines.append(f"{ind}}}")
-            self.ind = ind
-            expr = "acc"
+    def _writes(self, m: Instruction, sched: Sched, out_chunk, idx, v: str, ind: str) -> List[str]:
+        """The slot tile and the outputs that computed value ``v`` of
+        element ``idx`` goes to."""
+        write = self._tile_write(m, out_chunk, idx)
+        lines = [] if write is None else [f"{ind}{write} = {_c_store(m.dtype, v)};"]
+        return lines + [ind + s for s in self._stores(m, sched, idx, v)]
+
+    def _loop_head(self, var: str, n: int, sched: Sched, ind: str) -> List[str]:
+        """The head of the loop over ``n`` elements of a member's tile: in
+        a phase with slots, the block's threads over one plan block's tile;
+        in a pure map, every plan block's elements over the whole grid."""
+        th = self.threads
+        if self.slot_base is not None:
+            return _counted_loop(var, "threadIdx.x", th, n, ind)
+        reps = self.blocks if sched.kind == "chunked" else 1
+        total = n * reps
+        body = ind + "  "
+        lines = [f"{ind}for (int t = blockIdx.x * {th} + threadIdx.x; t < {total}; "
+                 f"t += gridDim.x * {th}) {{"]
+        if reps > 1:
+            lines.append(f"{body}const int b = t / {n};")
+            lines.append(f"{body}const int {var} = t % {n};")
         else:
-            expr = self.value(m, sched, idx, "i", "")
-        return idx, self.lines, expr
+            lines.append(f"{body}const int {var} = t;")
+        self.useful_blocks = max(self.useful_blocks, -(-total // th))
+        return lines
 
     def element_loop(self, m: Instruction, ind: str) -> List[str]:
         sched = self.sched(m)
         out_chunk = chunk_shape(m.shape, sched)
-        n, T, th = _prod(out_chunk), _c_type(m.dtype), self.threads
         body = ind + "  "
-        pure = self.slot_base is None
-        reps = self.blocks if pure and sched.kind == "chunked" else 1
-        lines = []
-        if pure:
-            # a pure map: the elements of every plan block stride over the grid
-            total = n * reps
-            lines.append(f"{ind}for (int t = blockIdx.x * {th} + threadIdx.x; t < {total}; "
-                         f"t += gridDim.x * {th}) {{")
-            if reps > 1:
-                lines.append(f"{body}const int b = t / {n};")
-                lines.append(f"{body}const int i = t % {n};")
-            else:
-                lines.append(f"{body}const int i = t;")
-            self.useful_blocks = max(self.useful_blocks, -(-total // th))
-        idx, stmts, expr = self._element_body(m, sched, out_chunk, body)
-        write = self._tile_write(m, out_chunk, idx)
-        self._check_own_slot(m, write, "\n".join(stmts) + expr)
-        if not pure:
-            lines += _counted_loop("i", "threadIdx.x", th, n, ind)
+        lines = self._loop_head("i", _prod(out_chunk), sched, ind)
+        self.lines, self.ind = [], body
+        idx = _unravel(self.lines, "i", out_chunk, "o", body)
+        expr = self.value(m, sched, idx, "i", "")
+        stmts = self.lines
+        self._check_own_slot(m, self._tile_write(m, out_chunk, idx), "\n".join(stmts) + expr)
         lines += stmts
-        lines.append(f"{body}const {T} v = {expr};")
-        if write is not None:
-            lines.append(f"{body}{write} = v;")
-        lines += [body + s for s in self._stores(m, sched, idx, "v")]
+        lines.append(f"{body}const {_c_compute(m.dtype)} v = {expr};")
+        lines += self._writes(m, sched, out_chunk, idx, "v", body)
+        lines.append(f"{ind}}}")
+        return lines
+
+    def dot_loop(self, m: Instruction, ind: str) -> List[str]:
+        """A fused dot: each thread a register tile of up to 4 x 4 outputs
+        (rows and columns strided by the tile's count of them, so the
+        lanes of a warp read neighbouring columns and rows), so each k
+        loads 4 + 4 operands for 16 FMAs.  f32 FMAs in the reference's order
+        of k, no tensor cores (the 2e-5 tolerance forbids TF32)."""
+        sched = self.sched(m)
+        out_chunk = chunk_shape(m.shape, sched)
+        rows, cols = out_chunk[-2], out_chunk[-1]
+        rm = next(r for r in (4, 2, 1) if rows % r == 0)
+        rn = next(r for r in (4, 2, 1) if cols % r == 0)
+        gshape = tuple(out_chunk[:-2]) + (rows // rm, cols // rn)
+        T = _c_compute(m.dtype)
+        body = ind + "  "
+        lines = self._loop_head("i", _prod(gshape), sched, ind)
+        self.lines, self.ind = [], body
+        g = _unravel(self.lines, "i", gshape, "o", body)
+        ms = [_cadd(g[-2], r * (rows // rm)) for r in range(rm)]
+        ns = [_cadd(g[-1], c * (cols // rn)) for c in range(rn)]
+        lhs, rhs = [self.view(o, ns_) for o, ns_ in zip(m.operands, propagate(m, sched), strict=False)]
+        depth = lhs.shape[-1]
+        self.lines.append(f"{body}{T} acc[{rm * rn}] = {{}};")
+        self.lines.append(f"{body}#pragma unroll" + ("" if depth <= 32 else " 8"))
+        self.lines.append(f"{body}for (int k = 0; k < {depth}; ++k) {{")
+        self.ind = body + "  "
+        for r, row in enumerate(ms):
+            self.lines.append(f"{body}  const {T} a{r} = {lhs.at(list(g[:-2]) + [row, 'k'])};")
+        for c, col in enumerate(ns):
+            self.lines.append(f"{body}  const {T} c{c} = {rhs.at(list(g[:-2]) + ['k', col])};")
+        for r in range(rm):
+            for c in range(rn):
+                self.lines.append(f"{body}  acc[{r * rn + c}] = sx_fma(a{r}, c{c}, acc[{r * rn + c}]);")
+        self.lines.append(f"{body}}}")
+        self.ind = body
+        stmts = self.lines
+        outs = [(r * rn + c, list(g[:-2]) + [row, col]) for r, row in enumerate(ms) for c, col in enumerate(ns)]
+        for _, j in outs:
+            self._check_own_slot(m, self._tile_write(m, out_chunk, j), "\n".join(stmts))
+        lines += stmts
+        for a, j in outs:
+            lines.append(f"{body}{{")
+            lines.append(f"{body}  const {T} v = {_c_round(m.dtype, f'acc[{a}]')};")
+            lines += self._writes(m, sched, out_chunk, j, "v", body + "  ")
+            lines.append(f"{body}}}")
         lines.append(f"{ind}}}")
         return lines
 
     def reduce_loop(self, m: Instruction, ind: str) -> List[str]:
         """A cooperative reduce: a warp per output element, its lanes
-        striding over the reduced elements, then a butterfly of shuffles."""
+        striding over the reduced elements, then a butterfly of shuffles.
+        Where a plan block has fewer outputs than its block has warps, the
+        warps share them (``_block_reduce``)."""
         sched = self.sched(m)
         out_chunk = chunk_shape(m.shape, sched)
-        r_out, T, th = _prod(out_chunk), _c_type(m.dtype), self.threads
+        r_out, T, th = _prod(out_chunk), _c_compute(m.dtype), self.threads
         warps = th // 32
+        pure = self.slot_base is None
+        if not pure and 2 * r_out <= warps:
+            return self._block_reduce(m, ind)
         (src,) = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
         rdims = tuple(m.attrs["dims"])
         kind = m.attrs["kind"]
         kept = [k for k in range(len(src.shape)) if k not in rdims]
         extent = [src.shape[k] for k in rdims]
-        pure = self.slot_base is None
         reps = self.blocks if pure and sched.kind == "chunked" else 1
         body = ind + "  "
         lines = []
@@ -946,19 +1096,80 @@ class _StitchedPhase:
         self.lines.append(f"{body}acc = sx_warp_allreduce(acc, {_REDUCE_COMBINE[kind]}());")
         self.ind = body
         v = f"(acc / static_cast<{T}>({_prod(extent)}))" if kind == "mean" else "acc"
-        write = self._tile_write(m, out_chunk, idx)
         stmts = self.lines
-        self._check_own_slot(m, write, "\n".join(stmts))
+        self._check_own_slot(m, self._tile_write(m, out_chunk, idx), "\n".join(stmts))
         if not pure:
             lines.append(f"{ind}for (int o = threadIdx.x >> 5; o < {r_out}; o += {warps}) {{")
         lines += stmts
         lines.append(f"{body}if ((threadIdx.x & 31) == 0) {{")
-        lines.append(f"{body}  const {T} v = {v};")
-        if write is not None:
-            lines.append(f"{body}  {write} = v;")
-        lines += [body + "  " + s for s in self._stores(m, sched, idx, "v")]
+        lines.append(f"{body}  const {T} v = {_c_round(m.dtype, v)};")
+        lines += self._writes(m, sched, out_chunk, idx, "v", body + "  ")
         lines += [f"{body}}}", f"{ind}}}"]
         return lines
+
+    def _block_reduce(self, m: Instruction, ind: str) -> List[str]:
+        """A reduce with fewer outputs than warps: the block's warps share
+        them, P = warps // outputs to each.  Warp w takes part w / outputs
+        of output w % outputs, its lanes striding over the terms by 32 P;
+        each warp combines its lanes by shuffles and leaves its partial
+        result in shared memory (``sx_part``); after a barrier, thread o
+        combines output o's P partials in order.  The barrier also makes it
+        safe for a SHARE member to read its slot anywhere: every read comes
+        before it, every write after."""
+        sched = self.sched(m)
+        out_chunk = chunk_shape(m.shape, sched)
+        r_out, T, th = _prod(out_chunk), _c_compute(m.dtype), self.threads
+        warps = th // 32
+        parts = warps // r_out
+        (src,) = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
+        rdims = tuple(m.attrs["dims"])
+        kind = m.attrs["kind"]
+        comb = _REDUCE_COMBINE[kind]
+        kept = [k for k in range(len(src.shape)) if k not in rdims]
+        extent = [src.shape[k] for k in rdims]
+        self.part_bytes = reduce_part_bytes(th)
+        body, inner = ind + "  ", ind + "    "
+        lines = [f"{ind}{{  // {parts} warps an output, partial results through shared memory",
+                 f"{body}{T}* const part = reinterpret_cast<{T}*>(sx_part);",
+                 f"{body}const int w = threadIdx.x >> 5;",
+                 f"{body}{T} acc = {_REDUCE_INIT[kind].format(T=T)};",
+                 f"{body}if (w < {r_out * parts}) {{",
+                 f"{inner}const int o = w % {r_out};",
+                 f"{inner}const int p = w / {r_out};"]
+        self.lines, self.ind = [], inner
+        idx = _unravel(self.lines, "o", out_chunk, "o", inner)
+        j: List = [0] * len(src.shape)
+        for kk, k in enumerate(kept):
+            j[k] = idx[kk]
+        self.lines += _counted_loop("r", "((threadIdx.x & 31) + 32 * p)", 32 * parts, _prod(extent), inner)
+        self.ind = inner + "  "
+        for k, q in zip(rdims, _unravel(self.lines, "r", extent, "q", inner + "  "), strict=True):
+            j[k] = q
+        self.lines.append(f"{inner}  {_REDUCE_STEP[kind].format(x=src.at(j))}")
+        self.lines.append(f"{inner}}}")
+        self.lines.append(f"{inner}acc = sx_warp_allreduce(acc, {comb}());")
+        lines += self.lines
+        lines += [f"{body}}}",
+                  f"{body}if ((threadIdx.x & 31) == 0) part[w] = acc;",
+                  f"{body}__syncthreads();",
+                  f"{body}if (threadIdx.x < {r_out}) {{",
+                  f"{inner}const int o = threadIdx.x;",
+                  f"{inner}{T} tot = part[o];",
+                  f"{inner}for (int p = 1; p < {parts}; ++p) tot = {comb}()(tot, part[o + p * {r_out}]);"]
+        self.ind = inner
+        idx = _unravel(lines, "o", out_chunk, "o", inner)
+        v = f"(tot / static_cast<{T}>({_prod(extent)}))" if kind == "mean" else "tot"
+        lines.append(f"{inner}const {T} v = {_c_round(m.dtype, v)};")
+        lines += self._writes(m, sched, out_chunk, idx, "v", inner)
+        lines += [f"{body}}}", f"{ind}}}"]
+        return lines
+
+    def member_loop(self, m: Instruction, ind: str) -> List[str]:
+        if m.opcode == "reduce":
+            return self.reduce_loop(m, ind)
+        if m.opcode == "dot":
+            return self.dot_loop(m, ind)
+        return self.element_loop(m, ind)
 
     def emit(self) -> List[str]:
         pk, ph = self.pk, self.phase
@@ -970,22 +1181,41 @@ class _StitchedPhase:
             out = [head]
             for m in stored:
                 out.append(self._comment(m, "  "))
-                out += self.reduce_loop(m, "  ") if m.opcode == "reduce" else self.element_loop(m, "  ")
+                out += self.member_loop(m, "  ")
             return out
+        groups = [[m for m in stored if m.id in ids]
+                  for ids in map(set, self.groups or [[m.id for m in stored]])]
+        groups = [g for g in groups if g]   # a group of constants read as literals
         where = "shared memory" if self.slot_base == "sx_smem" else "a per-block workspace region"
-        out = [f"  // phase {pk}: {len(ph.members)} members, {self.blocks} plan blocks over the grid, "
-               f"slots {self.slot_bytes} bytes in {where}",
-               "  {"]
+        head = f"  // phase {pk}: {len(ph.members)} members, {self.blocks} plan blocks over the grid, "
+        if len(groups) > 1:
+            head += f"{len(groups)} independent member groups a plan block, "
+        out = [head + f"slots {self.slot_bytes} bytes in {where}", "  {"]
         for slot, ptr in sorted(self.slot_ptr.items()):
             T = _c_type(self.pplan.slots[slot][1])
             out.append(f"    {T}* const {ptr} = reinterpret_cast<{T}*>({self.slot_base} + {self.offs[slot]});")
-        out.append(f"    for (int b = blockIdx.x; b < {self.blocks}; b += gridDim.x) {{")
-        for m in stored:
-            out.append(self._comment(m, "      "))
-            out += self.reduce_loop(m, "      ") if m.opcode == "reduce" else self.element_loop(m, "      ")
-            out.append("      __syncthreads();")
+        if len(groups) == 1:
+            out.append(f"    for (int b = blockIdx.x; b < {self.blocks}; b += gridDim.x) {{")
+            for m in groups[0]:
+                out.append(self._comment(m, "      "))
+                out += self.member_loop(m, "      ")
+                out.append("      __syncthreads();")
+        else:
+            # each (plan block, group) pair a unit of work, dealt over the grid
+            units = self.blocks * len(groups)
+            out.append(f"    for (int u = blockIdx.x; u < {units}; u += gridDim.x) {{")
+            if self.blocks > 1:
+                out.append(f"      const int b = u / {len(groups)};")
+            for g, members in enumerate(groups):
+                cond = f"u % {len(groups)} == {g}"
+                out.append(f"      {'if' if g == 0 else '} else if'} ({cond}) {{")
+                for m in members:
+                    out.append(self._comment(m, "        "))
+                    out += self.member_loop(m, "        ")
+                    out.append("        __syncthreads();")
+            out.append("      }")
         out += ["    }", "  }"]
-        self.useful_blocks = max(self.useful_blocks, self.blocks)
+        self.useful_blocks = max(self.useful_blocks, self.blocks * len(groups))
         return out
 
     def _comment(self, m: Instruction, ind: str) -> str:
@@ -1021,7 +1251,7 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
             region = max(region, size * phase.solution.blocks)
     if smem:
         body.append("  extern __shared__ __align__(16) unsigned char sx_smem[];")
-    grid = 1
+    grid, static_smem = 1, 0
     for pk, (phase, pplan) in enumerate(zip(stitched.phases, plan.phase_plans, strict=True)):
         if pk:
             body.append("  sx_grid_sync();")
@@ -1032,20 +1262,23 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
             if base != "sx_smem":
                 body.append(f"  unsigned char* const {base} = ws + {ws.size} + "
                             f"static_cast<size_t>(blockIdx.x) * {size};")
-        ph = _StitchedPhase(pk, phase, pplan, threads, in_name, staged, out_of, label, base)
+        ph = _Phase(pk, phase, pplan, threads, in_name, staged, out_of, label, base)
         body += ph.emit()
         grid = max(grid, ph.useful_blocks)
+        static_smem = max(static_smem, ph.part_bytes)
+    if static_smem:
+        body.insert(0, f"  __shared__ __align__(16) unsigned char sx_part[{static_smem}];")
     header = (
         f"// emit_stitched_fusion: {stitched.num_phases} phases, {stitched.blocks} plan blocks "
         f"in all, one cooperative launch of up to {grid} blocks of {threads} threads, "
         f"{smem} bytes of shared memory a block, {ws.size + region} workspace bytes"
     )
-    name, text = _finish_cooperative(header, body, inputs, roots, grid, threads, smem)
+    name, text = _finish_cooperative(header, body, inputs, roots, grid, threads, smem, static_smem)
     return name, text, ws.size + region
 
 
 def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int,
-                        threads: int, smem: int) -> Tuple[str, str]:
+                        threads: int, smem: int, static_smem: int) -> Tuple[str, str]:
     """Name a stitched kernel by the hash of its text and add its launcher:
     one cooperative launch of as many blocks as the card holds at once, at
     most ``useful``, the count asked once per device and cached."""
@@ -1063,7 +1296,7 @@ def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int
         f"  int grid = dev < {GRID_CACHE_DEVICES} ? grids[dev].load(std::memory_order_relaxed) : 0;",
         "  if (grid == 0) {",
     ]
-    if smem > STATIC_SMEM_LIMIT:
+    if smem + static_smem > STATIC_SMEM_LIMIT:
         launcher += [
             f"    e = cudaFuncSetAttribute(@K@, cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
             "    if (e != cudaSuccess) return static_cast<int>(e);",
@@ -1206,12 +1439,13 @@ def emit_fusion(
     solution: ScheduleSolution,
     plan: MemoryPlan,
 ) -> StitchedKernel:
-    """One schedule-consistent fusion as a CUDA kernel of ``solution.blocks``
-    blocks.  ``plan`` is the reference's scratch plan: ALLOC/SHARE members
-    round-trip through scratch there, which changes no value, and here every
-    member keeps a workspace tile."""
+    """One schedule-consistent fusion as one CUDA launch that follows
+    ``plan``: ALLOC/SHARE members in its slots in shared memory (or a
+    per-block workspace region past ``SMEM_LIMIT``), INLINE members composed
+    into their consumers, a CUDA block per plan block and independent member
+    group, cooperative reduces (module docstring)."""
     _check_no_collectives(fusion)
-    name, source, ws = _cuda_fusion(fusion, solution)
+    name, source, ws = _cuda_fusion(fusion, solution, plan)
     program = KernelProgram(
         name, source, "emit_fusion", _plain_fusion(fusion, solution),
         fusion.inputs, fusion.roots, ws,

@@ -20,6 +20,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .codegen import StitchedKernel
@@ -30,7 +31,11 @@ from .ir import LOOPS_ITEM, Instruction, Module, apply_op, torch_dtype
 
 def as_feed(value, dtype, device) -> torch.Tensor:
     """A feed (numpy array or tensor) as a tensor of the parameter's dtype
-    on ``device`` — the port's ``jnp.asarray(value, dtype)``."""
+    on ``device`` — the port's ``jnp.asarray(value, dtype)``.  A numpy
+    bfloat16 array (ml_dtypes', which torch cannot read) goes across by
+    its bits."""
+    if isinstance(value, np.ndarray) and value.dtype.name == "bfloat16":
+        value = torch.from_numpy(value.view(np.int16)).view(torch.bfloat16)
     return torch.as_tensor(value, dtype=torch_dtype(dtype), device=device)
 
 

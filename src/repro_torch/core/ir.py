@@ -4,6 +4,7 @@ The graph classes (``Instruction``, ``Module``, ``GraphBuilder``/``Tensor``,
 ``trace``, ``infer_shape``/``infer_dtype``) are the reference's, with numpy
 dtypes throughout: an instruction's ``dtype`` is always an ``np.dtype`` and
 becomes a torch dtype only where a tensor is made (``torch_dtype``).
+bfloat16, which numpy lacks, is the port's own key ``BFLOAT16``.
 
 ``apply_op`` evaluates one instruction on torch tensors with the semantics
 of the reference's jnp interpreter.  It is shared by the reference executor,
@@ -89,6 +90,14 @@ LOOPS_ITEM = "ROADMAP.md queue 1, item 6 (loops: SubModulePass, call/get)"
 VERIFY_ITEM = "ROADMAP.md queue 1, item 7 (verifier and lint)"
 SHARDING_ITEM = "ROADMAP.md queue 1, item 14 (sharding and distributed)"
 
+#: the IR's bfloat16.  numpy has none (the reference takes ml_dtypes', a
+#: package the port does not depend on), so the port keys it by a 2-byte
+#: structured dtype of its own: ``np.dtype`` accepts it and gives its
+#: itemsize, so the planner sizes it as the reference sizes bf16, and it
+#: equals no other dtype.  Its values live in float32 arrays (``as_array``)
+#: and in ``torch.bfloat16`` tensors.
+BFLOAT16 = np.dtype([("bfloat16", "<u2")])
+
 _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
@@ -98,6 +107,7 @@ _TORCH_DTYPES = {
     np.dtype(np.int8): torch.int8,
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.bool_): torch.bool,
+    BFLOAT16: torch.bfloat16,
 }
 
 
@@ -107,6 +117,22 @@ def torch_dtype(dtype) -> torch.dtype:
         return _TORCH_DTYPES[np.dtype(dtype)]
     except KeyError:
         raise TypeError(f"dtype {np.dtype(dtype)} has no torch counterpart here") from None
+
+
+def dtype_name(dtype) -> str:
+    """The dtype's name as jnp spells it (``bfloat16`` for ``BFLOAT16``)."""
+    dt = np.dtype(dtype)
+    return "bfloat16" if dt == BFLOAT16 else dt.name
+
+
+def as_array(value, dtype) -> np.ndarray:
+    """``value`` as a numpy array of ``dtype``'s values: ``np.asarray`` for
+    every dtype but ``BFLOAT16``, whose values, rounded to nearest even,
+    come back in a float32 array."""
+    if np.dtype(dtype) != BFLOAT16:
+        return np.asarray(value, dtype=dtype)
+    f32 = torch.as_tensor(np.asarray(value, dtype=np.float32))
+    return f32.to(torch.bfloat16).to(torch.float32).numpy()
 
 
 def _prod(xs: Sequence[int]) -> int:
@@ -183,7 +209,7 @@ class Instruction:
     def __repr__(self):
         ops = ", ".join(o.name for o in self.operands)
         return (
-            f"%{self.name}: {np.dtype(self.dtype).name}{list(self.shape)} = "
+            f"%{self.name}: {dtype_name(self.dtype)}{list(self.shape)} = "
             f"{self.opcode}({ops}) {self.attrs or ''}"
         )
 
@@ -322,7 +348,8 @@ def iota(shape, dim: int, dtype, device) -> torch.Tensor:
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, idx, axis=0)`` in its default "fill" mode: indices
     in [-n, n) wrap like Python's, any other index yields a fill row (NaN
-    for floats, the most negative value for signed ints, True for bool)."""
+    for floats, the most negative value for signed ints, the largest for
+    unsigned ints, True for bool)."""
     n = table.shape[0]
     idx = idx.to(torch.int64)
     valid = (idx >= -n) & (idx < n)
@@ -331,10 +358,25 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         fill = float("nan")
     elif table.dtype == torch.bool:
         fill = True
-    else:
+    elif table.dtype.is_signed:
         fill = torch.iinfo(table.dtype).min
+    else:   # jnp fills unsigned rows with the largest value
+        fill = torch.iinfo(table.dtype).max
     mask = valid.reshape(tuple(valid.shape) + (1,) * (table.ndim - 1))
     return torch.where(mask, rows, torch.full_like(rows, fill))
+
+
+def convert(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``astype`` as jnp does it: a float becomes an int by truncation, NaN
+    gives 0 and values out of range saturate (torch's cast would wrap)."""
+    if not v.dtype.is_floating_point or dtype.is_floating_point or dtype == torch.bool:
+        return v.to(dtype)
+    info = torch.iinfo(dtype)
+    x = torch.nan_to_num(v.to(torch.float64), nan=0.0)
+    lo, hi = float(info.min), float(info.max)   # int64's hi rounds up to 2**63
+    out = torch.where((x > lo) & (x < hi), x, torch.zeros_like(x)).to(dtype)
+    out = torch.where(x >= hi, torch.full_like(out, info.max), out)
+    return torch.where(x <= lo, torch.full_like(out, info.min), out)
 
 
 def _reduce(v: torch.Tensor, dims: Tuple[int, ...], kind: str) -> torch.Tensor:
@@ -376,7 +418,7 @@ def _apply(instr, op, a, vals, device):
     if op == "elementwise":
         fn = a["fn"]
         if fn == "convert":
-            return vals[0].to(torch_dtype(instr.dtype))
+            return convert(vals[0], torch_dtype(instr.dtype))
         if fn in ELEMENTWISE_UNARY:
             return ELEMENTWISE_UNARY[fn](vals[0])
         return ELEMENTWISE_BINARY[fn](vals[0], vals[1])
@@ -400,8 +442,8 @@ def _apply(instr, op, a, vals, device):
     if op == "iota":
         return iota(instr.shape, a["dim"], instr.dtype, device)
     if op == "constant":
-        arr = np.asarray(a["value"], dtype=instr.dtype)
-        return torch.as_tensor(arr, device=device)
+        arr = as_array(a["value"], instr.dtype)
+        return torch.as_tensor(arr, device=device).to(torch_dtype(instr.dtype))
     if op in ("call", "get"):
         raise NotImplementedError(f"opcode {op!r} is ported by {LOOPS_ITEM}")
     if op in COLLECTIVE_OPCODES:
@@ -471,7 +513,7 @@ class Tensor:
         return self.builder.reduce(self, dims, "max", keepdims=keepdims)
 
     def __repr__(self):
-        return f"Tensor({self.instr.name}: {np.dtype(self.dtype).name}{list(self.shape)})"
+        return f"Tensor({self.instr.name}: {dtype_name(self.dtype)}{list(self.shape)})"
 
 
 class GraphBuilder:
@@ -494,8 +536,9 @@ class GraphBuilder:
         return self._emit("parameter", shape, dtype, name=name)
 
     def constant(self, value, dtype=None) -> Tensor:
-        arr = np.asarray(value, dtype=dtype)
-        return self._emit("constant", arr.shape, arr.dtype, attrs={"value": arr})
+        arr = as_array(value, dtype) if dtype is not None else np.asarray(value)
+        dt = BFLOAT16 if dtype is not None and np.dtype(dtype) == BFLOAT16 else arr.dtype
+        return self._emit("constant", arr.shape, dt, attrs={"value": arr})
 
     def lift(self, value, like: Tensor) -> Tensor:
         """Lift a python scalar / ndarray to a Tensor broadcast to ``like``."""
@@ -505,8 +548,8 @@ class GraphBuilder:
             if value.ndim == 0:
                 return self.broadcast(value, like.shape, dims=())
             raise ValueError(f"shape mismatch {value.shape} vs {like.shape}")
-        arr = np.asarray(value, dtype=like.dtype)
-        c = self.constant(arr)
+        arr = as_array(value, like.dtype)
+        c = self.constant(arr, like.dtype)
         if arr.shape == tuple(like.shape):
             return c
         if arr.ndim == 0:

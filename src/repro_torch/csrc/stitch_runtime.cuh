@@ -1,7 +1,11 @@
 // Device helpers included by every source that core/codegen.py generates.
 //
-// One overload per element type the generated kernels use (float, double,
-// int, long long, bool).  The elementwise functions follow the reference's
+// One overload per element type the generated kernels compute in (float,
+// double, int, long long, bool).  Values stored as bf16 or f16 are computed
+// in float and those stored as int8 or uint8 in int (cuda_bf16.h's and
+// cuda_fp16.h's conversion intrinsics, each member rounded back to its
+// dtype where it ends), so those types need only their identities and
+// gather fills here.  The elementwise functions follow the reference's
 // jnp/jax.nn semantics, not CUDA's fast intrinsics: the sources are built
 // without --use_fast_math, rsqrt is 1/sqrt (two correctly rounded steps,
 // not the approximate rsqrtf), gelu is the tanh form jax.nn.gelu uses by
@@ -13,6 +17,8 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -91,6 +97,28 @@ template <> SX_D long long sx_fill<long long>() { return -9223372036854775807LL 
 template <> SX_D bool sx_lowest<bool>() { return false; }
 template <> SX_D bool sx_highest<bool>() { return true; }
 template <> SX_D bool sx_fill<bool>() { return true; }
+template <> SX_D signed char sx_lowest<signed char>() { return -128; }
+template <> SX_D signed char sx_highest<signed char>() { return 127; }
+template <> SX_D signed char sx_fill<signed char>() { return -128; }
+// jnp fills unsigned rows with the largest value
+template <> SX_D unsigned char sx_lowest<unsigned char>() { return 0; }
+template <> SX_D unsigned char sx_highest<unsigned char>() { return 255; }
+template <> SX_D unsigned char sx_fill<unsigned char>() { return 255; }
+template <> SX_D __half sx_fill<__half>() { return __ushort_as_half(0x7e00); }
+template <> SX_D __nv_bfloat16 sx_fill<__nv_bfloat16>() { return __ushort_as_bfloat16(0x7fc0); }
+
+// jnp's conversion of a float to an integer type: truncation toward zero,
+// NaN gives 0, values past the type's range saturate at its ends (a C cast
+// of such a value is undefined).  For long long, hi rounds up to 2**63,
+// so every x below it converts.
+template <typename I> SX_D I sx_f2i(double x) {
+  const double lo = static_cast<double>(sx_lowest<I>());
+  const double hi = static_cast<double>(sx_highest<I>());
+  if (x != x) return static_cast<I>(0);
+  if (x <= lo) return sx_lowest<I>();
+  if (x >= hi) return sx_highest<I>();
+  return static_cast<I>(x);
+}
 
 // ---------------------------------------------------------------------------
 // Cooperative reductions of the stitched kernels: the 32 lanes of a warp

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .core.ir import GraphBuilder, Module
+from .core.ir import BFLOAT16, GraphBuilder, Module
 
 F32 = np.float32
 I32 = np.int32
@@ -19,7 +19,8 @@ I32 = np.int32
 
 def random_feeds(module: Module, rng) -> dict:
     """Random feeds for every module parameter: int32 parameters get small
-    first-dim-bounded indices, floats uniform(-1, 1)."""
+    first-dim-bounded indices, floats uniform(-1, 1) (bfloat16 ones drawn
+    as float32, which the runtime rounds)."""
     out = {}
     for p in module.parameters:
         if np.dtype(p.dtype) == np.int32:
@@ -27,7 +28,8 @@ def random_feeds(module: Module, rng) -> dict:
                 0, max(2, p.shape[0] if p.shape else 2), size=p.shape
             ).astype(np.int32)
         else:
-            out[p.name] = rng.uniform(-1, 1, size=p.shape).astype(np.dtype(p.dtype))
+            dt = np.float32 if np.dtype(p.dtype) == BFLOAT16 else np.dtype(p.dtype)
+            out[p.name] = rng.uniform(-1, 1, size=p.shape).astype(dt)
     return out
 
 

@@ -20,6 +20,7 @@ from repro.core import reference_execute as ref_execute
 from repro.core import trace as ref_trace
 from repro_torch.core import StitchOptions, codegen, compile_module, cuda_build
 from repro_torch.core.interop import module_from_reference
+from repro_torch.core.schedule import chunk_shape
 
 TOL = 2e-5
 # Speech normalises each (utterance, filter) column by rsqrt(var + 1e-5).
@@ -94,8 +95,10 @@ def test_generated_source_has_one_kernel_per_unique_signature():
     assert len(re.findall(r"__global__ void", src)) == port.stats.unique_kernels
     assert len(re.findall(r'extern "C" int \w+_launch\(', src)) == port.stats.unique_kernels
     assert src.startswith('#include "stitch_runtime.cuh"')
-    names = {k.fn.name for k in port.kernels}
-    assert all(f"__launch_bounds__(256) {n}(" in src for n in names)
+    # threads per block follow the plan (``fusion_threads``), not a constant
+    for k in port.kernels:
+        threads = codegen.fusion_threads(k.fusion, k.solution, k.plan)
+        assert f"__launch_bounds__({threads}) {k.fn.name}(" in src
     cmd = cuda_build._command("nvcc", cuda_build.BUILD_DIR / "x.cu", cuda_build.BUILD_DIR / "x.so")
     joined = " ".join(cmd[1:])
     assert "fast_math" not in joined and "fast-math" not in joined
@@ -181,3 +184,84 @@ def test_stitched_source_loops_over_its_phases(case, rng):
     got = kernel.fn.plain(*[torch.as_tensor(a) for a in args], device=torch.device("cpu"))
     for g, w in zip(got, want, strict=True):
         _close(g.numpy(), w, f"{case}:{fname}")
+
+
+# single-phase compiles: every graph's emit_fusion kernels, and a softmax
+# whose one plan block's slots (263,168 bytes) pass what a block's shared
+# memory holds, so they live in a per-block workspace region
+FUSION_CASES = {name: (lambda name=name: ALL_GRAPHS[name](), {})
+                for name in ALL_GRAPHS if name != "StitchPipe"}
+FUSION_CASES["softmax-128x512-max_blocks=1"] = (
+    lambda: ref_trace(lambda b, x: b.softmax(x), ("x", (128, 512), jnp.float32)), {"max_blocks": 1})
+
+
+@pytest.mark.parametrize("case", list(FUSION_CASES))
+def test_fusion_source_reads_its_memory_plan(case):
+    """``emit_fusion``'s kernel follows the fusion's ``MemoryPlan``: its
+    ALLOC/SHARE members live in the plan's slots, in dynamic shared memory
+    at the plan's offsets (past ``SMEM_LIMIT``, in a per-block workspace
+    region); INLINE members are composed into their consumers and get no
+    loop of their own unless they are outputs; outputs are written straight
+    to ``out*``; every reduce is cooperative (warp shuffles, and the whole
+    block where a plan block has fewer outputs than warps); members that
+    share no value run on CUDA blocks of their own; and the threads of a
+    block follow the plan."""
+    build, opts = FUSION_CASES[case]
+    port = compile_module(module_from_reference(build()), StitchOptions(**opts), device="cpu")
+    kernels = [k for k in port.kernels if k.fn.emitter == "emit_fusion"]
+    assert kernels
+    for k in kernels:
+        src, plan = k.fn.source, k.plan
+        assert src.count("__global__") == 1 and "cudaLaunchCooperativeKernel" not in src
+        threads = codegen.fusion_threads(k.fusion, k.solution, plan)
+        assert f"__launch_bounds__({threads}) {k.fn.name}(" in src
+        offs, size = codegen._slot_layout(plan)
+        assert size == plan.total_bytes
+        head = next(line for line in src.splitlines() if line.startswith("  // phase 0:"))
+        groups = [g for g in codegen._independent_groups(k.fusion)
+                  if any(plan.action(m) != "INLINE" or m.id in {r.id for r in k.fusion.roots}
+                         for m in k.fusion.members if m.id in set(g) and m.opcode != "constant")]
+        if not plan.slots:
+            assert head.endswith("no slot: a pure map over the grid") and "sx_smem" not in src
+            grid = None
+        elif size + codegen.reduce_part_bytes(threads) <= codegen.SMEM_LIMIT:
+            assert head.endswith(f"slots {size} bytes in shared memory")
+            assert "extern __shared__ __align__(16) unsigned char sx_smem[];" in src
+            assert f"<<<{k.blocks * len(groups)}, {threads}, {size}, " in src
+            assert k.fn.workspace_bytes == 0
+            grid = k.blocks * len(groups)
+        else:
+            assert head.endswith(f"slots {size} bytes in a per-block workspace region")
+            assert f"unsigned char* const pr0 = ws + static_cast<size_t>(blockIdx.x) * {size};" in src
+            assert f"<<<{k.blocks * len(groups)}, {threads}, 0, " in src
+            assert k.fn.workspace_bytes == size * k.blocks * len(groups)
+            grid = k.blocks * len(groups)
+        if grid is not None and len(groups) > 1:
+            assert f"{len(groups)} independent member groups a plan block" in head
+        for slot, off in enumerate(offs):
+            if any(e.slot == slot for e in plan.entries.values() if e.action in ("ALLOC", "SHARE")):
+                base = "sx_smem" if "sx_smem[]" in src else "pr0"
+                assert f"p0s{slot} = reinterpret_cast<float*>({base} + {off});" in src
+        label = {m.id: f"m{j}" for j, m in enumerate(k.fusion.members)}
+        roots = {r.id for r in k.fusion.roots}
+        comments = {line.split(" = ")[0].strip().removeprefix("// "): line
+                    for line in src.splitlines() if line.strip().startswith("// m")}
+        for m in k.fusion.members:
+            kept = plan.action(m) in ("ALLOC", "SHARE") and m.opcode != "constant"
+            line = comments.get(label[m.id])
+            # a loop for each member that writes a slot or an output, no other
+            assert (line is not None) == (kept or m.id in roots), (case, m.name)
+            assert (line is not None and "-> slot p0s" in line) == kept, (case, m.name)
+            if m.opcode == "reduce" and line is not None:
+                body = src.split(line)[1].split("// m")[0]
+                assert "sx_warp_allreduce(acc, " in body
+                outs = codegen._prod(chunk_shape(m.shape, k.solution.assignment[m.id]))
+                if plan.slots and 2 * outs <= threads // 32:
+                    assert f"{threads // 32 // outs} warps an output" in body
+        # INLINE members write no tile: the only slot writes are kept members'
+        for w in re.findall(r"\bp0s(\d+)\[[^\]]*\] = ", src):
+            assert int(w) < len(plan.slots)
+    if case == "ReduceTowers":
+        (k,) = kernels
+        assert "6 independent member groups a plan block" in k.fn.source
+        assert k.fn.source.count("4 warps an output") == 6
