@@ -11,10 +11,11 @@ Phases, each fatal on failure:
    default ``StitchOptions``: every graph's generated ``.cu`` is built with
    nvcc (one process per source, all started together) into
    ``build/repro_torch/``, then each graph is compiled for ``"cuda"``;
-3. main path — one call of every compiled graph on seeded feeds, with every
-   kernel's launch counter set to 0 just before and read just after: each
-   graph must launch exactly its planned fused kernels (35 in all) and
-   every unique kernel at least once;
+3. main path — one call of every compiled graph on seeded feeds, through
+   the eager step loop (``jit_replay=False``, so each launch goes through
+   its wrapper), with every kernel's launch counter set to 0 just before
+   and read just after: each graph must launch exactly its planned fused
+   kernels (35 in all) and every unique kernel at least once;
 4. right — each graph's outputs against the port's ``reference_execute`` on
    the card (one torch op per instruction), and every unique kernel against
    its plain version on the card, on the inputs the main path gave it.
@@ -26,7 +27,7 @@ Phases, each fatal on failure:
    of 2 and 1 plan blocks.  Each takes one launch and is held against its
    plain version at ``TOL``.  Then the compiles in the dtypes the graphs do
    not use (``DTYPE_COMPILES``): an add, a mul, two row reduces and a
-   convert in bf16 and in int8 through ``emit_fusion``, and the break
+   convert in bf16, int8 and int16 through ``emit_fusion``, and the break
    module in bf16 and an integer kin of it in int8 through
    ``emit_stitched_fusion``, and a (128, 512) softmax in one plan block
    whose slots pass a block's shared memory (``FUSION_COMPILES``): each
@@ -92,10 +93,48 @@ Phases, each fatal on failure:
    time and ``F.rms_norm``'s are also taken over a rotation of 8 inputs
    (101 MB of x), where each call finds its x in device memory.
 
+7. replay — each graph compiled with the default options: its
+   ``replay_mode`` must be the one its dispatch counts give (the CUDA graph
+   where a replayed call dispatches no more than an eager one), and a
+   default call must take that path.  Then every graph replays through its
+   CUDA graph (``jit_execute``): two calls, each bit for bit equal to its
+   eager call (a library dot that rounds differently under capture would be
+   named and held at ``TOL``); microseconds per call eager and replayed
+   (CUDA events, 200 calls), device microseconds and idle share both ways.
+   The launches of a replayed call are read from torch.profiler: each
+   generated kernel as many times a call as the plan launches it, and
+   every device kernel of the eager call plus one a copy group of the
+   feeds and roots (a profile that disagrees is retaken, then fails); the
+   counters' replay ticks are the plan's bookkeeping, held against the plan;
+8. loops — the RNN cell as a scan (``RNNScan``), the decode loop and the
+   reversed scan of ``repro_torch.graphs.LOOP_GRAPHS``, eager and replayed:
+   launches counted (the body's kernels once an iteration; replayed, by the
+   profiler as in phase 7), outputs against the plain path
+   (``reference_execute``, the body interpreted op by op) and, for the scan,
+   its final state against the unrolled RNN graph's;
+9. verify — ``python -m repro_torch.lint`` in-process on the card: the ten
+   graphs under ``verify="strict"`` in both planners, exit status 0;
+10. autotune — the ten graphs compiled with ``autotune=True`` into a fresh
+   store under ``build/repro_torch/``, in each planner: under the greedy
+   planner twice, and the second compile must take no new measurement;
+   under the cost planner ``AUTOTUNE_ROUNDS`` times, reported (it re-plans
+   from what it measured and measures what it newly commits).  In both a
+   compile measures only kernels the store does not hold; measurements
+   and store hits per compile, ``model_error_pct``, whether the plan
+   changed from the default one, and the last plan's outputs against
+   ``reference_execute``;
+11. f16 and the fault modules — the five hand-written kernels in f16 at
+   granite-moe-3b-a800m's full width through their f16 launchers, each
+   against its plain version (``F16_TOL``) and timed as in phase 6; and the
+   two modules that reached the emitters' former limits (a concat of
+   composed reshapes; a SHARE member reading its slot transposed, which
+   writes through the workspace's staging region), one launch each, against
+   their plain versions and ``reference_execute``.
+
 The line before the last is one JSON object with a ``kernels`` list: one
 entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``) and one
-per hand-written kernel; the last line is ``{"ok": true, "device":
-{...}}``.  ``--out`` also writes every per-graph and per-kernel number as
+per hand-written kernel (with its f16 numbers as ``f16_*`` keys); the last
+line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes every per-graph and per-kernel number as
 JSON, with nvcc's register, shared-memory and spill lines.  Exits
 non-zero with no result when no card is present.
 """
@@ -194,6 +233,7 @@ def int_break(b, x, g):
 DTYPE_COMPILES = [
     ("arith bf16 (64, 128)", "arith", "bfloat16", {}, "emit_fusion", (2.0 ** -7, 2.0 ** -12)),
     ("arith int8 (64, 128)", "arith", "int8", {}, "emit_fusion", (0.0, 0.0)),
+    ("arith int16 (64, 128)", "arith", "int16", {}, "emit_fusion", (0.0, 0.0)),
     ("break bf16 (32, 48)", "break", "bfloat16", {"max_blocks": 32, "replicate_limit": 1024},
      "emit_stitched_fusion", (2.0 ** -7, 2.0 ** -12)),
     ("int break int8 (32, 48)", "int_break", "int8", {"max_blocks": 32, "replicate_limit": 1024},
@@ -220,7 +260,7 @@ def dtype_compile(module_name, dtype, opts, device):
     else:
         fn = softmax_transpose if module_name == "break" else int_break
         module = trace(fn, ("x", (32, 48), dt), ("g", (48,), dt))
-    return module, compile_module(module, StitchOptions(**opts), device=device)
+    return module, compile_module(module, StitchOptions(jit_replay=False, **opts), device=device)
 
 
 def ptxas_by_kernel(logs):
@@ -266,7 +306,7 @@ def stitched_compile(module_name, opts, device):
         module = trace(softmax_transpose, ("x", (32, 48), np.float32), ("g", (48,), np.float32))
     else:
         module = ALL_GRAPHS[module_name]()
-    return compile_module(module, StitchOptions(**opts), device=device)
+    return compile_module(module, StitchOptions(jit_replay=False, **opts), device=device)
 
 # (rtol, atol) of each full-width call.  The kernel and its plain version
 # both compute in f32 and round once to the output dtype, so a bf16 output
@@ -344,10 +384,9 @@ def work(kernel):
     return nbytes, ops
 
 
-def device_profile(fn, calls):
-    """Device activity of ``calls`` calls as torch.profiler records it: the
-    device kernels per call, and their device microseconds per call by
-    kernel name."""
+def device_events(fn, calls):
+    """The device kernels of ``calls`` calls as torch.profiler records
+    them: a list of (name, device microseconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -357,13 +396,49 @@ def device_profile(fn, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_profile(fn, calls):
+    """Device activity of ``calls`` calls as torch.profiler records it: the
+    device kernels per call, and their device microseconds per call by
+    kernel name."""
+    events = device_events(fn, calls)
     by_name = {}
-    n = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
-    return n / calls, by_name
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us / calls
+    return len(events) / calls, by_name
+
+
+#: profiles taken of one call before a launch count that disagrees fails
+PROFILE_TRIES = 4
+
+
+def profiled_launches(label, fn, want, total=None):
+    """Hold the device kernels that torch.profiler sees in ``PROFILED_CALLS``
+    calls of ``fn`` against a plan: ``want`` maps each generated kernel's
+    name to its launches a call, and ``total``, where given, is every
+    device kernel a call must run.  Returns (device kernels a call, device
+    µs a call by kernel name) of the profile that agreed.  The profiler
+    drops a run's events now and then (it once saw 0.35 kernels a call of a
+    graph that runs 4): a profile that disagrees is taken again, up to
+    ``PROFILE_TRIES`` times, and one that never agrees fails the run."""
+    readings = []
+    for _ in range(PROFILE_TRIES):
+        events = device_events(fn, PROFILED_CALLS)
+        seen = len(events) / PROFILED_CALLS
+        got = {k: sum(1 for name, _ in events if k in name) / PROFILED_CALLS for k in want}
+        if got == want and (total is None or seen == total):
+            by_name = {}
+            for name, us in events:
+                by_name[name] = by_name.get(name, 0.0) + us / PROFILED_CALLS
+            return seen, by_name
+        readings.append((seen, got))
+        print(f"{label}: profile {len(readings)} read {seen} device kernels a call, generated "
+              f"{got}; the plan says {want}, total {total}: taken again")
+    raise SystemExit(f"{label}: the profiler's device kernels a call disagree with the plan "
+                     f"({PROFILE_TRIES} profiles): want {want}, total {total}; read {readings}")
 
 
 # the __global__ functions of each hand-written kernel, as the profiler names
@@ -384,15 +459,15 @@ def device_us_of(kernel, by_name):
 
 def launchers(kernel, dtype, scalar=False, cluster=False):
     """The launchers one call of a kernel runs, each once: flash attention
-    runs the tensor-core kernel in bf16 and the f32 kernel in f32, decode
+    runs the tensor-core kernel in bf16 and f16 and the f32 kernel in f32, decode
     attention its split and combine kernels, RMSNorm its 16-byte kernel
     unless ``scalar`` (rows it cannot serve), softmax its cluster kernel
     where ``cluster`` (wide rows) and its row kernel else, the gate one."""
     import torch
 
-    sfx = "bf16" if dtype == torch.bfloat16 else "f32"
+    sfx = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype, "f32")
     if kernel == "stitched_flash_attention":
-        return {"sx_flash_mma_attention_bf16" if sfx == "bf16" else "sx_flash_attention_f32": 1}
+        return {f"sx_flash_mma_attention_{sfx}" if sfx != "f32" else "sx_flash_attention_f32": 1}
     if kernel == "stitched_decode_attention":
         return {f"sx_decode_split_{sfx}": 1, f"sx_decode_combine_{sfx}": 1}
     if kernel == "stitched_rmsnorm":
@@ -433,6 +508,101 @@ def compare_gate(logits, got, want, tol):
     return err, ok, int(differ.sum())
 
 
+def full_width_calls(dev, rng, randn, wide, rows):
+    """One call of each hand-written kernel at granite-moe-3b-a800m's full
+    width (``GRANITE``): RMSNorm, flash and decode attention in ``wide``
+    (bf16 or f16), the sampler's softmax and the gate's logits in ``rows``
+    (f32, or f16), each with its plain version, its library call, and the
+    bytes and operations of its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    name = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    g = GRANITE
+    D, Hq, Hkv, d = g["head_dim"], g["heads"], g["kv_heads"], g["d_model"]
+    full = []
+    x, gamma = randn((8, 512, d), wide), randn((d,), wide)
+    full.append(dict(
+        kernel="stitched_rmsnorm", label=f"x{tuple(x.shape)} {name[wide]}", x=x, gamma=gamma,
+        call=lambda: ops.rmsnorm(x, gamma, eps=g["norm_eps"]),
+        plain=lambda: ref.rmsnorm_ref(x, gamma, g["norm_eps"]),
+        library=(lambda: F.rms_norm(x, (d,), gamma, g["norm_eps"])) if hasattr(F, "rms_norm") else None,
+        bytes=nbytes(x, gamma, x), ops=4 * x.numel(), peak=F32_OPS_PER_S, dtype=wide,
+    ))
+    lg = randn((16, g["vocab"]), rows)
+    full.append(dict(
+        kernel="stitched_softmax", label=f"logits{tuple(lg.shape)} {name[rows]}",
+        call=lambda: ops.softmax(lg), plain=lambda: ref.softmax_ref(lg),
+        library=lambda: torch.softmax(lg, dim=-1), bytes=nbytes(lg, lg), ops=4 * lg.numel(),
+        peak=F32_OPS_PER_S, cluster=True, dtype=rows,
+    ))
+    S = 2048
+    q, k, v = randn((1, Hq, S, D), wide), randn((1, Hkv, S, D), wide), randn((1, Hkv, S, D), wide)
+    full.append(dict(
+        kernel="stitched_flash_attention", label=f"q{tuple(q.shape)} kv{tuple(k.shape)} {name[wide]} causal",
+        call=lambda: ops.attention(q, k, v, causal=True),
+        plain=lambda: ref.attention_ref(q, k, v, causal=True),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        bytes=nbytes(q, k, v, q), ops=4 * Hq * D * S * (S + 1) // 2, peak=BF16_OPS_PER_S, dtype=wide,
+    ))
+    B, Sc = 16, 4096
+    qd = randn((B, Hq, D), wide)
+    kc, vc = randn((B, Hkv, Sc, D), wide), randn((B, Hkv, Sc, D), wide)
+    lengths = torch.as_tensor(rng.randint(1, Sc + 1, size=B), dtype=torch.int32, device=dev)
+    valid = int(lengths.sum())
+    mask = (torch.arange(Sc, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    full.append(dict(
+        kernel="stitched_decode_attention",
+        label=f"q{tuple(qd.shape)} kv{tuple(kc.shape)} {name[wide]}, {valid} valid keys",
+        call=lambda: ops.attention_decode(qd, kc, vc, lengths),
+        plain=lambda: ref.decode_attention_ref(qd, kc, vc, lengths),
+        library=lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+        # the keys these lengths make valid, read once: count what the data needs
+        bytes=nbytes(qd, lengths, qd) + 2 * Hkv * D * kc.element_size() * valid,
+        ops=4 * Hq * D * valid, peak=BF16_OPS_PER_S, dtype=wide,
+    ))
+    gl = randn((4096, g["experts"]), rows)
+    top_k = g["top_k"]
+
+    def gate_library():
+        w, i = torch.topk(torch.softmax(gl.float(), dim=-1), top_k, dim=-1)
+        return w / w.sum(dim=-1, keepdim=True), i
+
+    full.append(dict(
+        kernel="stitched_moe_gate", label=f"logits{tuple(gl.shape)} {name[rows]} top{top_k}",
+        call=lambda: ops.moe_gate(gl, top_k), plain=lambda: ref.moe_gate_ref(gl, top_k),
+        library=gate_library, logits=gl, dtype=rows,
+        bytes=nbytes(gl) + gl.shape[0] * top_k * 8, ops=gl.numel() * (4 + top_k), peak=F32_OPS_PER_S,
+    ))
+    return full
+
+
+def time_full(c):
+    """A full-width call's numbers: CUDA-event ms, device ms, its plain
+    version's ms, its library call's ms (events and device), and its bound."""
+    ms = time_ms(c["call"], KERNEL_CALLS)
+    device_us = device_us_of(c["kernel"], device_profile(c["call"], PROFILED_CALLS)[1])
+    library_device_us = (sum(device_profile(c["library"], PROFILED_CALLS)[1].values())
+                         if c["library"] else None)
+    b_ms, o_ms = 1e3 * c["bytes"] / HBM_BYTES_PER_S, 1e3 * c["ops"] / c["peak"]
+    return {
+        "ms": ms, "plain_ms": time_ms(c["plain"], FULL_PLAIN_CALLS),
+        # None where the profiler recorded no device time for it
+        "device_ms": device_us / 1e3 if device_us else None,
+        "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "library_ms": time_ms(c["library"], KERNEL_CALLS) if c["library"] else None,
+        # None where there is no library call or the profiler recorded no device time
+        "library_device_ms": library_device_us / 1e3 if library_device_us else None,
+    }
+
+
 def kernels_phase(dev):
     """Phase 6 (see the module docstring).  Returns the five hand-written
     kernels' entries of the kernels line and one row per call."""
@@ -451,67 +621,10 @@ def kernels_phase(dev):
     def randn(shape, dtype):
         return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev).to(dtype)
 
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
     # ---- the full-width calls: one per kernel -------------------------------------
     g = GRANITE
-    D, Hq, Hkv, d = g["head_dim"], g["heads"], g["kv_heads"], g["d_model"]
-    full = []
-    x, gamma = randn((8, 512, d), bf16), randn((d,), bf16)
-    full.append(dict(
-        kernel="stitched_rmsnorm", label=f"x{tuple(x.shape)} bf16",
-        call=lambda: ops.rmsnorm(x, gamma, eps=g["norm_eps"]),
-        plain=lambda: ref.rmsnorm_ref(x, gamma, g["norm_eps"]),
-        library=(lambda: F.rms_norm(x, (d,), gamma, g["norm_eps"])) if hasattr(F, "rms_norm") else None, bytes=nbytes(x, gamma, x), ops=4 * x.numel(), peak=F32_OPS_PER_S,
-        dtype=bf16,
-    ))
-    lg = randn((16, g["vocab"]), f32)
-    full.append(dict(
-        kernel="stitched_softmax", label=f"logits{tuple(lg.shape)} f32",
-        call=lambda: ops.softmax(lg), plain=lambda: ref.softmax_ref(lg),
-        library=lambda: torch.softmax(lg, dim=-1), bytes=nbytes(lg, lg), ops=4 * lg.numel(), peak=F32_OPS_PER_S,
-        cluster=True,
-    ))
-    S = 2048
-    q, k, v = randn((1, Hq, S, D), bf16), randn((1, Hkv, S, D), bf16), randn((1, Hkv, S, D), bf16)
-    full.append(dict(
-        kernel="stitched_flash_attention", label=f"q{tuple(q.shape)} kv{tuple(k.shape)} bf16 causal",
-        call=lambda: ops.attention(q, k, v, causal=True),
-        plain=lambda: ref.attention_ref(q, k, v, causal=True),
-        library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), bytes=nbytes(q, k, v, q),
-        ops=4 * Hq * D * S * (S + 1) // 2, peak=BF16_OPS_PER_S, dtype=bf16,
-    ))
-    B, Sc = 16, 4096
-    qd = randn((B, Hq, D), bf16)
-    kc, vc = randn((B, Hkv, Sc, D), bf16), randn((B, Hkv, Sc, D), bf16)
-    lengths = torch.as_tensor(rng.randint(1, Sc + 1, size=B), dtype=torch.int32, device=dev)
-    valid = int(lengths.sum())
-    mask = (torch.arange(Sc, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    full.append(dict(
-        kernel="stitched_decode_attention",
-        label=f"q{tuple(qd.shape)} kv{tuple(kc.shape)} bf16, {valid} valid keys",
-        call=lambda: ops.attention_decode(qd, kc, vc, lengths),
-        plain=lambda: ref.decode_attention_ref(qd, kc, vc, lengths),
-        library=lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
-        # the keys these lengths make valid, read once: count what the data needs
-        bytes=nbytes(qd, lengths, qd) + 2 * Hkv * D * kc.element_size() * valid,
-        ops=4 * Hq * D * valid, peak=BF16_OPS_PER_S, dtype=bf16,
-    ))
-    gl = randn((4096, g["experts"]), f32)
-    top_k = g["top_k"]
-
-    def gate_library():
-        w, i = torch.topk(torch.softmax(gl, dim=-1), top_k, dim=-1)
-        return w / w.sum(dim=-1, keepdim=True), i
-
-    full.append(dict(
-        kernel="stitched_moe_gate", label=f"logits{tuple(gl.shape)} f32 top{top_k}",
-        call=lambda: ops.moe_gate(gl, top_k), plain=lambda: ref.moe_gate_ref(gl, top_k),
-        library=gate_library, logits=gl,
-        bytes=nbytes(gl) + gl.shape[0] * top_k * 8, ops=gl.numel() * (4 + top_k), peak=F32_OPS_PER_S,
-    ))
+    full = full_width_calls(dev, rng, randn, bf16, f32)
+    x, gamma, gl, d = full[0]["x"], full[0]["gamma"], full[4]["logits"], g["d_model"]
     for c in full:
         c["tol"] = FULL_TOL[c["kernel"]]
 
@@ -760,27 +873,13 @@ def kernels_phase(dev):
     entries = []
     for c in full:
         kern = kernels[c["kernel"]]
-        ms = time_ms(c["call"], KERNEL_CALLS)
-        _, by_name = device_profile(c["call"], PROFILED_CALLS)
-        device_us = device_us_of(kern.name, by_name)
-        plain_ms = time_ms(c["plain"], FULL_PLAIN_CALLS)
-        library_ms = time_ms(c["library"], KERNEL_CALLS) if c["library"] else None
-        # the library call's device time: every device kernel it runs
-        library_device_us = (sum(device_profile(c["library"], PROFILED_CALLS)[1].values())
-                             if c["library"] else None)
-        b_ms, o_ms = 1e3 * c["bytes"] / HBM_BYTES_PER_S, 1e3 * c["ops"] / c["peak"]
+        t = time_full(c)
         entry = {
             "name": kern.name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{kern.source.path.name}",
             "replaces": kern.replaces, "launches": launches[kern.name],
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == kern.name),
-            "ms": ms, "plain_ms": plain_ms,
-            # None where the profiler recorded no device time for it
-            "device_ms": device_us / 1e3 if device_us else None,
-            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": library_ms,
-            # None where there is no library call or the profiler recorded no device time
-            "library_device_ms": library_device_us / 1e3 if library_device_us else None,
+            **t,
             "shape": c["label"], "tolerance": list(c["tol"]),
             "full_width_err": c["err"], "max_abs_out": c["out_scale"],
             "median_abs_out": c["out_median"],
@@ -789,15 +888,476 @@ def kernels_phase(dev):
             entry.update(cold_l2(c))
         entries.append(entry)
         print(
-            f"kernel {kern.name} {c['label']}: launches={entry['launches']} ms={ms:.4f} "
-            f"device_ms={entry['device_ms'] or 'not measured'} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms if library_ms is not None else 'none'} "
+            f"kernel {kern.name} {c['label']}: launches={entry['launches']} ms={t['ms']:.4f} "
+            f"device_ms={entry['device_ms'] or 'not measured'} plain_ms={t['plain_ms']:.4f} "
+            f"library_ms={t['library_ms'] if t['library_ms'] is not None else 'none'} "
             f"library_device_ms={entry['library_device_ms'] or 'not measured'} "
             f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}) err={entry['max_abs_err']:.2e} "
             f"full_width_err={c['err']:.3e} |out| max={c['out_scale']:.3e} "
             f"median={c['out_median']:.3e} (rtol, atol)={c['tol']}"
         )
     return entries, rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-11: replay, loops, verify, autotune, f16 and the emission faults
+# ---------------------------------------------------------------------------
+
+# the fault modules of tests/test_torch_codegen.py, built with the port's own
+# GraphBuilder: a concat of composed reshapes (one kernel of 6 members over 4
+# plan blocks) and a stitched kernel whose SHARE member reads its slot
+# transposed (it writes through the workspace's staging region)
+def concat_module():
+    from repro_torch.core import GraphBuilder
+
+    b = GraphBuilder("concat_pieces")
+    x = b.parameter("x", (64, 128), "float32")
+    s, m = b.reduce(x, (1,), "sum"), b.reduce(x, (1,), "max")
+    b.exp(b.concat([b.reshape(s, (64, 1)), b.reshape(m, (64, 1))], 1))
+    return b.module
+
+
+def share_module():
+    from repro_torch.core import GraphBuilder
+
+    b = GraphBuilder("share_transposed")
+    x = b.parameter("x", (32, 32), "float32")
+    a = b.tanh(b.transpose(b.exp(x), (1, 0)))
+    m = b.transpose(a, (1, 0)) + b.neg(a)
+    b.exp(m) + m * m
+    return b.module
+
+
+FAULT_MODULES = {"concat": concat_module, "share": share_module}
+LOOPS = ("RNNScan", "DecodeLoop", "ReverseScan")
+LINT_MAX_BLOCKS = 64          # what python -m repro_torch.lint compiles under
+AUTOTUNE_ROUNDS = 3           # the cost planner's autotuned compiles of each graph
+
+# f16 kernel vs plain version at full width: both compute in f32 and round
+# once to f16, so an output may differ by one f16 ulp (2**-11 of the value,
+# hence rtol 1e-3) where the f32 values straddle a rounding boundary; softmax
+# outputs near 2e-5 are f16 subnormals, whose ulp is 2**-24 (atol 1e-7)
+F16_TOL = {
+    "stitched_rmsnorm": (1e-3, 1e-4),
+    "stitched_softmax": (1e-3, 1e-7),
+    "stitched_flash_attention": (2e-3, 1e-4),
+    "stitched_decode_attention": (2e-3, 1e-4),
+    "stitched_moe_gate": (2e-5, 1e-6),
+}
+
+
+def sources_of(compiled):
+    """The CUDA sources of a compile and of its loop bodies' compiles."""
+    out = [compiled.cuda_source] if "__global__" in compiled.cuda_source else []
+    for instr in compiled.executable.module.instructions:
+        if instr.opcode == "call":
+            out += sources_of(instr.attrs["compiled_body"])
+    return out
+
+
+def programs_of(compiled):
+    """Every generated kernel a compile launches, loop bodies included,
+    each once: {id: program}."""
+    out = {id(k.fn): k.fn for k in compiled.kernels}
+    for instr in compiled.executable.module.instructions:
+        if instr.opcode == "call":
+            out.update(programs_of(instr.attrs["compiled_body"]))
+    return out
+
+
+def planned_launches(compiled):
+    """Generated-kernel launches one call makes: the fused kernels, and each
+    loop's body kernels once an iteration."""
+    n = compiled.stats.stitched_kernels
+    for instr in compiled.executable.module.instructions:
+        if instr.opcode == "call":
+            n += int(instr.attrs["trip_count"]) * planned_launches(instr.attrs["compiled_body"])
+    return n
+
+
+def same(a, b):
+    """Bit for bit, NaN where NaN."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def planned_by_program(compiled):
+    """Generated-kernel launches one call makes, by kernel name: each fused
+    kernel once, each loop's body kernels once an iteration."""
+    out = {}
+    for k in compiled.executable.kernels.values():
+        out[k.fn.name] = out.get(k.fn.name, 0) + 1
+    for instr in compiled.executable.module.instructions:
+        if instr.opcode == "call":
+            for name, n in planned_by_program(instr.attrs["compiled_body"]).items():
+                out[name] = out.get(name, 0) + int(instr.attrs["trip_count"]) * n
+    return out
+
+
+def replay_ticks(compiled):
+    """The launches a replay adds to the counters, by kernel name: what the
+    plan recorded at its capture (bookkeeping, not a measurement)."""
+    out = {}
+    for p, n in compiled.executable.execution_plan._graph.ticks:
+        out[p.name] = out.get(p.name, 0) + n
+    return out
+
+
+def replay_phase(dev, graphs, eager_out):
+    """Phase 7: every graph replayed through its CUDA graph.  A default call
+    takes the path its plan chose (``replay_mode``: eager where a replay
+    would dispatch more); ``jit_execute`` replays every graph, so the
+    replay is held and timed on all ten.  Launches per replayed call are
+    the profiler's: each generated kernel as often as the plan says, and
+    every device kernel of the eager call plus one a copy group."""
+    import torch
+
+    from repro_torch.core import compile_module
+
+    rows = []
+    for name, (module, eager, feeds, dfeeds) in graphs.items():
+        rp = compile_module(module, device=dev)          # the defaults: jit_replay=True
+        s, ex = rp.stats, rp.executable
+        mode = "graph" if s.traced_dispatches_per_call <= s.eager_dispatches_per_call else "eager"
+        if s.replay_mode != mode or ex.replay_mode != mode:
+            raise SystemExit(f"{name}: replay mode {s.replay_mode}, the dispatch counts "
+                             f"({s.eager_dispatches_per_call} eager, {s.traced_dispatches_per_call} "
+                             f"replayed) say {mode}")
+        st0 = ex.launch_stats()
+        rp(dfeeds)
+        st1 = ex.launch_stats()
+        took = "graph" if st1.traced_calls > st0.traced_calls else "eager"
+        if took != mode or st1.traced_calls + st1.eager_calls != st0.traced_calls + st0.eager_calls + 1:
+            raise SystemExit(f"{name}: a default call took the {took} path, its mode is {mode}")
+        first = ex.jit_execute(dfeeds)                   # captured at the first replay
+        second = ex.jit_execute(dfeeds)
+        torch.cuda.synchronize()
+        plan = planned_by_program(rp)
+        if sum(plan.values()) != planned_launches(rp) or replay_ticks(rp) != plan:
+            raise SystemExit(f"{name}: the capture recorded {replay_ticks(rp)}, the plan "
+                             f"launches {plan}")
+        ref = eager_out[name]
+        bitwise = all(same(first[k], ref[k]) and same(second[k], ref[k]) for k in ref)
+        held = []
+        if not bitwise:
+            # only a library dot may round differently under capture
+            held = [i.name for i in ex.plan.standalone if i.is_library_call]
+            for k in ref:
+                for out in (first, second):
+                    err, ok = max_err(out[k], ref[k], degenerate_mask(name, k, feeds, tuple(ref[k].shape)))
+                    if not held or not ok:
+                        raise SystemExit(f"{name}:{k}: replay vs eager {err:.3e}, library dots {held}")
+        seg = ex.execution_plan._graph
+        # the feeds' copies into the graph and the roots' out of it: the
+        # small tensors' batched by dtype, a dispatch a group
+        copied = len(seg.feed_slots) + len(seg.out_slots)
+        copies = len(seg.in_groups) + len(seg.out_groups)
+        eager_us = 1e3 * time_ms(lambda c=eager, f=dfeeds: c(f), CALLS)
+        replay_us = 1e3 * time_ms(lambda x=ex, f=dfeeds: x.jit_execute(f), CALLS)
+        e_seen, e_by = profiled_launches(f"{name} eager", lambda c=eager, f=dfeeds: c(f), plan)
+        r_seen, r_by = profiled_launches(f"{name} replayed", lambda x=ex, f=dfeeds: x.jit_execute(f),
+                                         plan, total=e_seen + copies)
+        e_dev, r_dev = sum(e_by.values()), sum(r_by.values())
+        row = {
+            "graph": name, "replay_mode": mode, "bitwise": bitwise, "held_at_tol": held,
+            "launches_per_call": sum(plan.values()), "copies_per_call": copies,
+            "tensors_copied": copied,
+            "eager_dispatches_per_call": s.eager_dispatches_per_call,
+            "traced_dispatches_per_call": s.traced_dispatches_per_call,
+            "eager_us_per_call": eager_us, "replay_us_per_call": replay_us,
+            "eager_device_us_per_call": e_dev, "replay_device_us_per_call": r_dev,
+            "eager_idle_share": 1.0 - e_dev / eager_us, "replay_idle_share": 1.0 - r_dev / replay_us,
+            "eager_device_kernels": e_seen, "replay_device_kernels": r_seen,
+        }
+        rows.append(row)
+        print(f"replay {name}: mode={mode} (dispatches eager {s.eager_dispatches_per_call}, "
+              f"replayed {s.traced_dispatches_per_call}); "
+              f"{'bitwise' if bitwise else 'held at TOL (library dots ' + ', '.join(held) + ')'} "
+              f"vs eager over 2 calls; profiler: {sum(plan.values())} generated launches a "
+              f"replayed call as planned, device kernels eager={e_seen} replay={r_seen} "
+              f"(eager + {copies} copies, {copied} tensors) "
+              f"us_per_call eager={eager_us:.1f} replay={replay_us:.1f} "
+              f"device_us eager={e_dev:.2f} replay={r_dev:.2f} "
+              f"idle_share eager={row['eager_idle_share']:.3f} replay={row['replay_idle_share']:.3f}")
+    return rows
+
+
+def loops_phase(dev):
+    """Phase 8: the loop modules on the card, eager and replayed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import StitchOptions, compile_module, reference_execute
+    from repro_torch.core.ir import apply_op
+    from repro_torch.graphs import LOOP_GRAPHS, rnn_graph
+
+    rows = []
+    for name in LOOPS:
+        module = LOOP_GRAPHS[name]()
+        rng = np.random.RandomState(2)
+        feeds = {p.name: torch.as_tensor((rng.randn(*p.shape) * 0.3).astype(np.float32), device=dev)
+                 for p in module.parameters}
+        eager = compile_module(module, StitchOptions(jit_replay=False), device=dev)
+        rp = compile_module(module, device=dev)
+        plain = reference_execute(module, feeds, device=dev)
+        progs = {**programs_of(eager), **programs_of(rp)}
+        for p in progs.values():
+            p.launches = 0
+        out_e = eager(feeds)
+        torch.cuda.synchronize()
+        n_e = sum(p.launches for p in progs.values())
+        out_r, out_r2 = rp(feeds), rp(feeds)
+        for p in progs.values():
+            p.launches = 0
+        rp(feeds)
+        torch.cuda.synchronize()
+        n_r = sum(p.launches for p in progs.values())
+        want = planned_launches(eager)
+        plan = planned_by_program(rp)
+        if rp.stats.replay_mode != "graph" or n_e != want or n_r != want or replay_ticks(rp) != plan:
+            raise SystemExit(f"{name}: mode {rp.stats.replay_mode}, launches eager {n_e}, "
+                             f"replayed {n_r} (bookkeeping), planned {want}")
+        err = 0.0
+        for k in plain:
+            for out in (out_e, out_r, out_r2):
+                e, ok = max_err(out[k], plain[k], None)
+                err = max(err, e)
+                if not ok or not bool(torch.isfinite(out[k]).all()):
+                    raise SystemExit(f"{name}:{k}: vs plain path {e:.3e}")
+        bitwise = all(same(out_r[k], out_e[k]) and same(out_r2[k], out_e[k]) for k in plain)
+        if name == "RNNScan":
+            # the unrolled RNN graph's last hidden state, op by op on the card
+            unrolled = rnn_graph()
+            uf = {k: feeds[k] for k in ("Wx", "Wh", "b", "h0")}
+            uf.update({f"x{t}": feeds["xs"][t] for t in range(6)})
+            uf["Wo"] = torch.zeros((32, 8), device=dev)
+            vals = {}
+            for instr in unrolled.instructions:
+                vals[instr.id] = (uf[instr.name] if instr.opcode == "parameter" else
+                                  apply_op(instr, *[vals[o.id] for o in instr.operands], device=dev))
+            wo = next(i for i in unrolled.instructions if i.name == "Wo")
+            h_unrolled = vals[wo.users[0].operands[0].id]
+            final = out_r[module.roots[0].name]
+            e, ok = max_err(final, h_unrolled, None)
+            if not ok:
+                raise SystemExit(f"RNNScan: final state vs the unrolled RNN graph's {e:.3e}")
+            err = max(err, e)
+        eager_us = 1e3 * time_ms(lambda c=eager, f=feeds: c(f), CALLS)
+        replay_us = 1e3 * time_ms(lambda c=rp, f=feeds: c(f), CALLS)
+        seg = rp.executable.execution_plan._graph
+        e_seen, e_by = profiled_launches(f"{name} eager", lambda c=eager, f=feeds: c(f), plan)
+        _, r_by = profiled_launches(f"{name} replayed", lambda c=rp, f=feeds: c(f), plan,
+                                    total=e_seen + len(seg.in_groups) + len(seg.out_groups))
+        e_dev, r_dev = sum(e_by.values()), sum(r_by.values())
+        s = rp.stats
+        rows.append({"module": name, "launches_per_call": want, "bitwise_replay_vs_eager": bitwise,
+                     "max_abs_err": err, "loop_calls": s.loop_calls, "sub_compiles": s.sub_compiles,
+                     "sub_kernels": s.sub_kernels, "eager_us_per_call": eager_us,
+                     "replay_us_per_call": replay_us, "eager_device_us_per_call": e_dev,
+                     "replay_device_us_per_call": r_dev})
+        print(f"loop {name}: {want} launches a call eager and replayed (the profiler's), vs "
+              f"plain path err={err:.2e}"
+              f"{' (and the unrolled RNN graph)' if name == 'RNNScan' else ''}, replay "
+              f"{'bitwise' if bitwise else 'within TOL'} vs eager; us_per_call eager={eager_us:.1f} "
+              f"replay={replay_us:.1f} device_us eager={e_dev:.2f} replay={r_dev:.2f}")
+    return rows
+
+
+def verify_phase():
+    """Phase 9: ``python -m repro_torch.lint`` on the card: the ten graphs
+    under verify="strict" in both planners."""
+    from repro_torch import lint
+
+    t0 = time.perf_counter()
+    rc = lint.main([])
+    if rc != 0:
+        raise SystemExit(f"repro_torch.lint exited {rc}")
+    print(f"verify: repro_torch.lint clean on the card in {time.perf_counter() - t0:.1f} s")
+
+
+def plan_shape(stats):
+    return sorted((r.num_ops, r.blocks, r.num_phases) for r in stats.reports)
+
+
+def autotune_phase(dev, graphs):
+    """Phase 10: the ten graphs compiled with autotune=True, in each
+    planner, into a fresh store under build/ and compiled again.  Under the
+    greedy planner the plan does not depend on costs, so the second compile
+    must take no new measurement.  The cost planner re-plans from what it
+    measured and measures the kernels it newly commits: its compiles are
+    reported, three of them.  In both, a compile measures only kernels the
+    store does not hold, and the last compile's outputs agree with
+    reference_execute."""
+    import torch
+
+    from repro_torch.core import StitchOptions, compile_module, reference_execute
+    from repro_torch.core.latency import TPU_V5E
+    from repro_torch.core.measure import MeasuredCostStore, device_fingerprint
+    from repro_torch.graphs import ALL_GRAPHS
+
+    fp = device_fingerprint(TPU_V5E, dev)
+    rows = []
+    for planner, rounds in (("greedy", 2), ("cost", AUTOTUNE_ROUNDS)):
+        path = os.path.join(HERE, "build", "repro_torch", f"autotune_{planner}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        store = MeasuredCostStore(path, device_fp=fp)
+        opts = StitchOptions(planner=planner, autotune=True, tuning_store_path=path,
+                             jit_replay=False)
+        default = StitchOptions(planner=planner, jit_replay=False)
+        for name, (module, _, feeds, dfeeds) in graphs.items():
+            base = compile_module(ALL_GRAPHS[name](), default, device="cpu")
+            compiles = []
+            for _ in range(rounds):
+                held = len(store)
+                c = compile_module(ALL_GRAPHS[name](), opts, device=dev, measured_store=store)
+                if len(store) - held != c.stats.measurements_taken:
+                    raise SystemExit(f"{name} [{planner}]: measured a kernel the store holds")
+                compiles.append(c)
+            store.save()
+            if planner == "greedy" and compiles[1].stats.measurements_taken:
+                raise SystemExit(f"{name} [greedy]: the warm compile took "
+                                 f"{compiles[1].stats.measurements_taken} new measurements")
+            last = compiles[-1]
+            want = reference_execute(last.executable.module, dfeeds, device=dev)
+            got = last(dfeeds)
+            for k, w in want.items():
+                e, ok = max_err(got[k], w, degenerate_mask(name, k, feeds, tuple(w.shape)))
+                if not ok:
+                    raise SystemExit(f"{name}:{k} [{planner}]: autotuned plan vs "
+                                     f"reference_execute {e:.3e}")
+            torch.cuda.synchronize()
+            row = {
+                "graph": name, "planner": planner,
+                "measurements": [c.stats.measurements_taken for c in compiles],
+                "measured_hits": [c.stats.measured_hits for c in compiles],
+                "model_error_pct": compiles[0].stats.model_error_pct,
+                "fused_kernels": [c.stats.stitched_kernels for c in compiles],
+                "default_fused_kernels": base.stats.stitched_kernels,
+                "plan_changed": [plan_shape(c.stats) != plan_shape(base.stats) for c in compiles],
+                "measured_us": [[r.measured_cost_s * 1e6 if r.measured_cost_s else None
+                                 for r in c.stats.reports] for c in compiles],
+                "model_us": [[r.model_cost_s * 1e6 if r.model_cost_s else None
+                              for r in c.stats.reports] for c in compiles],
+            }
+            rows.append(row)
+            err = row["model_error_pct"]
+            print(f"autotune {name} [{planner}]: measurements per compile {row['measurements']}, "
+                  f"store hits {row['measured_hits']}, model_error_pct="
+                  f"{f'{err:.1f}' if err is not None else 'none'}, fused kernels "
+                  f"{row['fused_kernels']} (default {row['default_fused_kernels']}), plan changed "
+                  f"from the default {row['plan_changed']}")
+        print(f"autotune [{planner}]: store {os.path.relpath(path, HERE)}, {len(store)} rows keyed "
+              f"by device fingerprint {fp}")
+    return rows
+
+
+def f16_phase(dev):
+    """Phase 11a: the five hand-written kernels in f16 at granite-moe-3b-a800m's
+    full width (``full_width_calls``, every input f16), each once with the
+    counters read, held against its plain version, and timed beside it and
+    its library call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    kernels = ops.KERNELS
+    rng = np.random.RandomState(3)
+    f16 = torch.float16
+
+    def randn(shape, dtype):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev).to(dtype)
+
+    calls = full_width_calls(dev, rng, randn, f16, f16)
+    for kern in kernels.values():
+        kern.launches, kern.by_symbol = 0, {}
+    outs = [c["call"]() for c in calls]
+    torch.cuda.synchronize()
+    for c, out in zip(calls, outs, strict=True):
+        kern = kernels[c["kernel"]]
+        expect = launchers(c["kernel"], f16, cluster=c.get("cluster", False))
+        if kern.by_symbol != expect:
+            raise SystemExit(f"{c['kernel']} f16: launchers {kern.by_symbol}, expected {expect}")
+        want = c["plain"]()
+        tol = F16_TOL[c["kernel"]]
+        if "logits" in c:
+            err, ok, _ = compare_gate(c["logits"], out, want, tol)
+        else:
+            err, ok = compare(out, want, tol)
+        results = out if isinstance(out, tuple) else (out,)
+        if not ok or not all(bool(torch.isfinite(o.float()).all()) for o in results):
+            raise SystemExit(f"{c['kernel']} {c['label']}: kernel vs plain {err:.3e} over {tol}")
+        c["err"], c["tol"] = err, tol
+    print(f"f16: the 5 hand-written kernels at full width, one call each through their f16 "
+          f"launchers ({', '.join(sorted(s for kk in kernels.values() for s in kk.by_symbol))}), "
+          "each within its limit of its plain version")
+    out = {}
+    for c in calls:
+        name = c["kernel"]
+        t = time_full(c)
+        out[name] = {f"f16_{k}": v for k, v in t.items() if k != "bound_by"}
+        out[name].update({
+            "f16_shape": c["label"], "f16_max_abs_err": c["err"], "f16_tolerance": list(c["tol"]),
+            "f16_launches": sum(launchers(name, f16, cluster=c.get("cluster", False)).values()),
+        })
+        print(f"kernel {name} {c['label']}: ms={t['ms']:.4f} "
+              f"device_ms={t['device_ms'] or 'not measured'} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms'] if t['library_ms'] is not None else 'none'} "
+              f"library_device_ms={t['library_device_ms'] or 'not measured'} "
+              f"bound_ms={t['bound_ms']:.5f} err={c['err']:.2e} (rtol, atol)={c['tol']}")
+    return out
+
+
+def faults_phase(dev):
+    """Phase 11b: the modules that reached the two emission limits, compiled
+    for the card: one launch each, the kernel against its plain version on
+    the inputs the call gave it, the outputs against reference_execute."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import StitchOptions, compile_module, reference_execute
+
+    rows = []
+    for name, build in FAULT_MODULES.items():
+        module = build()
+        compiled = compile_module(module, StitchOptions(jit_replay=False), device=dev)
+        (kernel,) = compiled.kernels
+        rng = np.random.RandomState(4)
+        feeds = {p.name: torch.as_tensor((rng.randn(*p.shape) * 0.1).astype(np.float32), device=dev)
+                 for p in module.parameters}
+        inputs = []
+
+        def record(*a, device, _launch=kernel.fn.launch):
+            inputs.append([t.clone() for t in a])
+            return _launch(*a, device=device)
+
+        kernel.fn.launch, kernel.fn.launches = record, 0
+        got = compiled(feeds)
+        torch.cuda.synchronize()
+        del kernel.fn.launch
+        if kernel.fn.launches != 1:
+            raise SystemExit(f"{name}: {kernel.fn.launches} launches, expected 1")
+        err = 0.0
+        for g, w in zip(kernel.fn.launch(*inputs[0], device=dev), kernel.fn.plain(*inputs[0], device=dev),
+                        strict=True):
+            e, ok = max_err(g, w, None)
+            err = max(err, e)
+            if not ok:
+                raise SystemExit(f"{name} {kernel.fn.name}: kernel vs plain {e:.3e}")
+        for k, w in reference_execute(module, feeds, device=dev).items():
+            e, ok = max_err(got[k], w, None)
+            err = max(err, e)
+            if not ok:
+                raise SystemExit(f"{name}:{k}: vs reference_execute {e:.3e}")
+        r = compiled.stats.reports[0]
+        rows.append({"module": name, "kernel": kernel.fn.name, "emitter": kernel.fn.emitter,
+                     "members": r.num_ops, "blocks": r.blocks, "phases": r.num_phases,
+                     "workspace_bytes": kernel.fn.workspace_bytes, "max_abs_err": err})
+        print(f"fault module {name}: {kernel.fn.emitter} {kernel.fn.name}, {r.num_ops} members, "
+              f"{r.blocks} plan blocks, {r.num_phases} phases, one launch, vs plain and "
+              f"reference_execute err={err:.2e}")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -811,9 +1371,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    from repro_torch.core import compile_module, cuda_build, reference_execute
+    from repro_torch.core import StitchOptions, compile_module, cuda_build, reference_execute
     from repro_torch.core.codegen import REPLACES
-    from repro_torch.graphs import ALL_GRAPHS, random_feeds
+    from repro_torch.graphs import ALL_GRAPHS, LOOP_GRAPHS, random_feeds
     from repro_torch.kernels.cuda import SOURCES as HAND_SOURCES
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -837,6 +1397,16 @@ def main(argv=None) -> int:
     extra += [dtype_compile(name, dt, opts, "cpu")[1].cuda_source
               for _, name, dt, opts, _, _ in DTYPE_COMPILES]
     extra += [dtype_compile(name, "float32", opts, "cpu")[1].cuda_source for _, name, opts in FUSION_COMPILES]
+    # phases 8-11: the loops' bodies, the greedy plans, the lint's compiles
+    # in both planners, the fault modules
+    for name in LOOPS:
+        extra += sources_of(compile_module(LOOP_GRAPHS[name](), device="cpu"))
+    for g in ALL_GRAPHS.values():
+        extra += sources_of(compile_module(g(), StitchOptions(planner="greedy"), device="cpu"))
+        for planner in ("cost", "greedy"):
+            lint_opts = StitchOptions(max_blocks=LINT_MAX_BLOCKS, planner=planner)
+            extra += sources_of(compile_module(g(), lint_opts, device="cpu"))
+    extra += [compile_module(build(), device="cpu").cuda_source for build in FAULT_MODULES.values()]
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
@@ -853,7 +1423,8 @@ def main(argv=None) -> int:
     graphs = {}
     for name, build in ALL_GRAPHS.items():
         module = build()
-        compiled = compile_module(module, device=dev)
+        # the eager step loop: phase 3 counts each launch through its wrapper
+        compiled = compile_module(module, StitchOptions(jit_replay=False), device=dev)
         feeds = random_feeds(module, np.random.RandomState(0))
         dfeeds = {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
         graphs[name] = (module, compiled, feeds, dfeeds)
@@ -966,8 +1537,8 @@ def main(argv=None) -> int:
                              f"expected {emitter}")
         feeds = {}
         for p in module.parameters:
-            if dt == "int8":
-                feeds[p.name] = torch.as_tensor(rng.randint(-60, 120, p.shape).astype(np.int8), device=dev)
+            if dt in ("int8", "int16"):
+                feeds[p.name] = torch.as_tensor(rng.randint(-60, 120, p.shape).astype(dt), device=dev)
             else:
                 f = torch.as_tensor(rng.uniform(-2, 2, p.shape).astype(np.float32), device=dev)
                 feeds[p.name] = f.to(torch.bfloat16) if dt == "bfloat16" else f
@@ -1100,13 +1671,24 @@ def main(argv=None) -> int:
     # ---- 6. kernels ---------------------------------------------------------------
     hand_entries, hand_calls = kernels_phase(dev)
     entries += hand_entries
+
+    # ---- 7-11. replay, loops, verify, autotune, f16 and the fault modules ---------
+    replay_rows = replay_phase(dev, graphs, outputs)
+    loop_rows = loops_phase(dev)
+    verify_phase()
+    autotune_rows = autotune_phase(dev, graphs)
+    f16 = f16_phase(dev)
+    for entry in hand_entries:
+        entry.update(f16[entry["name"]])
+    fault_rows = faults_phase(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
                        "graphs": per_graph, "kernels": rows, "emitters": entries,
                        "stitched_compiles": stitched_rows, "extra_compiles": extra_rows,
-                       "hand_kernel_calls": hand_calls}, f, indent=1)
+                       "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
+                       "autotune": autotune_rows, "fault_modules": fault_rows}, f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

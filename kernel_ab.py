@@ -15,10 +15,15 @@ calls) of each hand-written kernel of ``repro_torch.kernels.ops`` at the
 full-width shapes of ``chip_smoke.py`` phase 6 and of every generated kernel
 of the ten graphs (``GRAPH:FUSION``: the 19 unique ``emit_fusion`` kernels
 and StitchPipe's stitched one, ``emit_stitched_fusion``, on the inputs one
-call of its graph gives it), and each graph's device time per call, fused
-(``graph:GRAPH``) and unfused through ``reference_execute``
-(``unfused:GRAPH``).  The last line gives each number's median over the
-rounds per checkout.  Exits non-zero when no card is present.
+call of its graph gives it), and each graph's device time per call: fused,
+through the eager step loop (``graph-eager:GRAPH``, ``jit_replay=False``)
+and replayed through its CUDA graph (``graph-replay:GRAPH``, a compile
+with the default options, ``jit_execute``; only in a checkout that has
+the replay), and unfused through ``reference_execute``
+(``unfused:GRAPH``).  The kernels' inputs are recorded in the eager
+compile, so no copy of them is captured into a graph.  The last line
+gives each number's median over the rounds per checkout.  Exits non-zero
+when no card is present.
 """
 import argparse
 import json
@@ -40,7 +45,7 @@ def measure(root):
     from chip_smoke import GRANITE   # puts this checkout's src on the path: root's goes first
 
     sys.path.insert(0, os.path.join(root, "src"))
-    from repro_torch.core import compile_module, reference_execute
+    from repro_torch.core import StitchOptions, compile_module, reference_execute
     from repro_torch.graphs import ALL_GRAPHS, random_feeds
     from repro_torch.kernels import ops
 
@@ -55,23 +60,34 @@ def measure(root):
 
     def device_us(fn, names=None):
         """Device us per call of the kernels whose names hold one of
-        ``names`` (None: every device kernel the call runs)."""
+        ``names`` (None: every device kernel the call runs).  The profiler
+        drops a run's events now and then: a profile that sees no kernel
+        is taken again, up to 4 times, then the run fails."""
         for _ in range(WARMUP):
             fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(CALLS):
-                fn()
+        for _ in range(4):
             torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and (names is None or any(n in e.name for n in names))) / CALLS
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(CALLS):
+                    fn()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (names is None or any(n in e.name for n in names))]
+            if us:
+                return sum(us) / CALLS
+        raise SystemExit(f"kernel_ab: the profiler saw no kernel of {names or 'the call'}")
+
+    try:
+        eager_opts = StitchOptions(jit_replay=False)
+    except TypeError:     # a checkout from before the replay: every call is eager
+        eager_opts = StitchOptions()
 
     # every generated kernel, on the inputs one call of its graph gives it
     calls = {}
     for gname, build in ALL_GRAPHS.items():
         module = build()
-        compiled = compile_module(module, device=dev)
+        compiled = compile_module(module, eager_opts, device=dev)
         feeds = {k: torch.as_tensor(v, device=dev)
                  for k, v in random_feeds(module, np.random.RandomState(0)).items()}
         captured = {}
@@ -85,7 +101,10 @@ def measure(root):
             del k.fn.launch
         for fusion, (prog, a) in captured.items():
             calls[f"{gname}:{fusion}"] = (lambda p=prog, a=a: p.launch(*a, device=dev), (prog.name,))
-        calls[f"graph:{gname}"] = (lambda c=compiled, f=feeds: c(f), None)
+        calls[f"graph-eager:{gname}"] = (lambda c=compiled, f=feeds: c(f), None)
+        replayed = compile_module(module, device=dev).executable
+        if hasattr(replayed, "jit_execute"):
+            calls[f"graph-replay:{gname}"] = (lambda x=replayed, f=feeds: x.jit_execute(f), None)
         calls[f"unfused:{gname}"] = (lambda m=module, f=feeds: reference_execute(m, f, device=dev), None)
 
     g, bf16, f32 = GRANITE, torch.bfloat16, torch.float32
@@ -145,8 +164,10 @@ def main(argv=None) -> int:
                    "device_us": json.loads(proc.stdout.strip().splitlines()[-1])}
             runs.append(run)
             print(json.dumps(run))
-    medians = {d: {k: statistics.median(run["device_us"][k] for run in runs if run["checkout"] == d)
-                   for k in runs[0]["device_us"]} for d in args.dirs}
+    medians = {}
+    for d in args.dirs:
+        mine = [run["device_us"] for run in runs if run["checkout"] == d]
+        medians[d] = {k: statistics.median(us[k] for us in mine) for k in mine[0]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "runs": runs, "medians": medians}, f, indent=1)

@@ -51,7 +51,7 @@ the grid.  Threads per block follow the plan (``fusion_threads``: 128 to
 512).  At these sizes what bounds the kernels on the card is latency: the
 launch, and the dependent loads and barriers between members.
 
-Every member computes in ``float`` (bf16, f16) or ``int`` (int8, uint8)
+Every member computes in ``float`` (bf16, f16) or ``int`` (int8, uint8, int16)
 where it is stored narrower and is rounded, or wrapped, to its dtype where
 it ends, composed or not, as the reference's per-instruction ``apply_op``
 does; a reduce over bf16 accumulates in float and rounds once.  Scalar
@@ -292,7 +292,7 @@ def _plain_stitched(fusion: FusedComputation, stitched: StitchedSolution,
 # --------------------------------------------------------------------------
 
 # each dtype's C type in memory, and the type its values are computed in:
-# bf16 and f16 compute in float, int8 and uint8 in int, and every member's
+# bf16 and f16 compute in float, int8, uint8 and int16 in int, and every member's
 # value is rounded (or wrapped) back to its dtype where the member ends, as
 # the reference's per-instruction ``apply_op`` does
 _C_TYPES = {
@@ -305,13 +305,16 @@ _C_TYPES = {
     BFLOAT16: ("__nv_bfloat16", "float"),
     np.dtype(np.int8): ("signed char", "int"),
     np.dtype(np.uint8): ("unsigned char", "int"),
+    np.dtype(np.int16): ("short", "int"),
 }
 # storage -> compute, and compute -> storage (rounding to nearest even)
 _C_LOAD = {"__half": "__half2float({})", "__nv_bfloat16": "__bfloat162float({})",
-           "signed char": "static_cast<int>({})", "unsigned char": "static_cast<int>({})"}
+           "signed char": "static_cast<int>({})", "unsigned char": "static_cast<int>({})",
+           "short": "static_cast<int>({})"}
 _C_STORE = {"__half": "__float2half_rn({})", "__nv_bfloat16": "__float2bfloat16_rn({})",
             "signed char": "static_cast<signed char>({})",
-            "unsigned char": "static_cast<unsigned char>({})"}
+            "unsigned char": "static_cast<unsigned char>({})",
+            "short": "static_cast<short>({})"}
 
 _INFIX = {
     "add": "+", "sub": "-", "mul": "*", "div": "/",
@@ -365,7 +368,7 @@ def _c_literal(value, dtype) -> str:
         fn = "__ushort_as_bfloat16" if dt == BFLOAT16 else "__ushort_as_half"
         return f"{fn}(static_cast<unsigned short>(0x{bits:04x}))"
     v = np.asarray(value, dtype=dt).reshape(())
-    if dt == np.int8 or dt == np.uint8:
+    if dt == np.int8 or dt == np.uint8 or dt == np.int16:
         return f"static_cast<{_c_type(dt)}>({int(v)})"
     if dt == np.float32 or dt == np.float64:
         f = float(v)
@@ -575,10 +578,32 @@ def _value(m: Instruction, sched: Sched, ovs: List[_View], idx: List, b,
         if isinstance(idx[d], int):
             k = next(k for k in range(len(ovs)) if idx[d] < edges[k + 1])
             return piece(k)
-        expr = piece(len(ovs) - 1)
-        for k in range(len(ovs) - 2, -1, -1):
-            expr = f"({idx[d]} < {edges[k + 1]} ? {piece(k)} : {expr})"
-        return expr
+        # each piece's statements (a composed reshape's index arithmetic, a
+        # gather's index load) run only on the branch that takes the piece:
+        # elsewhere its index is out of its range.  A piece is never a
+        # cooperative reduce (a reduce with a user reads its slot), so no
+        # branch holds a shuffle or a barrier.
+        exprs, stmts = [], []
+        for k in range(len(ovs)):
+            before = len(lines)
+            exprs.append(piece(k))
+            stmts.append(lines[before:])
+            del lines[before:]
+        if not any(stmts):
+            expr = exprs[-1]
+            for k in range(len(ovs) - 2, -1, -1):
+                expr = f"({idx[d]} < {edges[k + 1]} ? {exprs[k]} : {expr})"
+            return expr
+        var = f"cat{sfx}"
+        lines.append(f"{ind}{T} {var};")
+        for k in range(len(ovs)):
+            head = "if" if k == 0 else "} else if"
+            lines.append(f"{ind}{head} ({idx[d]} < {edges[k + 1]}) {{" if k < len(ovs) - 1
+                         else f"{ind}}} else {{")
+            lines += ["  " + line for line in stmts[k]]
+            lines.append(f"{ind}  {var} = {exprs[k]};")
+        lines.append(f"{ind}}}")
+        return var
     if op == "gather":
         table, ind_view = ovs
         r = len(ind_view.shape)
@@ -734,13 +759,14 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
     body += phase
     smem = size if base == "sx_smem" else 0
     ws = size * grid if base == "pr0" else 0
+    ws += _stage_region(body, ws, ph.stage_bytes, grid)
     header = (
         f"// emit_fusion: {len(fusion.members)} members, {solution.blocks} plan blocks, "
         f"one launch of {grid} blocks of {threads} threads, {smem} bytes of shared memory "
         f"a block, {ws} workspace bytes"
     )
     name, text = _finish_source(header, body, inputs, roots, grid, threads, smem, ph.part_bytes)
-    return name, text, ws
+    return name, text, ws, smem + ph.part_bytes
 
 
 def _slot_layout(pplan: MemoryPlan) -> Tuple[List[int], int]:
@@ -900,6 +926,8 @@ class _Phase:
         self.n = 0
         self.useful_blocks = 0  # the most blocks this phase's loops keep busy
         self.part_bytes = 0     # static shared memory of the block-wide reduces
+        self.restaged: set = set()   # SHARE members that write through sx_stage
+        self.stage_bytes = 0    # the largest tile written through sx_stage
 
     def fresh(self) -> str:
         self.n += 1
@@ -923,13 +951,7 @@ class _Phase:
     def value(self, m: Instruction, sched: Sched, idx, lin: str, sfx: str) -> str:
         """Element ``idx`` of ``m``, rounded to its dtype where it ends."""
         ovs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
-        before = len(self.lines)
         expr = _value(m, sched, ovs, idx, self.b, self.lines, self.ind, lin=lin, sfx=sfx)
-        if m.opcode == "concat" and len(self.lines) > before:
-            raise NotImplementedError(
-                f"{m.name}: a concat of composed values that need statements "
-                "would run them for the pieces it does not take"
-            )
         return _c_round(m.dtype, expr)
 
     # ---- the loops ---------------------------------------------------------
@@ -946,20 +968,26 @@ class _Phase:
     def _tile_write(self, m: Instruction, out_chunk, idx) -> Optional[str]:
         if m.id not in self.tiles:
             return None
-        return _View(out_chunk, self.tiles[m.id], _dense_strides(out_chunk), (0,) * len(out_chunk)).ref(idx)
+        ptr = self.tiles[m.id]
+        if m.id in self.restaged:
+            ptr = f"reinterpret_cast<{_c_type(m.dtype)}*>(sx_stage)"
+        return _View(out_chunk, ptr, _dense_strides(out_chunk), (0,) * len(out_chunk)).ref(idx)
 
     def _check_own_slot(self, m: Instruction, write: Optional[str], text: str) -> None:
-        """A SHARE member may read its slot's previous owner (through the
-        values composed into it) only at the element the same thread then
-        writes; anywhere else another thread could have overwritten it."""
+        """A SHARE member may write its slot in place only where it reads
+        its slot's previous owner (through the values composed into it) at
+        no other element than the one the same thread then writes.  Where
+        it reads another element (a transposed or reversed read), another
+        thread could already have overwritten that one, so the member writes
+        its tile to a staging region of the workspace instead (``sx_stage``),
+        and after a block barrier the tile is copied into the slot
+        (``member_loop``)."""
         if write is None:
             return
         ptr = self.tiles[m.id]
         mine = _indices(write, ptr)
         if any(i != mine[0] for i in _indices(text, ptr)):
-            raise NotImplementedError(
-                f"{m.name}: reads its own slot {ptr} at another element than it writes"
-            )
+            self.restaged.add(m.id)
 
     def _writes(self, m: Instruction, sched: Sched, out_chunk, idx, v: str, ind: str) -> List[str]:
         """The slot tile and the outputs that computed value ``v`` of
@@ -1166,10 +1194,21 @@ class _Phase:
 
     def member_loop(self, m: Instruction, ind: str) -> List[str]:
         if m.opcode == "reduce":
-            return self.reduce_loop(m, ind)
-        if m.opcode == "dot":
-            return self.dot_loop(m, ind)
-        return self.element_loop(m, ind)
+            lines = self.reduce_loop(m, ind)
+        elif m.opcode == "dot":
+            lines = self.dot_loop(m, ind)
+        else:
+            lines = self.element_loop(m, ind)
+        if m.id in self.restaged:
+            # the second loop of a restaged member: every read of the slot's
+            # previous owner is done, so its tile goes into the slot
+            n = _prod(chunk_shape(m.shape, self.sched(m)))
+            T, ptr = _c_type(m.dtype), self.tiles[m.id]
+            self.stage_bytes = max(self.stage_bytes, n * np.dtype(m.dtype).itemsize)
+            lines += [f"{ind}__syncthreads();  // the slot's previous owner is read: write {ptr}",
+                      f"{ind}for (int i = threadIdx.x; i < {n}; i += {self.threads}) "
+                      f"{ptr}[i] = reinterpret_cast<const {T}*>(sx_stage)[i];"]
+        return lines
 
     def emit(self) -> List[str]:
         pk, ph = self.pk, self.phase
@@ -1251,7 +1290,7 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
             region = max(region, size * phase.solution.blocks)
     if smem:
         body.append("  extern __shared__ __align__(16) unsigned char sx_smem[];")
-    grid, static_smem = 1, 0
+    grid, static_smem, stage = 1, 0, 0
     for pk, (phase, pplan) in enumerate(zip(stitched.phases, plan.phase_plans, strict=True)):
         if pk:
             body.append("  sx_grid_sync();")
@@ -1266,15 +1305,29 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
         body += ph.emit()
         grid = max(grid, ph.useful_blocks)
         static_smem = max(static_smem, ph.part_bytes)
+        stage = max(stage, ph.stage_bytes)
     if static_smem:
         body.insert(0, f"  __shared__ __align__(16) unsigned char sx_part[{static_smem}];")
+    total = ws.size + region + _stage_region(body, ws.size + region, stage, grid)
     header = (
         f"// emit_stitched_fusion: {stitched.num_phases} phases, {stitched.blocks} plan blocks "
         f"in all, one cooperative launch of up to {grid} blocks of {threads} threads, "
-        f"{smem} bytes of shared memory a block, {ws.size + region} workspace bytes"
+        f"{smem} bytes of shared memory a block, {total} workspace bytes"
     )
     name, text = _finish_cooperative(header, body, inputs, roots, grid, threads, smem, static_smem)
-    return name, text, ws.size + region
+    return name, text, total, smem + static_smem
+
+
+def _stage_region(body: List[str], offset: int, stage: int, grid: int) -> int:
+    """Declare ``sx_stage``, a block's staging region for restaged SHARE
+    members (``_Phase._check_own_slot``), at ``offset`` in the workspace,
+    one region of ``stage`` bytes a CUDA block; returns its bytes."""
+    if not stage:
+        return 0
+    stage = -(-stage // _ALIGN) * _ALIGN
+    body.insert(0, f"  unsigned char* const sx_stage = ws + {offset} + "
+                   f"static_cast<size_t>(blockIdx.x) * {stage};")
+    return stage * grid
 
 
 def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int,
@@ -1341,7 +1394,7 @@ class KernelProgram:
 
     def __init__(self, name: str, source: str, emitter: str, plain: Callable,
                  inputs: Sequence[Instruction], outputs: Sequence[Instruction],
-                 workspace_bytes: int):
+                 workspace_bytes: int, shared_bytes: int = 0):
         self.name = name
         self.source = source
         self.emitter = emitter
@@ -1349,6 +1402,7 @@ class KernelProgram:
         self.in_specs = [(tuple(i.shape), torch_dtype(i.dtype)) for i in inputs]
         self.out_specs = [(tuple(r.shape), torch_dtype(r.dtype)) for r in outputs]
         self.workspace_bytes = workspace_bytes
+        self.shared_bytes = shared_bytes      # dynamic + static, a block
         self.launches = 0
         self._launch = None
 
@@ -1445,10 +1499,10 @@ def emit_fusion(
     into their consumers, a CUDA block per plan block and independent member
     group, cooperative reduces (module docstring)."""
     _check_no_collectives(fusion)
-    name, source, ws = _cuda_fusion(fusion, solution, plan)
+    name, source, ws, shared = _cuda_fusion(fusion, solution, plan)
     program = KernelProgram(
         name, source, "emit_fusion", _plain_fusion(fusion, solution),
-        fusion.inputs, fusion.roots, ws,
+        fusion.inputs, fusion.roots, ws, shared,
     )
     return StitchedKernel(fusion, solution, plan, program, fusion.inputs, fusion.roots)
 
@@ -1461,10 +1515,10 @@ def emit_stitched_fusion(
     """Every phase of a stitched group in ONE cooperative CUDA launch over
     the grid, with the plan's slots in shared memory (module docstring)."""
     _check_no_collectives(fusion)
-    name, source, ws = _cuda_stitched(fusion, stitched, plan)
+    name, source, ws, shared = _cuda_stitched(fusion, stitched, plan)
     program = KernelProgram(
         name, source, "emit_stitched_fusion", _plain_stitched(fusion, stitched, plan),
-        fusion.inputs, fusion.roots, ws,
+        fusion.inputs, fusion.roots, ws, shared,
     )
     return StitchedKernel(
         fusion, None, plan, program, fusion.inputs, fusion.roots, stitched=stitched

@@ -19,7 +19,8 @@ from .codegen import StitchedKernel
 from .device import resolve_device
 from .executor import StitchedExecutable
 from .fusion import FusionPlan, constant_like
-from .ir import COLLECTIVE_OPCODES, LOOPS_ITEM, SHARDING_ITEM
+from .ir import COLLECTIVE_OPCODES, SHARDING_ITEM
+from .measure import MeasuredCostStore, device_fingerprint
 from .perf_library import PerfLibrary
 from .pipeline import CompilationState, default_pipeline
 from .schedule import REPLICATED
@@ -29,10 +30,8 @@ from .xla_baseline import xla_baseline_kernel_count
 
 @dataclass
 class StitchOptions:
-    """The reference's options minus those of the passes this slice leaves
-    out (``jit_replay``, ``autotune``, ``measure_repeats``,
-    ``tuning_store_path``, ``mesh_axes``, ``verify``) and minus
-    ``interpret``: the compile's device takes its place."""
+    """The reference's options minus ``mesh_axes`` (sharding is a later
+    slice) and minus ``interpret``: the compile's device takes its place."""
 
     fuse_dot: bool = True                    # user decision (paper §2.1)
     vmem_limit: int = 4 * 1024 * 1024        # scratch budget per kernel
@@ -51,8 +50,27 @@ class StitchOptions:
     enable_stitching: bool = True
     stitch_replicate_limit: Optional[int] = None
     stitch_max_blocks: int = 64
+    # Runtime replay mode: True replays each call through a CUDA graph on
+    # the card (executor module docstring); False keeps the eager per-step
+    # loop, which is also the CPU's path.  Runtime-only: not part of the
+    # kernel-cache options fingerprint, as in the reference.
+    jit_replay: bool = True
+    # Measured-cost autotuning (core/measure.py): autotune=True times each
+    # unique emitted kernel (warm-up + median of measure_repeats) and files
+    # it in a MeasuredCostStore the planner prefers to the analytic model
+    # whenever a key hits; tuning_store_path persists the store as JSON.
+    # All three salt the kernel-cache options fingerprint.
+    autotune: bool = False
+    measure_repeats: int = 5
+    tuning_store_path: Optional[str] = None
+    # Pass-boundary verification (core/verify.py): "off", "checkpoint" (the
+    # finished artifact, after FinalizePass) or "strict" (after every pass).
+    # The REPRO_VERIFY environment variable overrides it.  Not part of the
+    # kernel-cache options fingerprint.
+    verify: str = "checkpoint"
 
     VALID_PLANNERS = ("cost", "greedy")
+    VALID_VERIFY = ("off", "checkpoint", "strict")
 
     def __post_init__(self):
         self.validate()
@@ -62,6 +80,11 @@ class StitchOptions:
             raise ValueError(
                 f"unknown planner {self.planner!r}; valid choices: "
                 f"{', '.join(self.VALID_PLANNERS)}"
+            )
+        if self.verify not in self.VALID_VERIFY:
+            raise ValueError(
+                f"unknown verify level {self.verify!r}; valid choices: "
+                f"{', '.join(self.VALID_VERIFY)}"
             )
         for name in ("vmem_limit", "replicate_limit", "max_blocks",
                      "ew_footprint_limit", "max_fusion_ops",
@@ -74,6 +97,8 @@ class StitchOptions:
                 f"stitch_replicate_limit must be >= 0 (or None), got "
                 f"{self.stitch_replicate_limit}"
             )
+        if self.measure_repeats < 1:
+            raise ValueError(f"measure_repeats must be >= 1, got {self.measure_repeats}")
 
 
 @dataclass
@@ -90,7 +115,11 @@ class FusionReport:
     signature: str = ""
     num_phases: int = 1                      # >1 = multi-phase stitched kernel
     interface_bytes: int = 0                 # staged phase-boundary buffers
+    # the analytic LatencyModel seconds, and the measurement where the
+    # tuning store had (or autotune took) one; cost_s is what the planner
+    # acted on
     model_cost_s: Optional[float] = None
+    measured_cost_s: Optional[float] = None
 
 
 @dataclass
@@ -102,6 +131,12 @@ class CompileStats:
     predicted_time_s: float
     library_time_s: float = 0.0
     reports: List[FusionReport] = field(default_factory=list)
+    # loop (sub-module) accounting: ``call`` sites, unique bodies compiled,
+    # call sites seen, and the kernels inside all unique bodies (recursive)
+    loop_calls: int = 0
+    sub_compiles: int = 0
+    sub_call_sites: int = 0
+    sub_kernels: int = 0
     kernel_cache_hits: int = 0               # fusion instances served by cache
     kernel_cache_misses: int = 0             # unique fusions tuned this compile
     tuning_disk_hits: int = 0                # tuning searches skipped (warm disk)
@@ -125,14 +160,37 @@ class CompileStats:
     greedy_kernels: int = 0
     planner_kernels: int = 0
     unfused_kernels: int = 0                 # launches with no fusion at all
-    replay_mode: str = "eager"               # the only replay of this slice
-    eager_dispatches_per_call: int = 0       # steps the eager loop runs
+    # runtime replay accounting (executor.LaunchStats): "graph" on the card
+    # with jit_replay where a replayed call dispatches no more than an eager
+    # one, else "eager"; dispatches the eager loop makes per call, and what
+    # a replayed call makes (the graph's launch and the copies)
+    replay_mode: str = "graph"
+    eager_dispatches_per_call: int = 0
+    traced_dispatches_per_call: int = 0
+    # measured-cost autotuning (core/measure.py): store lookups this
+    # compile, kernels timed this compile, and the analytic model's mean
+    # relative error over every entry with both costs (None: none had both)
+    measured_hits: int = 0
+    measured_misses: int = 0
+    measurements_taken: int = 0
+    model_error_pct: Optional[float] = None
+    # pass-boundary verification (core/verify.py)
+    verify_mode: str = "off"
+    verify_boundaries: int = 0
+    verify_warnings: int = 0
+    verify_time_s: float = 0.0
     device: str = "cuda"
 
     @property
+    def replay_dispatch_reduction(self) -> int:
+        """Dispatches a replayed call saves over the eager loop."""
+        return self.eager_dispatches_per_call - self.traced_dispatches_per_call
+
+    @property
     def fusion_ratio(self) -> float:
-        """paper Fig. 7: our kernel count / XLA baseline kernel count."""
-        ours = self.stitched_kernels + self.standalone_kernels
+        """paper Fig. 7: our kernel count / XLA baseline kernel count; loop
+        body kernels count as ours, as the baseline counts into bodies."""
+        ours = self.stitched_kernels + self.standalone_kernels + self.sub_kernels
         return ours / self.xla_baseline_kernels if self.xla_baseline_kernels else 1.0
 
     @property
@@ -224,6 +282,7 @@ def build_outputs(state: CompilationState) -> None:
                 num_phases=st.num_phases if st is not None else 1,
                 interface_bytes=st.interface_bytes if st is not None else 0,
                 model_cost_s=p.entry.model_cost_s,
+                measured_cost_s=p.entry.measured_cost_s,
             )
         )
 
@@ -235,6 +294,15 @@ def build_outputs(state: CompilationState) -> None:
     )
     library_time = 0.0
     for s in plan.standalone:
+        if s.opcode == "get":
+            continue   # a projection of a loop output: no launch, no cost
+        if s.opcode == "call":
+            # a loop costs its body's predicted time per iteration
+            sub = s.attrs["compiled_body"].stats
+            trip = int(s.attrs["trip_count"])
+            predicted += trip * sub.predicted_time_s
+            library_time += trip * sub.library_time_s
+            continue
         # standalone kernels are costed as single-op launches; library-call
         # time is tracked separately (paper Fig. 6/8 methodology)
         t = lib.model.kernel_time(1, lib.model.op_time(s, REPLICATED, 1))
@@ -243,22 +311,46 @@ def build_outputs(state: CompilationState) -> None:
         else:
             predicted += t
 
-    executable = StitchedExecutable(state.module, plan, kernels, state.device)
+    executable = StitchedExecutable(
+        state.module, plan, kernels, state.device, jit_replay=state.options.jit_replay
+    )
     st = executable.launch_stats()
     hits = sum(1 for p in state.planned if p.cache_hit)
     unfused = sum(
         1
         for i in state.module.instructions
-        if i.opcode not in ("parameter", "constant")
+        if i.opcode not in ("parameter", "constant", "call", "get")
         and not constant_like(i)
         and not i.is_library_call
     )
+    # a loop site's no-fusion-at-all launch count is its body's, recursively
+    unfused += sum(
+        i.attrs["compiled_body"].stats.unfused_kernels
+        for i in state.module.instructions
+        if i.opcode == "call"
+    )
+    sub_kernels = sum(
+        cm.stats.stitched_kernels + cm.stats.standalone_kernels + cm.stats.sub_kernels
+        for cm in state.sub_compiled.values()
+    )
+    mstore = state.measured_store
+    errors = [
+        abs(e.model_cost_s - e.measured_cost_s) / e.measured_cost_s * 100.0
+        for e in {id(p.entry): p.entry for p in state.planned}.values()
+        if e.model_cost_s is not None
+        and e.measured_cost_s is not None
+        and e.measured_cost_s > 0.0
+    ]
     pstats = state.fusion_plan.planner
     state.executable = executable
     state.stats = CompileStats(
         stitched_kernels=st.stitched_kernels,
         standalone_kernels=st.standalone_kernels,
         library_calls=st.library_calls,
+        loop_calls=st.loop_calls,
+        sub_compiles=len(state.sub_compiled),
+        sub_call_sites=state.sub_call_sites,
+        sub_kernels=sub_kernels,
         xla_baseline_kernels=xla_baseline_kernel_count(state.module),
         predicted_time_s=predicted,
         library_time_s=library_time,
@@ -284,7 +376,13 @@ def build_outputs(state: CompilationState) -> None:
         greedy_kernels=pstats.greedy_kernels if pstats else 0,
         planner_kernels=pstats.planned_kernels if pstats else 0,
         unfused_kernels=unfused,
+        replay_mode=executable.replay_mode,
         eager_dispatches_per_call=st.eager_dispatches_per_call,
+        traced_dispatches_per_call=st.traced_dispatches_per_call,
+        measured_hits=mstore.hits - state.measured_base_hits if mstore else 0,
+        measured_misses=mstore.misses - state.measured_base_misses if mstore else 0,
+        measurements_taken=state.measurements_taken,
+        model_error_pct=float(np.mean(errors)) if errors else None,
         device=str(state.device),
     )
 
@@ -294,6 +392,7 @@ def compile_module(
     options: Optional[StitchOptions] = None,
     kernel_cache: Optional[KernelCache] = None,
     device=None,
+    measured_store=None,
 ) -> CompiledModule:
     """Compile a StitchIR module through the default pass pipeline.
 
@@ -303,19 +402,26 @@ def compile_module(
     dots run as ``torch.matmul`` in full f32: a compile for the card sets
     ``torch.backends.cuda.matmul.allow_tf32 = False``.  ``kernel_cache``
     may be shared across compiles so structurally identical fusions reuse
-    tuned schedules and emitted kernels.
+    tuned schedules and emitted kernels; ``measured_store`` (a
+    ``core.measure.MeasuredCostStore``) likewise, so one compile's
+    measurements guide the next.  When None, one is made if
+    ``options.autotune`` or ``options.tuning_store_path`` asks for it,
+    keyed by this device's fingerprint.
     """
     opts = options or StitchOptions()
     dev = resolve_device(device)
     for instr in module.instructions:
-        if instr.opcode in ("call", "get"):
-            raise NotImplementedError(f"{instr.name}: loops are ported by {LOOPS_ITEM}")
         if instr.opcode in COLLECTIVE_OPCODES:
             raise NotImplementedError(f"{instr.name}: collectives are ported by {SHARDING_ITEM}")
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     library = PerfLibrary(opts.perf_library_path)
+    store = measured_store
+    if store is None and (opts.autotune or opts.tuning_store_path):
+        store = MeasuredCostStore(
+            opts.tuning_store_path, device_fp=device_fingerprint(library.model.spec, dev)
+        )
     state = CompilationState(
         module=module,
         options=opts,
@@ -324,6 +430,9 @@ def compile_module(
             kernel_cache if kernel_cache is not None else KernelCache(opts.kernel_cache_path)
         ),
         device=dev,
+        measured_store=store,
+        measured_base_hits=store.hits if store else 0,
+        measured_base_misses=store.misses if store else 0,
     )
     default_pipeline().run(state)
     state.stats.compile_time_s = time.perf_counter() - t0
@@ -332,4 +441,6 @@ def compile_module(
         state.library.save()
     if opts.kernel_cache_path:
         state.kernel_cache.save()
+    if store is not None and opts.tuning_store_path:
+        store.save()
     return CompiledModule(state.executable, state.stats, state.cuda_source)

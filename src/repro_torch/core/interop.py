@@ -10,7 +10,10 @@ key the outputs, so renumbering would change plans.  Dtype objects in
 largest id taken so later instructions never collide.  The reference's
 bfloat16 (ml_dtypes', recognised by its name) becomes the port's
 ``ir.BFLOAT16``, and a bfloat16 array in ``attrs`` a float32 array of the
-same values.  Feeds are numpy dicts and pass through unchanged.
+same values.  A ``call`` loop's body module is carried across the same way,
+recursively; what a reference compile left on it (``compiled_body``,
+``body_sig``) is not, since the port compiles the body itself.  Feeds are
+numpy dicts and pass through unchanged.
 """
 from __future__ import annotations
 
@@ -44,6 +47,15 @@ def _np_attr(v):
         return v
 
 
+def _attrs(r) -> dict:
+    if r.opcode != "call":
+        return {k: _np_attr(v) for k, v in r.attrs.items()}
+    out = {k: _np_attr(v) for k, v in r.attrs.items()
+           if k not in ("body", "compiled_body", "body_sig")}
+    out["body"] = module_from_reference(r.attrs["body"])
+    return out
+
+
 def module_from_reference(ref_module) -> ir.Module:
     """The port's copy of a reference module, instruction for instruction."""
     out = ir.Module(ref_module.name)
@@ -54,7 +66,7 @@ def module_from_reference(ref_module) -> ir.Module:
             tuple(int(s) for s in r.shape),
             _dtype(r.dtype),
             [by_id[o.id] for o in r.operands],
-            {k: _np_attr(v) for k, v in r.attrs.items()},
+            _attrs(r),
             name=r.name,
             id=int(r.id),
         )

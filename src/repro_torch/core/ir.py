@@ -9,9 +9,10 @@ bfloat16, which numpy lacks, is the port's own key ``BFLOAT16``.
 ``apply_op`` evaluates one instruction on torch tensors with the semantics
 of the reference's jnp interpreter.  It is shared by the reference executor,
 the runtime's standalone ops and the kernels' plain block interpreters, so
-the oracle and the plain kernels agree by construction.  Loops
-(``call``/``get``) and the cross-device collectives are later slices of the
-port and raise ``NotImplementedError`` naming the ROADMAP item.
+the oracle and the plain kernels agree by construction.  A ``call`` loop
+runs its body module's interpreter once per iteration (``_apply_call``).
+The cross-device collectives are a later slice of the port and raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -85,9 +86,7 @@ COLLECTIVE_OPCODES = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
 
 _COMPARE_FNS = frozenset({"lt", "le", "gt", "ge", "eq", "ne", "and", "or", "not"})
 
-# ROADMAP.md queue 1 items that port what this slice leaves out
-LOOPS_ITEM = "ROADMAP.md queue 1, item 6 (loops: SubModulePass, call/get)"
-VERIFY_ITEM = "ROADMAP.md queue 1, item 7 (verifier and lint)"
+# the ROADMAP.md queue 1 item that ports what the port still leaves out
 SHARDING_ITEM = "ROADMAP.md queue 1, item 14 (sharding and distributed)"
 
 #: the IR's bfloat16.  numpy has none (the reference takes ml_dtypes', a
@@ -105,6 +104,7 @@ _TORCH_DTYPES = {
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.bool_): torch.bool,
     BFLOAT16: torch.bfloat16,
@@ -123,6 +123,15 @@ def dtype_name(dtype) -> str:
     """The dtype's name as jnp spells it (``bfloat16`` for ``BFLOAT16``)."""
     dt = np.dtype(dtype)
     return "bfloat16" if dt == BFLOAT16 else dt.name
+
+
+def as_dtype(dtype) -> np.dtype:
+    """A dtype given by object or by name (a ``call``'s ``out_dtypes``), with
+    ``"bfloat16"`` as ``BFLOAT16``: ``dtype_name``'s inverse."""
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return BFLOAT16
+    dt = np.dtype(dtype)
+    return BFLOAT16 if dt.name == "bfloat16" else dt
 
 
 def as_array(value, dtype) -> np.ndarray:
@@ -208,9 +217,19 @@ class Instruction:
 
     def __repr__(self):
         ops = ", ".join(o.name for o in self.operands)
+        attrs = self.attrs
+        if self.opcode == "call":
+            # the body Module (and its compiled form) would render multiline
+            attrs = {
+                "kind": attrs.get("kind"),
+                "body": getattr(attrs.get("body"), "name", None),
+                "trip_count": attrs.get("trip_count"),
+                "num_carry": attrs.get("num_carry"),
+                "reverse": attrs.get("reverse"),
+            }
         return (
             f"%{self.name}: {dtype_name(self.dtype)}{list(self.shape)} = "
-            f"{self.opcode}({ops}) {self.attrs or ''}"
+            f"{self.opcode}({ops}) {attrs or ''}"
         )
 
 
@@ -246,7 +265,14 @@ class Module:
         return [i for i in self.instructions if not i.users]
 
     def verify(self) -> None:
-        raise NotImplementedError(f"Module.verify is ported by {VERIFY_ITEM}")
+        """Full IR well-formedness check, delegated to the verifier's IR
+        family (``core/verify.py``).  Raises ``VerificationError`` (a
+        ``ValueError``) on the first batch of violations."""
+        from .verify import ERROR, VerificationError, verify_module
+
+        diags = [d for d in verify_module(self) if d.severity == ERROR]
+        if diags:
+            raise VerificationError(diags)
 
     def __repr__(self):
         lines = [f"module {self.name} {{"]
@@ -409,6 +435,8 @@ def apply_op(instr: Instruction, *vals, device=None):
     if device is None:
         device = vals[0].device if vals else "cpu"
     out = _apply(instr, op, a, vals, device)
+    if op == "call":
+        return out    # every logical output, projected by ``get``
     want = torch_dtype(instr.dtype)
     # torch widens where jnp keeps the dtype (int32 sums become int64)
     return out if out.dtype == want else out.to(want)
@@ -444,11 +472,63 @@ def _apply(instr, op, a, vals, device):
     if op == "constant":
         arr = as_array(a["value"], instr.dtype)
         return torch.as_tensor(arr, device=device).to(torch_dtype(instr.dtype))
-    if op in ("call", "get"):
-        raise NotImplementedError(f"opcode {op!r} is ported by {LOOPS_ITEM}")
+    if op == "call":
+        return _apply_call(instr, vals)
+    if op == "get":
+        return vals[0][a["index"]]
     if op in COLLECTIVE_OPCODES:
         raise NotImplementedError(f"collective {op!r} is ported by {SHARDING_ITEM}")
     raise ValueError(f"cannot apply {op}")
+
+
+def _interpret_module(module: "Module", feeds_by_order: Sequence, device) -> List[torch.Tensor]:
+    """Reference walk of a (loop-body) module with parameter values given
+    positionally in parameter-creation order; the root values in
+    ``module.roots`` order."""
+    vals: Dict[int, torch.Tensor] = {}
+    params = iter(feeds_by_order)
+    for instr in module.instructions:
+        if instr.opcode == "parameter":
+            vals[instr.id] = torch.as_tensor(next(params), device=device).to(torch_dtype(instr.dtype))
+        else:
+            vals[instr.id] = apply_op(instr, *[vals[o.id] for o in instr.operands], device=device)
+    return [vals[r.id] for r in module.roots]
+
+
+def _apply_call(instr: Instruction, vals) -> Tuple[torch.Tensor, ...]:
+    """Reference semantics of a ``call`` loop: run the body module
+    ``trip_count`` times threading carries, stack the per-iteration outputs
+    (in reverse order of iteration where ``reverse``).  Returns ALL logical
+    outputs ``(carries..., stacked ys...)``; ``get`` projects one."""
+    a = instr.attrs
+    body: "Module" = a["body"]
+    nc, k = int(a["num_consts"]), int(a["num_carry"])
+    trip = int(a["trip_count"])
+    reverse = bool(a.get("reverse", False))
+    out_order = list(a["out_order"])           # logical output -> root pos
+    device = vals[0].device if vals else "cpu"
+    consts = list(vals[:nc])
+    carry = list(vals[nc:nc + k])
+    xs = list(vals[nc + k:])
+    n_y = len(out_order) - k
+    ys: List[List[torch.Tensor]] = [[] for _ in range(n_y)]
+    steps = range(trip - 1, -1, -1) if reverse else range(trip)
+    for t in steps:
+        roots = _interpret_module(body, consts + carry + [x[t] for x in xs], device)
+        ordered = [roots[j] for j in out_order]
+        carry = ordered[:k]
+        for j in range(n_y):
+            ys[j].append(ordered[k + j])
+    if reverse:
+        ys = [list(reversed(col)) for col in ys]
+    stacked = []
+    for j in range(n_y):
+        if ys[j]:
+            stacked.append(torch.stack(ys[j]))
+        else:  # zero-trip loop: empty stacked output
+            dt = torch_dtype(as_dtype(a["out_dtypes"][k + j]))
+            stacked.append(torch.zeros(tuple(a["out_shapes"][k + j]), dtype=dt, device=device))
+    return tuple(carry + stacked)
 
 
 # --------------------------------------------------------------------------
@@ -627,6 +707,52 @@ class GraphBuilder:
     def iota(self, shape, dim=0, dtype=np.float32) -> Tensor:
         return self._emit("iota", shape, dtype, [], {"dim": dim})
 
+    def call_loop(
+        self,
+        operands: Sequence[Tensor],
+        body: Module,
+        *,
+        trip_count: int,
+        num_consts: int,
+        num_carry: int,
+        out_order: Sequence[int],
+        out_shapes: Sequence[Tuple[int, ...]],
+        out_dtypes: Sequence[Any],
+        reverse: bool = False,
+        kind: str = "scan",
+    ) -> Tensor:
+        """A sub-module loop (``lax.scan`` analogue): run ``body``
+        ``trip_count`` times.  Operands are ``consts + init_carries +
+        stacked xs`` and bind positionally to the body's parameters (in
+        creation order).  The instruction's logical outputs are
+        ``(final carries..., stacked ys...)``; ``out_order[j]`` locates
+        logical output ``j`` among ``body.roots``.  ``out_dtypes`` are kept
+        by name (``dtype_name``), as the reference keeps them.  Project
+        outputs with ``get``."""
+        attrs = {
+            "kind": kind,
+            "body": body,
+            "trip_count": int(trip_count),
+            "num_consts": int(num_consts),
+            "num_carry": int(num_carry),
+            "reverse": bool(reverse),
+            "out_order": tuple(int(j) for j in out_order),
+            "out_shapes": tuple(tuple(int(s) for s in sh) for sh in out_shapes),
+            "out_dtypes": tuple(dtype_name(as_dtype(d)) for d in out_dtypes),
+        }
+        return self._emit(
+            "call", attrs["out_shapes"][0], as_dtype(attrs["out_dtypes"][0]),
+            list(operands), attrs,
+        )
+
+    def get(self, call: Tensor, index: int) -> Tensor:
+        """Project logical output ``index`` of a ``call`` loop."""
+        a = call.instr.attrs
+        return self._emit(
+            "get", a["out_shapes"][index], as_dtype(a["out_dtypes"][index]),
+            [call], {"index": int(index)},
+        )
+
     # -- named math sugar ---------------------------------------------------
     def exp(self, x): return self.unary("exp", x)
     def log(self, x): return self.unary("log", x)
@@ -653,12 +779,10 @@ class GraphBuilder:
 
 
 def trace(fn: Callable, *specs, name: str = "traced") -> Module:
-    """Trace a python function of Tensors into a Module.
-
-    ``specs`` are (name, shape, dtype) triples.  The reference also verifies
-    the traced module; the port's verifier is a later slice (``VERIFY_ITEM``).
-    """
+    """Trace a python function of Tensors into a Module, verified as the
+    reference verifies it.  ``specs`` are (name, shape, dtype) triples."""
     b = GraphBuilder(name)
     args = [b.parameter(pname, shape, dtype) for pname, shape, dtype in specs]
     fn(b, *args)
+    b.module.verify()
     return b.module

@@ -10,10 +10,13 @@
                    once with nvcc when the compile targets the card
     FinalizePass   execution-plan construction + CompileStats
 
-The planner passes are the reference's, decision for decision, under the
-reference's device constants.  This slice leaves out ``SubModulePass``
-(loops), ``ShardingPass``, ``AutotunePass`` and the pass-boundary verifier;
-``ROADMAP.md`` queue 1 orders them.
+Around them, as in the reference: ``SubModulePass`` first compiles every
+loop body, ``AutotunePass`` after codegen times each unique kernel when
+``options.autotune`` asks, and ``PassPipeline`` verifies the artifact at the
+boundaries ``options.verify`` names (``core/verify.py``).  The planner
+passes are the reference's, decision for decision, under the reference's
+device constants.  ``ShardingPass`` is a later slice (``ROADMAP.md`` queue 1,
+item 14).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from .fusion import (
     deep_fuse,
 )
 from .ir import Instruction, Module
+from .measure import measure_kernel
 from .memory import MemoryInfeasible, plan_memory, plan_stitched_memory
 from .perf_library import PerfLibrary
 from .schedule import (
@@ -56,6 +60,14 @@ class PlannedFusion:
     is_representative: bool          # this instance built the entry
     kernel: Optional[StitchedKernel] = None
     tuned_from_disk: bool = False
+    # the fusion body's content hash as SchedulePass hashed it, and whether
+    # memory feedback later shrank this instance (the verifier's EXEC005
+    # audit re-hashes unshrunk bodies against it)
+    raw_signature: Optional[str] = None
+    shrunk: bool = False
+    # the measured-store key (options salt + the signature the planner
+    # scored), under which AutotunePass files this fusion's measurement
+    measure_sig: Optional[str] = None
 
     @property
     def cache_hit(self) -> bool:
@@ -79,6 +91,17 @@ class CompilationState:
     # (on the card) the seconds spent building it
     cuda_source: str = ""
     build_s: float = 0.0
+    # autotuning: the MeasuredCostStore of this compile (None: analytic
+    # costs only); its hit and miss counters accumulate across compiles that
+    # share it, so FinalizePass reports the deltas from these snapshots
+    measured_store: Optional[object] = None
+    measured_base_hits: int = 0
+    measured_base_misses: int = 0
+    measurements_taken: int = 0
+    # loop bodies compiled by SubModulePass, by module signature, and the
+    # call sites it saw
+    sub_compiled: Dict[str, object] = field(default_factory=dict)
+    sub_call_sites: int = 0
     # filled by FinalizePass
     executable: Optional[object] = None
     stats: Optional[object] = None
@@ -96,16 +119,75 @@ class PassPipeline:
         self.passes = list(passes)
 
     def run(self, state: CompilationState) -> CompilationState:
+        from .verify import ERROR, VerificationError, resolve_verify_mode, verify_state
+
+        mode = resolve_verify_mode(state.options)
+        verify_time = 0.0
+        boundaries = 0
+        warnings = 0
         for p in self.passes:
             t0 = time.perf_counter()
             p.run(state)
             state.pass_times[p.name] = time.perf_counter() - t0
+            # "off" does no verification work; "checkpoint" verifies the
+            # finished artifact once; "strict" checks every boundary, so a
+            # violation names the pass that introduced it
+            if mode == "off" or (mode == "checkpoint" and p is not self.passes[-1]):
+                continue
+            v0 = time.perf_counter()
+            diags = verify_state(state, pass_name=p.name)
+            verify_time += time.perf_counter() - v0
+            boundaries += 1
+            errors = [d for d in diags if d.severity == ERROR]
+            warnings += len(diags) - len(errors)
+            if errors:
+                state.pass_times["verify"] = verify_time
+                raise VerificationError(errors)
+        if mode != "off":
+            state.pass_times["verify"] = verify_time
+            if state.stats is not None:
+                state.stats.verify_mode = mode
+                state.stats.verify_boundaries = boundaries
+                state.stats.verify_warnings = warnings
+                state.stats.verify_time_s = verify_time
         return state
 
 
 # --------------------------------------------------------------------------
 # Passes
 # --------------------------------------------------------------------------
+
+
+class SubModulePass(Pass):
+    """Compile every loop body (``call`` instruction) as its own module
+    through the full pipeline, for the parent's device, before the parent's
+    fusion pass runs.  Bodies are deduplicated by ``module_signature``, and
+    the parent's kernel cache and measured store are shared into the
+    sub-compile, so identical fusions across bodies and compiles reuse one
+    kernel.  A ``call`` that already carries a ``compiled_body`` is left
+    alone; nested loops recurse through the sub-compile's own pass."""
+
+    name = "submodule"
+
+    def run(self, state: CompilationState) -> None:
+        from .compiler import compile_module
+        from .signature import module_signature
+
+        for instr in state.module.instructions:
+            if instr.opcode != "call" or "compiled_body" in instr.attrs:
+                continue
+            state.sub_call_sites += 1
+            sig = module_signature(instr.attrs["body"])
+            cm = state.sub_compiled.get(sig)
+            if cm is None:
+                cm = compile_module(
+                    instr.attrs["body"], state.options,
+                    kernel_cache=state.kernel_cache, device=state.device,
+                    measured_store=state.measured_store,
+                )
+                state.sub_compiled[sig] = cm
+            instr.attrs["compiled_body"] = cm
+            instr.attrs["body_sig"] = sig
 
 
 class FusionPass(Pass):
@@ -129,6 +211,7 @@ class FusionPass(Pass):
                 allow_stitch=opts.enable_stitching,
                 stitch_replicate_limit=srl,
                 stitch_max_blocks=opts.stitch_max_blocks,
+                measured=state.measured_store,
                 options_salt=_measure_salt(opts, state.device),
             )
 
@@ -179,10 +262,22 @@ def _stitch_replicate_limit(opts) -> int:
     return opts.stitch_replicate_limit
 
 
+def _options_fingerprint(opts, device) -> str:
+    """Kernel-cache salt: ``_measure_salt`` and the autotune knobs, which
+    decide which costs the planner saw (the reference's own)."""
+    return (
+        _measure_salt(opts, device)
+        + f"at{int(opts.autotune)}:mr{opts.measure_repeats}"
+        f":ts{opts.tuning_store_path or ''}:"
+    )
+
+
 def _measure_salt(opts, device) -> str:
-    """Options salt for cache keys: everything that changes what a kernel
-    IS — the device it runs on (in place of the reference's ``interpret``),
-    memory budgets, blocks, planner and stitching."""
+    """Options salt for measured-store keys: everything that changes what a
+    kernel IS — the device it runs on (in place of the reference's
+    ``interpret``), memory budgets, blocks, planner and stitching — but not
+    the autotune knobs, so a store warmed with ``autotune=True`` serves a
+    later read-only ``tuning_store_path`` compile."""
     srl = _stitch_replicate_limit(opts)
     return (
         f"d{torch.device(device).type}:v{opts.vmem_limit}:r{opts.replicate_limit}"
@@ -199,13 +294,20 @@ class SchedulePass(Pass):
     def run(self, state: CompilationState) -> None:
         opts = state.options
         cache = state.kernel_cache
-        salt = _measure_salt(opts, state.device)
+        salt = _options_fingerprint(opts, state.device)
+        msalt = _measure_salt(opts, state.device)
         for fusion in state.fusion_plan.fusions:
-            sig = salt + fusion_signature(fusion)
+            raw = fusion_signature(fusion)
+            sig = salt + raw
+            # measurements are keyed by the signature the PLANNER scored
+            # (pre-absorption where the two differ): what the next
+            # compile's scorer will ask the store for
+            msig = msalt + (fusion.scored_signature or raw)
             if opts.dedup_kernels:
                 entry = cache.get(sig)
                 if entry is not None:
-                    state.planned.append(PlannedFusion(fusion, entry, False))
+                    state.planned.append(PlannedFusion(
+                        fusion, entry, False, measure_sig=msig, raw_signature=raw))
                     continue
             tuned, from_disk = self._tune(state, fusion, sig)
             if tuned is None:
@@ -219,9 +321,11 @@ class SchedulePass(Pass):
                 if entry is None:
                     state.demoted.extend(fusion.members)
                     continue
+                self._apply_measured(state, entry, msig)
                 if opts.dedup_kernels:
                     cache.put(entry)
-                state.planned.append(PlannedFusion(fusion, entry, True))
+                state.planned.append(PlannedFusion(
+                    fusion, entry, True, measure_sig=msig, raw_signature=raw))
                 continue
             entry = CacheEntry(
                 signature=sig,
@@ -231,11 +335,25 @@ class SchedulePass(Pass):
                 root_scheds=[tuned.solution.root_scheds[r.id] for r in fusion.roots],
                 model_cost_s=tuned.cost_s,
             )
+            self._apply_measured(state, entry, msig)
             if opts.dedup_kernels:
                 cache.put(entry)
-            state.planned.append(
-                PlannedFusion(fusion, entry, True, tuned_from_disk=from_disk)
-            )
+            state.planned.append(PlannedFusion(
+                fusion, entry, True, tuned_from_disk=from_disk, measure_sig=msig,
+                raw_signature=raw))
+
+    @staticmethod
+    def _apply_measured(state, entry: CacheEntry, msig: str) -> None:
+        """On a measured-store hit the entry's cost becomes the measured
+        time (the analytic one stays in ``model_cost_s``); on a miss nothing
+        changes and AutotunePass measures the emitted kernel."""
+        store = state.measured_store
+        if store is None:
+            return
+        rec = store.get(msig)
+        if rec is not None:
+            entry.measured_cost_s = rec.cost_s
+            entry.cost_s = rec.cost_s
 
     def _tune(self, state, fusion, sig):
         opts = state.options
@@ -358,11 +476,15 @@ class MemoryPass(Pass):
                 )
                 continue
             state.demoted.extend(dropped)
+            if dropped:
+                p.shrunk = True
             p.fusion = fusion
             entry.solution = tuned.solution
             entry.cost_s = tuned.cost_s
             if dropped:
+                # the structure changed: the pre-shrink costs describe another
                 entry.model_cost_s = tuned.cost_s
+                entry.measured_cost_s = None
             entry.memory = mem
             entry.root_scheds = [tuned.solution.root_scheds[r.id] for r in roots]
             entry.kept_members = len(members)
@@ -403,6 +525,7 @@ class CodegenPass(Pass):
                 kept_n = entry.kept_members or len(p.fusion.members)
                 if kept_n < len(p.fusion.members):
                     state.demoted.extend(p.fusion.members[kept_n:])
+                    p.shrunk = True
                     p.fusion = FusedComputation(p.fusion.members[:kept_n], name=p.fusion.name)
                 p.kernel = entry.kernel.bind(p.fusion)
         state.cuda_source = assemble_source(emitted)
@@ -410,6 +533,36 @@ class CodegenPass(Pass):
             lib, state.build_s = cuda_build.load(state.cuda_source)
             for program in emitted:
                 program.load(lib)
+
+
+class AutotunePass(Pass):
+    """Measure each unique emitted kernel once and remember the result.
+
+    Runs after CodegenPass, only when ``options.autotune`` is set: each
+    representative whose measured-store lookup missed is timed on the
+    compile's device (``measure.measure_kernel``: CUDA events on the card,
+    the plain version's wall clock on the CPU) and filed under its measure
+    key, so the NEXT compile's scorer and SchedulePass see it.  This
+    compile's plan is already committed: the loop closes across compiles."""
+
+    name = "autotune"
+
+    def run(self, state: CompilationState) -> None:
+        store = state.measured_store
+        if store is None or not state.options.autotune:
+            return
+        repeats = state.options.measure_repeats
+        for p in state.planned:
+            if not p.is_representative or p.kernel is None:
+                continue
+            entry = p.entry
+            if entry.measured_cost_s is not None:
+                continue  # a store hit, or measured already this compile
+            t = measure_kernel(p.kernel, state.device, repeats=repeats)
+            model_s = entry.model_cost_s if entry.model_cost_s is not None else entry.cost_s
+            store.put(p.measure_sig, t, model_s=model_s, repeats=repeats)
+            entry.measured_cost_s = t
+            state.measurements_taken += 1
 
 
 class FinalizePass(Pass):
@@ -424,6 +577,7 @@ class FinalizePass(Pass):
 
 
 def default_pipeline() -> PassPipeline:
-    return PassPipeline(
-        [FusionPass(), SchedulePass(), MemoryPass(), CodegenPass(), FinalizePass()]
-    )
+    return PassPipeline([
+        SubModulePass(), FusionPass(), SchedulePass(), MemoryPass(), CodegenPass(),
+        AutotunePass(), FinalizePass(),
+    ])

@@ -3,15 +3,19 @@
 // gate (redux.sync, ballot, ffs) and the warp-level PTX instructions of the
 // attention kernels (cp.async, ldmatrix, mma.sync).
 //
-// Every kernel reads float or bf16, computes in f32 and casts once when it
-// stores, as the Pallas kernels it replaces do.  bf16 stores round to
-// nearest even (__float2bfloat16), as torch's casts do.  Max reductions
+// Every kernel reads float, bf16 or f16, computes in f32 and casts once
+// when it stores, as the Pallas kernels it replaces do.  bf16 and f16
+// stores round to nearest even (__float2bfloat16, __float2half_rn), as
+// torch's casts do.  Max reductions
 // propagate NaN like jnp.max (sx_max of stitch_runtime.cuh; fmaxf would
 // drop it).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "stitch_runtime.cuh"
 
@@ -24,6 +28,8 @@ SX_D float sx_load(const float* p) { return *p; }
 SX_D float sx_load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 SX_D void sx_store(float* p, float v) { *p = v; }
 SX_D void sx_store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+SX_D float sx_load(const __half* p) { return __half2float(*p); }
+SX_D void sx_store(__half* p, float v) { *p = __float2half_rn(v); }
 
 struct SxSum {
   SX_D float operator()(float a, float b) const { return a + b; }
@@ -102,8 +108,8 @@ SX_D int sx_ffs(unsigned b) {
 }
 
 // ---------------------------------------------------------------------------
-// One PTX instruction each: the asynchronous copy, ldmatrix and the bf16
-// tensor-core product of the attention kernels.  Where __CUDA_ARCH__ is not
+// One PTX instruction each: the asynchronous copy, ldmatrix and the bf16 or
+// f16 tensor-core product of the attention kernels.  Where __CUDA_ARCH__ is not
 // defined (nvcc's host pass, or a rehearsal of a source with a host
 // compiler that runs one thread per CUDA thread) each does the same work in
 // scalar code, lane by lane, following the instruction's fragment layout,
@@ -153,18 +159,86 @@ SX_D unsigned sx_pack_bf16x2(float lo, float hi) {
 SX_D float sx_bf16_lo(unsigned r) { return __uint_as_float(r << 16); }
 SX_D float sx_bf16_hi(unsigned r) { return __uint_as_float(r & 0xffff0000u); }
 
+// The same for f16: two floats as one register of two f16, rounded to
+// nearest even, and each half of such a register as a float.
+SX_D unsigned sx_pack_f16x2(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+SX_D float sx_f16_lo(unsigned r) { return __half2float(__ushort_as_half((unsigned short)(r & 0xffffu))); }
+SX_D float sx_f16_hi(unsigned r) { return __half2float(__ushort_as_half((unsigned short)(r >> 16))); }
+
+// The 2-byte element types by their type: pack two floats, unpack a half.
+template <typename T>
+struct SxPair;
+template <>
+struct SxPair<__nv_bfloat16> {
+  SX_D static unsigned pack(float lo, float hi) { return sx_pack_bf16x2(lo, hi); }
+  SX_D static float lo(unsigned r) { return sx_bf16_lo(r); }
+  SX_D static float hi(unsigned r) { return sx_bf16_hi(r); }
+};
+template <>
+struct SxPair<__half> {
+  SX_D static unsigned pack(float lo, float hi) { return sx_pack_f16x2(lo, hi); }
+  SX_D static float lo(unsigned r) { return sx_f16_lo(r); }
+  SX_D static float hi(unsigned r) { return sx_f16_hi(r); }
+};
+
+// 16 bytes as SxVec16<T>::N elements, in order, unpacked to floats or
+// packed from them (rounded to nearest even).
+template <typename T>
+struct SxVec16;
+
+template <>
+struct SxVec16<float> {
+  static constexpr int N = 4;
+  SX_D static void unpack(const uint4& v, float (&f)[N]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+  SX_D static uint4 pack(const float (&f)[N]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+
+// bf16 and f16: eight 2-byte elements, two a word, the lower one first.
+template <typename T>
+struct SxVec16Pairs {
+  static constexpr int N = 8;
+  SX_D static void unpack(const uint4& v, float (&f)[N]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = SxPair<T>::lo(w[i]);
+      f[2 * i + 1] = SxPair<T>::hi(w[i]);
+    }
+  }
+  SX_D static uint4 pack(const float (&f)[N]) {
+    return make_uint4(SxPair<T>::pack(f[0], f[1]), SxPair<T>::pack(f[2], f[3]),
+                      SxPair<T>::pack(f[4], f[5]), SxPair<T>::pack(f[6], f[7]));
+  }
+};
+template <>
+struct SxVec16<__nv_bfloat16> : SxVec16Pairs<__nv_bfloat16> {};
+template <>
+struct SxVec16<__half> : SxVec16Pairs<__half> {};
+
 #ifndef __CUDA_ARCH__
 // The row address that lane `src` gave an emulated ldmatrix.
-SX_D const __nv_bfloat16* sx_shfl_row(const __nv_bfloat16* row, int src) {
-  return reinterpret_cast<const __nv_bfloat16*>(
+SX_D const unsigned short* sx_shfl_row(const void* row, int src) {
+  return reinterpret_cast<const unsigned short*>(
       __shfl_sync(SX_FULL_MASK, reinterpret_cast<unsigned long long>(row), src));
 }
 #endif
 
-// ldmatrix .x4: four 8x8 bf16 matrices from shared memory.  Lane i gives
-// the address of row i % 8 of matrix i / 8 (16 contiguous bytes); register
-// j receives row g, columns 2t and 2t + 1 of matrix j.
-SX_D void sx_ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* row) {
+// ldmatrix .x4: four 8x8 matrices of 2-byte elements (bf16 or f16) from
+// shared memory.  Lane i gives the address of row i % 8 of matrix i / 8 (16
+// contiguous bytes); register j receives row g, columns 2t and 2t + 1 of
+// matrix j.
+SX_D void sx_ldmatrix_x4(unsigned (&r)[4], const void* row) {
 #ifdef __CUDA_ARCH__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -173,16 +247,15 @@ SX_D void sx_ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* row) {
 #else
   const int lane = threadIdx.x & 31;
   for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat16* p = sx_shfl_row(row, 8 * j + lane / 4);
-    r[j] = (unsigned)__bfloat16_as_ushort(p[2 * (lane % 4)]) |
-           ((unsigned)__bfloat16_as_ushort(p[2 * (lane % 4) + 1]) << 16);
+    const unsigned short* p = sx_shfl_row(row, 8 * j + lane / 4);
+    r[j] = (unsigned)p[2 * (lane % 4)] | ((unsigned)p[2 * (lane % 4) + 1] << 16);
   }
 #endif
 }
 
 // ldmatrix .x4 .trans: the same addresses; register j receives rows 2t and
 // 2t + 1 of column g of matrix j, i.e. the matrix transposed.
-SX_D void sx_ldmatrix_x4_trans(unsigned (&r)[4], const __nv_bfloat16* row) {
+SX_D void sx_ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
 #ifdef __CUDA_ARCH__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -191,27 +264,36 @@ SX_D void sx_ldmatrix_x4_trans(unsigned (&r)[4], const __nv_bfloat16* row) {
 #else
   const int lane = threadIdx.x & 31;
   for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat16* p0 = sx_shfl_row(row, 8 * j + 2 * (lane % 4));
-    const __nv_bfloat16* p1 = sx_shfl_row(row, 8 * j + 2 * (lane % 4) + 1);
-    r[j] = (unsigned)__bfloat16_as_ushort(p0[lane / 4]) |
-           ((unsigned)__bfloat16_as_ushort(p1[lane / 4]) << 16);
+    const unsigned short* p0 = sx_shfl_row(row, 8 * j + 2 * (lane % 4));
+    const unsigned short* p1 = sx_shfl_row(row, 8 * j + 2 * (lane % 4) + 1);
+    r[j] = (unsigned)p0[lane / 4] | ((unsigned)p1[lane / 4] << 16);
   }
 #endif
 }
 
-// d += a * b on the tensor cores: mma.sync m16n8k16, bf16 in, f32 sums.
-// a is 16x16 row-major: a[0] row g, columns 2t..2t+1; a[1] row g + 8; a[2]
-// row g, columns 2t + 8..; a[3] row g + 8, columns 2t + 8...  b is 16x8:
-// b[0] rows 2t..2t+1 of column g, b[1] rows 2t + 8...  d is 16x8: d[0..1]
-// row g, columns 2t..2t+1; d[2..3] row g + 8.
-SX_D void sx_mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+// d += a * b on the tensor cores: mma.sync m16n8k16, bf16 or f16 in (T), f32
+// sums.  a is 16x16 row-major: a[0] row g, columns 2t..2t+1; a[1] row g + 8;
+// a[2] row g, columns 2t + 8..; a[3] row g + 8, columns 2t + 8...  b is
+// 16x8: b[0] rows 2t..2t+1 of column g, b[1] rows 2t + 8...  d is 16x8:
+// d[0..1] row g, columns 2t..2t+1; d[2..3] row g + 8.
+template <typename T>
+SX_D void sx_mma_16816(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
 #ifdef __CUDA_ARCH__
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
 #else
+  using P = SxPair<T>;
   const int lane = threadIdx.x & 31, g = lane / 4, t = lane % 4;
   for (int tp = 0; tp < 4; ++tp) {  // columns 2tp.. and 2tp + 8.. of a, rows of b
     unsigned A[4], B[2][2];
@@ -220,10 +302,8 @@ SX_D void sx_mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], const unsigne
       for (int i = 0; i < 2; ++i) B[c][i] = __shfl_sync(SX_FULL_MASK, b[i], 4 * (2 * t + c) + tp);
     for (int c = 0; c < 2; ++c) {
       for (int h = 0; h < 2; ++h) {  // row g, row g + 8
-        d[2 * h + c] += sx_bf16_lo(A[h]) * sx_bf16_lo(B[c][0]) +
-                        sx_bf16_hi(A[h]) * sx_bf16_hi(B[c][0]) +
-                        sx_bf16_lo(A[2 + h]) * sx_bf16_lo(B[c][1]) +
-                        sx_bf16_hi(A[2 + h]) * sx_bf16_hi(B[c][1]);
+        d[2 * h + c] += P::lo(A[h]) * P::lo(B[c][0]) + P::hi(A[h]) * P::hi(B[c][0]) +
+                        P::lo(A[2 + h]) * P::lo(B[c][1]) + P::hi(A[2 + h]) * P::hi(B[c][1]);
       }
     }
   }

@@ -2,7 +2,7 @@
 //
 // One overload per element type the generated kernels compute in (float,
 // double, int, long long, bool).  Values stored as bf16 or f16 are computed
-// in float and those stored as int8 or uint8 in int (cuda_bf16.h's and
+// in float and those stored as int8, uint8 or int16 in int (cuda_bf16.h's and
 // cuda_fp16.h's conversion intrinsics, each member rounded back to its
 // dtype where it ends), so those types need only their identities and
 // gather fills here.  The elementwise functions follow the reference's
@@ -100,6 +100,9 @@ template <> SX_D bool sx_fill<bool>() { return true; }
 template <> SX_D signed char sx_lowest<signed char>() { return -128; }
 template <> SX_D signed char sx_highest<signed char>() { return 127; }
 template <> SX_D signed char sx_fill<signed char>() { return -128; }
+template <> SX_D short sx_lowest<short>() { return -32768; }
+template <> SX_D short sx_highest<short>() { return 32767; }
+template <> SX_D short sx_fill<short>() { return -32768; }
 // jnp fills unsigned rows with the largest value
 template <> SX_D unsigned char sx_lowest<unsigned char>() { return 0; }
 template <> SX_D unsigned char sx_highest<unsigned char>() { return 255; }

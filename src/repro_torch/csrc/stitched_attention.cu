@@ -14,9 +14,9 @@
 //   replaces the TPU's sequential KV grid axis, and the splits spread one
 //   long cache over many SMs.  A block serves all G query heads of its kv
 //   head, so each valid key and value row is read from device memory
-//   once.  Rows are read with 16-byte loads by groups of D / 8 (bf16) or
-//   D / 4 (f32) neighbouring lanes, the dot partials reduced by shuffles in
-//   the group.  The split's scores go to shared memory, its max and sum are
+//   once.  Rows are read with 16-byte loads by groups of D / 8 (bf16, f16)
+//   or D / 4 (f32) neighbouring lanes, the dot partials reduced by shuffles
+//   in the group.  The split's scores go to shared memory, its max and sum are
 //   taken once, and a second pass over V sums p * v; each block writes
 //   (acc[D], m, l) per query head to f32 scratch.  A split that starts at
 //   or past lengths[b] writes only m = SX_NEG_INF, l = 0.
@@ -29,8 +29,9 @@
 //   Bound by operations: 4 * D per visible (query, key) pair, about 1.3e10
 //   for one causal 2048-token layer of granite-moe, 13 us at the tensor
 //   cores' 989 TFLOP/s bf16.
-//   bf16, sx_flash_mma_kernel: both products on the tensor cores
-//   (mma.sync m16n8k16, bf16 in, f32 sums).  One block of 4 warps owns 64
+//   bf16 and f16, sx_flash_mma_kernel<T>: both products on the tensor cores
+//   (mma.sync m16n8k16, bf16 or f16 in, f32 sums; f16 takes the .f16 form
+//   of the instruction and the same tiles).  One block of 4 warps owns 64
 //   query rows of one (query head, sequence), 16 rows a warp; q fragments
 //   are loaded once.  K and V tiles of 64 keys stay bf16 in shared memory,
 //   two stages filled by 16-byte cp.async while the previous tile computes;
@@ -67,22 +68,6 @@
 constexpr int SX_DECODE_WARPS = 4;
 constexpr int SX_DECODE_MAX_SPLIT = 256;  // keys of one split at most
 constexpr int SX_DECODE_UNROLL = 4;       // rows a lane group loads before it uses them
-
-// The VEC elements of one 16-byte load as f32.
-SX_D void sx_unpack16(const uint4& r, float (&f)[8]) {
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = sx_bf16_lo(w[i]);
-    f[2 * i + 1] = sx_bf16_hi(w[i]);
-  }
-}
-SX_D void sx_unpack16(const uint4& r, float (&f)[4]) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
 
 // part is (B, Hq, nsplit, D + 2) f32: the split's unnormalised acc[D], its
 // max m and its sum l, for each query head.
@@ -138,7 +123,7 @@ __global__ void __launch_bounds__(32 * SX_DECODE_WARPS) sx_decode_split_kernel(
       for (int u = 0; u < SX_DECODE_UNROLL; ++u) {
         const int j = r0 + u * ROWS + grp;
         float kf[VEC];
-        sx_unpack16(raw[u], kf);
+        SxVec16<T>::unpack(raw[u], kf);
 #pragma unroll
         for (int i = 0; i < GM; ++i) {
           float dot = 0.0f;
@@ -189,7 +174,7 @@ __global__ void __launch_bounds__(32 * SX_DECODE_WARPS) sx_decode_split_kernel(
         const int j = r0 + u * ROWS + grp;
         if (j < cnt) {
           float vf[VEC];
-          sx_unpack16(raw[u], vf);
+          SxVec16<T>::unpack(raw[u], vf);
 #pragma unroll
           for (int i = 0; i < GM; ++i) {
             const float p = i < gc ? ps[i][j] : 0.0f;
@@ -313,6 +298,14 @@ extern "C" int sx_decode_split_bf16(const __nv_bfloat16* q, const __nv_bfloat16*
                                   stream);
 }
 
+extern "C" int sx_decode_split_f16(const __half* q, const __half* k,
+                                    const __half* v, const int* lengths, float* part,
+                                    int B, int Hq, int Hkv, int S, int D, int split, int nsplit,
+                                    float scale, void* stream) {
+  return sx_decode_split_dispatch(q, k, v, lengths, part, B, Hq, Hkv, S, D, split, nsplit, scale,
+                                  stream);
+}
+
 extern "C" int sx_decode_combine_f32(const float* part, float* o, int B, int Hq, int D,
                                      int nsplit, void* stream) {
   return sx_decode_combine_launch(part, o, B, Hq, D, nsplit, stream);
@@ -323,7 +316,12 @@ extern "C" int sx_decode_combine_bf16(const float* part, __nv_bfloat16* o, int B
   return sx_decode_combine_launch(part, o, B, Hq, D, nsplit, stream);
 }
 
-// ------------------------------------------------------- prefill, bf16 on the tensor cores
+extern "C" int sx_decode_combine_f16(const float* part, __half* o, int B, int Hq, int D,
+                                      int nsplit, void* stream) {
+  return sx_decode_combine_launch(part, o, B, Hq, D, nsplit, stream);
+}
+
+// ------------------------------------------------------- prefill, bf16 and f16 on the tensor cores
 constexpr int SX_MMA_WARPS = 4;
 constexpr int SX_MMA_ROWS = 16 * SX_MMA_WARPS;  // query rows of a block, and keys of a tile
 constexpr float SX_LOG2E = 1.4426950408889634f;
@@ -336,10 +334,10 @@ struct SxMmaTile {
   static constexpr int SMEM = 5 * ELEMS * 2;  // Q, and two stages of K and V, in bytes
 };
 
-// Rows r0 .. r0 + 63 of a (S, D) bf16 matrix into a tile, 16 bytes a copy;
-// rows at or past S are zero-filled.
-template <int D>
-SX_D void sx_mma_load_tile(__nv_bfloat16* tile, const __nv_bfloat16* src, int r0, int S) {
+// Rows r0 .. r0 + 63 of a (S, D) bf16 or f16 matrix into a tile, 16 bytes a
+// copy; rows at or past S are zero-filled.
+template <typename T, int D>
+SX_D void sx_mma_load_tile(T* tile, const T* src, int r0, int S) {
   constexpr int CH = D / 8;  // 16-byte chunks of a row
   for (int c = threadIdx.x; c < SX_MMA_ROWS * CH; c += blockDim.x) {
     const int r = c / CH, col = (c % CH) * 8;
@@ -349,22 +347,21 @@ SX_D void sx_mma_load_tile(__nv_bfloat16* tile, const __nv_bfloat16* src, int r0
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int S,
-    int causal, float scale_log2) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int Hq, int Hkv, int S, int causal, float scale_log2) {
   using Tile = SxMmaTile<D>;
   constexpr int LD = Tile::LD, KS = Tile::DP / 16, NO = Tile::DP / 8;
   extern __shared__ __align__(16) unsigned char sx_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(sx_smem);
-  __nv_bfloat16* ks = qs + Tile::ELEMS;      // two stages
-  __nv_bfloat16* vs = ks + 2 * Tile::ELEMS;  // two stages
+  T* qs = reinterpret_cast<T*>(sx_smem);
+  T* ks = qs + Tile::ELEMS;      // two stages
+  T* vs = ks + 2 * Tile::ELEMS;  // two stages
   const int iq = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
   const int q0 = iq * SX_MMA_ROWS;
-  const __nv_bfloat16* qh = q + ((long long)b * Hq + h) * S * D;
+  const T* qh = q + ((long long)b * Hq + h) * S * D;
   const long long kv = ((long long)b * Hkv + h / (Hq / Hkv)) * S * D;
   const int n_kv = causal ? iq + 1 : (S + SX_MMA_ROWS - 1) / SX_MMA_ROWS;
 
@@ -372,10 +369,10 @@ __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
     for (int r = threadIdx.x; r < 5 * SX_MMA_ROWS; r += blockDim.x)
       *reinterpret_cast<uint4*>(qs + r * LD + 8) = make_uint4(0u, 0u, 0u, 0u);
   }
-  sx_mma_load_tile<D>(qs, qh, q0, S);
+  sx_mma_load_tile<T, D>(qs, qh, q0, S);
   sx_cp_async_commit();
-  sx_mma_load_tile<D>(ks, k + kv, 0, S);
-  sx_mma_load_tile<D>(vs, v + kv, 0, S);
+  sx_mma_load_tile<T, D>(ks, k + kv, 0, S);
+  sx_mma_load_tile<T, D>(vs, v + kv, 0, S);
   sx_cp_async_commit();
   sx_cp_async_wait<1>();
   __syncthreads();
@@ -395,11 +392,11 @@ __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
 
   for (int j = 0; j < n_kv; ++j) {
-    const __nv_bfloat16* kt = ks + (j & 1) * Tile::ELEMS;
-    const __nv_bfloat16* vt = vs + (j & 1) * Tile::ELEMS;
+    const T* kt = ks + (j & 1) * Tile::ELEMS;
+    const T* vt = vs + (j & 1) * Tile::ELEMS;
     if (j + 1 < n_kv) {  // the next tile into the other stage, while this one computes
-      sx_mma_load_tile<D>(ks + ((j + 1) & 1) * Tile::ELEMS, k + kv, (j + 1) * SX_MMA_ROWS, S);
-      sx_mma_load_tile<D>(vs + ((j + 1) & 1) * Tile::ELEMS, v + kv, (j + 1) * SX_MMA_ROWS, S);
+      sx_mma_load_tile<T, D>(ks + ((j + 1) & 1) * Tile::ELEMS, k + kv, (j + 1) * SX_MMA_ROWS, S);
+      sx_mma_load_tile<T, D>(vs + ((j + 1) & 1) * Tile::ELEMS, v + kv, (j + 1) * SX_MMA_ROWS, S);
       sx_cp_async_commit();
       sx_cp_async_wait<1>();
     } else {
@@ -422,8 +419,8 @@ __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
         sx_ldmatrix_x4(kb, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                                ((lane >> 3) & 1) * 8);
         const unsigned b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
-        sx_mma_bf16_16816(sf[2 * np], qf[kk], b0);
-        sx_mma_bf16_16816(sf[2 * np + 1], qf[kk], b1);
+        sx_mma_16816<T>(sf[2 * np], qf[kk], b0);
+        sx_mma_16816<T>(sf[2 * np + 1], qf[kk], b1);
       }
     }
 
@@ -477,8 +474,8 @@ __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
 #pragma unroll
       for (int x = 0; x < 4; ++x) {  // registers of rows g, g + 8 (x % 2), key tile 2kk + x / 2
         const float* pp = &sf[2 * kk + x / 2][2 * (x % 2)];
-        ph[x] = sx_pack_bf16x2(pp[0], pp[1]);
-        pl[x] = sx_pack_bf16x2(pp[0] - sx_bf16_lo(ph[x]), pp[1] - sx_bf16_hi(ph[x]));
+        ph[x] = SxPair<T>::pack(pp[0], pp[1]);
+        pl[x] = SxPair<T>::pack(pp[0] - SxPair<T>::lo(ph[x]), pp[1] - SxPair<T>::hi(ph[x]));
       }
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
@@ -486,10 +483,10 @@ __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
         sx_ldmatrix_x4_trans(vb, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                                      np * 16 + (lane >> 4) * 8);
         const unsigned b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
-        sx_mma_bf16_16816(of[2 * np], ph, b0);
-        sx_mma_bf16_16816(of[2 * np + 1], ph, b1);
-        sx_mma_bf16_16816(of[2 * np], pl, b0);
-        sx_mma_bf16_16816(of[2 * np + 1], pl, b1);
+        sx_mma_16816<T>(of[2 * np], ph, b0);
+        sx_mma_16816<T>(of[2 * np + 1], ph, b1);
+        sx_mma_16816<T>(of[2 * np], pl, b0);
+        sx_mma_16816<T>(of[2 * np + 1], pl, b1);
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -500,7 +497,7 @@ __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
     l[r] += __shfl_xor_sync(SX_FULL_MASK, l[r], 1);
     l[r] += __shfl_xor_sync(SX_FULL_MASK, l[r], 2);
   }
-  __nv_bfloat16* oh = o + ((long long)b * Hq + h) * S * D;
+  T* oh = o + ((long long)b * Hq + h) * S * D;
 #pragma unroll
   for (int nd = 0; nd < NO; ++nd) {
     const int col = nd * 8 + 2 * t;
@@ -508,39 +505,50 @@ __global__ void __launch_bounds__(32 * SX_MMA_WARPS) sx_flash_mma_kernel(
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (col < D && row < S) {
-        *reinterpret_cast<__nv_bfloat162*>(oh + (long long)row * D + col) =
-            __floats2bfloat162_rn(of[nd][2 * r] / l[r], of[nd][2 * r + 1] / l[r]);
+        *reinterpret_cast<unsigned*>(oh + (long long)row * D + col) =
+            SxPair<T>::pack(of[nd][2 * r] / l[r], of[nd][2 * r + 1] / l[r]);
       }
     }
   }
 }
 
-template <int D>
-static int sx_flash_mma_launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                               const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Hq, int Hkv,
+template <typename T, int D>
+static int sx_flash_mma_launch(const T* q, const T* k, const T* v, T* o, int B, int Hq, int Hkv,
                                int S, int causal, float scale, void* stream) {
   const int smem = SxMmaTile<D>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
-      sx_flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sx_flash_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sx_flash_mma_kernel<D><<<dim3((S + SX_MMA_ROWS - 1) / SX_MMA_ROWS, Hq, B), 32 * SX_MMA_WARPS,
+  sx_flash_mma_kernel<T, D><<<dim3((S + SX_MMA_ROWS - 1) / SX_MMA_ROWS, Hq, B), 32 * SX_MMA_WARPS,
                            smem, static_cast<cudaStream_t>(stream)>>>(q, k, v, o, Hq, Hkv, S,
                                                                       causal, scale * SX_LOG2E);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int sx_flash_mma_dispatch(const T* q, const T* k, const T* v, T* o, int B, int Hq, int Hkv,
+                                 int S, int D, int causal, float scale, void* stream) {
+  switch (D) {
+    case 8: return sx_flash_mma_launch<T, 8>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
+    case 16: return sx_flash_mma_launch<T, 16>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
+    case 32: return sx_flash_mma_launch<T, 32>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
+    case 64: return sx_flash_mma_launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
+    case 128: return sx_flash_mma_launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int sx_flash_mma_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                            const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Hq,
                                            int Hkv, int S, int D, int causal, float scale,
                                            void* stream) {
-  switch (D) {
-    case 8: return sx_flash_mma_launch<8>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 16: return sx_flash_mma_launch<16>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 32: return sx_flash_mma_launch<32>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 64: return sx_flash_mma_launch<64>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 128: return sx_flash_mma_launch<128>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return sx_flash_mma_dispatch(q, k, v, o, B, Hq, Hkv, S, D, causal, scale, stream);
+}
+
+extern "C" int sx_flash_mma_attention_f16(const __half* q, const __half* k, const __half* v,
+                                          __half* o, int B, int Hq, int Hkv, int S, int D,
+                                          int causal, float scale, void* stream) {
+  return sx_flash_mma_dispatch(q, k, v, o, B, Hq, Hkv, S, D, causal, scale, stream);
 }
 
 // ------------------------------------------------------------ prefill, f32 on the CUDA cores

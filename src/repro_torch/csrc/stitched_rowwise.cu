@@ -28,8 +28,8 @@
 // stitched_rmsnorm replaces repro/kernels/stitched_rmsnorm.py
 //   stitched_rmsnorm (_rmsnorm_kernel).
 //   Bound by bytes: x read once, y written once, four f32 operations per
-//   element.  sx_rmsnorm_vec_kernel moves 16 bytes a thread (8 bf16 or 4
-//   f32) and holds its share of the row in registers, VPL <= 8 vectors a
+//   element.  sx_rmsnorm_vec_kernel moves 16 bytes a thread (8 bf16 or f16,
+//   or 4 f32) and holds its share of the row in registers, VPL <= 8 vectors a
 //   lane, between the sum of squares and the write, so x is read once.  A
 //   group of 1..8 warps owns a row (at d = 1536 bf16 one warp, 6 vectors a
 //   lane; wider rows merge the group's sums in shared memory).  The grid is
@@ -59,7 +59,8 @@
 //   is picked again), and the k weights are divided by their sum, added in
 //   pick order.
 //
-// Each launcher is extern "C", one per element type, and returns
+// Each launcher is extern "C", one per element type (f32, bf16, f16: the
+// 2-byte types read and write their own type and compute in f32), and returns
 // cudaGetLastError() so a refused launch reaches the Python wrapper.
 
 #include <cooperative_groups.h>
@@ -101,6 +102,11 @@ extern "C" int sx_softmax_f32(const float* x, float* y, int rows, int cols,
 }
 
 extern "C" int sx_softmax_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int rows, int cols,
+                               int rows_per_block, int threads, void* stream) {
+  return sx_softmax_launch(x, y, rows, cols, rows_per_block, threads, stream);
+}
+
+extern "C" int sx_softmax_f16(const __half* x, __half* y, int rows, int cols,
                                int rows_per_block, int threads, void* stream) {
   return sx_softmax_launch(x, y, rows, cols, rows_per_block, threads, stream);
 }
@@ -236,6 +242,11 @@ extern "C" int sx_softmax_cluster_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
   return sx_softmax_cluster_launch(x, y, rows, cols, blocks_per_row, slice, stream);
 }
 
+extern "C" int sx_softmax_cluster_f16(const __half* x, __half* y, int rows,
+                                       int cols, int blocks_per_row, int slice, void* stream) {
+  return sx_softmax_cluster_launch(x, y, rows, cols, blocks_per_row, slice, stream);
+}
+
 // ---------------------------------------------------------------- rmsnorm
 // The scalar kernel: any d, any alignment; x read twice.
 template <typename T>
@@ -277,45 +288,14 @@ extern "C" int sx_rmsnorm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gamm
   return sx_rmsnorm_launch(x, gamma, y, rows, cols, rows_per_block, threads, eps, stream);
 }
 
+extern "C" int sx_rmsnorm_f16(const __half* x, const __half* gamma,
+                               __half* y, int rows, int cols, int rows_per_block,
+                               int threads, float eps, void* stream) {
+  return sx_rmsnorm_launch(x, gamma, y, rows, cols, rows_per_block, threads, eps, stream);
+}
+
 // The 16-byte kernel.  One uint4 holds SxVec16<T>::N elements, in order.
 constexpr int SX_RMS_THREADS = 256;  // threads of one block; a lane holds VPL <= 8 vectors
-
-template <typename T>
-struct SxVec16;
-
-template <>
-struct SxVec16<float> {
-  static constexpr int N = 4;
-  SX_D static void unpack(const uint4& v, float (&f)[N]) {
-    f[0] = __uint_as_float(v.x);
-    f[1] = __uint_as_float(v.y);
-    f[2] = __uint_as_float(v.z);
-    f[3] = __uint_as_float(v.w);
-  }
-  SX_D static uint4 pack(const float (&f)[N]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                      __float_as_uint(f[3]));
-  }
-};
-
-template <>
-struct SxVec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  SX_D static void unpack(const uint4& v, float (&f)[N]) {
-    f[0] = sx_bf16_lo(v.x);
-    f[1] = sx_bf16_hi(v.x);
-    f[2] = sx_bf16_lo(v.y);
-    f[3] = sx_bf16_hi(v.y);
-    f[4] = sx_bf16_lo(v.z);
-    f[5] = sx_bf16_hi(v.z);
-    f[6] = sx_bf16_lo(v.w);
-    f[7] = sx_bf16_hi(v.w);
-  }
-  SX_D static uint4 pack(const float (&f)[N]) {
-    return make_uint4(sx_pack_bf16x2(f[0], f[1]), sx_pack_bf16x2(f[2], f[3]),
-                      sx_pack_bf16x2(f[4], f[5]), sx_pack_bf16x2(f[6], f[7]));
-  }
-};
 
 // A group of `warps_per_row` warps owns a row; lane t of the group holds
 // the row's vectors t, t + group, ... (VPL of them), so a warp's loads are
@@ -435,6 +415,12 @@ extern "C" int sx_rmsnorm_vec_bf16(const __nv_bfloat16* x, const __nv_bfloat16* 
   return sx_rmsnorm_vec_launch(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, stream);
 }
 
+extern "C" int sx_rmsnorm_vec_f16(const __half* x, const __half* gamma,
+                                   __half* y, int rows, int cols, int warps_per_row,
+                                   int rows_per_block, float eps, void* stream) {
+  return sx_rmsnorm_vec_launch(x, gamma, y, rows, cols, warps_per_row, rows_per_block, eps, stream);
+}
+
 // ---------------------------------------------------------------- moe gate
 constexpr int SX_GATE_WARPS = 8;  // tokens of one block, a warp each
 
@@ -545,6 +531,12 @@ extern "C" int sx_moe_gate_f32(const float* logits, float* w, int* idx, int toke
 }
 
 extern "C" int sx_moe_gate_bf16(const __nv_bfloat16* logits, float* w, int* idx, int tokens,
+                                int E, int top_k, int tokens_per_block, int blocks,
+                                void* stream) {
+  return sx_moe_gate_launch(logits, w, idx, tokens, E, top_k, tokens_per_block, blocks, stream);
+}
+
+extern "C" int sx_moe_gate_f16(const __half* logits, float* w, int* idx, int tokens,
                                 int E, int top_k, int tokens_per_block, int blocks,
                                 void* stream) {
   return sx_moe_gate_launch(logits, w, idx, tokens, E, top_k, tokens_per_block, blocks, stream);

@@ -242,3 +242,101 @@ ALL_GRAPHS = {
     "BcastHeavy": broadcast_towers_graph,
     "StitchPipe": stitch_pipeline_graph,
 }
+
+
+# --------------------------------------------------------------------------
+# Loop modules: ``call``/``get`` over a body module.  Each takes the
+# ``GraphBuilder`` class to build with, so the same module can be built by
+# the port and, in the tests, by the reference.
+# --------------------------------------------------------------------------
+
+
+def rnn_scan_graph(builder=GraphBuilder, steps: int = RNN_STEPS) -> Module:
+    """The RNN graph's recurrence as one loop: the cell of ``rnn_graph`` at
+    its dimensions (B 16, D 24, H 32) run ``steps`` times over stacked xs
+    (steps, B, D), with h carried and every step's h stacked as ys."""
+    B, D, H = 16, 24, 32
+    body = builder("rnn_cell")
+    Wx = body.parameter("Wx", (D, H), F32)
+    Wh = body.parameter("Wh", (H, H), F32)
+    bias = body.parameter("b", (H,), F32)
+    h = body.parameter("h", (B, H), F32)
+    x_t = body.parameter("x", (B, D), F32)
+    _rnn_cell(body, x_t, h, Wx, Wh, bias)
+    b = builder("RNNScan")
+    args = [b.parameter(n, s, F32) for n, s in
+            (("Wx", (D, H)), ("Wh", (H, H)), ("b", (H,)), ("h0", (B, H)), ("xs", (steps, B, D)))]
+    loop = b.call_loop(args, body.module, trip_count=steps, num_consts=3, num_carry=1,
+                       out_order=(0, 0), out_shapes=((B, H), (steps, B, H)),
+                       out_dtypes=(F32, F32))
+    b.get(loop, 0)
+    b.get(loop, 1)
+    return b.module
+
+
+def _decode_body(builder, name: str):
+    body = builder(name)
+    w = body.parameter("w", (16, 16), F32)
+    c = body.parameter("c", (4, 16), F32)
+    nc = body.tanh(body.dot(c, w))
+    body.reshape(nc, (4, 16))        # the carry's root (nc itself has a user)
+    body.reduce(nc, (1,), "sum")
+    return body
+
+
+def decode_loop_graph(builder=GraphBuilder, steps: int = 6, name: str = "DecodeLoop") -> Module:
+    """``lax.scan`` of ``carry = tanh(carry @ w)`` with no xs, each step's
+    row sums stacked as ys: the decode loop of the reference's control-flow
+    tests, carry (4, 16)."""
+    body = _decode_body(builder, "decode_step")
+    b = builder(name)
+    w0, h = b.parameter("w", (16, 16), F32), b.parameter("h", (4, 16), F32)
+    loop = b.call_loop([w0, h], body.module, trip_count=steps, num_consts=1, num_carry=1,
+                       out_order=(0, 1), out_shapes=((4, 16), (steps, 4)),
+                       out_dtypes=(F32, F32))
+    b.get(loop, 0)
+    b.get(loop, 1)
+    return b.module
+
+
+def reverse_scan_graph(builder=GraphBuilder, steps: int = 5) -> Module:
+    """``lax.scan(..., reverse=True)`` over xs (steps, 8): ``c = c * 0.9 +
+    x`` carried, ``c - x`` stacked, as in the reference's control-flow
+    tests."""
+    body = builder("decay_step")
+    c = body.parameter("c", (8,), F32)
+    x = body.parameter("x", (8,), F32)
+    nc = c * 0.9 + x
+    body.reshape(nc, (8,))           # the carry's root (nc itself has a user)
+    _y = nc - x
+    b = builder("ReverseScan")
+    init, xs = b.parameter("init", (8,), F32), b.parameter("xs", (steps, 8), F32)
+    loop = b.call_loop([init, xs], body.module, trip_count=steps, num_consts=0, num_carry=1,
+                       out_order=(0, 1), out_shapes=((8,), (steps, 8)), out_dtypes=(F32, F32),
+                       reverse=True)
+    b.get(loop, 0)
+    b.get(loop, 1)
+    return b.module
+
+
+def two_scans_graph(builder=GraphBuilder) -> Module:
+    """Two decode loops of the same body structure, the second fed by the
+    first's final carry: one compiled body serves both call sites."""
+    b = builder("TwoScans")
+    w = b.parameter("w", (16, 16), F32)
+    h = b.parameter("h", (4, 16), F32)
+    for k in range(2):
+        body = _decode_body(builder, f"decode_step{k}")
+        loop = b.call_loop([w, h], body.module, trip_count=4, num_consts=1, num_carry=1,
+                           out_order=(0, 1), out_shapes=((4, 16), (4, 4)), out_dtypes=(F32, F32))
+        h = b.get(loop, 0)
+        b.get(loop, 1)
+    return b.module
+
+
+LOOP_GRAPHS = {
+    "RNNScan": rnn_scan_graph,
+    "DecodeLoop": decode_loop_graph,
+    "ReverseScan": reverse_scan_graph,
+    "TwoScans": two_scans_graph,
+}

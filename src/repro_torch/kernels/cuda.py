@@ -85,7 +85,7 @@ ATTENTION = CudaSource("stitched_attention.cu")
 SOURCES = (ROWWISE, ATTENTION)
 
 #: the dtypes every kernel takes, and the suffix of their launchers
-DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def check_tensor(kernel: str, what: str, t: torch.Tensor, dtypes=tuple(DTYPE_SUFFIX)) -> None:

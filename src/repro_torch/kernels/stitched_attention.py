@@ -6,9 +6,10 @@ step to the next.  CUDA blocks run in no order and carry nothing, so in
 the hand-written kernels (``csrc/stitched_attention.cu``) the KV loop runs
 inside each block:
 
-  * ``flash_attention`` — prefill, bound by operations.  bf16 runs
+  * ``flash_attention`` — prefill, bound by operations.  bf16 and f16 run
     ``sx_flash_mma_kernel``: both products on the tensor cores (``mma.sync``
-    m16n8k16, f32 sums), a block of 4 warps per 64 query rows, bf16 K/V
+    m16n8k16 in its bf16 or f16 form, f32 sums), a block of 4 warps per 64
+    query rows, K/V
     tiles of 64 keys double-buffered in shared memory by ``cp.async``, the
     heaviest causal q tiles first.  f32 runs ``sx_flash_kernel`` (one
     thread per query row, f32 FMAs): the tensor cores at f32 would be TF32,
@@ -24,8 +25,9 @@ inside each block:
     ``lengths`` stays on the card: the wrapper never reads it.
 
 GQA maps query head h to kv head h // (Hq // Hkv).  All sums are f32
-whatever the I/O dtype; bf16 flash gives the tensor cores the softmax
-weights as two bf16 terms (hi + lo), which keeps about 16 bits of each.
+whatever the I/O dtype; bf16 and f16 flash give the tensor cores the
+softmax weights as two terms of their type (hi + lo), which keeps about 16
+bits of each in bf16 and more in f16.
 """
 from __future__ import annotations
 
@@ -93,7 +95,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Prefill attention, causal or not.  ``block_q`` and ``block_k`` keep
     the reference's signature and its check that S is a multiple of both;
-    they size the tiles of the f32 kernel only.  The bf16 kernel takes 64
+    they size the tiles of the f32 kernel only.  The bf16 and f16 kernel takes 64
     query rows and 64 keys at a time whatever their value, and masks an S
     that is not a multiple of 64."""
     name = FLASH.name
@@ -115,10 +117,10 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal, scale=scale)
     ATTENTION.load()
     o = torch.empty_like(q)
-    if q.dtype == torch.bfloat16:  # the tensor cores
+    if q.dtype in (torch.bfloat16, torch.float16):  # the tensor cores
         _check_aligned(name, q=q, k=k, v=v, o=o)
         FLASH.launch(
-            "sx_flash_mma_attention_bf16", q, k, v, o,
+            f"sx_flash_mma_attention_{DTYPE_SUFFIX[q.dtype]}", q, k, v, o,
             B, Hq, k.shape[1], S, D, int(bool(causal)), float(scale), device=dev,
         )
     else:  # f32 FMAs on the CUDA cores

@@ -2,10 +2,10 @@
 
 square / mean-reduce / rsqrt / mul / mul in ONE hand-written CUDA kernel
 (``csrc/stitched_rowwise.cu``).  ``sx_rmsnorm_vec_kernel`` (launchers
-``sx_rmsnorm_vec_{f32,bf16}``) reads x once in 16-byte words and holds each
+``sx_rmsnorm_vec_{f32,bf16,f16}``) reads x once in 16-byte words and holds each
 row in registers between the mean square and the write; its grid fills the
 card and each row group loads gamma once.  Rows it cannot serve take
-``sx_rmsnorm_kernel`` (launchers ``sx_rmsnorm_{f32,bf16}``), the row layout
+``sx_rmsnorm_kernel`` (launchers ``sx_rmsnorm_{f32,bf16,f16}``), the row layout
 of the softmax kernel, which reads x twice: rows whose bytes are not a
 multiple of 16, x or gamma not 16-byte aligned, or rows wider than
 ``MAX_HELD_ROW_BYTES``.  The wrapper chooses from shapes and pointers
@@ -31,7 +31,7 @@ VEC_BYTES = 16      # one access of the 16-byte kernel
 VEC_THREADS = 256   # threads of one of its blocks (SX_RMS_THREADS)
 VEC_PER_LANE = 8    # 16-byte words a lane holds, at most (the launcher's VPL)
 #: the widest row the 16-byte kernel holds in registers: a group of 8 warps,
-#: 8 words a lane, i.e. 32 KB (d = 16,384 in bf16, 8,192 in f32)
+#: 8 words a lane, i.e. 32 KB (d = 16,384 in bf16 or f16, 8,192 in f32)
 MAX_HELD_ROW_BYTES = VEC_THREADS * VEC_PER_LANE * VEC_BYTES
 
 

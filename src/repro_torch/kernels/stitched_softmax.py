@@ -7,12 +7,12 @@ launch (``cluster_slice``):
 
 * rows of ``CLUSTER_MIN_COLS`` to ``CLUSTER_MAX_COLS`` columns, with
   ``block_rows`` left to the wrapper, take ``sx_softmax_cluster_kernel``
-  (launchers ``sx_softmax_cluster_{f32,bf16}``): a cluster of
+  (launchers ``sx_softmax_cluster_{f32,bf16,f16}``): a cluster of
   ``CLUSTER_BLOCKS`` blocks owns a row, each block reads its slice once
   and the blocks merge their (max, sum) pairs through distributed shared
   memory;
 * every other row takes ``sx_softmax_kernel`` (launchers
-  ``sx_softmax_{f32,bf16}``): a group of threads owns each row, and a block
+  ``sx_softmax_{f32,bf16,f16}``): a group of threads owns each row, and a block
   holds ``rows_per_block`` rows.
 """
 from __future__ import annotations

@@ -265,3 +265,81 @@ def test_fusion_source_reads_its_memory_plan(case):
         (k,) = kernels
         assert "6 independent member groups a plan block" in k.fn.source
         assert k.fn.source.count("4 warps an output") == 6
+
+
+# ------------------------------------------------- emission faults, repaired
+def _concat_module():
+    """Two row reduces reshaped to columns, concatenated and exp'd: the
+    reference fuses all six instructions into one kernel of 4 plan blocks,
+    and each concat piece is a composed reshape that needs statements."""
+    from repro.core import GraphBuilder
+
+    b = GraphBuilder("concat_pieces")
+    x = b.parameter("x", (64, 128), jnp.float32)
+    s, m = b.reduce(x, (1,), "sum"), b.reduce(x, (1,), "max")
+    b.exp(b.concat([b.reshape(s, (64, 1)), b.reshape(m, (64, 1))], 1))
+    return b.module
+
+
+def _share_transposed_module():
+    """A stitched kernel whose second phase has a SHARE member (the add)
+    that inherits the tanh's slot and reads it transposed: other threads'
+    elements of the slot it is about to overwrite."""
+    from repro.core import GraphBuilder
+
+    b = GraphBuilder("share_transposed")
+    x = b.parameter("x", (32, 32), jnp.float32)
+    a = b.tanh(b.transpose(b.exp(x), (1, 0)))
+    m = b.transpose(a, (1, 0)) + b.neg(a)
+    b.exp(m) + m * m
+    return b.module
+
+
+def _plan_of(stats):
+    return [(r.num_ops, r.blocks, r.num_phases, r.shared_bytes) for r in stats.reports]
+
+
+@pytest.mark.parametrize("build", [_concat_module, _share_transposed_module])
+def test_emission_faults_compile_to_the_reference_plan(build):
+    ref_module = build()
+    ref = ref_compile(ref_module, RefOptions())
+    port = compile_module(module_from_reference(ref_module), device="cpu")
+    assert _plan_of(port.stats) == _plan_of(ref.stats)
+    assert port.stats.stitched_kernels == ref.stats.stitched_kernels == 1
+    rng = np.random.RandomState(0)
+    feeds = {"x": (rng.randn(*ref_module.parameters[0].shape) * 0.1).astype(np.float32)}
+    got = port(feeds)
+    for want, what in ((ref(feeds), "compile_module"), (ref_execute(ref_module, feeds), "reference_execute")):
+        for k in want:
+            _close(got[k].numpy(), np.asarray(want[k]), f"{ref_module.name}:{k} vs {what}")
+
+
+def test_concat_pieces_run_their_statements_on_their_branch_only():
+    port = compile_module(module_from_reference(_concat_module()), device="cpu")
+    assert _plan_of(port.stats) == [(6, 4, 1, 0)]
+    src = port.kernels[0].fn.source
+    # one temporary assigned on an if/else chain over the concat axis, each
+    # piece's index arithmetic inside its own branch
+    branch = re.search(r"float (cat\w*);\n\s*if \((o\d) < 1\) \{\n(.*?)\} else \{\n(.*?)\}\n",
+                       src, re.S)
+    assert branch, src
+    var, _, first, second = branch.groups()
+    assert "_rem" in first and "_rem" in second
+    assert f"{var} = p0s0[" in first and f"{var} = p0s1[" in second
+    assert f"sx_exp({var})" in src
+
+
+def test_share_member_reading_another_element_writes_through_a_stage():
+    port = compile_module(module_from_reference(_share_transposed_module()), device="cpu")
+    (kernel,) = port.kernels
+    plan = kernel.plan.phase_plans[1]
+    shares = [e for e in plan.entries.values() if e.action == "SHARE"]
+    assert len(shares) == 1
+    src = kernel.fn.source
+    # the add writes the staging region, then after a barrier copies it in
+    stage = re.search(r"reinterpret_cast<float\*>\(sx_stage\)\[(\w+) \* 32 \+ (\w+)\] = v;", src)
+    assert stage and "sx_stage = ws + " in src
+    copy = src.index("p1s0[i] = reinterpret_cast<const float*>(sx_stage)[i];")
+    assert src.rindex("__syncthreads();", 0, copy) > stage.end()
+    # the workspace holds the stage: one tile of 4096 bytes a block
+    assert kernel.fn.workspace_bytes >= 4096

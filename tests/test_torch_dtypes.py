@@ -34,7 +34,7 @@ from repro_torch.core.interop import module_from_reference
 
 BF16 = np.dtype(jnp.bfloat16)
 DTYPES = {"bfloat16": BF16, "float16": np.dtype(np.float16),
-          "int8": np.dtype(np.int8), "uint8": np.dtype(np.uint8)}
+          "int8": np.dtype(np.int8), "uint8": np.dtype(np.uint8), "int16": np.dtype(np.int16)}
 # one unit in the last place, relative: what a sum rounded once may move
 ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
@@ -134,7 +134,7 @@ def test_c_types_and_literals_carry_every_bit(name):
     dtype = DTYPES[name]
     port_dtype = tir.BFLOAT16 if name == "bfloat16" else dtype
     storage = {"bfloat16": "__nv_bfloat16", "float16": "__half",
-               "int8": "signed char", "uint8": "unsigned char"}[name]
+               "int8": "signed char", "uint8": "unsigned char", "int16": "short"}[name]
     assert codegen._c_type(port_dtype) == storage
     assert codegen._c_compute(port_dtype) == ("int" if dtype.kind in "iu" else "float")
     values = [0, 1, -1, 100, -128, 127, 255] if dtype.kind in "iu" else \
@@ -153,7 +153,7 @@ def test_c_types_and_literals_carry_every_bit(name):
     assert codegen._c_round(port_dtype, "x") == codegen._c_load(port_dtype, codegen._c_store(port_dtype, "x"))
 
 
-@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int32])
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16, np.int32])
 def test_convert_from_float_saturates_like_jnp(dtype):
     x = np.array([300.0, -300.0, 127.7, -128.9, 1e10, np.nan, np.inf, -np.inf, 2.5, -2.5], np.float32)
     b = rir.GraphBuilder("c")
@@ -165,7 +165,7 @@ def test_convert_from_float_saturates_like_jnp(dtype):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [np.int8, np.uint8])
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16])
 def test_gather_fills_small_int_rows_like_jnp_take(dtype):
     """jnp.take fills signed rows with the smallest value, unsigned rows
     with the largest."""

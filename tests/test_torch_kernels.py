@@ -23,8 +23,10 @@ from repro_torch.kernels import (
 
 REPO = Path(__file__).resolve().parents[1]
 F32, BF16 = ("float32", jnp.float32, torch.float32), ("bfloat16", jnp.bfloat16, torch.bfloat16)
-TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-ATTN_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+F16 = ("float16", jnp.float16, torch.float16)
+# f16 keeps 11 significant bits: its limits are bf16's over 8, two ulps
+TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 4e-3}
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 5e-2, "float16": 8e-3}
 
 
 def _both(rng, shape, dtype=F32):
@@ -243,6 +245,57 @@ def test_moe_gate_nan_and_inf_rows_match_reference(rng, E, k, dtype):
     _close(w, jw, TOL["float32"])
 
 
+# ---------------------------------------------------------------- float16
+# The five kernels in f16 against the Pallas kernels in f16 (interpret mode).
+@pytest.mark.parametrize("shape", [(8, 16), (2, 3, 64)])
+def test_softmax_f16_matches_reference(rng, shape):
+    jx, tx = _both(rng, shape, F16)
+    got = ops.softmax(tx)
+    assert got.dtype == torch.float16
+    _close(got, jops.softmax(jx), TOL["float16"])
+
+
+@pytest.mark.parametrize("shape", [(4, 32), (3, 5, 128)])
+def test_rmsnorm_f16_matches_reference(rng, shape):
+    jx, tx = _both(rng, shape, F16)
+    jg, tg = _both(rng, shape[-1:], F16)
+    got = ops.rmsnorm(tx, tg)
+    assert got.dtype == torch.float16
+    _close(got, jops.rmsnorm(jx, jg), TOL["float16"])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 2, 2, 16, 8), (1, 4, 2, 48, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f16_matches_reference(rng, B, Hq, Hkv, S, D, causal):
+    jq, tq = _both(rng, (B, Hq, S, D), F16)
+    jk, tk = _both(rng, (B, Hkv, S, D), F16)
+    jv, tv = _both(rng, (B, Hkv, S, D), F16)
+    got = ops.attention(tq, tk, tv, causal=causal, block_q=8, block_k=8)
+    assert got.dtype == torch.float16
+    _close(got, jops.attention(jq, jk, jv, causal=causal, block_q=8, block_k=8),
+           ATTN_TOL["float16"])
+
+
+def test_decode_attention_f16_matches_reference(rng):
+    jq, tq = _both(rng, (2, 4, 16), F16)
+    jk, tk = _both(rng, (2, 2, 32, 16), F16)
+    jv, tv = _both(rng, (2, 2, 32, 16), F16)
+    lengths = np.array([5, 32], np.int32)
+    got = ops.attention_decode(tq, tk, tv, torch.tensor(lengths), block_k=8)
+    assert got.dtype == torch.float16
+    want = jops.attention_decode(jq, jk, jv, jnp.asarray(lengths), block_k=8)
+    _close(got, want, ATTN_TOL["float16"])
+
+
+def test_moe_gate_f16_logits_match_reference(rng):
+    jl, tl = _both(rng, (16, 40), F16)
+    w, i = ops.moe_gate(tl, top_k=4, block_tokens=8)
+    jw, ji = jops.moe_gate(jl, top_k=4, block_tokens=8)
+    assert w.dtype == torch.float32 and i.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    _close(w, jw, TOL["float16"])
+
+
 # ------------------------------------------------------- the port's contract
 def _t(*shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype)
@@ -336,7 +389,10 @@ def test_hand_written_sources_include_the_shared_headers():
         names = [h.name for h in cuda_build.included_headers(source.path.read_text())]
         assert names == ["hand_kernels.cuh", "stitch_runtime.cuh"]
         launchers = re.findall(r'extern "C" int (\w+)\(', source.path.read_text())
-        assert launchers and all(n.endswith(("_f32", "_bf16")) for n in launchers)
+        assert launchers and all(n.endswith(("_f32", "_bf16", "_f16")) for n in launchers)
+        # every launcher of a 2-byte type has its twin in the other one
+        assert {n[:-5] for n in launchers if n.endswith("_bf16")} == {
+            n[:-4] for n in launchers if n.endswith("_f16")}
 
 
 # ---------------------------------------------------- the wrappers' launch plans
@@ -375,9 +431,11 @@ def recorded(monkeypatch):
 
 @pytest.mark.parametrize("dtype, symbol", [
     (torch.bfloat16, "sx_flash_mma_attention_bf16"),
+    (torch.float16, "sx_flash_mma_attention_f16"),
     (torch.float32, "sx_flash_attention_f32"),
 ])
 def test_flash_launches_the_tensor_core_kernel_in_bf16_only(recorded, dtype, symbol):
+    """bf16 and f16 take the tensor-core kernel, f32 the CUDA cores'."""
     q, k, v = _t(1, 6, 80, 64, dtype=dtype), _t(1, 2, 80, 64, dtype=dtype), _t(1, 2, 80, 64, dtype=dtype)
     before = ops.KERNELS["stitched_flash_attention"].launches
     ops.attention(q, k, v, causal=True)
