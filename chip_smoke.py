@@ -130,12 +130,44 @@ Phases, each fatal on failure:
    composed reshapes; a SHARE member reading its slot transposed, which
    writes through the workspace's staging region), one launch each, against
    their plain versions and ``reference_execute``.
+12. frontend — ``repro_torch.stitch`` with the device left at its default
+   (the card), eager (``jit_replay=False``) and replayed, over
+   ``frontend_cases``: the three ``TORCH_FAMILIES`` at the reference's
+   dimensions, StitchPipe's computation (the stitched emitter's plan,
+   held against ``stitch_pipeline_graph`` as a family is), four end-to-end functions at granite-moe-3b-a800m's width
+   over 512 tokens (rmsnorm and layer_stats on (512, 1536), the gated MLP
+   with two (1536, 512) weights, the Figure-3 attention on q, k, v of
+   (1, 24, 512, 64)), a decode-loop scan, a counted while_loop, a cond
+   both ways and ``grad_and_value`` of an MLP loss.  The plans' sources
+   are built in phase 2.  Each function's counters are set to 0 just
+   before one eager call and read just after: its planned launches, every
+   generated kernel at least once, and for a family the hand-built
+   graph's plan (stitched, standalone, library) and launches, compiled by
+   the port under the same options.  Zero fallbacks; outputs against the
+   plain function run eagerly on the card and against ``reference_execute``
+   of the lowered module at ``TOL``; two default calls through ``stitch``
+   (the path ``replay_mode`` picks) and two of the plan's replay
+   (``jit_execute``) bit for bit the eager plan's.  Printed per function:
+   capture, lower and compile seconds; fused kernels and library dots; the
+   device kernels a call of the plain function launches against the plan's
+   (the profiler); µs per call (CUDA events, 200 calls) through ``stitch``
+   eager and by default, of the plan's own replay (which leaves out
+   ``stitch``'s host path) and of the plain function; device µs and idle
+   share of each.  Last, ``donate_argnums`` on the card: a donated input's
+   buffer takes a later kernel's output, the other inputs unchanged.
+
+Every profile whose device kernels a call are none or not a whole number,
+or disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and
+each refused reading, with the pad kernels it kept, goes into ``--out`` as
+``profile_retakes``.
 
 The line before the last is one JSON object with a ``kernels`` list: one
-entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``) and one
-per hand-written kernel (with its f16 numbers as ``f16_*`` keys); the last
-line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes every per-graph and per-kernel number as
-JSON, with nvcc's register, shared-memory and spill lines.  Exits
+entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``, with its
+launches in phase 12's counted calls as ``frontend_launches``) and one per
+hand-written kernel (with its f16 numbers as ``f16_*`` keys); the last
+line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes every
+per-graph, per-kernel and per-function number as JSON (phase 12's under
+``"frontend"``), with nvcc's register, shared-memory and spill lines.  Exits
 non-zero with no result when no card is present.
 """
 import argparse
@@ -158,7 +190,7 @@ BF16_OPS_PER_S = 989e12
 # the JAX package: src/repro/configs/granite_moe_3b_a800m.py:5-10 and the
 # bf16 dtype and norm_eps of src/repro/configs/base.py:50-51
 GRANITE = dict(d_model=1536, heads=24, kv_heads=8, head_dim=64, experts=40,
-               top_k=8, vocab=49155, norm_eps=1e-6)
+               top_k=8, vocab=49155, norm_eps=1e-6, d_ff=512)
 
 # Outputs are held at rtol = atol = TOL: the kernels accumulate sums and
 # dot products in f32 in another order than torch's reductions and matmul,
@@ -384,35 +416,75 @@ def work(kernel):
     return nbytes, ops
 
 
+#: ``torch.cuda._sleep``'s kernel, launched around the profiled calls
+PAD_KERNEL = "spin_kernel"
+PAD_LAUNCHES = 4
+#: profiles taken of one function before one whose kernel count is wrong fails
+PROFILE_TRIES = 8
+#: every profile taken again: (label, each reading that was refused)
+RETAKES = []
+
+
 def device_events(fn, calls):
     """The device kernels of ``calls`` calls as torch.profiler records
-    them: a list of (name, device microseconds)."""
+    them: a list of (name, device microseconds), and how many of the
+    ``2 * PAD_LAUNCHES`` pad kernels it recorded.  The calls sit between
+    ``PAD_LAUNCHES`` short ``torch.cuda._sleep`` kernels on each side,
+    which the list leaves out: the profiler lost device kernels of some
+    sessions on an H100, and the pads say whether a loss reached the
+    session's edges (on the H100 it took whole sessions, pads included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD_LAUNCHES):
+            torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
+        for _ in range(PAD_LAUNCHES):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ([(n, us) for n, us in device if PAD_KERNEL not in n],
+            sum(1 for n, _ in device if PAD_KERNEL in n))
 
 
-def device_profile(fn, calls):
+def profile_again(label, reading):
+    """Record a refused profile (kept in ``--out`` as ``profile_retakes``)
+    and say so."""
+    if not RETAKES or RETAKES[-1]["label"] != label:
+        RETAKES.append({"label": label, "refused": []})
+    RETAKES[-1]["refused"].append(reading)
+    print(f"{label}: profile {len(RETAKES[-1]['refused'])} refused, {reading}: taken again")
+
+
+def device_profile(fn, calls, label="profile", per_call=None):
     """Device activity of ``calls`` calls as torch.profiler records it: the
     device kernels per call, and their device microseconds per call by
-    kernel name."""
-    events = device_events(fn, calls)
-    by_name = {}
-    for name, us in events:
-        by_name[name] = by_name.get(name, 0.0) + us / calls
-    return len(events) / calls, by_name
-
-
-#: profiles taken of one call before a launch count that disagrees fails
-PROFILE_TRIES = 4
+    kernel name.  A profile whose device kernels a call are none or not a
+    whole number (events lost) is taken again, up to ``PROFILE_TRIES``
+    times, and so is one in which ``per_call`` (names, n), where given,
+    does not hold: the kernels whose names hold one of ``names`` number n
+    a call."""
+    readings = []
+    for _ in range(PROFILE_TRIES):
+        events, pads = device_events(fn, calls)
+        seen = len(events) / calls
+        mine = None
+        if per_call is not None:
+            mine = sum(1 for n, _ in events if any(k in n for k in per_call[0])) / calls
+        if seen > 0 and seen.is_integer() and (per_call is None or mine == per_call[1]):
+            by_name = {}
+            for name, us in events:
+                by_name[name] = by_name.get(name, 0.0) + us / calls
+            return seen, by_name
+        reading = {"device_kernels_a_call": seen, "pads_seen": pads, "named_a_call": mine}
+        readings.append(reading)
+        profile_again(label, reading)
+    raise SystemExit(f"{label}: no profile in {PROFILE_TRIES} recorded whole calls; read {readings}")
 
 
 def profiled_launches(label, fn, want, total=None):
@@ -422,21 +494,23 @@ def profiled_launches(label, fn, want, total=None):
     device kernel a call must run.  Returns (device kernels a call, device
     µs a call by kernel name) of the profile that agreed.  The profiler
     drops a run's events now and then (it once saw 0.35 kernels a call of a
-    graph that runs 4): a profile that disagrees is taken again, up to
-    ``PROFILE_TRIES`` times, and one that never agrees fails the run."""
+    graph that runs 4): a profile that disagrees, or whose device kernels a
+    call are not a whole number (an event of a library call lost), is
+    taken again, up to ``PROFILE_TRIES`` times, and one that never agrees
+    fails the run."""
     readings = []
     for _ in range(PROFILE_TRIES):
-        events = device_events(fn, PROFILED_CALLS)
+        events, pads = device_events(fn, PROFILED_CALLS)
         seen = len(events) / PROFILED_CALLS
         got = {k: sum(1 for name, _ in events if k in name) / PROFILED_CALLS for k in want}
-        if got == want and (total is None or seen == total):
+        if got == want and seen.is_integer() and (total is None or seen == total):
             by_name = {}
             for name, us in events:
                 by_name[name] = by_name.get(name, 0.0) + us / PROFILED_CALLS
             return seen, by_name
         readings.append((seen, got))
-        print(f"{label}: profile {len(readings)} read {seen} device kernels a call, generated "
-              f"{got}; the plan says {want}, total {total}: taken again")
+        profile_again(label, {"device_kernels_a_call": seen, "pads_seen": pads,
+                              "generated_a_call": got, "plan": want, "total": total})
     raise SystemExit(f"{label}: the profiler's device kernels a call disagree with the plan "
                      f"({PROFILE_TRIES} profiles): want {want}, total {total}; read {readings}")
 
@@ -588,8 +662,11 @@ def time_full(c):
     """A full-width call's numbers: CUDA-event ms, device ms, its plain
     version's ms, its library call's ms (events and device), and its bound."""
     ms = time_ms(c["call"], KERNEL_CALLS)
-    device_us = device_us_of(c["kernel"], device_profile(c["call"], PROFILED_CALLS)[1])
-    library_device_us = (sum(device_profile(c["library"], PROFILED_CALLS)[1].values())
+    mine = (DEVICE_KERNEL[c["kernel"]], len(launchers(c["kernel"], None)))
+    device_us = device_us_of(c["kernel"], device_profile(
+        c["call"], PROFILED_CALLS, f"{c['kernel']} {c['label']}", per_call=mine)[1])
+    library_device_us = (sum(device_profile(c["library"], PROFILED_CALLS,
+                                            f"library of {c['kernel']} {c['label']}")[1].values())
                          if c["library"] else None)
     b_ms, o_ms = 1e3 * c["bytes"] / HBM_BYTES_PER_S, 1e3 * c["ops"] / c["peak"]
     return {
@@ -860,10 +937,11 @@ def kernels_phase(dev):
         turn = itertools.count()
         kern_us = device_us_of("stitched_rmsnorm", device_profile(
             lambda: ops.rmsnorm(xs[next(turn) % COLD_ROTATION], gamma, eps=g["norm_eps"]),
-            PROFILED_CALLS)[1])
+            PROFILED_CALLS, "stitched_rmsnorm cold L2",
+            per_call=(DEVICE_KERNEL["stitched_rmsnorm"], 1))[1])
         lib_us = (sum(device_profile(
             lambda: F.rms_norm(xs[next(turn) % COLD_ROTATION], (d,), gamma, g["norm_eps"]),
-            PROFILED_CALLS)[1].values()) if c["library"] else 0.0)
+            PROFILED_CALLS, "F.rms_norm cold L2")[1].values()) if c["library"] else 0.0)
         print(f"kernel stitched_rmsnorm {c['label']} over {COLD_ROTATION} inputs (cold L2): "
               f"device_ms={kern_us / 1e3 if kern_us else 'not measured'} "
               f"library_device_ms={lib_us / 1e3 if lib_us else 'not measured'}")
@@ -1360,6 +1438,338 @@ def faults_phase(dev):
     return rows
 
 
+# ---- phase 12: the frontend ----------------------------------------------------
+
+#: the options the frontend's functions compile under, as in
+#: tests/test_torch_frontend.py (each family adds its own overrides)
+FRONTEND_MAX_BLOCKS = 32
+#: tokens of the granite-width functions
+FRONTEND_TOKENS = 512
+
+
+def frontend_cases():
+    """Phase 12's functions: (name, fn, numpy args, StitchOptions, family).
+    The three ``TORCH_FAMILIES`` at the reference's dimensions and
+    StitchPipe's computation (held against its hand-built graph); four of
+    tests/test_torch_frontend.py's functions at granite-moe-3b-a800m's width
+    over ``FRONTEND_TOKENS`` tokens; the control-flow functions and the MLP
+    loss's gradient of tests/test_torch_frontend_controlflow.py at its
+    sizes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch._higher_order_ops.scan import scan
+    from torch._higher_order_ops.while_loop import while_loop
+
+    from repro_torch.core import StitchOptions
+    from repro_torch.graphs import TORCH_FAMILIES, stitch_pipeline_graph
+
+    opts = StitchOptions(max_blocks=FRONTEND_MAX_BLOCKS)
+
+    def fig3_attention(q, k, v):
+        d = q.shape[-1]
+        s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / d ** 0.5)
+        s = s - torch.amax(s, dim=-1, keepdim=True)
+        e = torch.exp(s)
+        return torch.matmul(e / torch.sum(e, dim=-1, keepdim=True), v)
+
+    def rmsnorm(x, g):
+        ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        return x * torch.rsqrt(ms + 1e-6) * g
+
+    def gated_mlp(x, w_gate, w_up):
+        return F.silu(torch.matmul(x, w_gate)) * torch.matmul(x, w_up)
+
+    def layer_stats(x):
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + 1e-5)
+
+    def decode_loop(h, w):
+        def step(carry, _x):
+            carry = torch.tanh(carry @ w)
+            return carry.clone(), carry.sum(dim=-1)
+
+        return scan(step, h, torch.zeros(6, 0, device=h.device))
+
+    def stitch_pipe(x, g):
+        scaled = x * g
+        e = torch.exp(scaled - torch.amax(scaled, dim=1, keepdim=True))
+        p = e / torch.sum(e, dim=1, keepdim=True)
+        return torch.tanh(p.transpose(0, 1)) * 0.5
+
+    def counted_while(x):
+        return while_loop(lambda i, v: i < 5, lambda i, v: (i + 1, v * 1.1 + 0.25),
+                          (torch.tensor(0, device=x.device), x))[1]
+
+    def cond(pred, x):
+        return torch.cond(pred, lambda v: v * 2.0, lambda v: v - 1.0, (x,))
+
+    def mlp_loss(params, x, y):
+        h = torch.tanh(x @ params["w1"] + params["b1"])
+        pred = h @ params["w2"] + params["b2"]
+        return torch.mean((pred - y) ** 2)
+
+    cases = []
+    for name, fam in TORCH_FAMILIES.items():
+        cases.append((name, fam["fn"], fam["args"](np.random.RandomState(0)),
+                      dataclasses.replace(opts, **fam["options"]), fam))
+    # StitchPipe's computation, whose plan takes the stitched emitter
+    cases.append(("StitchPipe", stitch_pipe,
+                  tuple(np.random.RandomState(0).randn(*sh).astype(np.float32)
+                        for sh in ((512, 320), (320,))),
+                  opts, {"module": stitch_pipeline_graph}))
+    rng = np.random.RandomState(1)
+    t, d, ff = FRONTEND_TOKENS, GRANITE["d_model"], GRANITE["d_ff"]
+    h, hd = GRANITE["heads"], GRANITE["head_dim"]
+    f4 = np.float32
+    cases += [
+        ("rmsnorm", rmsnorm, (rng.randn(t, d).astype(f4), rng.randn(d).astype(f4)), opts, None),
+        ("layer_stats", layer_stats, (rng.randn(t, d).astype(f4),), opts, None),
+        ("gated_mlp", gated_mlp, (rng.randn(t, d).astype(f4), rng.randn(d, ff).astype(f4),
+                                  rng.randn(d, ff).astype(f4)), opts, None),
+        ("fig3_attention", fig3_attention,
+         tuple(rng.randn(1, h, t, hd).astype(f4) for _ in range(3)), opts, None),
+    ]
+    g = np.random.default_rng(0)
+    params = {"w1": g.normal(size=(8, 16), scale=0.3).astype(f4), "b1": np.zeros(16, f4),
+              "w2": g.normal(size=(16, 4), scale=0.3).astype(f4), "b2": np.zeros(4, f4)}
+    cases += [
+        ("decode_loop_scan", decode_loop,
+         (g.normal(size=(4, 16)).astype(f4), g.normal(size=(16, 16), scale=0.2).astype(f4)),
+         opts, None),
+        ("counted_while_loop", counted_while, (np.linspace(0.0, 1.0, 12, dtype=f4),), opts, None),
+        ("cond_true", cond, (np.asarray(True), np.arange(8, dtype=f4)), opts, None),
+        ("cond_false", cond, (np.asarray(False), np.arange(8, dtype=f4)), opts, None),
+        ("grad_mlp_loss", torch.func.grad_and_value(mlp_loss),
+         (params, g.normal(size=(32, 8)).astype(f4), g.normal(size=(32, 4)).astype(f4)),
+         opts, None),
+    ]
+    return cases
+
+
+def frontend_sources(cases):
+    """The CUDA sources phase 12 builds: each function's plan, compiled here
+    for the CPU (the same text the card's compile emits), and each family's
+    hand-built module's, and ``donation_check``'s function's."""
+    from repro_torch import stitch
+    from repro_torch.core import compile_module
+
+    out = []
+    for _, fn, args, opts, fam in cases + [("donation", *donation_case(), None)]:
+        out += sources_of(stitch(fn, options=opts, device="cpu").lower(*args).compile())
+        if fam is not None:
+            out += sources_of(compile_module(fam["module"](), opts, device="cpu"))
+    return out
+
+
+def frontend_phase(dev, cases):
+    """Phase 12: ``repro_torch.stitch`` on the card, the device left at its
+    default, eager and replayed (see the module docstring).  Returns the
+    rows and each emitter's launches in the counted eager calls."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import stitch
+    from repro_torch.core import compile_module, reference_execute
+
+    rows, by_emitter = [], {"emit_fusion": 0, "emit_stitched_fusion": 0}
+    for name, fn, args, opts, fam in cases:
+        dargs = pytree.tree_map(lambda a: torch.as_tensor(a, device=dev), args)
+        st_e = stitch(fn, options=dataclasses.replace(opts, jit_replay=False))
+        st_r = stitch(fn, options=opts)
+        if st_e.device is not None or st_r.device is not None:
+            raise SystemExit(f"frontend {name}: the device is not left at its default")
+        t0 = time.perf_counter()
+        st_e(*dargs)                                  # capture, lower, compile, run
+        torch.cuda.synchronize()
+        first_call_s = time.perf_counter() - t0
+        lowered = st_e.lower()
+        comp_e = lowered.compile()
+        if comp_e.stats.device != "cuda":
+            raise SystemExit(f"frontend {name}: compiled for {comp_e.stats.device}")
+        progs = programs_of(comp_e)
+        for p in progs.values():
+            p.launches = 0
+        out_e = st_e(*dargs)
+        torch.cuda.synchronize()
+        got = sum(p.launches for p in progs.values())
+        want = planned_launches(comp_e)
+        never = [p.name for p in progs.values() if p.launches == 0]
+        if got != want or never:
+            raise SystemExit(f"frontend {name}: {got} launches, planned {want}; never launched {never}")
+        for p in progs.values():
+            by_emitter[p.emitter] += p.launches
+        s = comp_e.stats
+        stats = (s.stitched_kernels, s.standalone_kernels, s.library_calls)
+        if fam is not None:
+            hand = compile_module(fam["module"](), opts, device=dev)
+            hs = hand.stats
+            if stats != (hs.stitched_kernels, hs.standalone_kernels, hs.library_calls) \
+                    or want != planned_launches(hand):
+                raise SystemExit(f"frontend {name}: plan {stats}, {want} launches; the hand-built "
+                                 f"graph's ({hs.stitched_kernels}, {hs.standalone_kernels}, "
+                                 f"{hs.library_calls}), {planned_launches(hand)} launches")
+        if st_e.num_fallbacks or st_r.num_fallbacks:
+            raise SystemExit(f"frontend {name}: {st_e.num_fallbacks + st_r.num_fallbacks} fallbacks")
+        # right: against the plain function on the card and the lowered
+        # module's reference_execute, on the same inputs
+        leaves = pytree.tree_leaves(dargs)
+        feeds = dict(zip(lowered.param_names, leaves, strict=True))
+        flat_e = pytree.tree_leaves(out_e)
+        plain = pytree.tree_leaves(fn(*dargs))
+        ref = reference_execute(lowered.module, feeds, device=dev)
+        ref_flat = [ref[n] for n in lowered._lowered.output_names]
+        err = 0.0
+        for label, want_flat in (("plain PyTorch", plain), ("reference_execute", ref_flat)):
+            if len(want_flat) != len(flat_e):
+                raise SystemExit(f"frontend {name}: {len(flat_e)} outputs, {label} {len(want_flat)}")
+            for i, (g, w) in enumerate(zip(flat_e, want_flat, strict=True)):
+                if g.device.type != "cuda" or tuple(g.shape) != tuple(w.shape) \
+                        or not bool(torch.isfinite(g.double()).all()):
+                    raise SystemExit(f"frontend {name}: output {i} is {g.device} {tuple(g.shape)}, "
+                                     f"{label} {tuple(w.shape)}, or not finite")
+                e, ok = max_err(g, w.to(g.dtype), None)
+                err = max(err, e)
+                if not ok:
+                    raise SystemExit(f"frontend {name}: output {i} vs {label} {e:.3e} (TOL {TOL})")
+        # replayed: two default calls through stitch (the path the plan's
+        # replay_mode picks), then the plan's CUDA graph whatever the mode
+        # (jit_execute, past stitch), each bit for bit the eager plan's (a
+        # library dot may round otherwise under capture, held at TOL as in
+        # phase 7)
+        st_r(*dargs)
+        lowered_r = st_r.lower()
+        comp_r = lowered_r.compile()
+        ex_r = comp_r.executable
+        eager_d = comp_e(feeds)
+        eager_flat = [eager_d[n] for n in lowered._lowered.output_names]
+        replayed = [pytree.tree_leaves(st_r(*dargs)) for _ in range(2)]
+        replayed += [[r[n] for n in lowered_r._lowered.output_names]
+                     for r in (ex_r.jit_execute(feeds) for _ in range(2))]
+        torch.cuda.synchronize()
+        bitwise = all(same(g, w) for r in replayed for g, w in zip(r, eager_flat, strict=True))
+        held = []
+        if not bitwise:
+            held = [i.name for i in ex_r.plan.standalone if i.is_library_call]
+            for r in replayed:
+                for i, (g, w) in enumerate(zip(r, eager_flat, strict=True)):
+                    e, ok = max_err(g, w, None)
+                    if not held or not ok:
+                        raise SystemExit(f"frontend {name}: output {i} replayed vs eager {e:.3e}, "
+                                         f"library dots {held}")
+        # numbers: µs per call through stitch (eager, and the default path)
+        # and of the plan's own replay, the plain function's device kernels
+        # against the plan's, device µs and idle shares
+        eager_us = 1e3 * time_ms(lambda: st_e(*dargs), CALLS)
+        default_us = 1e3 * time_ms(lambda: st_r(*dargs), CALLS)
+        replay_us = 1e3 * time_ms(lambda: ex_r.jit_execute(feeds), CALLS)
+        plain_us = 1e3 * time_ms(lambda: fn(*dargs), CALLS)
+        plan_e = planned_by_program(comp_e)
+        e_seen, e_by = profiled_launches(f"frontend {name} eager", lambda: st_e(*dargs), plan_e)
+        r_seen, r_by = profiled_launches(f"frontend {name} replayed",
+                                         lambda: ex_r.jit_execute(feeds), planned_by_program(comp_r))
+        p_seen, p_by = device_profile(lambda: fn(*dargs), PROFILED_CALLS, f"plain {name}")
+        e_dev, r_dev, p_dev = sum(e_by.values()), sum(r_by.values()), sum(p_by.values())
+        mode = comp_r.stats.replay_mode
+        d_dev = r_dev if mode == "graph" else e_dev
+        row = {
+            "function": name, "args": [list(np.shape(a)) for a in pytree.tree_leaves(args)],
+            "capture_s": st_e.capture_s, "lower_s": st_e.lower_s,
+            "compile_s": s.compile_time_s, "nvcc_s": s.build_time_s, "first_call_s": first_call_s,
+            "fused_kernels": s.stitched_kernels, "standalone": s.standalone_kernels,
+            "library_dots": s.library_calls, "loop_calls": s.loop_calls,
+            "sub_kernels": s.sub_kernels, "launches_per_call": want,
+            "stitched_emitter_kernels": s.stitch_lowered_kernels,
+            "fallbacks": st_e.num_fallbacks + st_r.num_fallbacks, "max_abs_err": err,
+            "replay_mode": mode, "bitwise_replay_vs_eager": bitwise,
+            "held_at_tol": held,
+            "plain_device_kernels": p_seen, "stitched_device_kernels": e_seen,
+            "replay_device_kernels": r_seen,
+            # through stitch: the eager loop, and the default call (the path
+            # replay_mode picks); the plan's own replay (jit_execute) leaves
+            # out stitch's host path
+            "eager_us_per_call": eager_us, "default_us_per_call": default_us,
+            "plan_replay_us_per_call": replay_us, "plain_us_per_call": plain_us,
+            "eager_device_us_per_call": e_dev, "replay_device_us_per_call": r_dev,
+            "plain_device_us_per_call": p_dev,
+            "eager_idle_share": 1.0 - e_dev / eager_us,
+            "default_idle_share": 1.0 - d_dev / default_us,
+            "plan_replay_idle_share": 1.0 - r_dev / replay_us,
+            "plain_idle_share": 1.0 - p_dev / plain_us,
+        }
+        rows.append(row)
+        print(f"frontend {name}: capture {row['capture_s']:.3f} s, lower {row['lower_s']:.3f} s, "
+              f"compile {row['compile_s']:.3f} s; fused={s.stitched_kernels} "
+              f"(stitched emitter {s.stitch_lowered_kernels}) standalone={s.standalone_kernels} "
+              f"library={s.library_calls} loops={s.loop_calls}; {want} launches a call as planned"
+              f"{' = the hand-built graph' if fam is not None else ''}; 0 fallbacks; "
+              f"err={err:.2e} vs plain and reference_execute; replay "
+              f"{'bitwise' if bitwise else 'held at TOL'} vs eager; device kernels a call "
+              f"plain={p_seen} stitched={e_seen} replayed={r_seen}; us_per_call through stitch "
+              f"eager={eager_us:.1f} default ({mode})={default_us:.1f}, the plan's "
+              f"replay={replay_us:.1f}, plain={plain_us:.1f}; device_us "
+              f"eager={e_dev:.2f} replay={r_dev:.2f} plain={p_dev:.2f}; idle_share "
+              f"eager={row['eager_idle_share']:.3f} default={row['default_idle_share']:.3f} "
+              f"plan_replay={row['plan_replay_idle_share']:.3f} "
+              f"plain={row['plain_idle_share']:.3f}")
+        if name == "fig3_attention" and (s.stitched_kernels, s.standalone_kernels,
+                                         s.library_calls) != (1, 0, 0):
+            print(f"frontend fig3_attention at granite width: {s.stitched_kernels} fused "
+                  f"kernels, {s.standalone_kernels} standalone, {s.library_calls} library dots, "
+                  f"not one stitched kernel, under the planner's budgets (vmem_limit "
+                  f"{opts.vmem_limit} bytes, replicate_limit {opts.replicate_limit}, "
+                  f"stitch_max_blocks {opts.stitch_max_blocks}, max_blocks {opts.max_blocks}):")
+            print(st_e.report())
+    donation_check(dev)
+    return rows, by_emitter
+
+
+def donation_case():
+    """The function, numpy arguments and options of ``donation_check``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import StitchOptions
+
+    def fn(x, w, y):
+        return torch.tanh(torch.exp(x) @ w) + y
+
+    rng = np.random.RandomState(2)
+    args = tuple(rng.randn(256, 256).astype(np.float32) * 0.1 for _ in range(3))
+    return fn, args, StitchOptions(max_blocks=FRONTEND_MAX_BLOCKS, fuse_dot=False, jit_replay=False)
+
+
+def donation_check(dev):
+    """``donate_argnums`` on the card: in the eager loop the second kernel of
+    tanh(exp(x) @ w) + y (the dot a library call) writes its output into
+    x's buffer through the launcher's ``out``; w and y stay as they were,
+    and the result is the undonated plan's, bit for bit."""
+    import torch
+
+    from repro_torch import stitch
+
+    fn, args, opts = donation_case()
+    x, w, y = (torch.as_tensor(a, device=dev) for a in args)
+    want = stitch(fn, options=opts)(x.clone(), w, y)
+    w0, y0 = w.clone(), y.clone()
+    st = stitch(fn, options=opts, donate_argnums=(0,))
+    got = st(x, w, y)
+    torch.cuda.synchronize()
+    if st.stats.donated_buffers != 1 or got.data_ptr() != x.data_ptr() or not same(got, want) \
+            or not same(w, w0) or not same(y, y0):
+        raise SystemExit(f"frontend donation: {st.stats.donated_buffers} donated buffers, output "
+                         f"in x's buffer {got.data_ptr() == x.data_ptr()}, equal to the undonated "
+                         f"plan {same(got, want)}, w and y kept {same(w, w0) and same(y, y0)}")
+    print("frontend donation: the second kernel wrote its output into the donated input's "
+          "buffer; the other inputs unchanged; bit for bit the undonated plan's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -1407,6 +1817,9 @@ def main(argv=None) -> int:
             lint_opts = StitchOptions(max_blocks=LINT_MAX_BLOCKS, planner=planner)
             extra += sources_of(compile_module(g(), lint_opts, device="cpu"))
     extra += [compile_module(build(), device="cpu").cuda_source for build in FAULT_MODULES.values()]
+    # phase 12: the frontend's functions and the families' hand-built graphs
+    cases = frontend_cases()
+    extra += frontend_sources(cases)
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
@@ -1520,8 +1933,10 @@ def main(argv=None) -> int:
             err, ok = max(err, e), ok and o and bool(torch.isfinite(g).all())
         if not ok:
             raise SystemExit(f"{label} {kernel.fn.name}: kernel vs plain {err:.3e}")
-        _, by_name = device_profile(lambda p=kernel.fn, a=a: p.launch(*a, device=dev), PROFILED_CALLS)
-        device_us = sum(t for k, t in by_name.items() if kernel.fn.name in k) or None
+        _, by_name = profiled_launches(f"stitched compile {label}",
+                                       lambda p=kernel.fn, a=a: p.launch(*a, device=dev),
+                                       {kernel.fn.name: 1}, total=1)
+        device_us = sum(t for k, t in by_name.items() if kernel.fn.name in k)
         stitched_rows.append({"compile": label, "kernel": kernel.fn.name, "phase_blocks": blocks,
                               "workspace_bytes": kernel.fn.workspace_bytes, "max_abs_err": err,
                               "device_us": device_us})
@@ -1572,8 +1987,9 @@ def main(argv=None) -> int:
         if not ok:
             raise SystemExit(f"{label}: kernels vs plain and reference_execute {err:.3e} over {tol}")
         names = [k.fn.name for k in compiled.kernels]
-        _, by_name = device_profile(lambda c=compiled, f=feeds: c(f), PROFILED_CALLS)
-        device_us = sum(t for k, t in by_name.items() if any(nm in k for nm in names)) or None
+        _, by_name = profiled_launches(f"{emitter} compile {label}", lambda c=compiled, f=feeds: c(f),
+                                       planned_by_program(compiled))
+        device_us = sum(t for k, t in by_name.items() if any(nm in k for nm in names))
         extra_rows.append({"compile": label, "emitter": emitter, "kernels": names, "launches": n,
                            "max_abs_err": err, "tolerance": tol, "device_us": device_us,
                            "workspace_bytes": [k.fn.workspace_bytes for k in compiled.kernels]})
@@ -1583,9 +1999,10 @@ def main(argv=None) -> int:
     # ---- 5. numbers -------------------------------------------------------------
     for row, (prog, a) in zip(rows, timed, strict=True):
         row["us"] = 1e3 * time_ms(lambda p=prog, a=a: p.launch(*a, device=dev), CALLS)
-        _, by_name = device_profile(lambda p=prog, a=a: p.launch(*a, device=dev), PROFILED_CALLS)
-        # None where the profiler recorded no device time for it
-        row["device_us"] = sum(t for k, t in by_name.items() if prog.name in k) or None
+        _, by_name = profiled_launches(f"kernel {row['graph']}:{row['fusion']}",
+                                       lambda p=prog, a=a: p.launch(*a, device=dev),
+                                       {prog.name: 1}, total=1)
+        row["device_us"] = sum(t for k, t in by_name.items() if prog.name in k)
         row["plain_us"] = 1e3 * time_ms(lambda p=prog, a=a: p.plain(*a, device=dev), PLAIN_CALLS)
         b_us = 1e6 * row["bytes"] / HBM_BYTES_PER_S
         o_us = 1e6 * row["ops"] / F32_OPS_PER_S
@@ -1611,12 +2028,14 @@ def main(argv=None) -> int:
         us = 1e3 * time_ms(lambda c=compiled, f=dfeeds: c(f), CALLS)
         ref_us = 1e3 * time_ms(lambda m=module, f=dfeeds: reference_execute(m, f, device=dev), CALLS)
         planned = st.stitched_kernels + st.standalone_kernels + st.library_calls
-        seen, by_name = device_profile(lambda c=compiled, f=dfeeds: c(f), PROFILED_CALLS)
-        device_us = sum(by_name.values()) or None
+        seen, by_name = profiled_launches(f"graph {name}", lambda c=compiled, f=dfeeds: c(f),
+                                          planned_by_program(compiled))
+        device_us = sum(by_name.values())
         idle = 1.0 - device_us / us if device_us else None
         # the unfused path's device time: every device kernel its torch ops run
         ref_seen, ref_by_name = device_profile(
-            lambda m=module, f=dfeeds: reference_execute(m, f, device=dev), PROFILED_CALLS)
+            lambda m=module, f=dfeeds: reference_execute(m, f, device=dev), PROFILED_CALLS,
+            f"unfused {name}")
         ref_device_us = sum(ref_by_name.values()) or None
         per_graph.append({
             "graph": name, "us_per_call": us, "reference_us_per_call": ref_us,
@@ -1681,6 +2100,12 @@ def main(argv=None) -> int:
     for entry in hand_entries:
         entry.update(f16[entry["name"]])
     fault_rows = faults_phase(dev)
+
+    # ---- 12. the frontend ---------------------------------------------------------
+    frontend_rows, frontend_launches = frontend_phase(dev, cases)
+    for entry in entries:
+        # the hand-written kernels are not on the frontend's path: 0
+        entry["frontend_launches"] = frontend_launches.get(entry["name"], 0)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1688,7 +2113,10 @@ def main(argv=None) -> int:
                        "graphs": per_graph, "kernels": rows, "emitters": entries,
                        "stitched_compiles": stitched_rows, "extra_compiles": extra_rows,
                        "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
-                       "autotune": autotune_rows, "fault_modules": fault_rows}, f, indent=1)
+                       "autotune": autotune_rows, "fault_modules": fault_rows,
+                       "frontend": frontend_rows, "profile_retakes": RETAKES}, f, indent=1)
+    print(f"profiles taken again: {sum(len(r['refused']) for r in RETAKES)} "
+          f"({', '.join(r['label'] for r in RETAKES) or 'none'})")
     print(f"card: {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

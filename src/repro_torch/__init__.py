@@ -5,6 +5,8 @@ as the JAX reference, with the two Pallas code generators rewritten as
 CUDA C++ generators (``core/codegen.py``, built by ``core/cuda_build.py``).
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel runs its plain PyTorch version.
+``stitch`` (``frontend/``) captures a PyTorch function into StitchIR and
+compiles it per input signature, as ``repro.stitch`` does a JAX function.
 The package imports torch and numpy, never jax and nothing of ``repro``.
 """
 from .core import (  # noqa: F401
@@ -15,4 +17,13 @@ from .core import (  # noqa: F401
     StitchOptions,
     compile_module,
     reference_execute,
+)
+from .frontend import (  # noqa: F401
+    SUPPORTED_OPS,
+    CostEstimate,
+    Lowered,
+    StitchedFunction,
+    UnsupportedPrimitiveError,
+    lower_graph,
+    stitch,
 )

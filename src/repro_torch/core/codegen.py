@@ -1413,13 +1413,21 @@ class KernelProgram:
         fn.restype = ctypes.c_int
         self._launch = fn
 
-    def __call__(self, *args, device=None):
+    def __call__(self, *args, device=None, out=None):
+        """``out``, where given, holds one tensor or None per output: a
+        tensor is written in place of a fresh one (a donated buffer of the
+        output's shape and dtype, which the kernel does not read)."""
         dev = input_device(self.name, args) if args else resolve_device(device)
         if dev.type == "cpu":
-            return self.plain(*args, device=dev)
-        return self.launch(*args, device=dev)
+            res = self.plain(*args, device=dev)
+            if out is None:
+                return res
+            return tuple(r if o is None else o.copy_(r) for r, o in zip(res, out, strict=True))
+        if out is None:
+            return self.launch(*args, device=dev)
+        return self.launch(*args, device=dev, out=out)
 
-    def launch(self, *args, device) -> Tuple[torch.Tensor, ...]:
+    def launch(self, *args, device, out=None) -> Tuple[torch.Tensor, ...]:
         if self._launch is None:
             raise RuntimeError(
                 f"{self.name}: no CUDA library is loaded for this kernel "
@@ -1437,7 +1445,16 @@ class KernelProgram:
                     f"expected {dtype}{list(shape)}"
                 )
         args = [a.contiguous() for a in args]
-        outs = [torch.empty(s, dtype=d, device=device) for s, d in self.out_specs]
+        outs = list(out) if out is not None else [None] * len(self.out_specs)
+        for k, ((shape, dtype), o) in enumerate(zip(self.out_specs, outs, strict=True)):
+            if o is None:
+                outs[k] = torch.empty(shape, dtype=dtype, device=device)
+            elif tuple(o.shape) != shape or o.dtype != dtype or o.device.type != device.type \
+                    or not o.is_contiguous():
+                raise ValueError(
+                    f"{self.name}: out {k} is {o.dtype}{list(o.shape)} on {o.device}, "
+                    f"expected a contiguous {dtype}{list(shape)} on {device}"
+                )
         ws = torch.empty(max(self.workspace_bytes, 1), dtype=torch.uint8, device=device)
         rc = self._launch(
             *[a.data_ptr() for a in args], *[o.data_ptr() for o in outs],
@@ -1476,8 +1493,10 @@ class StitchedKernel:
     def num_phases(self) -> int:
         return self.stitched.num_phases if self.stitched is not None else 1
 
-    def __call__(self, *args, device=None):
-        return self.fn(*args, device=device)
+    def __call__(self, *args, device=None, out=None):
+        if out is None:
+            return self.fn(*args, device=device)
+        return self.fn(*args, device=device, out=out)
 
     def bind(self, fusion: FusedComputation) -> "StitchedKernel":
         """Re-bind this kernel to a structurally-identical fusion instance

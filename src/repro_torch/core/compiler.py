@@ -167,6 +167,7 @@ class CompileStats:
     replay_mode: str = "graph"
     eager_dispatches_per_call: int = 0
     traced_dispatches_per_call: int = 0
+    donated_buffers: int = 0                 # donated parameters whose buffer a later kernel writes
     # measured-cost autotuning (core/measure.py): store lookups this
     # compile, kernels timed this compile, and the analytic model's mean
     # relative error over every entry with both costs (None: none had both)
@@ -312,7 +313,8 @@ def build_outputs(state: CompilationState) -> None:
             predicted += t
 
     executable = StitchedExecutable(
-        state.module, plan, kernels, state.device, jit_replay=state.options.jit_replay
+        state.module, plan, kernels, state.device, jit_replay=state.options.jit_replay,
+        donate_params=state.donate_params,
     )
     st = executable.launch_stats()
     hits = sum(1 for p in state.planned if p.cache_hit)
@@ -379,6 +381,7 @@ def build_outputs(state: CompilationState) -> None:
         replay_mode=executable.replay_mode,
         eager_dispatches_per_call=st.eager_dispatches_per_call,
         traced_dispatches_per_call=st.traced_dispatches_per_call,
+        donated_buffers=st.donated_buffers,
         measured_hits=mstore.hits - state.measured_base_hits if mstore else 0,
         measured_misses=mstore.misses - state.measured_base_misses if mstore else 0,
         measurements_taken=state.measurements_taken,
@@ -393,6 +396,7 @@ def compile_module(
     kernel_cache: Optional[KernelCache] = None,
     device=None,
     measured_store=None,
+    donate_params=None,
 ) -> CompiledModule:
     """Compile a StitchIR module through the default pass pipeline.
 
@@ -406,10 +410,19 @@ def compile_module(
     ``core.measure.MeasuredCostStore``) likewise, so one compile's
     measurements guide the next.  When None, one is made if
     ``options.autotune`` or ``options.tuning_store_path`` asks for it,
-    keyed by this device's fingerprint.
+    keyed by this device's fingerprint.  ``donate_params`` names
+    parameters whose buffers the caller donates (the frontend's
+    ``donate_argnums``): the eager loop writes a later kernel's output of
+    a donated parameter's shape and dtype into its buffer
+    (``ExecutionPlan.donations``).  Runtime-only, never part of any cache
+    key.
     """
     opts = options or StitchOptions()
     dev = resolve_device(device)
+    donate = frozenset(donate_params) if donate_params else None
+    unknown = sorted((donate or frozenset()) - {p.name for p in module.parameters})
+    if unknown:
+        raise ValueError(f"donate_params names no parameter of {module.name!r}: {unknown}")
     for instr in module.instructions:
         if instr.opcode in COLLECTIVE_OPCODES:
             raise NotImplementedError(f"{instr.name}: collectives are ported by {SHARDING_ITEM}")
@@ -433,6 +446,7 @@ def compile_module(
         measured_store=store,
         measured_base_hits=store.hits if store else 0,
         measured_base_misses=store.misses if store else 0,
+        donate_params=donate,
     )
     default_pipeline().run(state)
     state.stats.compile_time_s = time.perf_counter() - t0

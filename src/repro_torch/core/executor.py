@@ -101,6 +101,7 @@ class LaunchStats:
     # the feeds into its static inputs and of the roots out of its pool
     # (one dispatch a group of ``_copy_groups``)
     traced_dispatches_per_call: int = 0
+    donated_buffers: int = 0             # donated parameters whose buffer a later kernel writes
 
 
 def order_units(plan: FusionPlan) -> List[object]:
@@ -143,13 +144,16 @@ def order_units(plan: FusionPlan) -> List[object]:
 class _KernelStep:
     """One stitched-kernel launch, pre-bound to its buffer slots."""
 
-    __slots__ = ("kernel", "arg_slots", "out_slots", "release")
+    __slots__ = ("kernel", "arg_slots", "out_slots", "release", "reuse")
 
     def __init__(self, kernel: StitchedKernel, arg_slots, out_slots):
         self.kernel = kernel
         self.arg_slots = arg_slots
         self.out_slots = out_slots
         self.release: List[int] = []
+        # per output, the donated parameter slot whose buffer it is written
+        # into (None: a fresh buffer); empty where no output takes one
+        self.reuse: List[Optional[int]] = []
 
 
 class _OpStep:
@@ -369,7 +373,7 @@ class ExecutionPlan:
     """
 
     def __init__(self, module: Module, plan: FusionPlan,
-                 kernels: Dict[str, StitchedKernel], device):
+                 kernels: Dict[str, StitchedKernel], device, donate_params=None):
         self.device = torch.device(device)
         member_ids = {m.id for f in plan.fusions for m in f.members}
         covered = member_ids | {s.id for s in plan.standalone}
@@ -453,12 +457,45 @@ class ExecutionPlan:
         # ---- eager-release points: free a slot after its last read ---------
         keep = {s for _, s in self._root_binds}
         last_read: Dict[int, int] = {}
+        readers: Dict[int, List[object]] = {}
         for si, step in enumerate(self.steps):
             for s in step.arg_slots:
                 last_read[s] = si
+                readers.setdefault(s, []).append(step)
+
+        # ---- donation: the eager loop writes a later kernel's output of a
+        # donated parameter's shape and dtype into that parameter's buffer,
+        # which the caller gave up (``donate_argnums``) and no later step
+        # reads.  Only a parameter that kernels alone read qualifies: a
+        # torch op or a loop may return a view of it that outlives its last
+        # read.  ``donations`` maps each such parameter slot to the step
+        # that takes its buffer, where the slot is then released.
+        donate = frozenset(donate_params or ())
+        self.donations: Dict[int, int] = {}
+        taken: set = set()
+        for name, p, dtype, shape in self._param_binds:
+            if name not in donate or p in keep \
+                    or any(type(st) is not _KernelStep for st in readers.get(p, ())):
+                continue
+            tdt = torch_dtype(dtype)
+            for si in range(last_read.get(p, -1) + 1, len(self.steps)):
+                st = self.steps[si]
+                if type(st) is not _KernelStep:
+                    continue
+                j = next((j for j, r in enumerate(st.kernel.outputs)
+                          if st.out_slots[j] not in taken and tuple(r.shape) == shape
+                          and torch_dtype(r.dtype) == tdt), None)
+                if j is not None:
+                    st.reuse = st.reuse or [None] * len(st.out_slots)
+                    st.reuse[j] = p
+                    taken.add(st.out_slots[j])
+                    self.donations[p] = si
+                    break
         for s, si in last_read.items():
-            if s not in keep:
+            if s not in keep and s not in self.donations:
                 self.steps[si].release.append(s)
+        for p, si in self.donations.items():
+            self.steps[si].release.append(p)
         # dead outputs (a kernel root nothing reads) are released where made
         for step in self.steps:
             for s in _step_outs(step):
@@ -479,14 +516,20 @@ class ExecutionPlan:
             eager_dispatches_per_call=sum(_step_dispatches(st) for st in self.steps),
             traced_dispatches_per_call=1 + len(g.in_groups) + len(g.out_groups),
             loop_calls=sum(1 for st in self.steps if type(st) is _LoopStep),
+            donated_buffers=len(self.donations),
         )
 
     # ------------------------------------------------------------- steps
-    def _run_step(self, step, buf: List[Optional[torch.Tensor]]) -> None:
-        """One pre-bound step on the buffer table, its releases included."""
+    def _run_step(self, step, buf: List[Optional[torch.Tensor]], donated=frozenset()) -> None:
+        """One pre-bound step on the buffer table, its releases included.
+        ``donated`` holds the donated parameter slots whose buffers this
+        call may write (``_writable_donations``)."""
         args = [buf[s] for s in step.arg_slots]
         if type(step) is _KernelStep:
-            outs = step.kernel(*args, device=self.device)
+            out = None
+            if donated and step.reuse:
+                out = [buf[p] if p in donated else None for p in step.reuse]
+            outs = step.kernel(*args, device=self.device, out=out)
             for s, o in zip(step.out_slots, outs, strict=True):
                 buf[s] = o
         elif type(step) is _LoopStep:
@@ -528,12 +571,31 @@ class ExecutionPlan:
             buf[slot] = v
         return buf
 
+    def _writable_donations(self, buf: List[Optional[torch.Tensor]]) -> frozenset:
+        """The donated parameter slots whose buffers this call may write: a
+        contiguous tensor that needs no gradient and shares its storage with
+        no other feed (one tensor passed twice is read through the other)."""
+        feeds = [buf[s] for _, s, _, _ in self._param_binds]
+        owners: Dict[int, int] = {}
+        for t in feeds:
+            k = t.untyped_storage().data_ptr()
+            owners[k] = owners.get(k, 0) + 1
+        return frozenset(
+            p for p in self.donations
+            if buf[p].is_contiguous() and not buf[p].requires_grad and buf[p].numel()
+            and owners[buf[p].untyped_storage().data_ptr()] == 1
+        )
+
     def execute(self, feeds: Dict[str, object]) -> Dict[str, torch.Tensor]:
         """Eager replay: one launch or torch op per pre-bound step, a loop's
-        body once per iteration (the CPU's path, and the graph's oracle)."""
+        body once per iteration (the CPU's path, and the graph's oracle).
+        A donated parameter's buffer takes the output planned for it
+        (``donations``); the replay leaves feeds as they are, since it
+        reads its own copies."""
         buf = self._fed_buffer(feeds)
+        donated = self._writable_donations(buf) if self.donations else frozenset()
         for step in self.steps:
-            self._run_step(step, buf)
+            self._run_step(step, buf, donated)
         self.stats.eager_calls += 1
         return {name: buf[s] for name, s in self._root_binds}
 
@@ -604,11 +666,12 @@ class StitchedExecutable:
     replay is held against.  ``jit_execute`` replays whatever the mode."""
 
     def __init__(self, module: Module, plan: FusionPlan,
-                 kernels: Dict[str, StitchedKernel], device, jit_replay: bool = True):
+                 kernels: Dict[str, StitchedKernel], device, jit_replay: bool = True,
+                 donate_params=None):
         self.module = module
         self.plan = plan
         self.kernels = kernels
-        self.execution_plan = ExecutionPlan(module, plan, kernels, device)
+        self.execution_plan = ExecutionPlan(module, plan, kernels, device, donate_params)
         self.jit_replay = jit_replay
 
     @property
@@ -643,6 +706,7 @@ class StitchedExecutable:
             graph_captures=rt.graph_captures,
             eager_dispatches_per_call=rt.eager_dispatches_per_call,
             traced_dispatches_per_call=rt.traced_dispatches_per_call,
+            donated_buffers=rt.donated_buffers,
         )
 
     def execute_eager(self, feeds: Dict[str, object]) -> Dict[str, torch.Tensor]:

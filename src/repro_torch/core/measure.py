@@ -39,6 +39,7 @@ import torch
 
 from . import cuda_build
 from .codegen import StitchedKernel, assemble_source, emit_fusion, emit_stitched_fusion
+from .device import resolve_device
 from .fusion import FusedComputation
 from .ir import Instruction, torch_dtype
 from .latency import TPU_V5E, DeviceSpec
@@ -51,12 +52,13 @@ from .tuning import tune
 MEASURE_SCHEMA_VERSION = 1
 
 
-def device_fingerprint(spec: DeviceSpec = TPU_V5E, device="cpu") -> str:
+def device_fingerprint(spec: DeviceSpec = TPU_V5E, device=None) -> str:
     """Fingerprint of the measurement substrate: the ``DeviceSpec``
     constants, the device type (``"cuda"`` or ``"cpu"``) and, on the card,
     ``torch.cuda.get_device_name``.  A CPU timing never serves a card
-    compile, and one card's timing never serves another card."""
-    dev = torch.device(device)
+    compile, and one card's timing never serves another card.  ``device``
+    is the card unless the caller asks for the CPU (``resolve_device``)."""
+    dev = resolve_device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
     feats = (spec.fingerprint(), dev.type, name, "repro_torch")
     return hashlib.sha256(repr(feats).encode()).hexdigest()[:16]
@@ -151,15 +153,16 @@ class MeasuredCostStore:
 GRAPH_BATCH = 20
 
 
-def measure_callable(fn, args: Sequence, device="cpu", repeats: int = 5, warmup: int = 1) -> float:
+def measure_callable(fn, args: Sequence, device=None, repeats: int = 5, warmup: int = 1) -> float:
     """Median seconds of ``fn(*args)`` over ``repeats`` runs after
     ``warmup`` untimed ones.  On the card ``fn`` is captured ``GRAPH_BATCH``
     times into a CUDA graph and each run is one replay between two CUDA
     events, divided by ``GRAPH_BATCH``: the device time of a call, which is
     what the analytic model predicts, not the host's time to launch it
     (tens of µs through the Python wrapper, against 1-10 µs on the card).
-    On the CPU it is wall time."""
-    dev = torch.device(device)
+    On the CPU it is wall time.  ``device`` is the card unless the caller
+    asks for the CPU."""
+    dev = resolve_device(device)
     repeats = max(1, int(repeats))
     for _ in range(max(0, int(warmup))):
         fn(*args)
@@ -204,12 +207,14 @@ def _random_args(inputs: List[Instruction], rng, device) -> List[torch.Tensor]:
     return args
 
 
-def measure_kernel(kernel: StitchedKernel, device="cpu", repeats: int = 5, warmup: int = 1,
+def measure_kernel(kernel: StitchedKernel, device=None, repeats: int = 5, warmup: int = 1,
                    seed: int = 0) -> float:
-    """Time one compiled kernel on random inputs (median of ``repeats``).
-    A measurement leaves the kernel's launch counter as it found it: the
-    counter counts the launches of the plan's calls, and a timing's
-    launches, made at compile time, are none of them."""
+    """Time one compiled kernel on random inputs (median of ``repeats``),
+    on the card unless the caller asks for the CPU.  A measurement leaves
+    the kernel's launch counter as it found it: the counter counts the
+    launches of the plan's calls, and a timing's launches, made at compile
+    time, are none of them."""
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     args = _random_args(kernel.inputs, rng, device)
     before = kernel.fn.launches
@@ -234,13 +239,15 @@ def emit_group(
     max_blocks: int = 4096,
     stitch_replicate_limit: Optional[int] = None,
     stitch_max_blocks: int = 64,
-    device="cpu",
+    device=None,
 ) -> Optional[StitchedKernel]:
     """Compile ``members`` as ONE kernel through the production path (§4.3
     tuning, §5.1 memory planning, §5.2 emission), falling back to the
     multi-phase stitched lowering where no single schedule exists; on the
-    card the kernel is built and loaded.  None where the group has no
-    feasible lowering under the limits (the sets the scorer refuses)."""
+    card (the default; ``device="cpu"`` asks for the plain version) the
+    kernel is built and loaded.  None where the group has no feasible
+    lowering under the limits (the sets the scorer refuses)."""
+    device = resolve_device(device)
     lib = library or PerfLibrary()
     fusion = FusedComputation(list(members), name="measured")
     roots = fusion.roots
@@ -265,7 +272,7 @@ def emit_group(
         except MemoryInfeasible:
             return None
         kernel = emit_stitched_fusion(fusion, st, mem)
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         lib_so, _ = cuda_build.load(assemble_source([kernel.fn]))
         kernel.fn.load(lib_so)
     return kernel
@@ -276,11 +283,13 @@ def measure_group(
     library: Optional[PerfLibrary] = None,
     repeats: int = 5,
     seed: int = 0,
-    device="cpu",
+    device=None,
     **emit_kwargs,
 ) -> Optional[float]:
     """Median measured seconds of ``members`` lowered as one kernel, or
-    None where the group has no feasible lowering under the limits."""
+    None where the group has no feasible lowering under the limits; on the
+    card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     kernel = emit_group(members, library, device=device, **emit_kwargs)
     if kernel is None:
         return None

@@ -102,6 +102,9 @@ class CompilationState:
     # call sites it saw
     sub_compiled: Dict[str, object] = field(default_factory=dict)
     sub_call_sites: int = 0
+    # parameter names whose buffers the caller donated (the frontend's
+    # ``donate_argnums``): runtime-only, threaded to the ExecutionPlan
+    donate_params: Optional[frozenset] = None
     # filled by FinalizePass
     executable: Optional[object] = None
     stats: Optional[object] = None

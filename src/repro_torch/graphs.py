@@ -6,10 +6,16 @@ ReduceTowers, BcastHeavy, StitchPipe), instruction for instruction, so a
 module built here and one carried across with ``module_from_reference``
 have the same opcodes, shapes, dtypes, attrs and wiring.  ``random_feeds``
 draws the same numpy feeds from the same ``RandomState``.
+
+``TORCH_FAMILIES`` pairs three of them with ordinary PyTorch functions of
+the same computation, the counterparts of the reference's ``JNP_FAMILIES``:
+``repro_torch.stitch`` of each must commit the hand-built module's plan.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from .core.ir import BFLOAT16, GraphBuilder, Module
 
@@ -339,4 +345,91 @@ LOOP_GRAPHS = {
     "DecodeLoop": decode_loop_graph,
     "ReverseScan": reverse_scan_graph,
     "TwoScans": two_scans_graph,
+}
+
+
+# --------------------------------------------------------------------------
+# Frontend-parity families: ordinary PyTorch functions — zero GraphBuilder
+# calls — captured through ``repro_torch.stitch``, each paired with the
+# hand-built module above.  The functions and their ``*_args`` (numpy,
+# from a ``RandomState``) are the reference's ``nmt_fn``, ``stacked_fn``
+# and ``reduce_towers_fn`` (``benchmarks/graphs.py``) rewritten in torch.
+# --------------------------------------------------------------------------
+
+
+def nmt_fn(q, k, v, bias):
+    """Figure-3 attention (softmax stitched with BatchMatMul) in plain
+    torch — mirrors ``nmt_graph``."""
+    d = q.shape[-1]
+    scores = torch.matmul(q, k.transpose(-1, -2))
+    scaled = scores * (1.0 / d ** 0.5) + bias
+    mx = torch.amax(scaled, dim=-1, keepdim=True)
+    e = torch.exp(scaled - mx)
+    p = e / torch.sum(e, dim=-1, keepdim=True)
+    return torch.tanh(torch.matmul(p, v))
+
+
+def nmt_args(rng):
+    B, H, S, D = NMT_DIM
+    return (
+        rng.randn(B, H, S, D).astype("f4"),
+        rng.randn(B, H, S, D).astype("f4"),
+        rng.randn(B, H, S, D).astype("f4"),
+        rng.randn(S, S).astype("f4"),
+    )
+
+
+def stacked_fn(x, gains, weights):
+    """Pre-norm transformer-ish blocks in plain torch — mirrors
+    ``stacked_transformer_graph`` (dots stay library calls: compile with
+    ``fuse_dot=False``)."""
+    for g, W in zip(gains, weights, strict=True):
+        ms = torch.mean(torch.square(x), dim=1, keepdim=True)
+        inv = torch.rsqrt(ms + 1e-6)
+        normed = x * inv * g[None, :]
+        x = x + F.silu(torch.matmul(normed, W))
+    return x
+
+
+def stacked_args(rng, num_layers: int = 8):
+    B, D = 16, 64
+    return (
+        rng.randn(B, D).astype("f4"),
+        [rng.randn(D).astype("f4") for _ in range(num_layers)],
+        [rng.randn(D, D).astype("f4") for _ in range(num_layers)],
+    )
+
+
+def reduce_towers_fn(xs, ss):
+    """Independent square/scale/reduce towers in plain torch — mirrors
+    ``reduce_towers_graph`` (the horizontal-merge adversary)."""
+    outs = []
+    for x, s in zip(xs, ss, strict=True):
+        e = torch.square(x * 0.5 + s)
+        outs.append(torch.sum(e * e))
+    return tuple(outs)
+
+
+def reduce_towers_args(rng, num_towers: int = 6):
+    B, D = 32, 64
+    return (
+        [rng.randn(B, D).astype("f4") for _ in range(num_towers)],
+        [rng.randn(B, D).astype("f4") for _ in range(num_towers)],
+    )
+
+
+#: frontend-parity families: torch fn + example args + the hand-built
+#: module it must reproduce + the StitchOptions overrides the frontend
+#: compiles under (Stacked keeps its dots as library calls via
+#: fuse_dot=False, matching the hand-built graph's ``fusable=False`` dots)
+TORCH_FAMILIES = {
+    "NMT": {"fn": nmt_fn, "args": nmt_args, "module": nmt_graph, "options": {}},
+    "Stacked": {
+        "fn": stacked_fn, "args": stacked_args,
+        "module": stacked_transformer_graph, "options": {"fuse_dot": False},
+    },
+    "ReduceTowers": {
+        "fn": reduce_towers_fn, "args": reduce_towers_args,
+        "module": reduce_towers_graph, "options": {},
+    },
 }

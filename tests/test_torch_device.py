@@ -1,8 +1,9 @@
 """The port stands alone and runs where it is told to.
 
 * Importing every ``repro_torch`` module loads neither jax nor ``repro``.
-* ``compile_module`` and ``reference_execute`` target the card by default
-  and raise when there is none; they never fall back to the CPU.
+* ``compile_module``, ``reference_execute`` and the measuring helpers
+  (``emit_group``, ``measure_group``, ``measure_kernel``) target the card
+  by default and raise when there is none; they never fall back to the CPU.
 * A kernel wrapper launches on CUDA tensors, runs its plain version on CPU
   tensors, and refuses tensors on any other device.  Called with no tensors
   it targets the card unless asked for the CPU.
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.core import compile_module, reference_execute
+from repro_torch.core.measure import emit_group, measure_group, measure_kernel
 from repro_torch.graphs import nmt_graph, random_feeds
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -29,7 +31,8 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks", "graphs"))
 print(len(names), leaked)
-sys.exit(1 if leaked or len(names) < 15 or "repro_torch.kernels.ops" not in names else 0)
+wanted = ("repro_torch.kernels.ops", "repro_torch.frontend.api", "repro_torch.frontend.aten_lower")
+sys.exit(1 if leaked or len(names) < 15 or any(w not in names for w in wanted) else 0)
 """
 
 
@@ -52,6 +55,17 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         compile_module(module, device="meta")
     assert compile_module(module, device="cpu").stats.device == "cpu"
+    members = [i for i in module.instructions
+               if i.opcode not in ("parameter", "constant") and not i.is_library_call]
+    for call in (lambda **kw: emit_group(members, **kw),
+                 lambda **kw: measure_group(members, repeats=1, **kw)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+        assert call(device="cpu") is not None
+    kernel = emit_group(members, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        measure_kernel(kernel)
+    assert measure_kernel(kernel, device="cpu", repeats=1) > 0.0
 
 
 def test_kernel_wrapper_refuses_other_devices():

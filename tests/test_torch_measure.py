@@ -31,6 +31,7 @@ CPU = device_fingerprint(TPU_V5E, "cpu")
 
 def _cards(monkeypatch, *names):
     """Fingerprints of cards of the given names, without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     fps = []
     for name in names:
         monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None, n=name: n)
@@ -123,10 +124,10 @@ def test_measure_callable_median_with_warmup():
 
 def test_emit_and_measure_single_schedule_group():
     members = _fusable(reduce_towers_graph(num_towers=1))
-    kernel = emit_group(members, max_blocks=64)
+    kernel = emit_group(members, max_blocks=64, device="cpu")
     assert kernel is not None and not kernel.stitched
     assert measure_kernel(kernel, "cpu", repeats=2) > 0.0
-    assert measure_group(members, repeats=1, max_blocks=64) > 0.0
+    assert measure_group(members, repeats=1, max_blocks=64, device="cpu") > 0.0
 
 
 def test_a_measurement_leaves_the_launch_counter_as_it_found_it(monkeypatch):
@@ -134,7 +135,7 @@ def test_a_measurement_leaves_the_launch_counter_as_it_found_it(monkeypatch):
     tick, the counter reads afterwards what it read before."""
     from repro_torch.core import measure
 
-    kernel = emit_group(_fusable(reduce_towers_graph(num_towers=1)), max_blocks=64)
+    kernel = emit_group(_fusable(reduce_towers_graph(num_towers=1)), max_blocks=64, device="cpu")
     kernel.fn.launches = 7
 
     def ticking(fn, args, device, repeats, warmup):
@@ -147,15 +148,15 @@ def test_a_measurement_leaves_the_launch_counter_as_it_found_it(monkeypatch):
 
 
 def test_emit_and_measure_stitched_group():
-    kernel = emit_group(_fusable(stitch_pipeline_graph()), max_blocks=64)
+    kernel = emit_group(_fusable(stitch_pipeline_graph()), max_blocks=64, device="cpu")
     assert kernel is not None and kernel.stitched
     assert measure_kernel(kernel, "cpu", repeats=1) > 0.0
 
 
 def test_infeasible_groups_give_none():
     members = _fusable(stitch_pipeline_graph())
-    assert emit_group(members, vmem_limit=1) is None
-    assert measure_group(members, vmem_limit=1) is None
+    assert emit_group(members, vmem_limit=1, device="cpu") is None
+    assert measure_group(members, vmem_limit=1, device="cpu") is None
 
 
 # ------------------------------------------------------- options and salts
