@@ -155,15 +155,40 @@ Phases, each fatal on failure:
    ``stitch``'s host path) and of the plain function; device µs and idle
    share of each.  Last, ``donate_argnums`` on the card: a donated input's
    buffer takes a later kernel's output, the other inputs unchanged.
+13. models — ``repro_torch.models`` on the card, no kernel of the port on
+   its path (the hand-written kernels' counters are set to 0 before it and
+   must read 0 after: the reference's models call no Pallas kernel).  Each
+   of the ten architectures at ``reduced_config``: ``forward`` and
+   ``decode_chunk`` (ragged lengths; Whisper after
+   ``prefill_cross_attention``) on the card against the port on the CPU,
+   same seeded weights, f32 with TF32 off, at ``FAMILY_TOL``.  Then
+   granite-moe-3b-a800m at full width in f32: 2 layers, ``forward`` of
+   1 x 64 tokens on the card against the CPU (``GRANITE_CPU_TOL``); at
+   full depth (32 layers) with dense MoE, ``decode_chunk`` over a 4 x 64
+   prompt with ragged lengths against ``forward``'s logits at each row's
+   last position (``DECODE_TOL``), and the paged cache (blocks of 16 from a
+   shuffled pool) against the slot cache over the same chunk, one row
+   inactive: logits and the written K/V bit for bit, the two read views
+   one shape (``SLOT_MAX_LEN``).  Last, in bf16 with the default scatter
+   MoE at full width and depth: ``forward`` of 4 x 512 tokens (ms by CUDA
+   events, tokens/s, device ms, device kernels and idle share from
+   torch.profiler), a 512-token context built by ``decode_chunk`` of 32
+   tokens (ms each), ``decode_step`` at batch 4 over it (ms, device ms,
+   device kernels a step, idle share, and the bound: the parameters' bytes
+   over 3.35 TB/s, as decode reads every expert), parameter bytes and peak
+   allocated bytes beside the card's name and power limit.
 
 Every profile whose device kernels a call are none or not a whole number,
 or disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and
 each refused reading, with the pad kernels it kept, goes into ``--out`` as
 ``profile_retakes``.
 
-The line before the last is one JSON object with a ``kernels`` list: one
+Before the last two lines, phase 13's numbers as one JSON object
+(``models``).  The line before the last is one JSON object with a
+``kernels`` list: one
 entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``, with its
-launches in phase 12's counted calls as ``frontend_launches``) and one per
+launches in phase 12's counted calls as ``frontend_launches`` and in phase
+13's as ``models_launches``) and one per
 hand-written kernel (with its f16 numbers as ``f16_*`` keys); the last
 line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes every
 per-graph, per-kernel and per-function number as JSON (phase 12's under
@@ -416,9 +441,11 @@ def work(kernel):
     return nbytes, ops
 
 
-#: ``torch.cuda._sleep``'s kernel, launched around the profiled calls
+#: ``torch.cuda._sleep``'s kernel, launched around the profiled calls (16 a
+#: side: a session of some 11,000 device kernels lost 4 pads and 1-2 kernels
+#: at an edge in 5 of 6 profiles with 4)
 PAD_KERNEL = "spin_kernel"
-PAD_LAUNCHES = 4
+PAD_LAUNCHES = 16
 #: profiles taken of one function before one whose kernel count is wrong fails
 PROFILE_TRIES = 8
 #: every profile taken again: (label, each reading that was refused)
@@ -1770,6 +1797,275 @@ def donation_check(dev):
           "buffer; the other inputs unchanged; bit for bit the undonated plan's")
 
 
+# ---- phase 13: the models --------------------------------------------------------
+MODEL_ARCH = "granite-moe-3b-a800m"
+#: card against CPU in f32 with TF32 off (rtol = atol): the reduced families'
+#: logits differ by a few f32 ulps of sums taken in another order; at granite's
+#: full width the 1536- and 2048-term sums move them by a few 1e-5
+FAMILY_TOL = 1e-4
+GRANITE_CPU_TOL = 1e-3
+#: decode_chunk against forward at granite's full depth in f32: the reference's
+#: test_decode_matches_forward holds them at 2e-3
+DECODE_TOL = 2e-3
+GRANITE_CPU_LAYERS = 2
+PROMPT = (4, 64)                    # decode against forward, paged against slot
+PROMPT_LENGTHS = (64, 50, 33, 64)   # ragged; the last row inactive in the paged check
+PAGED_BLOCK = 16
+#: the slot ring's SLOT_MAX_LEN + 1 slots (its parking slot) equal the paged
+#: view's 5 blocks of 16: both read views have one shape, so bit for bit
+SLOT_MAX_LEN = 79
+FORWARD_SHAPE = (4, 512)
+DECODE_BATCH, DECODE_CONTEXT, DECODE_CHUNK = 4, 512, 32
+DECODE_MAX_LEN = 1024
+MODEL_CALLS = 5                     # timed forward calls (CUDA events), after as many warm
+DECODE_CALLS = 20                   # timed decode steps, after as many warm
+MODEL_PROFILED = 3                  # calls traced by torch.profiler
+
+
+def model_batch(cfg, B, S, seed):
+    """Seeded tokens (and the VLM's patches, Whisper's frames), as numpy."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": rng.randint(0, min(cfg.vocab_size, 4096), (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.randn(B, cfg.num_patches, cfg.d_model).astype(np.float32) * 0.02
+    if cfg.family == "audio":
+        batch["frames"] = rng.randn(B, cfg.encoder_seq, cfg.d_model).astype(np.float32) * 0.02
+    return batch
+
+
+def held(label, got, want, tol):
+    """Max |got - want|; the run fails past rtol = atol = ``tol`` or on a
+    value that is not finite."""
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape:
+        raise SystemExit(f"models {label}: shape {tuple(got.shape)}, expected {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise SystemExit(f"models {label}: max |err| {err:.3g} past {tol}")
+    return err
+
+
+def family_checks(dev):
+    """Every architecture at ``reduced_config``: ``forward`` and
+    ``decode_chunk`` on the card against the port on the CPU, the same
+    seeded weights, f32."""
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHITECTURES, get_config, reduced_config
+    from repro_torch.models.module import tree_map
+
+    rows = []
+    for arch in sorted(ARCHITECTURES):
+        cfg = reduced_config(get_config(arch))
+        cpu = models.init_params(cfg, 0, device="cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        batch = model_batch(cfg, 2, 16, seed=1)
+        f_err = held(f"{arch} forward", models.forward(card, batch, cfg),
+                     models.forward(cpu, batch, cfg), FAMILY_TOL)
+        toks, lengths = batch["tokens"][:, :8], np.array([8, 5], np.int32)
+        outs = []
+        for params, where in ((cpu, "cpu"), (card, dev)):
+            cache = models.init_cache(cfg, 2, 16, device=where)
+            if cfg.is_encoder_decoder:     # Whisper's cache takes the encoder's cross K/V
+                xk, xv = models.prefill_cross_attention(params, batch["frames"], cfg, 2)
+                cache["xk"].copy_(xk)
+                cache["xv"].copy_(xv)
+            outs.append(models.decode_chunk(params, cache, toks, 0, cfg, lengths=lengths)[0])
+        d_err = held(f"{arch} decode_chunk", outs[1], outs[0], FAMILY_TOL)
+        rows.append({"arch": arch, "forward_err": f_err, "decode_chunk_err": d_err})
+        print(f"models {arch}: reduced, card vs cpu, f32: forward max |err| {f_err:.3g}, "
+              f"decode_chunk {d_err:.3g} (tol {FAMILY_TOL})")
+    return rows
+
+
+def granite_checks(dev):
+    """granite-moe-3b-a800m at full width in f32 (see the module docstring):
+    2 layers on the card against the CPU; at full depth with dense MoE,
+    decode_chunk against forward, and the paged cache against the slot
+    cache bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import tree_map
+
+    base = dataclasses.replace(get_config(MODEL_ARCH), dtype="float32")
+    row = {}
+    # card against CPU, 2 layers, the config's own (scatter) MoE
+    cfg = dataclasses.replace(base, num_layers=GRANITE_CPU_LAYERS)
+    cpu = models.init_params(cfg, 0, device="cpu")
+    batch = model_batch(cfg, 1, PROMPT[1], seed=2)
+    want = models.forward(cpu, batch, cfg)
+    card = tree_map(lambda t: t.to(dev), cpu)
+    row["card_vs_cpu_err"] = held("granite 2 layers forward, card vs cpu",
+                                  models.forward(card, batch, cfg), want, GRANITE_CPU_TOL)
+    del cpu, card
+    # full depth, dense MoE: decode against forward, paged against slot
+    cfg = dataclasses.replace(base, moe_impl="dense")
+    params = models.init_params(cfg, 0, device=dev)
+    B, S = PROMPT
+    toks = model_batch(cfg, B, S, seed=3)["tokens"]
+    lengths = np.array(PROMPT_LENGTHS, np.int32)
+    full = models.forward(params, {"tokens": toks}, cfg)
+    at = full[torch.arange(B), torch.as_tensor(lengths - 1, device=dev)]
+    cache = models.init_cache(cfg, B, SLOT_MAX_LEN, device=dev)
+    t0 = time.perf_counter()
+    got, cache = models.decode_chunk(params, cache, toks, 0, cfg, lengths=lengths)
+    torch.cuda.synchronize()
+    row["decode_chunk_64_f32_s"] = time.perf_counter() - t0
+    row["decode_vs_forward_err"] = held("granite full depth decode_chunk vs forward", got, at,
+                                        DECODE_TOL)
+    # paged (blocks of 16 dealt from a seeded shuffle, a spare block) against slot
+    active = np.array([True, True, True, False])
+    nblk = -(-SLOT_MAX_LEN // PAGED_BLOCK)
+    num_blocks = B * nblk + 1
+    tables = np.random.RandomState(4).permutation(num_blocks)[: B * nblk].reshape(B, nblk)
+    slot = models.init_cache(cfg, B, SLOT_MAX_LEN, device=dev)
+    paged = models.init_paged_cache(cfg, num_blocks, PAGED_BLOCK, B, device=dev)
+    a, slot = models.decode_chunk(params, slot, toks, 0, cfg, active, lengths)
+    b, paged = models.decode_chunk(params, paged, toks, 0, cfg, active, lengths,
+                                   tables, SLOT_MAX_LEN)
+    torch.cuda.synchronize()
+    tab = torch.as_tensor(tables, device=dev).long()
+    kv_same = all(
+        torch.equal(slot[n][:, r, :n_tok],
+                    paged[n][:, tab[r]].flatten(1, 2)[:, :n_tok])
+        for n in ("k", "v") for r, n_tok in enumerate(lengths) if active[r])
+    if not torch.equal(a, b) or not kv_same or a[3].any():
+        raise SystemExit(f"models granite paged vs slot: logits equal {torch.equal(a, b)}, "
+                         f"K/V equal {kv_same}, inactive row zero {not a[3].any()}")
+    row["paged_vs_slot"] = "bitwise"
+    print(f"models {MODEL_ARCH}: full width f32, TF32 off: {GRANITE_CPU_LAYERS} layers card vs "
+          f"cpu max |err| {row['card_vs_cpu_err']:.3g} (tol {GRANITE_CPU_TOL}); full depth "
+          f"{cfg.num_layers} layers dense MoE: decode_chunk {PROMPT} (lengths {PROMPT_LENGTHS}) "
+          f"vs forward max |err| {row['decode_vs_forward_err']:.3g} (tol {DECODE_TOL}); paged "
+          f"(blocks of {PAGED_BLOCK}) vs slot cache bit for bit, one row inactive")
+    return row
+
+
+def top_kernels(by_name, n=8):
+    """The ``n`` device kernels that take the most time a call: [name, µs]."""
+    return [[name[:120], us] for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def granite_times(dev, smi):
+    """granite-moe-3b-a800m at full width and depth in bf16 with the
+    default scatter MoE: forward of FORWARD_SHAPE tokens, a context of
+    DECODE_CONTEXT tokens built by decode_chunk of DECODE_CHUNK tokens,
+    then decode_step at DECODE_BATCH (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MODEL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = models.init_params(cfg, 0, device=dev)
+    row = {"arch": MODEL_ARCH, "dtype": cfg.dtype, "moe_impl": cfg.moe_impl,
+           "layers": cfg.num_layers, "param_count": models.count_params(params),
+           "param_bytes": models.tree_bytes(params)}
+    B, S = FORWARD_SHAPE
+    batch = {"tokens": torch.as_tensor(model_batch(cfg, B, S, seed=5)["tokens"], device=dev)}
+    logits = models.forward(params, batch, cfg)
+    if tuple(logits.shape) != (B, S, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"models forward bf16: shape {tuple(logits.shape)}, finite "
+                         f"{bool(torch.isfinite(logits).all())}")
+    del logits
+
+    def fwd():
+        return models.forward(params, batch, cfg)
+
+    row["forward_shape"] = [B, S]
+    row["forward_ms"] = time_ms(fwd, MODEL_CALLS)
+    row["forward_tokens_per_s"] = B * S / (row["forward_ms"] / 1e3)
+    kernels, by_name = device_profile(fwd, MODEL_PROFILED, label="models forward")
+    row["forward_device_ms"] = sum(by_name.values()) / 1e3
+    row["forward_device_kernels"] = kernels
+    row["forward_idle_share"] = 1 - row["forward_device_ms"] / row["forward_ms"]
+    row["forward_top_kernels"] = top_kernels(by_name)
+
+    Bd = DECODE_BATCH
+    cache = models.init_cache(cfg, Bd, DECODE_MAX_LEN, device=dev)
+    ctx = torch.as_tensor(model_batch(cfg, Bd, DECODE_CONTEXT, seed=6)["tokens"], device=dev)
+    chunk_ms = []
+    for start in range(0, DECODE_CONTEXT, DECODE_CHUNK):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        last, cache = models.decode_chunk(params, cache, ctx[:, start:start + DECODE_CHUNK],
+                                          start, cfg)
+        t1.record()
+        torch.cuda.synchronize()
+        chunk_ms.append(t0.elapsed_time(t1))
+    if not bool(torch.isfinite(last).all()):
+        raise SystemExit("models decode_chunk bf16: logits not finite")
+    row["decode_chunk_tokens"] = DECODE_CHUNK
+    row["decode_chunk_ms"] = float(np.mean(chunk_ms[1:]))   # the first also warms up
+    row["decode_chunk_ms_each"] = chunk_ms
+    pos = [DECODE_CONTEXT]
+    tok = ctx[:, -1]
+
+    def step():
+        out, _ = models.decode_step(params, cache, tok, pos[0], cfg)
+        pos[0] += 1
+        return out
+
+    row["decode_batch"], row["decode_context"] = Bd, DECODE_CONTEXT
+    row["decode_step_ms"] = time_ms(step, DECODE_CALLS)
+    kernels, by_name = device_profile(step, MODEL_PROFILED, label="models decode_step")
+    row["decode_step_device_ms"] = sum(by_name.values()) / 1e3
+    row["decode_step_device_kernels"] = kernels
+    row["decode_step_idle_share"] = 1 - row["decode_step_device_ms"] / row["decode_step_ms"]
+    row["decode_step_top_kernels"] = top_kernels(by_name)
+    row["decode_step_bound_ms"] = row["param_bytes"] / HBM_BYTES_PER_S * 1e3
+    if pos[0] > DECODE_MAX_LEN:
+        raise SystemExit(f"models decode_step: ran to position {pos[0]} past the cache")
+    torch.cuda.synchronize()
+    row["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    row["card"] = smi
+    print(f"models {MODEL_ARCH} bf16 {cfg.moe_impl}: forward {B}x{S} {row['forward_ms']:.2f} ms "
+          f"({row['forward_tokens_per_s']:.0f} tokens/s), device {row['forward_device_ms']:.2f} ms "
+          f"in {row['forward_device_kernels']:.0f} kernels; decode_chunk of "
+          f"{DECODE_CHUNK} {row['decode_chunk_ms']:.2f} ms; decode_step at {Bd} over "
+          f"{DECODE_CONTEXT} tokens {row['decode_step_ms']:.2f} ms, device "
+          f"{row['decode_step_device_ms']:.3f} ms in {row['decode_step_device_kernels']:.0f} "
+          f"kernels, idle share {row['decode_step_idle_share']:.3f}; params "
+          f"{row['param_bytes']} bytes, peak allocated {row['peak_allocated_bytes']} bytes ({smi})")
+    return row
+
+
+def models_phase(dev, smi):
+    """Phase 13: the models on the card (see the module docstring).  The
+    hand-written kernels' counters are set to 0 just before and read just
+    after: the models' path launches none of them.  Returns the models
+    line's object and each hand-written kernel's launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    families = family_checks(dev)
+    checks = granite_checks(dev)
+    times = granite_times(dev, smi)
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    if any(launches.values()):
+        raise SystemExit(f"models: the path launched hand-written kernels {launches}")
+    return {"families": families, "granite_checks": checks, **times,
+            "tolerances": {"family_f32": FAMILY_TOL, "granite_card_vs_cpu_f32": GRANITE_CPU_TOL,
+                           "decode_vs_forward_f32": DECODE_TOL, "paged_vs_slot": "bitwise"}}, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -2106,6 +2402,12 @@ def main(argv=None) -> int:
     for entry in entries:
         # the hand-written kernels are not on the frontend's path: 0
         entry["frontend_launches"] = frontend_launches.get(entry["name"], 0)
+
+    # ---- 13. the models -------------------------------------------------------------
+    models_row, models_launches = models_phase(dev, smi)
+    for entry in entries:
+        # the models call no hand-written kernel and compile nothing: 0
+        entry["models_launches"] = models_launches.get(entry["name"], 0)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -2114,10 +2416,12 @@ def main(argv=None) -> int:
                        "stitched_compiles": stitched_rows, "extra_compiles": extra_rows,
                        "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
                        "autotune": autotune_rows, "fault_modules": fault_rows,
-                       "frontend": frontend_rows, "profile_retakes": RETAKES}, f, indent=1)
+                       "frontend": frontend_rows, "models": models_row,
+                       "profile_retakes": RETAKES}, f, indent=1)
     print(f"profiles taken again: {sum(len(r['refused']) for r in RETAKES)} "
           f"({', '.join(r['label'] for r in RETAKES) or 'none'})")
     print(f"card: {smi}")
+    print(json.dumps({"models": models_row}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -7,6 +7,8 @@ Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel runs its plain PyTorch version.
 ``stitch`` (``frontend/``) captures a PyTorch function into StitchIR and
 compiles it per input signature, as ``repro.stitch`` does a JAX function.
+``configs`` and ``models`` hold the architectures and the LM stack (forward,
+slot and paged decode) in plain torch ops.
 The package imports torch and numpy, never jax and nothing of ``repro``.
 """
 from .core import (  # noqa: F401
@@ -18,6 +20,7 @@ from .core import (  # noqa: F401
     compile_module,
     reference_execute,
 )
+from . import configs, models  # noqa: F401
 from .frontend import (  # noqa: F401
     SUPPORTED_OPS,
     CostEstimate,

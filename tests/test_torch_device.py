@@ -4,6 +4,10 @@
 * ``compile_module``, ``reference_execute`` and the measuring helpers
   (``emit_group``, ``measure_group``, ``measure_kernel``) target the card
   by default and raise when there is none; they never fall back to the CPU.
+* The models' constructors (``init_params``, ``init_cache``,
+  ``init_paged_cache``, ``params_from_reference``) target the card by
+  default and raise when there is none; ``forward`` and the decode steps
+  run where the parameters lie.
 * A kernel wrapper launches on CUDA tensors, runs its plain version on CPU
   tensors, and refuses tensors on any other device.  Called with no tensors
   it targets the card unless asked for the CPU.
@@ -31,7 +35,9 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks", "graphs"))
 print(len(names), leaked)
-wanted = ("repro_torch.kernels.ops", "repro_torch.frontend.api", "repro_torch.frontend.aten_lower")
+wanted = ("repro_torch.kernels.ops", "repro_torch.frontend.api", "repro_torch.frontend.aten_lower",
+          "repro_torch.configs", "repro_torch.configs.base", "repro_torch.models",
+          "repro_torch.models.transformer", "repro_torch.models.ssm")
 sys.exit(1 if leaked or len(names) < 15 or any(w not in names for w in wanted) else 0)
 """
 
@@ -95,3 +101,30 @@ def test_kernel_with_no_inputs_targets_the_card(monkeypatch):
         program(device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert program() == ("launch", torch.device("cuda"))
+
+
+def test_models_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config(get_config("hymba-1.5b"))
+    builders = {
+        "init_params": lambda **kw: models.init_params(cfg, 0, **kw),
+        "init_cache": lambda **kw: models.init_cache(cfg, 2, 8, **kw),
+        "init_paged_cache": lambda **kw: models.init_paged_cache(cfg, 4, 4, 2, **kw),
+        "params_from_reference": lambda **kw: models.params_from_reference(
+            {"w": np.ones((2, 3), np.float32)}, **kw),
+    }
+    for name, build in builders.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+        with pytest.raises(ValueError, match="unsupported device"):
+            build(device="meta")
+        on_cpu = build(device="cpu")
+        assert all(t.device.type == "cpu" for t in models.module.tree_leaves(on_cpu)), name
+    params = builders["init_params"](device="cpu")
+    cache = builders["init_cache"](device="cpu")
+    logits, _ = models.decode_step(params, cache, np.array([1, 2]), 0, cfg)
+    assert logits.device.type == "cpu"
+    assert models.forward(params, {"tokens": np.ones((1, 4), np.int32)}, cfg).device.type == "cpu"
