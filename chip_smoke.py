@@ -156,8 +156,10 @@ Phases, each fatal on failure:
    share of each.  Last, ``donate_argnums`` on the card: a donated input's
    buffer takes a later kernel's output, the other inputs unchanged.
 13. models — ``repro_torch.models`` on the card, no kernel of the port on
-   its path (the hand-written kernels' counters are set to 0 before it and
-   must read 0 after: the reference's models call no Pallas kernel).  Each
+   its path (every kernel's launch count, the hand-written kernels'
+   counters and the generated kernels' tally by emitter, is set to 0
+   before it and must read 0 after: the reference's models call no Pallas
+   kernel).  Each
    of the ten architectures at ``reduced_config``: ``forward`` and
    ``decode_chunk`` (ragged lengths; Whisper after
    ``prefill_cross_attention``) on the card against the port on the CPU,
@@ -177,22 +179,47 @@ Phases, each fatal on failure:
    device kernels a step, idle share, and the bound: the parameters' bytes
    over 3.35 TB/s, as decode reads every expert), parameter bytes and peak
    allocated bytes beside the card's name and power limit.
+14. serving — ``repro_torch.serve`` on the card, each engine step (decode,
+   prefill chunk) captured once into a CUDA graph and replayed, no kernel
+   of the port on its path (the launch counts are set to 0 before it and
+   must read 0 after, as in phase 13).  (a) Each architecture at ``reduced_config``, f32 with
+   TF32 off: a seeded trace through ``PagedServeEngine`` (Whisper through
+   ``ServeEngine``: its paged cache raises, as the reference's does), the
+   card's replayed engine against the CPU's eager engine: every request's
+   tokens and every ``stats()`` counter equal.  (b) granite-moe-3b-a800m
+   at full width and depth in its own bf16, tokens bit for bit: paged
+   against slot for the reference's single-request prompt lengths at one
+   width and ``max_len`` 31 (the slot ring's 32 slots equal the paged
+   view's 2 blocks of 16); preemption-resume (a pool of one max-length
+   context, two requests) against solo runs at that width; and (c)'s trace
+   replayed against eager, counters equal.  (c) One seeded Poisson trace
+   (16 requests, prompts of 16-64 tokens, 8-16 new) through the paged
+   engine (width 8, ``max_len`` 255, blocks of 16, chunks of 16), eager then
+   replayed: tokens/s, TTFT and latency p50/p99, a decode launch with every
+   row active (ms by CUDA events; device ms, device kernels and idle share
+   from torch.profiler; the bound: the parameters' bytes over 3.35 TB/s), a
+   prefill launch (the median ms of ``SERVE_PREFILL_CALLS`` launches, each
+   between its own CUDA events), each graph's capture and instantiation seconds, max
+   inflight, KV peak utilization and peak allocated bytes, beside the
+   card's name and power limit.  (d) ``repro_torch.launch.serve.main`` at
+   full width for 8 requests must finish every one.
 
 Every profile whose device kernels a call are none or not a whole number,
 or disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and
 each refused reading, with the pad kernels it kept, goes into ``--out`` as
 ``profile_retakes``.
 
-Before the last two lines, phase 13's numbers as one JSON object
-(``models``).  The line before the last is one JSON object with a
-``kernels`` list: one
+Before the last two lines, phase 13's and phase 14's numbers as one JSON
+object each (``models``, ``serve``).  The line before the last is one JSON
+object with a ``kernels`` list: one
 entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``, with its
-launches in phase 12's counted calls as ``frontend_launches`` and in phase
-13's as ``models_launches``) and one per
+launches in phase 12's counted calls as ``frontend_launches``, in phase
+13's as ``models_launches`` and in phase 14's as ``serve_launches``) and
+one per
 hand-written kernel (with its f16 numbers as ``f16_*`` keys); the last
 line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes every
 per-graph, per-kernel and per-function number as JSON (phase 12's under
-``"frontend"``), with nvcc's register, shared-memory and spill lines.  Exits
+``"frontend"``, phase 14's under ``"serve"``), with nvcc's register, shared-memory and spill lines.  Exits
 non-zero with no result when no card is present.
 """
 import argparse
@@ -409,11 +436,12 @@ def max_err(got, want, mask):
     return err, not bool(bad.any())
 
 
-def time_ms(fn, calls):
-    """Milliseconds per call: CUDA events around ``calls`` calls after warmup."""
+def time_ms(fn, calls, warm=True):
+    """Milliseconds per call: CUDA events around ``calls`` calls, after as
+    many warm-up calls (up to ``WARMUP``) unless ``warm`` is False."""
     import torch
 
-    for _ in range(min(WARMUP, calls)):
+    for _ in range(min(WARMUP, calls) if warm else 0):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -2043,27 +2071,324 @@ def granite_times(dev, smi):
     return row
 
 
-def models_phase(dev, smi):
-    """Phase 13: the models on the card (see the module docstring).  The
-    hand-written kernels' counters are set to 0 just before and read just
-    after: the models' path launches none of them.  Returns the models
-    line's object and each hand-written kernel's launches."""
-    import torch
-
+def zero_launches():
+    """Set every launch count the kernels line reads to 0: each hand-written
+    kernel's counter and the generated kernels' tally by emitter."""
+    from repro_torch.core.codegen import KernelProgram
     from repro_torch.kernels import ops
 
     for kern in ops.KERNELS.values():
         kern.launches = 0
+    for emitter in KernelProgram.launches_by_emitter:
+        KernelProgram.launches_by_emitter[emitter] = 0
+
+
+def read_launches(label):
+    """Every kernel's launches since ``zero_launches``, by the kernels
+    line's names; ``label``'s path launches none of them."""
+    import torch
+
+    from repro_torch.core.codegen import KernelProgram
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    launches = {**KernelProgram.launches_by_emitter,
+                **{name: kern.launches for name, kern in ops.KERNELS.items()}}
+    if any(launches.values()):
+        raise SystemExit(f"{label}: the path launched the port's kernels {launches}")
+    return launches
+
+
+def models_phase(dev, smi):
+    """Phase 13: the models on the card (see the module docstring).  Every
+    kernel's launch count, hand-written and generated, is set to 0 just
+    before and read just after: the models' path launches none of them.
+    Returns the models line's object and each kernel's launches."""
+    zero_launches()
     families = family_checks(dev)
     checks = granite_checks(dev)
     times = granite_times(dev, smi)
-    torch.cuda.synchronize()
-    launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
-    if any(launches.values()):
-        raise SystemExit(f"models: the path launched hand-written kernels {launches}")
+    launches = read_launches("models")
     return {"families": families, "granite_checks": checks, **times,
             "tolerances": {"family_f32": FAMILY_TOL, "granite_card_vs_cpu_f32": GRANITE_CPU_TOL,
                            "decode_vs_forward_f32": DECODE_TOL, "paged_vs_slot": "bitwise"}}, launches
+
+
+# ---- phase 14: serving -------------------------------------------------------------
+#: (a) each family at reduced_config: a small seeded trace, card (replayed)
+#: against CPU (eager); Whisper through the slot engine, whose paged cache raises
+FAMILY_TRACE = dict(num_requests=6, mean_interarrival_ticks=1.0, prompt_len_lo=3,
+                    prompt_len_hi=12, max_new_lo=3, max_new_hi=6, seed=1)
+FAMILY_PAGED = dict(decode_width=4, max_len=32, block_size=4, prefill_chunk=4)
+FAMILY_SLOT = dict(pool_size=4, max_len=32, prefill_chunk=4)
+#: (b) paged against slot at one width and a max_len of 2 x 16 - 1: the slot
+#: ring's W + 1 = 32 slots equal the paged view's 2 blocks of 16, so both read
+#: views have one shape; the prompt lengths and chunks of the reference's
+#: test_paged_matches_slot_engine_single_request
+PARITY_WIDTH, PARITY_MAX_LEN, PARITY_BLOCK, PARITY_NEW = 2, 31, 16, 6
+PARITY_PROMPTS = ((1, 4), (3, 4), (7, 4), (12, 8), (17, 4))
+#: preemption-resume: a pool of one max-length context (2 blocks), two
+#: 12-token prompts of 16 new tokens each, as test_preemption_resume_token_parity
+PREEMPT_PROMPTS = ((1, 13), (20, 32))
+PREEMPT_NEW = 16
+#: (c) one seeded Poisson trace through the paged engine, eager then replayed
+SERVE_TRACE = dict(num_requests=16, mean_interarrival_ticks=2, prompt_len_lo=16,
+                   prompt_len_hi=64, max_new_lo=8, max_new_hi=16, seed=0)
+SERVE_ENGINE = dict(decode_width=8, max_len=255, block_size=16, prefill_chunk=16)
+SERVE_DECODE_CALLS = 10     # timed decode launches (CUDA events), after as many warm
+SERVE_PREFILL_CALLS = 5     # prefill launches timed one by one (median), after one warm
+SERVE_POSITION = 128        # every row's position in the timed launches
+#: (d) the entry point at full width
+SERVE_ARGV = ["--arch", MODEL_ARCH, "--requests", "8"]
+
+
+def serve_trace(eng, trace):
+    """``run_trace`` of ``trace`` through ``eng``: the report and each
+    request's tokens by rid (the harness makes the requests)."""
+    from repro_torch import serve
+
+    reqs = {}
+    admit = eng.admit
+
+    def keep(req):
+        reqs[req.rid] = req
+        return admit(req)
+
+    eng.admit = keep
+    rep = serve.run_trace(eng, trace, max_ticks=20_000, strict=True)
+    del eng.admit
+    return rep, {rid: r.out_tokens for rid, r in reqs.items()}
+
+
+def engine_counters(stats):
+    """Every ``stats()`` entry but the times, the graphs' own keys and the
+    process-wide step cache: the reference's counters."""
+    return {k: v for k, v in stats.items()
+            if k not in ("graph_captures", "graph_replays", "graphs", "decode_cache")}
+
+
+def graphs_replayed(label, eng):
+    """The engine replayed its steps: each captured once, one replay a launch."""
+    st = eng.stats()
+    launches = st["prefill_launches"] + st["decode_launches"]
+    if not eng.replay or st["graph_replays"] != launches or st["graph_captures"] < 1:
+        raise SystemExit(f"serve {label}: replay {eng.replay}, {st['graph_captures']} captures, "
+                         f"{st['graph_replays']} replays for {launches} launches")
+
+
+def serve_families(dev):
+    """(a): each architecture at reduced_config, f32: the card's replayed
+    engine against the CPU's eager engine on one seeded trace, tokens and
+    counters."""
+    from repro_torch import models, serve
+    from repro_torch.configs import ARCHITECTURES, get_config, reduced_config
+    from repro_torch.models.module import tree_map
+
+    rows = []
+    for arch in sorted(ARCHITECTURES):
+        cfg = reduced_config(get_config(arch))
+        cpu = models.init_params(cfg, 0, device="cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        trace = serve.generate_trace(serve.TraceConfig(vocab_size=cfg.vocab_size, **FAMILY_TRACE))
+        runs = {}
+        for where, params in (("cpu", cpu), ("card", card)):
+            if cfg.family == "audio":
+                eng = serve.ServeEngine(cfg, params, device=params["embed"]["tok"].device,
+                                        **FAMILY_SLOT)
+            else:
+                eng = serve.PagedServeEngine(cfg, params, device=params["embed"]["tok"].device,
+                                             **FAMILY_PAGED)
+            rep, toks = serve_trace(eng, trace)
+            runs[where] = (toks, engine_counters(eng.stats()), rep)
+        graphs_replayed(arch, eng)
+        (ctoks, cst, _), (gtoks, gst, rep) = runs["cpu"], runs["card"]
+        if gtoks != ctoks or gst != cst:
+            bad = [rid for rid in ctoks if gtoks.get(rid) != ctoks[rid]]
+            raise SystemExit(f"serve {arch}: card (replayed) vs cpu (eager): requests {bad} differ, "
+                             f"counters equal {gst == cst}")
+        rows.append({"arch": arch, "engine": type(eng).__name__, "requests": rep.completed,
+                     "tokens": rep.tokens_out, "ticks": rep.ticks})
+        print(f"serve {arch}: reduced f32 {type(eng).__name__}, card replayed vs cpu eager: "
+              f"{rep.completed} requests, {rep.tokens_out} tokens, {rep.ticks} ticks, tokens "
+              "and counters equal")
+    return rows
+
+
+def serve_parity(cfg, params, dev):
+    """(b) at full width: paged against slot for single requests, and
+    preemption-resume against solo runs, tokens bit for bit."""
+    import numpy as np
+
+    from repro_torch import serve
+
+    def solo_runs(make, prompts, n):
+        eng = make()
+        out = []
+        for p in prompts:
+            r = serve.Request(rid=len(out), prompt=p, max_new_tokens=n)
+            eng.admit(r)
+            if eng.run_until_done() != 0:
+                raise SystemExit("serve parity: a request did not finish")
+            out.append(r.out_tokens)
+        graphs_replayed("parity", eng)
+        return out
+
+    rows = []
+    for chunk in sorted({c for _, c in PARITY_PROMPTS}):
+        prompts = [(np.arange(n) % 100 + 1).astype(np.int32) for n, c in PARITY_PROMPTS if c == chunk]
+        slot = solo_runs(lambda: serve.ServeEngine(
+            cfg, params, pool_size=PARITY_WIDTH, max_len=PARITY_MAX_LEN, prefill_chunk=chunk,
+            device=dev), prompts, PARITY_NEW)
+        paged = solo_runs(lambda: serve.PagedServeEngine(
+            cfg, params, decode_width=PARITY_WIDTH, max_len=PARITY_MAX_LEN,
+            block_size=PARITY_BLOCK, prefill_chunk=chunk, device=dev), prompts, PARITY_NEW)
+        for p, a, b in zip(prompts, slot, paged, strict=True):
+            if a != b:
+                raise SystemExit(f"serve paged vs slot, prompt {len(p)} chunk {chunk}: {b} vs {a}")
+            rows.append({"prompt": len(p), "chunk": chunk, "tokens": a})
+    prompts = [np.arange(lo, hi, dtype=np.int32) for lo, hi in PREEMPT_PROMPTS]
+    solo = solo_runs(lambda: serve.ServeEngine(
+        cfg, params, pool_size=PARITY_WIDTH, max_len=PARITY_MAX_LEN, prefill_chunk=4,
+        device=dev), prompts, PREEMPT_NEW)
+    eng = serve.PagedServeEngine(cfg, params, decode_width=PARITY_WIDTH, max_len=PARITY_MAX_LEN,
+                                 block_size=PARITY_BLOCK, num_blocks=-(-PARITY_MAX_LEN // PARITY_BLOCK),
+                                 prefill_chunk=4, device=dev)
+    reqs = [serve.Request(rid=i, prompt=p, max_new_tokens=PREEMPT_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.admit(r)
+    if eng.run_until_done(max_ticks=1000) != 0 or eng.sched.preemptions == 0:
+        raise SystemExit(f"serve preemption: unfinished or {eng.sched.preemptions} preemptions")
+    graphs_replayed("preemption", eng)
+    if [r.out_tokens for r in reqs] != solo:
+        raise SystemExit(f"serve preemption-resume: {[r.out_tokens for r in reqs]} vs solo {solo}")
+    eng.allocator.check_consistent()
+    print(f"serve {MODEL_ARCH} bf16: paged vs slot at width {PARITY_WIDTH}, max_len "
+          f"{PARITY_MAX_LEN}, blocks of {PARITY_BLOCK}: {len(rows)} single requests bit for bit; "
+          f"preemption-resume ({eng.sched.preemptions} preemptions) equals the solo runs")
+    return {"paged_vs_slot": rows, "preemptions": eng.sched.preemptions, "preempt_tokens": solo}
+
+
+def serve_numbers(cfg, params, dev, smi):
+    """(b) replayed against eager and (c) the numbers, on one trace."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import models, serve
+
+    trace = serve.generate_trace(serve.TraceConfig(vocab_size=cfg.vocab_size, **SERVE_TRACE))
+    runs = {}
+    for mode, replay in (("eager", False), ("replayed", True)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = serve.PagedServeEngine(cfg, params, **SERVE_ENGINE, device=dev, replay=replay)
+        t0 = time.perf_counter()
+        rep, toks = serve_trace(eng, trace)
+        wall = time.perf_counter() - t0
+        if rep.completed != rep.total:
+            raise SystemExit(f"serve {mode}: {rep.completed} of {rep.total} requests finished")
+        st = eng.stats()
+        if replay:
+            graphs_replayed(mode, eng)
+        row = {"trace_s": wall, "report": dataclasses.asdict(rep), "counters": engine_counters(st),
+               "graphs": st["graphs"], "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        # a decode and a prefill launch with every row active, timed and profiled
+        W, C = eng.width, eng.prefill_chunk
+        rng = np.random.RandomState(7)
+        table = (np.arange(eng._table.size) % eng.num_blocks).reshape(eng._table.shape).astype(np.int32)
+        pos = np.full(W, SERVE_POSITION, np.int32)
+        act = np.ones(W, bool)
+        toks_v = rng.randint(0, cfg.vocab_size, W).astype(np.int32)
+        toks_m = rng.randint(0, cfg.vocab_size, (W, C)).astype(np.int32)
+        lens = np.full(W, C, np.int32)
+
+        def decode():
+            return eng._steps[0](toks_v, pos, act, table)
+
+        def prefill():
+            return eng._steps[1](toks_m, pos, act, lens, table)
+
+        row["decode_launch_ms"] = time_ms(decode, SERVE_DECODE_CALLS)
+        kernels, by_name = device_profile(decode, MODEL_PROFILED, label=f"serve {mode} decode")
+        row["decode_device_ms"] = sum(by_name.values()) / 1e3
+        row["decode_device_kernels"] = kernels
+        row["decode_idle_share"] = 1 - row["decode_device_ms"] / row["decode_launch_ms"]
+        row["decode_top_kernels"] = top_kernels(by_name)
+        prefill()
+        row["prefill_launch_ms_each"] = [time_ms(prefill, 1, warm=False)
+                                         for _ in range(SERVE_PREFILL_CALLS)]
+        row["prefill_launch_ms"] = float(np.median(row["prefill_launch_ms_each"]))
+        runs[mode] = (row, toks)
+        del eng
+    (erow, etoks), (grow, gtoks) = runs["eager"], runs["replayed"]
+    if gtoks != etoks or grow["counters"] != erow["counters"]:
+        bad = [rid for rid in etoks if gtoks.get(rid) != etoks[rid]]
+        raise SystemExit(f"serve replayed vs eager: requests {bad} differ, counters equal "
+                         f"{grow['counters'] == erow['counters']}")
+    bound_ms = models.tree_bytes(params) / HBM_BYTES_PER_S * 1e3
+    for mode, (row, _) in runs.items():
+        rep = row["report"]
+        print(f"serve {MODEL_ARCH} bf16 paged {mode}: {rep['completed']} requests, "
+              f"{rep['tokens_out']} tokens in {rep['ticks']} ticks, {rep['duration_s']:.3f} s: "
+              f"{rep['tokens_per_s']:.1f} tokens/s; TTFT p50/p99 {rep['ttft_p50_ms']:.1f}/"
+              f"{rep['ttft_p99_ms']:.1f} ms; latency p50/p99 {rep['latency_p50_ms']:.1f}/"
+              f"{rep['latency_p99_ms']:.1f} ms; decode launch {row['decode_launch_ms']:.3f} ms "
+              f"(device {row['decode_device_ms']:.3f} ms in {row['decode_device_kernels']:.0f} "
+              f"kernels, idle share {row['decode_idle_share']:.3f}, bound {bound_ms:.3f}); prefill "
+              f"launch of {SERVE_ENGINE['prefill_chunk']} {row['prefill_launch_ms']:.2f} ms (median "
+              f"of {[round(t, 2) for t in row['prefill_launch_ms_each']]}); "
+              f"max inflight {rep['max_inflight']}, KV peak {rep['kv_peak_utilization']:.3f}; "
+              f"peak allocated {row['peak_allocated_bytes']} bytes; graphs {row['graphs']} ({smi})")
+    print(f"serve {MODEL_ARCH}: replayed vs eager on one trace: every request's tokens bit for "
+          f"bit, counters equal ({erow['counters']['ticks']} ticks, "
+          f"{erow['counters']['prefill_launches']} prefill and "
+          f"{erow['counters']['decode_launches']} decode launches, "
+          f"{erow['counters']['preemptions']} preemptions)")
+    return {"eager": erow, "replayed": grow, "decode_bound_ms": bound_ms}
+
+
+def serve_phase(dev, smi):
+    """Phase 14: serving on the card (see the module docstring).  Every
+    kernel's launch count, hand-written and generated, is set to 0 just
+    before and read just after: the serving path launches none of them.
+    Returns the serve line's object and each kernel's launches."""
+    import gc
+
+    import torch
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+
+    zero_launches()
+    seconds = {}
+    t0 = time.perf_counter()
+    families = serve_families(dev)
+    seconds["families"] = time.perf_counter() - t0
+    cfg = get_config(MODEL_ARCH)
+    params = models.init_params(cfg, 0, device=dev)
+    t1 = time.perf_counter()
+    parity = serve_parity(cfg, params, dev)
+    seconds["parity"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    numbers = serve_numbers(cfg, params, dev, smi)
+    seconds["numbers"] = time.perf_counter() - t1
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    if launch_serve.main(SERVE_ARGV) != 0:
+        raise SystemExit(f"serve: python -m repro_torch.launch.serve {' '.join(SERVE_ARGV)} left "
+                         "requests unfinished")
+    seconds["entry_point"] = time.perf_counter() - t1
+    launches = read_launches("serve")
+    seconds["phase"] = time.perf_counter() - t0
+    print(f"serve: launch.serve {' '.join(SERVE_ARGV)} finished every request; seconds "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return {"families": families, "parity": parity, **numbers, "seconds": seconds,
+            "card": smi}, launches
 
 
 def main(argv=None) -> int:
@@ -2406,8 +2731,15 @@ def main(argv=None) -> int:
     # ---- 13. the models -------------------------------------------------------------
     models_row, models_launches = models_phase(dev, smi)
     for entry in entries:
-        # the models call no hand-written kernel and compile nothing: 0
-        entry["models_launches"] = models_launches.get(entry["name"], 0)
+        # the models call no hand-written kernel and compile nothing: 0, as counted
+        entry["models_launches"] = models_launches[entry["name"]]
+
+    # ---- 14. serving -------------------------------------------------------------------
+    serve_row, serve_launches = serve_phase(dev, smi)
+    for entry in entries:
+        # the serving path calls the models only: no hand-written kernel, no
+        # compile; 0, as counted
+        entry["serve_launches"] = serve_launches[entry["name"]]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -2416,12 +2748,13 @@ def main(argv=None) -> int:
                        "stitched_compiles": stitched_rows, "extra_compiles": extra_rows,
                        "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
                        "autotune": autotune_rows, "fault_modules": fault_rows,
-                       "frontend": frontend_rows, "models": models_row,
+                       "frontend": frontend_rows, "models": models_row, "serve": serve_row,
                        "profile_retakes": RETAKES}, f, indent=1)
     print(f"profiles taken again: {sum(len(r['refused']) for r in RETAKES)} "
           f"({', '.join(r['label'] for r in RETAKES) or 'none'})")
     print(f"card: {smi}")
     print(json.dumps({"models": models_row}))
+    print(json.dumps({"serve": serve_row}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -8,7 +8,9 @@ Entry points run on the card unless the caller asks for the CPU
 ``stitch`` (``frontend/``) captures a PyTorch function into StitchIR and
 compiles it per input signature, as ``repro.stitch`` does a JAX function.
 ``configs`` and ``models`` hold the architectures and the LM stack (forward,
-slot and paged decode) in plain torch ops.
+slot and paged decode) in plain torch ops; ``serve`` the serving engines
+over them, each step replayed from a CUDA graph on the card
+(``python -m repro_torch.launch.serve``).
 The package imports torch and numpy, never jax and nothing of ``repro``.
 """
 from .core import (  # noqa: F401
@@ -20,7 +22,7 @@ from .core import (  # noqa: F401
     compile_module,
     reference_execute,
 )
-from . import configs, models  # noqa: F401
+from . import configs, models, serve  # noqa: F401
 from .frontend import (  # noqa: F401
     SUPPORTED_OPS,
     CostEstimate,

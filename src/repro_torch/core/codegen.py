@@ -1390,7 +1390,14 @@ class KernelProgram:
     launch counter.  Calling it dispatches on the inputs' device: CPU
     tensors go to the plain version, CUDA tensors to the kernel, anything
     else raises.  A call with no inputs runs on ``device``, which defaults
-    to the card.  ``launches`` counts kernel launches only."""
+    to the card.  ``launches`` counts kernel launches only.
+
+    ``KernelProgram.launches_by_emitter`` tallies every program's
+    ``launches`` by emitter: each change to one moves it by as much.  Set
+    to 0 before a run and read after, it gives the run's generated-kernel
+    launches, those of programs the run made and dropped included."""
+
+    launches_by_emitter: Dict[str, int] = {"emit_fusion": 0, "emit_stitched_fusion": 0}
 
     def __init__(self, name: str, source: str, emitter: str, plain: Callable,
                  inputs: Sequence[Instruction], outputs: Sequence[Instruction],
@@ -1403,8 +1410,18 @@ class KernelProgram:
         self.out_specs = [(tuple(r.shape), torch_dtype(r.dtype)) for r in outputs]
         self.workspace_bytes = workspace_bytes
         self.shared_bytes = shared_bytes      # dynamic + static, a block
-        self.launches = 0
+        self._launches = 0
         self._launch = None
+
+    @property
+    def launches(self) -> int:
+        return self._launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        tally = KernelProgram.launches_by_emitter
+        tally[self.emitter] = tally.get(self.emitter, 0) + n - self._launches
+        self._launches = n
 
     def load(self, lib: ctypes.CDLL) -> None:
         """Bind this kernel's launcher in a built library."""

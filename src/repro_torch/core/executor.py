@@ -310,11 +310,14 @@ def _warm_up(fn: Callable[[], List[torch.Tensor]], device) -> None:
     current.wait_stream(side)
 
 
-def _capture_graph(fn: Callable[[], List[torch.Tensor]], device) -> Tuple[object, List[torch.Tensor]]:
+def _capture_graph(fn: Callable[[], List[torch.Tensor]], device,
+                   keep_graph: bool = False) -> Tuple[object, List[torch.Tensor]]:
     """Capture ``fn``'s launches on ``device`` into a ``torch.cuda.CUDAGraph``;
-    returns the graph and what ``fn`` returned, the graph's static outputs."""
+    returns the graph and what ``fn`` returned, the graph's static outputs.
+    With ``keep_graph`` the graph is not instantiated at the capture's end:
+    the caller calls its ``instantiate()`` (and can time it apart)."""
     _need_card(device)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         outs = fn()
     return graph, outs

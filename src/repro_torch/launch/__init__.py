@@ -1,0 +1,1 @@
+"""Launch tools of the port: ``python -m repro_torch.launch.serve``."""

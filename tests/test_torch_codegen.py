@@ -87,6 +87,29 @@ def test_plain_kernel_matches_reference_kernel(name, rng):
     assert port_kernel.fn.launches == 0    # the plain version is no launch
 
 
+def test_launch_tally_follows_every_program_by_emitter():
+    """``KernelProgram.launches_by_emitter`` moves with each program's
+    ``launches``: a count taken around a run keeps the launches of programs
+    the run made and dropped, and a counter set back (as a capture or a
+    timing sets it) takes its launches back out."""
+    tally = codegen.KernelProgram.launches_by_emitter
+    saved = dict(tally)
+    try:
+        for emitter in tally:
+            tally[emitter] = 0
+        for name in ("StitchPipe", "NMT"):
+            port = compile_module(module_from_reference(ALL_GRAPHS[name]()), device="cpu")
+            (kernel,) = port.kernels
+            kernel.fn.launches += 3
+            before = kernel.fn.launches
+            kernel.fn.launches += 2
+            kernel.fn.launches = before
+            del port, kernel
+        assert tally == {"emit_fusion": 3, "emit_stitched_fusion": 3}
+    finally:
+        tally.update(saved)
+
+
 def test_generated_source_has_one_kernel_per_unique_signature():
     module = module_from_reference(ALL_GRAPHS["BiRNN"]())
     port = compile_module(module, device="cpu")
