@@ -203,24 +203,54 @@ Phases, each fatal on failure:
    inflight, KV peak utilization and peak allocated bytes, beside the
    card's name and power limit.  (d) ``repro_torch.launch.serve.main`` at
    full width for 8 requests must finish every one.
+15. training — ``repro_torch.train`` on the card, each path driven with
+   every launch count set to 0 just before it and read just after.  (a)
+   Each architecture at ``reduced_config``, f32 with TF32 off: 3 steps of
+   the ``Trainer`` on the card (its default step, ``CapturedTrainStep``:
+   the eager warm-up step, then 2 replays of the captured CUDA graph)
+   against 3 eager steps of the ``Trainer`` on the CPU, the same seeded
+   weights and batches: every loss at ``TRAIN_LOSS_TOL``, the params at
+   ``TRAIN_PARAM_TOL``; no kernel of the port launched.  (b) The stitched
+   MLP step of the reference's ``examples/train_stitched.py``
+   (``make_stitched_train_step``): 20 steps eager (the counted run: its
+   generated kernels, planned launches a step x 20) and 20 replayed, each
+   against the plain step (the captured function run by PyTorch on the
+   CPU) at ``STITCH_TOL``, 0 fallbacks, one compile; kernels a step, µs a
+   step both ways (CUDA events, 200 steps), device µs and idle share.  (c)
+   Peak allocated bytes of one step's loss and gradients at granite's full
+   width and ``REMAT_LAYERS`` layers in each ``remat`` mode and with the
+   CE over chunks of ``LOSS_CHUNK`` positions, the loss bit for bit (the
+   chunked one at rtol 1e-5: its sums run in another order); a
+   replayed step against an eager one from the same state there (the loss
+   bit for bit, the gradients' norm at ``REPLAY_NORM_TOL``, the params
+   within 2 lr and a bf16 ulp).  Then granite-moe-3b-a800m at full width and depth in bf16,
+   ``remat="full"``, batches of 4 x 512 tokens from ``SyntheticLM``: the
+   memory reckoning (params, grads, AdamW state), the first eager step's
+   loss against ``cross_entropy(forward(...))`` on the card
+   (``TRAIN_LOSS0_TOL``), eager steps and replayed ``CapturedTrainStep``
+   steps: ms a step (CUDA events), device ms, device kernels and idle share
+   (torch.profiler), tokens/s, peak allocated bytes, capture and
+   instantiation seconds, beside the card's name and power limit; the loss
+   finite to the end.
 
 Every profile whose device kernels a call are none or not a whole number,
 or disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and
 each refused reading, with the pad kernels it kept, goes into ``--out`` as
 ``profile_retakes``.
 
-Before the last two lines, phase 13's and phase 14's numbers as one JSON
-object each (``models``, ``serve``).  The line before the last is one JSON
-object with a ``kernels`` list: one
-entry per emitter (``emit_fusion`` and ``emit_stitched_fusion``, with its
-launches in phase 12's counted calls as ``frontend_launches``, in phase
-13's as ``models_launches`` and in phase 14's as ``serve_launches``) and
-one per
-hand-written kernel (with its f16 numbers as ``f16_*`` keys); the last
-line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes every
-per-graph, per-kernel and per-function number as JSON (phase 12's under
-``"frontend"``, phase 14's under ``"serve"``), with nvcc's register, shared-memory and spill lines.  Exits
-non-zero with no result when no card is present.
+Before the last two lines, phase 13's, 14's and 15's numbers as one JSON
+object each (``models``, ``serve``, ``train``).  The line before the last
+is one JSON object with a ``kernels`` list: one entry per emitter
+(``emit_fusion`` and ``emit_stitched_fusion``, with its launches in phase
+12's counted calls as ``frontend_launches``, in phase 13's as
+``models_launches``, in phase 14's as ``serve_launches`` and in phase 15's
+as ``train_launches``) and one per hand-written kernel (with its f16
+numbers as ``f16_*`` keys); the last line is ``{"ok": true, "device":
+{...}}``.  ``--out`` also writes every per-graph, per-kernel and
+per-function number as JSON (phase 12's under ``"frontend"``, phase 14's
+under ``"serve"``, phase 15's under ``"train"``), with nvcc's register,
+shared-memory and spill lines.  Exits non-zero with no result when no card
+is present.
 """
 import argparse
 import itertools
@@ -2391,6 +2421,481 @@ def serve_phase(dev, smi):
             "card": smi}, launches
 
 
+# ---- phase 15: training --------------------------------------------------------------
+#: (a) each family at reduced_config, f32 with TF32 off: the Trainer's steps on
+#: the card (its default step: the eager warm-up step, then replays of the
+#: captured CUDA graph) against the Trainer's eager steps on the CPU, the same
+#: seeded weights and batches.  The losses differ by a few f32 ulps of sums
+#: taken in another order (the CPU tests read 1e-6 against the reference); a
+#: parameter whose gradient is near 0 may take the other sign's Adam update,
+#: at most 2 lr a step, so the params are held at 2 lr x steps
+TRAIN_FAMILY_STEPS = 3
+TRAIN_FAMILY_SHAPE = (4, 16)        # batch, sequence
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_PARAM_TOL = 2 * TRAIN_OPT["lr"] * TRAIN_FAMILY_STEPS
+#: (b) the stitched MLP step of the reference's examples/train_stitched.py, its
+#: sizes, options and schedule; the card's f32 kernels against the plain
+#: step's torch ops on the CPU: sums in another order, f32 ulps (the CPU tests
+#: read 2.4e-7 against jax.jit)
+STITCH_SIZES = (64, 16, 32, 8)      # batch, in, hidden, out
+STITCH_STEPS = 20
+STITCH_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=100)
+STITCH_TOL = 1e-5
+#: (c) granite-moe-3b-a800m at full width and depth, bf16, remat "full" (its
+#: config's own), batch 4 x 512 tokens of the data pipeline.  The first eager
+#: step's loss against cross_entropy(forward(...)) of the same params and
+#: batch on the card: the same bf16 forward and f32 loss, so equal but for
+#: the order of sums (held at rtol TRAIN_LOSS0_TOL)
+TRAIN_SHAPE = (4, 512)
+TRAIN_GRANITE_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+TRAIN_LOSS0_TOL = 1e-3
+TRAIN_EAGER_STEPS = 3       # timed eager steps (CUDA events), after as many warm
+TRAIN_REPLAY_STEPS = 5      # timed replays, after as many warm
+TRAIN_PROFILED = 2          # steps traced by torch.profiler
+#: remat at full width, REMAT_LAYERS layers (the peak of one step's loss and
+#: gradients, each mode, and the CE over chunks of LOSS_CHUNK positions, each
+#: under checkpoint, against the whole logits; the loss bit for bit, the
+#: gradients' norm at REMAT_NORM_TOL: the MoE dispatch's backward adds rows
+#: by atomics)
+REMAT_LAYERS = 4
+REMAT_NORM_TOL = 1e-3
+LOSS_CHUNK = 128
+#: a replayed step against an eager one from the same state, at full width
+#: and REMAT_LAYERS layers in bf16: the loss is the same forward's, so bit
+#: for bit; the gradients differ where the MoE dispatch's and the
+#: embedding's backward add by atomics, so the grad norm is held at
+#: REPLAY_NORM_TOL and each new parameter within 2 lr (an update whose
+#: gradient is near 0 may take the other sign) plus a bf16 ulp of it
+REPLAY_NORM_TOL = 1e-3
+
+
+def train_batch(cfg, B, S, step, dev=None):
+    """The data pipeline's batch ``step`` (numpy), on ``dev`` where given."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+
+    batch = SyntheticLM(cfg, S, B, seed=0).batch_at(step)
+    return batch if dev is None else {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def train_families(dev):
+    """(a): every architecture at reduced_config, the Trainer on the card
+    (captured step) against the Trainer on the CPU (eager)."""
+    import torch
+
+    from repro_torch import models, train
+    from repro_torch.configs import ARCHITECTURES, get_config, reduced_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.module import tree_map
+    from repro_torch.train.optimizer import tree_leaves_sorted
+
+    B, S = TRAIN_FAMILY_SHAPE
+    rows = []
+    for arch in sorted(ARCHITECTURES):
+        cfg = reduced_config(get_config(arch))
+        cpu = models.init_params(cfg, 0, device="cpu")
+        card = tree_map(lambda t: t.to(dev, copy=True), cpu)    # each run writes its own
+        runs = {}
+        for where, params in (("cpu", cpu), ("card", card)):
+            trainer = train.Trainer(
+                cfg, train.AdamWConfig(**TRAIN_OPT),
+                train.TrainerConfig(total_steps=TRAIN_FAMILY_STEPS),
+                lambda s, cfg=cfg: SyntheticLM(cfg, S, B, seed=0).iterate(s),
+                device="cpu" if where == "cpu" else dev)
+            runs[where] = (trainer, trainer.run(params)[0])
+        step = runs["card"][0].train_step
+        if not isinstance(step, train.CapturedTrainStep) or step.replays != TRAIN_FAMILY_STEPS - 1:
+            raise SystemExit(f"train {arch}: the card's Trainer did not replay a captured step")
+        loss_cpu = [h["loss"] for h in runs["cpu"][0].history]
+        loss_card = [h["loss"] for h in runs["card"][0].history]
+        loss_err = max(abs(a - b) for a, b in zip(loss_card, loss_cpu, strict=True))
+        if not all(abs(a - b) <= TRAIN_LOSS_TOL * (1 + abs(b))
+                   for a, b in zip(loss_card, loss_cpu, strict=True)):
+            raise SystemExit(f"train {arch}: card losses {loss_card} vs cpu {loss_cpu}")
+        param_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves_sorted(runs["card"][1]), tree_leaves_sorted(runs["cpu"][1]), strict=True))
+        if not param_err <= TRAIN_PARAM_TOL:
+            raise SystemExit(f"train {arch}: params after {TRAIN_FAMILY_STEPS} steps differ by "
+                             f"{param_err:.3g} > {TRAIN_PARAM_TOL}")
+        rows.append({"arch": arch, "losses": loss_card, "loss_err": loss_err,
+                     "param_err": param_err, "capture_s": step.capture_s,
+                     "instantiate_s": step.instantiate_s})
+        print(f"train {arch}: reduced, f32, {TRAIN_FAMILY_STEPS} Trainer steps card (captured, "
+              f"{step.replays} replays) vs cpu: loss max |err| {loss_err:.3g} (tol "
+              f"{TRAIN_LOSS_TOL}), params {param_err:.3g} (tol {TRAIN_PARAM_TOL})")
+        del runs, cpu, card
+    return rows
+
+
+def stitched_step_case():
+    """(b)'s loss, params and batches (numpy), as examples/train_stitched.py."""
+    import numpy as np
+    import torch
+
+    B, d_in, d_h, d_out = STITCH_SIZES
+    rng = np.random.default_rng(0)
+    params = {"w1": rng.normal(size=(d_in, d_h), scale=0.1).astype(np.float32),
+              "b1": np.zeros((d_h,), np.float32),
+              "w2": rng.normal(size=(d_h, d_out), scale=0.1).astype(np.float32),
+              "b2": np.zeros((d_out,), np.float32)}
+    batches = [(rng.normal(size=(B, d_in)).astype(np.float32),
+                rng.normal(size=(B, d_out)).astype(np.float32)) for _ in range(STITCH_STEPS)]
+
+    def loss_fn(params, batch):
+        x, y = batch
+        h = torch.tanh(x @ params["w1"] + params["b1"])
+        return torch.mean((h @ params["w2"] + params["b2"] - y) ** 2)
+
+    return loss_fn, params, batches
+
+
+def stitched_step(device, replay):
+    from repro_torch.core import StitchOptions
+    from repro_torch.train import AdamWConfig, make_stitched_train_step
+
+    loss_fn, _, _ = stitched_step_case()
+    opts = StitchOptions(max_blocks=32, jit_replay=replay)
+    return make_stitched_train_step(loss_fn, AdamWConfig(**STITCH_OPT), options=opts,
+                                    device=device)
+
+
+def train_sources():
+    """The CUDA source (b) builds: the stitched step's plan, compiled here for
+    the CPU (the same text the card's compile emits)."""
+    import torch
+
+    from repro_torch.train import adamw_init
+
+    _, params, batches = stitched_step_case()
+    p = {k: torch.as_tensor(v) for k, v in params.items()}
+    x, y = (torch.as_tensor(a) for a in batches[0])
+    return sources_of(stitched_step("cpu", False).lower(p, adamw_init(p), (x, y)).compile())
+
+
+def stitched_train(dev):
+    """(b): 20 steps of the stitched step on the card, eager and replayed,
+    against the plain step (the captured function run by PyTorch) on the
+    CPU; kernels a call, µs a call both ways, device µs.  The eager run is
+    the counted one: every kernel's launch count is set to 0 just before it
+    and read just after.  Returns its row and those launches."""
+    import torch
+
+    from repro_torch.core.codegen import KernelProgram
+    from repro_torch.kernels import ops
+    from repro_torch.train import adamw_init
+
+    _, params, batches = stitched_step_case()
+    runs = {}
+    for label, device, replay in (("plain_cpu", "cpu", False), ("eager", dev, False),
+                                  ("replayed", dev, True)):
+        step = stitched_step(device, replay)
+        # copies: a donated buffer takes the step's outputs
+        p = {k: torch.tensor(v, device=device) for k, v in params.items()}
+        s = adamw_init(p)
+        metrics = []
+        if label == "eager":
+            zero_launches()
+        for x, y in batches:
+            xb, yb = torch.as_tensor(x, device=device), torch.as_tensor(y, device=device)
+            if label == "plain_cpu":
+                p, s, m = step._fn(p, s, (xb, yb))
+            else:
+                p, s, m = step(p, s, (xb, yb))
+            metrics.append({k: float(v) for k, v in m.items()})
+        if label == "eager":
+            torch.cuda.synchronize()
+            launches = {**KernelProgram.launches_by_emitter,
+                        **{name: kern.launches for name, kern in ops.KERNELS.items()}}
+        runs[label] = (step, p, s, metrics, (xb, yb))
+    st_e = runs["eager"][0]
+    if st_e.num_fallbacks or runs["replayed"][0].num_fallbacks or st_e.num_compiles != 1:
+        raise SystemExit(f"train stitched: {st_e.num_fallbacks} fallbacks, "
+                         f"{st_e.num_compiles} compiles")
+    comp_e = st_e.lower().compile()
+    comp_r = runs["replayed"][0].lower().compile()
+    planned = planned_launches(comp_e)
+    if sum(launches.values()) != STITCH_STEPS * planned or any(launches[k] for k in ops.KERNELS):
+        raise SystemExit(f"train stitched: {launches} launches in {STITCH_STEPS} eager steps, "
+                         f"planned {planned} a step")
+    if comp_r.executable.replay_mode != "graph" \
+            or comp_r.executable.execution_plan.stats.traced_calls != STITCH_STEPS:
+        raise SystemExit("train stitched: the default step did not replay its CUDA graph")
+    err = {}
+    for label in ("eager", "replayed"):
+        worst = 0.0
+        for got, want in zip(runs[label][3], runs["plain_cpu"][3], strict=True):
+            for k in want:
+                d = abs(got[k] - want[k])
+                if not d <= STITCH_TOL * (1 + abs(want[k])):
+                    raise SystemExit(f"train stitched {label}: {k} {got[k]} vs plain {want[k]}")
+                worst = max(worst, d)
+        for k in params:
+            d = float((runs[label][1][k].cpu() - runs["plain_cpu"][1][k]).abs().max())
+            if not d <= STITCH_TOL:
+                raise SystemExit(f"train stitched {label}: param {k} differs by {d:.3g}")
+            worst = max(worst, d)
+        err[label] = worst
+    bitwise = runs["eager"][3] == runs["replayed"][3] and all(
+        torch.equal(runs["eager"][1][k], runs["replayed"][1][k]) for k in params)
+    row = {"steps": STITCH_STEPS, "fallbacks": 0, "compiles": 1, "kernels_per_call": planned,
+           "library_dots": comp_e.stats.library_calls, "launches": launches,
+           "max_err_vs_plain": err, "replayed_equals_eager_bitwise": bitwise,
+           "emitters": sorted({k.fn.emitter for k in comp_e.kernels})}
+    for label in ("eager", "replayed"):
+        step, p, s, _, batch = runs[label]
+        state = [p, s]
+
+        def call(step=step, state=state, batch=batch):
+            state[0], state[1], _ = step(state[0], state[1], batch)
+
+        row[f"{label}_us"] = 1e3 * time_ms(call, CALLS)
+        kernels, by_name = device_profile(call, PROFILED_CALLS, label=f"train stitched {label}")
+        row[f"{label}_device_us"] = sum(by_name.values())
+        row[f"{label}_device_kernels"] = kernels
+        row[f"{label}_idle_share"] = 1 - row[f"{label}_device_us"] / row[f"{label}_us"]
+    print(f"train stitched MLP step: {STITCH_STEPS} steps eager and replayed vs the plain step on "
+          f"the cpu, max |err| {err} (tol {STITCH_TOL}), replayed = eager bit for bit "
+          f"{bitwise}; 0 fallbacks, 1 compile, {planned} kernels a step ({row['emitters']}), "
+          f"launches {launches}; us a step eager {row['eager_us']:.1f} (device "
+          f"{row['eager_device_us']:.2f} in {row['eager_device_kernels']:.0f} kernels), "
+          f"replayed {row['replayed_us']:.1f} (device {row['replayed_device_us']:.2f} in "
+          f"{row['replayed_device_kernels']:.0f} kernels)")
+    return row, launches
+
+
+def remat_peaks(dev):
+    """Peak allocated bytes of one step's loss and gradients at granite's
+    full width, REMAT_LAYERS layers, in each remat mode; the loss bit for bit
+    and the gradients' norm against ``none``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import models, train
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config(MODEL_ARCH), num_layers=REMAT_LAYERS)
+    params = models.init_params(base, 0, device=dev)
+    batch = train_batch(base, *TRAIN_SHAPE, 0, dev)
+    rows, ref = {}, None
+    for remat, chunk in (("none", None), ("full", None), ("dots", None), ("selective", None),
+                         ("full", LOSS_CHUNK)):
+        cfg = dataclasses.replace(base, remat=remat)
+        if chunk:
+            cfg = dataclasses.replace(cfg, loss_chunk=chunk)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        loss, grads = train.value_and_grad(train.make_loss_fn(cfg), params, batch)
+        norm = float(train.global_norm(grads))
+        peak = torch.cuda.max_memory_allocated() - before
+        del grads
+        if ref is None:
+            ref = (loss, norm)
+        same = bool(torch.equal(loss, ref[0]))
+        # the chunked CE sums its chunks' sums: the same terms in another order
+        close = same or (chunk and abs(float(loss) - float(ref[0])) <= 1e-5 * float(ref[0]))
+        if not close or abs(norm - ref[1]) > REMAT_NORM_TOL * ref[1]:
+            raise SystemExit(f"train remat {remat}: loss {float(loss)} vs {float(ref[0])}, "
+                             f"grad norm {norm} vs {ref[1]}")
+        rows[f"{remat}, loss_chunk {cfg.loss_chunk}"] = {
+            "peak_bytes_above_params": peak, "loss_bitwise": same, "grad_norm": norm}
+    print(f"train remat at full width, {REMAT_LAYERS} layers, {TRAIN_SHAPE}: peak bytes above the "
+          f"params {({k: v['peak_bytes_above_params'] for k, v in rows.items()})}; loss bit for "
+          f"bit, grad norm within {REMAT_NORM_TOL}")
+    return rows
+
+
+def replay_parity(dev):
+    """A replayed ``CapturedTrainStep`` step against an eager step from the
+    same state (a copy taken after the warm-up step), at full width and
+    ``REMAT_LAYERS`` layers in bf16 with the scatter MoE."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import models, train
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import tree_map
+    from repro_torch.train.optimizer import tree_leaves_sorted
+
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), num_layers=REMAT_LAYERS)
+    ocfg = train.AdamWConfig(**TRAIN_GRANITE_OPT)
+    params = models.init_params(cfg, 0, device=dev)
+    opt = train.adamw_init(params)
+    step = train.make_train_step(cfg, ocfg)
+    host = [train_batch(cfg, *TRAIN_SHAPE, i) for i in range(2)]
+    cap = train.CapturedTrainStep(step, dev)
+    cap(params, opt, host[0])
+    snap_p = tree_map(torch.clone, params)
+    snap_o = train.AdamWState(opt.step.clone(), tree_map(torch.clone, opt.m),
+                              tree_map(torch.clone, opt.v))
+    _, _, mr = cap(params, opt, host[1])
+    _, _, me = step(snap_p, snap_o, host[1])
+    torch.cuda.synchronize()
+    lr = float(me["lr"])
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves_sorted(params) + tree_leaves_sorted(opt.m) + tree_leaves_sorted(opt.v),
+        tree_leaves_sorted(snap_p) + tree_leaves_sorted(snap_o.m) + tree_leaves_sorted(snap_o.v),
+        strict=True)) and all(torch.equal(mr[k], me[k]) for k in me)
+    worst = 0.0
+    for a, b in zip(tree_leaves_sorted(params), tree_leaves_sorted(snap_p), strict=True):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        if bool((d > 2 * lr + b.abs() * 2.0 ** -8).any()):
+            raise SystemExit(f"train replay vs eager: a parameter differs by {float(d.max()):.3g}")
+    norm_err = abs(float(mr["grad_norm"]) - float(me["grad_norm"])) / float(me["grad_norm"])
+    if not torch.equal(mr["loss"], me["loss"]) or norm_err > REPLAY_NORM_TOL:
+        raise SystemExit(f"train replay vs eager: loss {float(mr['loss'])} vs {float(me['loss'])}, "
+                         f"grad norm {float(mr['grad_norm'])} vs {float(me['grad_norm'])}")
+    row = {"layers": REMAT_LAYERS, "bitwise": bitwise, "loss_bitwise": True,
+           "grad_norm_rel_err": norm_err, "param_max_abs_err": worst}
+    print(f"train replay vs eager, full width, {REMAT_LAYERS} layers, bf16: bit for bit {bitwise}; "
+          f"loss bit for bit, grad norm rel err {norm_err:.3g} (tol {REPLAY_NORM_TOL}), params max "
+          f"|err| {worst:.3g} (tol 2 lr + a bf16 ulp)")
+    del params, opt, snap_p, snap_o, cap
+    return row
+
+
+def granite_train(dev, smi):
+    """(c): granite-moe-3b-a800m at full width and depth: the memory
+    reckoning, the first step's loss against cross_entropy(forward), then
+    eager and captured steps timed and profiled."""
+    import gc
+
+    import torch
+
+    from repro_torch import models, train
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MODEL_ARCH)
+    B, S = TRAIN_SHAPE
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = models.init_params(cfg, 0, device=dev)
+    opt = train.adamw_init(params)
+    ocfg = train.AdamWConfig(**TRAIN_GRANITE_OPT)
+    pb, sb = models.tree_bytes(params), models.tree_bytes(opt.m) + models.tree_bytes(opt.v)
+    row = {"arch": MODEL_ARCH, "dtype": cfg.dtype, "remat": cfg.remat, "moe_impl": cfg.moe_impl,
+           "layers": cfg.num_layers, "shape": [B, S], "param_count": models.count_params(params),
+           "param_bytes": pb, "grad_bytes": pb, "adam_state_bytes": sb,
+           "reckoned_bytes": 2 * pb + sb, "card_bytes": torch.cuda.get_device_properties(dev).total_memory}
+    batches = [train_batch(cfg, B, S, i, dev) for i in range(4)]
+    with torch.no_grad():
+        want = train.cross_entropy(models.forward(params, batches[0], cfg), batches[0]["labels"],
+                                   cfg.vocab_size)
+    step = train.make_train_step(cfg, ocfg)
+    params, opt, m = step(params, opt, batches[0])
+    loss0 = float(m["loss"])
+    row["loss0"], row["loss0_forward"] = loss0, float(want)
+    if not (abs(loss0 - float(want)) <= TRAIN_LOSS0_TOL * abs(float(want))
+            and torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+        raise SystemExit(f"train granite: step-0 loss {loss0} vs cross_entropy(forward) "
+                         f"{float(want)}, grad norm {float(m['grad_norm'])}")
+    it = [0]
+
+    def eager():
+        it[0] += 1
+        step(params, opt, batches[it[0] % len(batches)])
+
+    row["eager_step_ms"] = time_ms(eager, TRAIN_EAGER_STEPS)
+    kernels, by_name = device_profile(eager, TRAIN_PROFILED, label="train granite eager")
+    row["eager_device_ms"] = sum(by_name.values()) / 1e3
+    row["eager_device_kernels"] = kernels
+    row["eager_top_kernels"] = top_kernels(by_name)
+    torch.cuda.synchronize()
+    row["eager_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    # captured: the first call is the eager warm-up step, then the capture
+    torch.cuda.reset_peak_memory_stats()
+    host = [{k: v.cpu().numpy() for k, v in b.items()} for b in batches]
+    cap = train.CapturedTrainStep(step, dev)
+    t0 = time.perf_counter()
+    params, opt, m = cap(params, opt, host[0])
+    torch.cuda.synchronize()
+    row["first_call_s"] = time.perf_counter() - t0
+    row["capture_s"], row["instantiate_s"] = cap.capture_s, cap.instantiate_s
+
+    def replay():
+        it[0] += 1
+        cap(params, opt, host[it[0] % len(host)])
+
+    row["replayed_step_ms"] = time_ms(replay, TRAIN_REPLAY_STEPS)
+    kernels, by_name = device_profile(replay, TRAIN_PROFILED, label="train granite replayed")
+    row["replayed_device_ms"] = sum(by_name.values()) / 1e3
+    row["replayed_device_kernels"] = kernels
+    row["replayed_top_kernels"] = top_kernels(by_name)
+    params, opt, m = cap(params, opt, host[0])
+    row["last_loss"], row["steps"] = float(m["loss"]), int(opt.step)
+    if not torch.isfinite(m["loss"]):
+        raise SystemExit(f"train granite: loss {row['last_loss']} after {row['steps']} steps")
+    torch.cuda.synchronize()
+    row["replayed_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    for mode in ("eager", "replayed"):
+        ms = row[f"{mode}_step_ms"]
+        row[f"{mode}_idle_share"] = 1 - row[f"{mode}_device_ms"] / ms
+        row[f"{mode}_tokens_per_s"] = B * S / (ms / 1e3)
+    row["card"] = smi
+    print(f"train {MODEL_ARCH} bf16 remat={cfg.remat}: {row['param_count']} params; reckoned "
+          f"{row['reckoned_bytes']} bytes (params {pb}, grads {pb}, m and v {sb}) of "
+          f"{row['card_bytes']}; step-0 loss {loss0:.6f} vs cross_entropy(forward) "
+          f"{float(want):.6f}; {B}x{S} a step: eager {row['eager_step_ms']:.2f} ms (device "
+          f"{row['eager_device_ms']:.2f} ms in {row['eager_device_kernels']:.0f} kernels, idle "
+          f"share {row['eager_idle_share']:.3f}, {row['eager_tokens_per_s']:.0f} tokens/s, peak "
+          f"{row['eager_peak_allocated_bytes']} bytes); replayed {row['replayed_step_ms']:.2f} ms "
+          f"(device {row['replayed_device_ms']:.2f} ms in {row['replayed_device_kernels']:.0f} "
+          f"kernels, idle share {row['replayed_idle_share']:.3f}, "
+          f"{row['replayed_tokens_per_s']:.0f} tokens/s, peak "
+          f"{row['replayed_peak_allocated_bytes']} bytes); capture {cap.capture_s:.2f} s, "
+          f"instantiation {cap.instantiate_s:.2f} s; loss {row['last_loss']:.4f} after "
+          f"{row['steps']} steps ({smi})")
+    del params, opt, cap, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_phase(dev, smi):
+    """Phase 15: training on the card (see the module docstring).  Each path
+    is driven with every kernel's launch count set to 0 just before it and
+    read just after: (a) and (c), the models' path, launch none of the
+    port's kernels; (b)'s eager run launches the stitched step's generated
+    kernels.  Returns the train line's object and each kernel's launches."""
+    seconds = {}
+    t0 = time.perf_counter()
+    zero_launches()
+    families = train_families(dev)
+    read_launches("train families")
+    seconds["families"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stitched, launches = stitched_train(dev)
+    seconds["stitched"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    zero_launches()
+    remat = remat_peaks(dev)
+    parity = replay_parity(dev)
+    seconds["remat_and_parity"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    granite = granite_train(dev, smi)
+    read_launches("train granite")
+    seconds["granite"] = time.perf_counter() - t1
+    seconds["phase"] = time.perf_counter() - t0
+    if not launches["emit_fusion"]:
+        raise SystemExit(f"train: the stitched step launched no generated kernel: {launches}")
+    print(f"train: launches {launches}; seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    return {"families": families, "stitched": stitched, "remat_full_width": remat,
+            "replay_vs_eager": parity, "granite": granite, "seconds": seconds, "card": smi,
+            "tolerances": {"family_loss": TRAIN_LOSS_TOL, "family_params": TRAIN_PARAM_TOL,
+                           "stitched": STITCH_TOL, "loss0_rtol": TRAIN_LOSS0_TOL,
+                           "remat_grad_norm": REMAT_NORM_TOL,
+                           "replay_grad_norm": REPLAY_NORM_TOL}}, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -2441,6 +2946,8 @@ def main(argv=None) -> int:
     # phase 12: the frontend's functions and the families' hand-built graphs
     cases = frontend_cases()
     extra += frontend_sources(cases)
+    # phase 15: the stitched train step's plan
+    extra += train_sources()
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
@@ -2740,6 +3247,13 @@ def main(argv=None) -> int:
         # the serving path calls the models only: no hand-written kernel, no
         # compile; 0, as counted
         entry["serve_launches"] = serve_launches[entry["name"]]
+
+    # ---- 15. training ------------------------------------------------------------------
+    train_row, train_launches = train_phase(dev, smi)
+    for entry in entries:
+        # the generated kernels of the stitched train step's counted eager run;
+        # the models' training calls no hand-written kernel: 0, as counted
+        entry["train_launches"] = train_launches[entry["name"]]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -2749,12 +3263,13 @@ def main(argv=None) -> int:
                        "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
                        "autotune": autotune_rows, "fault_modules": fault_rows,
                        "frontend": frontend_rows, "models": models_row, "serve": serve_row,
-                       "profile_retakes": RETAKES}, f, indent=1)
+                       "train": train_row, "profile_retakes": RETAKES}, f, indent=1)
     print(f"profiles taken again: {sum(len(r['refused']) for r in RETAKES)} "
           f"({', '.join(r['label'] for r in RETAKES) or 'none'})")
     print(f"card: {smi}")
     print(json.dumps({"models": models_row}))
     print(json.dumps({"serve": serve_row}))
+    print(json.dumps({"train": train_row}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

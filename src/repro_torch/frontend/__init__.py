@@ -3,25 +3,37 @@ of ``repro/frontend``.
 
 ``stitch(fn)`` captures ``fn`` into an ATen graph (``api.capture``),
 lowers it into StitchIR (``aten_lower.lower_graph``) and compiles it with
-the port's ``compile_module``, one plan per input signature.  Imports
+the port's ``compile_module``, one plan per input signature.  The op
+tables (``*_OPS``) are the analogues of the reference's primitive tables
+(``*_PRIMS``; ``CALL_PRIMS`` is ``CONTROL_FLOW_OPS``).  Imports
 torch and numpy, never jax and nothing of ``repro``.
 """
 from .api import CostEstimate, Lowered, StitchedFunction, capture, stitch
 from .aten_lower import (
+    BINARY_OPS,
     CONTROL_FLOW_OPS,
+    IDENTITY_OPS,
+    REDUCE_OPS,
+    STRUCTURAL_OPS,
     SUPPORTED_OPS,
+    UNARY_OPS,
     LoweredGraph,
     UnsupportedPrimitiveError,
     lower_graph,
 )
 
 __all__ = [
+    "BINARY_OPS",
     "CONTROL_FLOW_OPS",
     "CostEstimate",
+    "IDENTITY_OPS",
     "Lowered",
     "LoweredGraph",
+    "REDUCE_OPS",
+    "STRUCTURAL_OPS",
     "StitchedFunction",
     "SUPPORTED_OPS",
+    "UNARY_OPS",
     "UnsupportedPrimitiveError",
     "capture",
     "lower_graph",

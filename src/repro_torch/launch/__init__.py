@@ -1,1 +1,2 @@
-"""Launch tools of the port: ``python -m repro_torch.launch.serve``."""
+"""Launch tools of the port: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``."""

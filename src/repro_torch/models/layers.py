@@ -98,13 +98,12 @@ def mrope(x, positions3, sections: Tuple[int, int, int], theta: float = 1e4):
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
     freqs = _freqs(half, theta, x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device)
-    )                                                           # (half,)
     # pick each frequency slot's positional stream (the reference's one-hot
-    # mix of integer positions, which is exact)
+    # mix of integer positions, which is exact), by slices: no index tensor
+    # is copied to the device, so a CUDA graph can capture it
     pos_t = torch.movedim(positions3, 0, -1).to(F32)            # (..., S, 3)
-    pos_mix = pos_t[..., sec_id]                                # (..., S, half)
+    pos_mix = torch.cat([pos_t[..., i:i + 1].expand(pos_t.shape[:-1] + (n,))
+                         for i, n in enumerate(sections)], dim=-1)   # (..., S, half)
     return _rotate(x, (pos_mix * freqs)[..., None, :])
 
 
@@ -363,7 +362,9 @@ def embedding_params(c: Creator, cfg) -> Params:
 
 
 def embed(p: Params, tokens):
-    return p["tok"][tokens.long()]
+    """Rows of the table; ``F.embedding``, whose backward (a dense scatter
+    of the rows' gradients) a CUDA graph can capture."""
+    return F.embedding(tokens.long(), p["tok"])
 
 
 def unembed(p: Params, x):

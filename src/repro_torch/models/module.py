@@ -122,3 +122,18 @@ def params_from_reference(tree, device=None) -> Params:
     unless the caller asks for the CPU)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _from_reference(a, dev), tree)
+
+
+def opt_state_from_reference(state, device=None):
+    """The port's ``AdamWState`` from the reference's (its step, m and v as
+    numpy arrays, or anything ``np.asarray`` reads), leaf for leaf, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    from ..train.optimizer import AdamWState
+
+    dev = resolve_device(device)
+    step, m, v = state
+    return AdamWState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+        tree_map(lambda a: _from_reference(a, dev), m),
+        tree_map(lambda a: _from_reference(a, dev), v),
+    )

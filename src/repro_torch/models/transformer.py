@@ -11,12 +11,14 @@ target the card unless the caller asks for the CPU; ``forward``,
 ``decode_step`` and ``decode_chunk`` run where the parameters lie.  Caches
 are written in place (the ring slot, or the physical block; inactive rows
 write the parking slot or block) and returned, as the reference returns
-its new cache.  ``cfg.remat`` changes no value and is left to the trainer
-(ROADMAP.md queue 1, item 13); ``activation_sharding="sp"`` raises, as
-sharding is item 14.
+its new cache.  ``cfg.remat`` (``_remat``) recomputes each layer's
+activations in the backward pass with ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` does, and changes no value;
+``activation_sharding="sp"`` raises, as sharding is item 14.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -151,7 +153,7 @@ def _layer_fwd(lp: Params, x, cfg, positions, positions3=None, enc_out=None):
         return x + L.gelu_mlp(lp["mlp"], h2)
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if fam == "hybrid":
-        a = _attn_full(lp["attn"], h, cfg, positions)
+        a = _ckpt_name(_attn_full(lp["attn"], h, cfg, positions), "attn_out", cfg)
         m = S.mamba2_forward(lp["mamba"], h, cfg)
         mix = (
             L.rmsnorm(lp["norm_a"], a, cfg.norm_eps).to(L.F32)
@@ -159,23 +161,104 @@ def _layer_fwd(lp: Params, x, cfg, positions, positions3=None, enc_out=None):
         ) * 0.5
         x = x + mix.to(x.dtype)
     else:
-        x = x + _attn_full(lp["attn"], h, cfg, positions,
-                           use_mrope=cfg.mrope, positions3=positions3)
+        x = x + _ckpt_name(_attn_full(lp["attn"], h, cfg, positions,
+                                      use_mrope=cfg.mrope, positions3=positions3),
+                           "attn_out", cfg)
     h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if fam == "moe":
-        return x + L.moe(lp["moe"], h2, cfg)
-    return x + L.swiglu(lp["mlp"], h2)
+        return x + _ckpt_name(L.moe(lp["moe"], h2, cfg), "ffn_out", cfg)
+    return x + _ckpt_name(L.swiglu(lp["mlp"], h2), "ffn_out", cfg)
 
 
-def _scan_layers(stacked: Params, x, body, cfg=None):
-    """``body`` over the stacked layers in order, the residual stream
-    carried from one to the next."""
+@torch.library.custom_op("repro_torch::ckpt_name", mutates_args=())
+def _named(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` that selective remat's policy knows by its op, the
+    counterpart of ``jax.ad_checkpoint.checkpoint_name``."""
+    return x.clone()
+
+
+@_named.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_named.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def _ckpt_name(x, name: str, cfg=None):
+    """Tag for selective remat, a no-op otherwise (the tag itself is a
+    copy, as the reference's makes XLA materialize the boundary)."""
+    if cfg is None or cfg.remat != "selective":
+        return x
+    return _named(x, name)
+
+
+#: ``dots`` saves every product (``jax.checkpoint_policies.checkpoint_dots``)
+_PRODUCT_OPS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+})
+
+
+def _policy(save):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if save(op) else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _remat(fn, cfg):
+    """``fn`` recomputed in the backward pass (``cfg.remat``): ``none``
+    saves everything; ``dots`` saves the products; ``selective`` only the
+    layers' ``attn_out``/``ffn_out``; ``full`` (and any other value, as in
+    the reference) saves nothing but the layer's inputs.  The layers use
+    no randomness, so the RNG state is not kept; without grad ``fn`` runs
+    as it is."""
+    if cfg.remat == "none":
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+        noop_context_fn,
+    )
+
+    if cfg.remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _policy(lambda op: op in _PRODUCT_OPS))
+    elif cfg.remat == "selective":
+        context_fn = functools.partial(
+            create_selective_checkpoint_contexts,
+            _policy(lambda op: op is torch.ops.repro_torch.ckpt_name.default))
+    else:
+        context_fn = noop_context_fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn)
+
+    return run
+
+
+def _scan_layers(stacked, x, body, cfg=None):
+    """``body`` over the layers in order, the residual stream carried from
+    one to the next.  ``stacked`` is the stacked tree, or a list of one
+    tree a layer (the train step's leaves for autograd, whose gradients
+    then come a layer apiece instead of each one summed into a zeroed copy
+    of the whole stack)."""
     if cfg is not None and cfg.activation_sharding == "sp":
         raise NotImplementedError(
             f"activation_sharding='sp' (sequence-parallel) is ported by {SHARDING_ITEM}"
         )
-    for i in range(_depth(stacked)):
-        x = body(layer_slice(stacked, i), x)
+    if isinstance(stacked, (list, tuple)):
+        layers = stacked
+    else:
+        layers = (layer_slice(stacked, i) for i in range(_depth(stacked)))
+    for lp in layers:
+        x = body(lp, x)
     return x
 
 
@@ -210,7 +293,7 @@ def encode_audio(params: Params, frames, cfg):
         z2 = L.layernorm(lp["ln2"], h, cfg.norm_eps)
         return h + L.gelu_mlp(lp["mlp"], z2)
 
-    x = _scan_layers(params["enc_layers"], x, body, cfg)
+    x = _scan_layers(params["enc_layers"], x, _remat(body, cfg), cfg)
     return L.layernorm(params["enc_ln_f"], x, cfg.norm_eps)
 
 
@@ -238,7 +321,7 @@ def forward(params: Params, batch: Dict[str, Any], cfg,
     def body(lp, h):
         return _layer_fwd(lp, h, cfg, positions, positions3, enc_out)
 
-    x = _scan_layers(params["layers"], x, body, cfg)
+    x = _scan_layers(params["layers"], x, _remat(body, cfg), cfg)
     if cfg.family == "audio":
         x = L.layernorm(params["ln_f"], x, cfg.norm_eps)
     else:
