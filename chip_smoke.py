@@ -232,30 +232,71 @@ Phases, each fatal on failure:
    (torch.profiler), tokens/s, peak allocated bytes, capture and
    instantiation seconds, beside the card's name and power limit; the loss
    finite to the end.
+16. the multi-device compiler — qwen2.5-14b's MLP (``QWEN14``: d_model
+   5120, d_ff 13824, SwiGLU) Megatron-sharded four ways through
+   ``stitch(mesh=...)``: x (512, 5120) replicated, w_gate and w_up split on
+   columns, w_down on rows, the body
+   ``all_reduce(silu(x @ w_gate) * (x @ w_up) @ w_down)``.  This process
+   first runs the unsharded function on the card (f32 with TF32 off, and
+   bf16).  Then ``torch.multiprocessing``
+   spawns a world of ``SHARD_WORLD`` ranks, every one on the card, over
+   gloo (NCCL refuses two ranks on one card) with a ``FileStore`` under
+   ``build/`` and a ``SHARD_TIMEOUT_S`` timeout.  Each rank: the rules'
+   specs of qwen2.5-14b's full-width params on a shape-only (data 1, model
+   4) mesh must equal those on the world's ``make_smoke_mesh(1, 4)``; the
+   sharded MLP in f32 and bf16 (rank 0 builds each plan's source, the
+   others wait and load it), one counted call each (every launch count at
+   0 just before, read after: exactly the planned generated kernels, no
+   hand-written one, one collective step), then ms a call (CUDA events),
+   ms in collectives (host clock), device µs, kernels and copies a call
+   (torch.profiler), peak allocated bytes and each op's backend and form;
+   the gather/scatter function of ``tests/test_sharded_compile.py`` at
+   (4 x 512, 5120) f32 the same way; ``reshard_state`` of a reduced
+   qwen1.5-0.5b onto ``make_elastic_mesh(4)``: each rank's shard is its
+   block of the input and the blocks gather back to it (the port's
+   gather: gloo's functional all-gather of CUDA tensors kills the process
+   under torch 2.11, which ``DTensor.full_tensor`` would call).  The
+   parent holds every rank's output against the unsharded function at
+   ``TOL`` (bf16 at ``SHARD_BF16_TOL`` of the largest output) and the
+   ranks against each other bit for bit.  Last, a one-rank NCCL world runs
+   the f32 MLP at mesh (model 1), held at ``TOL``, and takes the numbers of
+   the unsharded plan of the same function (its kernels a call beside a
+   rank's), in a fresh process as the ranks take theirs.  The world's
+   directory under ``build/`` is removed once read.  Any rank's failure
+   fails the phase (``spawn`` raises), and so does a world still running
+   after ``SHARD_WORLD_DEADLINE_S`` (its ranks are killed; each rank first
+   prints its stack).  Each rank prints a line as it finishes each case.
 
 Every profile whose device kernels a call are none or not a whole number,
 or disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and
 each refused reading, with the pad kernels it kept, goes into ``--out`` as
-``profile_retakes``.
+``profile_retakes``.  In phase 16's world of four ranks each profiled call
+runs a collective, so a profile refused on one rank is taken again on
+every rank.  A run still going after ``DUMP_AFTER_S`` prints every
+thread's stack to standard error.
 
-Before the last two lines, phase 13's, 14's and 15's numbers as one JSON
-object each (``models``, ``serve``, ``train``).  The line before the last
+Before the last two lines, phase 13's, 14's, 15's and 16's numbers as one
+JSON object each (``models``, ``serve``, ``train``, ``sharded``).  The line before the last
 is one JSON object with a ``kernels`` list: one entry per emitter
 (``emit_fusion`` and ``emit_stitched_fusion``, with its launches in phase
 12's counted calls as ``frontend_launches``, in phase 13's as
-``models_launches``, in phase 14's as ``serve_launches`` and in phase 15's
-as ``train_launches``) and one per hand-written kernel (with its f16
-numbers as ``f16_*`` keys); the last line is ``{"ok": true, "device":
-{...}}``.  ``--out`` also writes every per-graph, per-kernel and
+``models_launches``, in phase 14's as ``serve_launches``, in phase 15's
+as ``train_launches`` and in phase 16's ranks' counted calls, summed over
+the ranks, as ``sharded_launches``) and one per hand-written kernel (with
+its f16 numbers as ``f16_*`` keys); the last line is ``{"ok": true,
+"device": {...}}``.  ``--out`` also writes every per-graph, per-kernel and
 per-function number as JSON (phase 12's under ``"frontend"``, phase 14's
-under ``"serve"``, phase 15's under ``"train"``), with nvcc's register,
+under ``"serve"``, phase 15's under ``"train"``, phase 16's under
+``"sharded"``), with nvcc's register,
 shared-memory and spill lines.  Exits non-zero with no result when no card
 is present.
 """
 import argparse
+import faulthandler
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -288,6 +329,7 @@ WARMUP = 10
 CALLS = 200          # timed calls of a compiled graph, a kernel or the oracle
 PLAIN_CALLS = 20     # timed calls of a plain (block-interpreted) kernel
 PROFILED_CALLS = 20  # calls traced by torch.profiler for device times
+DUMP_AFTER_S = 1100  # a run still going after this prints where it is
 KERNEL_CALLS = 50    # timed calls of a hand-written kernel or its library call
 FULL_PLAIN_CALLS = 5  # timed calls of a hand-written kernel's plain version
 COLD_ROTATION = 8    # full-width RMSNorm inputs cycled to time it with a cold L2
@@ -546,29 +588,44 @@ def profile_again(label, reading):
     print(f"{label}: profile {len(RETAKES[-1]['refused'])} refused, {reading}: taken again")
 
 
-def device_profile(fn, calls, label="profile", per_call=None):
+def device_profile(fn, calls, label="profile", per_call=None, ignore=(), counts=None,
+                   every_rank=None):
     """Device activity of ``calls`` calls as torch.profiler records it: the
     device kernels per call, and their device microseconds per call by
     kernel name.  A profile whose device kernels a call are none or not a
     whole number (events lost) is taken again, up to ``PROFILE_TRIES``
     times, and so is one in which ``per_call`` (names, n), where given,
     does not hold: the kernels whose names hold one of ``names`` number n
-    a call."""
+    a call.  Events whose names start with one of ``ignore`` are left out
+    of all of it; ``counts``, where given, is filled with each kept name's
+    events a call.  Where ``fn`` runs a collective, every rank must call it
+    as often as the others: ``every_rank(held)`` then says whether every
+    rank holds a profile, and a rank that holds one profiles again (and
+    keeps its first) for as long as another rank does not."""
     readings = []
+    held = None
     for _ in range(PROFILE_TRIES):
         events, pads = device_events(fn, calls)
-        seen = len(events) / calls
-        mine = None
-        if per_call is not None:
-            mine = sum(1 for n, _ in events if any(k in n for k in per_call[0])) / calls
-        if seen > 0 and seen.is_integer() and (per_call is None or mine == per_call[1]):
-            by_name = {}
-            for name, us in events:
-                by_name[name] = by_name.get(name, 0.0) + us / calls
-            return seen, by_name
-        reading = {"device_kernels_a_call": seen, "pads_seen": pads, "named_a_call": mine}
-        readings.append(reading)
-        profile_again(label, reading)
+        if held is None:
+            events = [(n, us) for n, us in events if not n.startswith(tuple(ignore))]
+            seen = len(events) / calls
+            mine = None
+            if per_call is not None:
+                mine = sum(1 for n, _ in events if any(k in n for k in per_call[0])) / calls
+            if seen > 0 and seen.is_integer() and (per_call is None or mine == per_call[1]):
+                by_name = {}
+                for name, us in events:
+                    by_name[name] = by_name.get(name, 0.0) + us / calls
+                if counts is not None:
+                    for name in by_name:
+                        counts[name] = sum(1 for n, _ in events if n == name) / calls
+                held = seen, by_name
+            else:
+                reading = {"device_kernels_a_call": seen, "pads_seen": pads, "named_a_call": mine}
+                readings.append(reading)
+                profile_again(label, reading)
+        if (held is not None) if every_rank is None else every_rank(held is not None):
+            return held
     raise SystemExit(f"{label}: no profile in {PROFILE_TRIES} recorded whole calls; read {readings}")
 
 
@@ -2896,6 +2953,529 @@ def train_phase(dev, smi):
                            "replay_grad_norm": REPLAY_NORM_TOL}}, launches
 
 
+# ---- phase 16: the multi-device compiler -----------------------------------------
+
+# qwen2.5-14b's MLP width, written out because this script imports nothing of
+# the JAX package: src/repro/configs/qwen2_5_14b.py (d_model 5120, d_ff 13824,
+# SwiGLU)
+QWEN14 = dict(d_model=5120, d_ff=13824)
+SHARD_WORLD = 4
+SHARD_TOKENS = 512
+SHARD_SEED = 16
+SHARD_CALLS = 10          # timed calls a rank makes of each sharded function
+SHARD_PROFILED = 3        # calls a rank's profile traces
+# bf16 holds the sharded MLP at four ulps of the largest output: the four
+# ranks' partial products are rounded to bf16 before the all-reduce sums
+# them, where the unsharded product rounds once
+SHARD_BF16_TOL = 2.0 ** -6
+SHARD_TIMEOUT_S = 120     # a hung rank fails its collective after this
+# a world still running after this fails the phase and its ranks are killed
+# (the gloo world took 41 s on an H100, the one-rank NCCL world 31 s)
+SHARD_WORLD_DEADLINE_S = 240
+
+
+def shard_specs():
+    """The Megatron placement of the MLP's arguments: x replicated, w_gate
+    and w_up split on columns, w_down on rows; the output replicated."""
+    return dict(in_specs=((), (None, "model"), (None, "model"), ("model", None)), out_specs=())
+
+
+def shard_mlp(mesh, dim):
+    """The per-shard body: silu(x @ w_gate) * (x @ w_up) @ w_down, summed
+    over the ranks of ``mesh``'s dim ``dim``."""
+    import torch.distributed._functional_collectives as fc
+    import torch.nn.functional as F
+
+    def mlp(x, w_gate, w_up, w_down):
+        return fc.all_reduce((F.silu(x @ w_gate) * (x @ w_up)) @ w_down, "sum", (mesh, dim))
+
+    return mlp
+
+
+def plain_mlp(x, w_gate, w_up, w_down):
+    """The unsharded function the sharded runs are held against."""
+    import torch.nn.functional as F
+
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def shard_gs(mesh, dim):
+    """tests/test_sharded_compile.py's gather/scatter function: gather the
+    rows of every rank, double, reduce-scatter them back."""
+    import warnings
+
+    import torch.distributed._functional_collectives as fc
+
+    def gs(x):
+        with warnings.catch_warnings():   # torch 2.13 renames both; 2.11 has only these
+            warnings.simplefilter("ignore", FutureWarning)
+            g = fc.all_gather_tensor(x, 0, (mesh, dim))
+            return fc.reduce_scatter_tensor(g * 2.0, "sum", 0, (mesh, dim))
+
+    return gs
+
+
+def shard_inputs(dev, dtype):
+    """The MLP's global inputs, drawn from ``SHARD_SEED`` on the card: the
+    same numbers in every process."""
+    import torch
+
+    d, f = QWEN14["d_model"], QWEN14["d_ff"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SHARD_SEED)
+    x = torch.randn(SHARD_TOKENS, d, generator=g, device=dev)
+    wg = torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+    wu = torch.randn(d, f, generator=g, device=dev) / d ** 0.5
+    wd = torch.randn(f, d, generator=g, device=dev) / f ** 0.5
+    return [t.to(dtype) for t in (x, wg, wu, wd)]
+
+
+def gs_input(dev):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SHARD_SEED + 1)
+    return torch.randn(SHARD_WORLD * SHARD_TOKENS, QWEN14["d_model"], generator=g, device=dev)
+
+
+class CollectiveClock:
+    """Counts and times (host clock) the collective steps a plan runs, by
+    wrapping ``core.comm.run_collective``: a measurement, no change to what
+    runs."""
+
+    def __init__(self):
+        from repro_torch.core import comm
+
+        self.comm = comm
+        self.inner = comm.run_collective
+        self.calls = 0
+        self.seconds = 0.0
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.inner(*args, **kw)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        comm.run_collective = timed
+
+    def reset(self):
+        self.calls, self.seconds = 0, 0.0
+
+
+def rank_numbers(label, fn, args, planned, clock, every_rank=None):
+    """One rank's numbers of one function: ms a call (CUDA events), ms
+    inside its collectives (host clock), device µs, kernels and copies a
+    call (torch.profiler: ``device_profile`` holds the whole call's device
+    events and the generated kernels to the plan, and leaves out gloo's
+    own device-timeline spans, ``gloo:*``, which overlap its copies), peak
+    allocated bytes.  ``every_rank`` is ``device_profile``'s: in a world of
+    several ranks each profile's calls run collectives, so the ranks take
+    their profiles again together."""
+    import torch
+
+    for _ in range(2):
+        fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SHARD_CALLS):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / SHARD_CALLS
+    coll_ms = clock.seconds * 1e3 / SHARD_CALLS
+    coll_calls = clock.calls / SHARD_CALLS
+    peak = torch.cuda.max_memory_allocated()
+    counts = {}
+    seen, by_name = device_profile(lambda: fn(*args), SHARD_PROFILED, label,
+                                   per_call=(("stitch_",), planned), ignore=("gloo:",),
+                                   counts=counts, every_rank=every_rank)
+
+    def copy(name):   # gloo stages CUDA tensors through pinned host memory
+        return name.startswith(("Memcpy", "Memset"))
+
+    kernels = {n: us for n, us in by_name.items() if not copy(n)}
+    return {"ms_per_call": ms, "collective_ms_per_call": coll_ms,
+            "collective_steps_per_call": coll_calls, "peak_allocated_bytes": peak,
+            "device_events_per_call": seen,
+            "device_kernels_per_call": sum(k for n, k in counts.items() if not copy(n)),
+            "device_us_per_call": sum(kernels.values()),
+            "copies_per_call": sum(k for n, k in counts.items() if copy(n)),
+            "copy_us_per_call": sum(us for n, us in by_name.items() if copy(n)),
+            "device_us_by_kernel": kernels}
+
+
+def counted_call(fn, args, clock):
+    """One call with every launch count at 0 just before and read just
+    after; the generated kernels' launches by emitter, the hand-written
+    kernels' (none), and the collective steps it ran."""
+    import torch
+
+    from repro_torch.core.codegen import KernelProgram
+    from repro_torch.kernels import ops
+
+    zero_launches()
+    clock.reset()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(KernelProgram.launches_by_emitter)
+    hand = {name: k.launches for name, k in ops.KERNELS.items()}
+    if any(hand.values()):
+        raise SystemExit(f"sharded: the path launched hand-written kernels {hand}")
+    return out, {**launches, **hand}, clock.calls
+
+
+def sharded_rank(rank, world, backend, outdir, device_type):
+    """One rank of phase 16's world (module docstring): every case, its
+    outputs and numbers saved under ``outdir`` for the parent to hold."""
+    import datetime
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import stitch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.shard import (
+        MeshShape, assemble, block_cuts, local_block, spec_to_layout,
+    )
+    from repro_torch.distributed import make_elastic_mesh, params_shardings, reshard_state
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import init_params, param_specs
+
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
+    if device_type == "cuda":
+        torch.cuda.set_device(0)       # every rank on the one card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a rank still running when the parent's deadline nears prints where it is
+    faulthandler.dump_traceback_later(SHARD_WORLD_DEADLINE_S - 20, exit=True)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(outdir, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    clock = CollectiveClock()
+    res = {"rank": rank, "backend": backend}
+    saved = {}
+    t0 = time.perf_counter()
+
+    def done(case):
+        print(f"sharded rank {rank}/{world} {backend}: {case} done at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    every_rank = None
+    if world > 1:
+        def every_rank(held):
+            # a profile refused on one rank is taken again on all of them, so
+            # that every rank runs the same collectives
+            flag = torch.tensor([int(held)])
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            return bool(flag.item())
+
+    if world == 1:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh(device_type, (1,), mesh_dim_names=("model",))
+        dim = 0
+        # the unsharded plan of the same function, its numbers taken in this
+        # fresh process as the ranks' are
+        for label, dtype in (("mlp_f32", torch.float32), ("mlp_bf16", torch.bfloat16)):
+            args = shard_inputs(dev, dtype)
+            f = stitch(plain_mlp, device=device_type)
+            f(*args)
+            compiled = f._last.compiled
+            numbers = rank_numbers(f"unsharded {label}", f, args, planned_launches(compiled),
+                                   clock)
+            res[f"unsharded_{label}"] = {
+                **{k: v for k, v in numbers.items() if k != "device_us_by_kernel"},
+                "top_kernels": top_kernels(numbers["device_us_by_kernel"]),
+                "replay_mode": compiled.stats.replay_mode,
+                "plan": {"stitched_kernels": compiled.stats.stitched_kernels,
+                         "standalone_kernels": compiled.stats.standalone_kernels}}
+            del args
+            done(f"unsharded {label}")
+    else:
+        # the rules against the world: qwen2.5-14b's specs on a shape-only
+        # (data 1, model 4) mesh and on the world's smoke mesh
+        mesh = make_smoke_mesh(1, world, device=device_type)
+        dim = 1
+        specs = param_specs(get_config("qwen2.5-14b"))
+        flat = {}
+
+        def walk(tree, path=""):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    walk(v, f"{path}/{k}")
+            else:
+                flat[path] = tree
+
+        walk(params_shardings(specs, MeshShape(("data", "model"), (1, world))))
+        shape_only = {k: s.spec for k, s in flat.items()}
+        flat.clear()
+        walk(params_shardings(specs, mesh))
+        res["rules"] = {"specs": shape_only,
+                        "same_on_the_world": {k: s.spec for k, s in flat.items()} == shape_only}
+        done("rules")
+
+    cases = [("mlp_f32", torch.float32), ("mlp_bf16", torch.bfloat16)]
+    for label, dtype in cases:
+        args = shard_inputs(dev, dtype)
+        f = stitch(shard_mlp(mesh, dim), mesh=mesh, device=device_type, **shard_specs())
+        if rank == 0:
+            f.lower(*args).compile()   # builds the plan's source before the others load it
+        dist.barrier()
+        out, launches, steps = counted_call(f, args, clock)
+        compiled = f._last.compiled
+        ep = compiled.executable.execution_plan
+        saved[label] = out.cpu()
+        res[label] = {
+            "launches": launches, "planned": planned_launches(compiled),
+            "collective_steps": steps, "collective_calls": compiled.stats.collective_calls,
+            "replay_mode": compiled.stats.replay_mode,
+            "sharded_instrs": compiled.stats.sharded_instrs,
+            "plan": {"stitched_kernels": compiled.stats.stitched_kernels,
+                     "standalone_kernels": compiled.stats.standalone_kernels,
+                     "library_calls": compiled.stats.library_calls},
+            "collectives": [list(c) for c in ep.collectives],
+            "numbers": rank_numbers(f"sharded {label} rank {rank}", f, args,
+                                    planned_launches(compiled), clock, every_rank),
+        }
+        del args
+        done(label)
+
+    if world > 1:
+        x = gs_input(dev)
+        f = stitch(shard_gs(mesh, dim), mesh=mesh, device=device_type, in_specs=(("model",),),
+                   out_specs=("model",))
+        if rank == 0:
+            f.lower(x).compile()
+        dist.barrier()
+        out, launches, steps = counted_call(f, [x], clock)
+        compiled = f._last.compiled
+        ex = compiled.executable
+        saved["gather_scatter"] = out.cpu()
+        res["gather_scatter"] = {
+            "launches": launches, "planned": planned_launches(compiled),
+            "collective_steps": steps, "collective_calls": compiled.stats.collective_calls,
+            "assembly_gathers": ex.launch_stats().assembly_gathers,
+            "collectives": [list(c) for c in ex.execution_plan.collectives],
+            "assembly_forms": [[form for _, _, form in g] for g in ex._assembly],
+            "numbers": rank_numbers(f"sharded gather_scatter rank {rank}", f, [x],
+                                    planned_launches(compiled), clock, every_rank),
+        }
+        done("gather_scatter")
+
+        # reshard a reduced qwen1.5-0.5b onto the elastic mesh: each rank's
+        # shard is its block of the input, and the blocks gather back to it
+        params = init_params(reduced_config(get_config("qwen1.5-0.5b")), SHARD_SEED, device=dev)
+        emesh = make_elastic_mesh(world, device=device_type)
+        placed, _ = reshard_state(params, None, emesh)
+        shard = params_shardings(params, emesh)
+        leaves = blocks_ok = gathered_ok = split = 0
+        stack = [(params, placed, shard)]
+        while stack:
+            a, b, s = stack.pop()
+            if isinstance(a, dict):
+                stack.extend((a[k], b[k], s[k]) for k in a)
+                continue
+            lay = spec_to_layout(s.spec, a.ndim)
+            local = b.to_local()
+            leaves += 1
+            split += int(local.numel() < a.numel())
+            blocks_ok += int(torch.equal(local, local_block(a, block_cuts(lay, emesh))))
+            gathered_ok += int(torch.equal(assemble(local, lay, emesh), a))
+        res["reshard"] = {"mesh": [list(emesh.shape), list(emesh.mesh_dim_names)],
+                          "leaves": leaves, "split_leaves": split, "blocks_equal": blocks_ok,
+                          "gathered_equal": gathered_ok}
+        done("reshard")
+
+    res["profile_retakes"] = RETAKES
+    torch.save(saved, os.path.join(outdir, f"rank{rank}.pt"))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+
+
+def run_world(world, backend, device_type):
+    """Spawn ``world`` ranks of ``sharded_rank``; a failing rank raises here
+    (``torch.multiprocessing.spawn``), and fails the phase, and so does a
+    world still running after ``SHARD_WORLD_DEADLINE_S``: its ranks are
+    killed.  Returns each rank's numbers and outputs, and adds the ranks'
+    refused profiles to ``RETAKES``; the world's directory under ``build/``
+    (its store and the ranks' saved outputs) is removed once read."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    base = os.path.join(HERE, "build")
+    os.makedirs(base, exist_ok=True)
+    outdir = tempfile.mkdtemp(prefix="sharded.", dir=base)
+    out = []
+    try:
+        ctx = mp.spawn(sharded_rank, args=(world, backend, outdir, device_type), nprocs=world,
+                       join=False)
+        deadline = time.monotonic() + SHARD_WORLD_DEADLINE_S
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+                    raise SystemExit(f"sharded: the {backend} world of {world} still ran after "
+                                     f"{SHARD_WORLD_DEADLINE_S} s (ranks {alive} alive)")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        for r in range(world):
+            with open(os.path.join(outdir, f"rank{r}.json")) as fh:
+                res = json.load(fh)
+            res["outputs"] = torch.load(os.path.join(outdir, f"rank{r}.pt"))
+            RETAKES.extend(res.pop("profile_retakes"))
+            out.append(res)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    return out
+
+
+def sharded_phase(dev, smi):
+    """Phase 16: the multi-device compiler on the card (module docstring).
+    Returns the sharded line's object and the generated kernels' launches
+    in the ranks' counted calls, by emitter."""
+    import torch
+
+    import gc
+
+    # what earlier phases keep cached goes back to the card, for the ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the unsharded function on the card, in this process, f32 and bf16
+    want = {}
+    for label, dtype in (("mlp_f32", torch.float32), ("mlp_bf16", torch.bfloat16)):
+        args = shard_inputs(dev, dtype)
+        want[label] = plain_mlp(*args).cpu()
+        del args
+    want["gather_scatter"] = (8.0 * gs_input(dev)).cpu()
+    torch.cuda.empty_cache()
+    seconds = {"unsharded": time.perf_counter() - t0}
+
+    t1 = time.perf_counter()
+    # the backend rule: NCCL refuses two ranks on one card ("Duplicate GPU
+    # detected"), so the four ranks run over gloo; one rank runs over NCCL
+    # (gloo on the CPU)
+    ranks = run_world(SHARD_WORLD, "gloo", dev.type)
+    seconds["gloo_world"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    nccl = run_world(1, "nccl" if dev.type == "cuda" else "gloo", dev.type)
+    seconds["nccl_world"] = time.perf_counter() - t1
+
+    # ---- right ---------------------------------------------------------------------
+    tols = {"mlp_f32": (TOL, TOL), "gather_scatter": (TOL, TOL)}
+    errs = {}
+    for label in ("mlp_f32", "mlp_bf16", "gather_scatter"):
+        w = want[label].float()
+        if label == "mlp_bf16":
+            tol = SHARD_BF16_TOL
+            atol = tol * float(w.abs().max())
+            tols[label] = (tol, atol)
+        rtol, atol = tols[label]
+        for res in ranks:
+            got = res["outputs"][label].float()
+            if got.shape != w.shape or not torch.allclose(got, w, rtol=rtol, atol=atol):
+                raise SystemExit(f"sharded {label} rank {res['rank']}: max |err| "
+                                 f"{float((got - w).abs().max())} past rtol {rtol} atol {atol}")
+            if not same(res["outputs"][label], ranks[0]["outputs"][label]):
+                raise SystemExit(f"sharded {label}: rank {res['rank']} differs from rank 0")
+        errs[label] = max(float((r["outputs"][label].float() - w).abs().max()) for r in ranks)
+        for res in ranks:
+            row = res[label]
+            emitted = row["launches"]["emit_fusion"] + row["launches"]["emit_stitched_fusion"]
+            if emitted != row["planned"] or row["planned"] < 1 and label != "gather_scatter":
+                raise SystemExit(f"sharded {label} rank {res['rank']}: {emitted} generated "
+                                 f"launches, planned {row['planned']}")
+            if row["collective_steps"] != row["collective_calls"]:
+                raise SystemExit(f"sharded {label} rank {res['rank']}: ran "
+                                 f"{row['collective_steps']} collectives, planned "
+                                 f"{row['collective_calls']}")
+    for res in ranks:
+        for label in ("mlp_f32", "mlp_bf16"):
+            if res[label]["collective_steps"] != 1 or res[label]["replay_mode"] != "sharded":
+                raise SystemExit(f"sharded {label} rank {res['rank']}: "
+                                 f"{res[label]['collective_steps']} collectives a call")
+        if not res["rules"]["same_on_the_world"]:
+            raise SystemExit(f"sharded rank {res['rank']}: the world's specs differ")
+        rs = res["reshard"]
+        if rs["blocks_equal"] != rs["leaves"] or rs["gathered_equal"] != rs["leaves"] \
+                or rs["split_leaves"] < 1:
+            raise SystemExit(f"sharded rank {res['rank']}: reshard {rs}")
+    n0 = nccl[0]
+    w = want["mlp_f32"]
+    if not torch.allclose(n0["outputs"]["mlp_f32"], w, rtol=TOL, atol=TOL):
+        raise SystemExit(f"sharded nccl: max |err| "
+                         f"{float((n0['outputs']['mlp_f32'] - w).abs().max())}")
+    errs["nccl_mlp_f32"] = float((n0["outputs"]["mlp_f32"] - w).abs().max())
+    seconds["phase"] = time.perf_counter() - t0
+
+    # ---- numbers -------------------------------------------------------------------
+    d, f = QWEN14["d_model"], QWEN14["d_ff"]
+    flop = 3 * 2 * SHARD_TOKENS * d * (f // SHARD_WORLD)
+    launches = {"emit_fusion": 0, "emit_stitched_fusion": 0}
+    per_rank = []
+    for res in ranks:
+        row = {"rank": res["rank"]}
+        for label in ("mlp_f32", "mlp_bf16", "gather_scatter"):
+            for k in launches:
+                launches[k] += res[label]["launches"][k]
+            row[label] = {k: v for k, v in res[label].items() if k != "numbers"}
+            row[label].update({k: v for k, v in res[label]["numbers"].items()
+                               if k != "device_us_by_kernel"})
+            row[label]["top_kernels"] = top_kernels(res[label]["numbers"]["device_us_by_kernel"])
+        row["reshard"] = res["reshard"]
+        per_rank.append(row)
+        for label in ("mlp_f32", "mlp_bf16", "gather_scatter"):
+            n = res[label]["numbers"]
+            print(f"sharded rank {res['rank']} {label}: {n['ms_per_call']:.3f} ms a call, "
+                  f"{n['collective_ms_per_call']:.3f} ms in collectives, "
+                  f"{n['device_us_per_call']:.1f} device us in "
+                  f"{n['device_kernels_per_call']:.2f} kernels and {n['copy_us_per_call']:.1f} "
+                  f"in {n['copies_per_call']:.2f} copies a call, generated launches "
+                  f"{res[label]['launches']['emit_fusion']}+"
+                  f"{res[label]['launches']['emit_stitched_fusion']} "
+                  f"(planned {res[label]['planned']}), peak {n['peak_allocated_bytes']} bytes, "
+                  f"ops {res[label]['collectives']} ({smi})")
+    for label in ("mlp_f32", "mlp_bf16"):
+        n = n0[f"unsharded_{label}"]
+        print(f"sharded: unsharded plan {label}, one process: {n['ms_per_call']:.3f} ms a call, "
+              f"{n['device_us_per_call']:.1f} device us in {n['device_kernels_per_call']:.2f} "
+              f"kernels and {n['copy_us_per_call']:.1f} in {n['copies_per_call']:.2f} copies "
+              f"and memsets a call, peak {n['peak_allocated_bytes']} bytes ({smi})")
+    rules = ranks[0]["rules"]["specs"]
+    for path in sorted(rules):
+        print(f"sharded rules: {path} {rules[path]}")
+    print("sharded: gloo stages CUDA tensors through the host: its collective times are "
+          "not NCCL's")
+    row = {
+        "card": smi, "world": SHARD_WORLD, "backend": "gloo", "tokens": SHARD_TOKENS,
+        "width": QWEN14, "flop_per_rank_mlp": flop,
+        "f32_bound_ms_per_rank": flop / F32_OPS_PER_S * 1e3,
+        "max_abs_err": errs, "tolerances": {k: list(v) for k, v in tols.items()},
+        "unsharded": {label: n0[f"unsharded_{label}"] for label in ("mlp_f32", "mlp_bf16")},
+        "ranks": per_rank,
+        "nccl_one_rank": {k: v for k, v in n0["mlp_f32"]["numbers"].items()
+                          if k != "device_us_by_kernel"}
+        | {"collectives": n0["mlp_f32"]["collectives"], "launches": n0["mlp_f32"]["launches"]},
+        "rules_qwen2_5_14b_data1_model4": rules,
+        "gloo_stages_through_host": True, "seconds": seconds,
+    }
+    print(f"sharded: launches {launches}; seconds { {k: round(v, 1) for k, v in seconds.items()} }")
+    return row, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -2915,6 +3495,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    faulthandler.dump_traceback_later(DUMP_AFTER_S, exit=False)
 
     # ---- 1. device -----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -3254,6 +3835,13 @@ def main(argv=None) -> int:
         # the generated kernels of the stitched train step's counted eager run;
         # the models' training calls no hand-written kernel: 0, as counted
         entry["train_launches"] = train_launches[entry["name"]]
+
+    # ---- 16. the multi-device compiler ----------------------------------------------
+    sharded_row, sharded_launches = sharded_phase(dev, smi)
+    for entry in entries:
+        # the generated kernels of the ranks' counted calls; the sharded
+        # path calls no hand-written kernel (counted: each rank fails on one)
+        entry["sharded_launches"] = sharded_launches.get(entry["name"], 0)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3263,14 +3851,17 @@ def main(argv=None) -> int:
                        "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
                        "autotune": autotune_rows, "fault_modules": fault_rows,
                        "frontend": frontend_rows, "models": models_row, "serve": serve_row,
-                       "train": train_row, "profile_retakes": RETAKES}, f, indent=1)
+                       "train": train_row, "sharded": sharded_row,
+                       "profile_retakes": RETAKES}, f, indent=1)
     print(f"profiles taken again: {sum(len(r['refused']) for r in RETAKES)} "
           f"({', '.join(r['label'] for r in RETAKES) or 'none'})")
     print(f"card: {smi}")
     print(json.dumps({"models": models_row}))
     print(json.dumps({"serve": serve_row}))
     print(json.dumps({"train": train_row}))
+    print(json.dumps({"sharded": sharded_row}))
     print(json.dumps({"kernels": entries}))
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -5,10 +5,14 @@ The planner modules (``span``, ``schedule``, ``latency``, ``memory``,
 are copies of the reference's, which reach jax only through ``ir``; they
 keep the reference device constants so the port commits the same plans.
 ``ir``, ``codegen``, ``cuda_build``, ``executor``, ``pipeline``,
-``compiler``, ``measure``, ``verify`` and ``interop`` are the port's own.
+``compiler``, ``measure``, ``verify`` and ``interop`` are the port's own,
+and so are ``shard`` (the reference's layouts and their propagation, rule
+for rule, with DTensor placements for PartitionSpecs) and ``comm`` (the
+collectives over ``torch.distributed``).
 
 ``__all__`` holds every name of ``repro.core.__all__``, then the port's own
-(the CUDA emitters and their programs, ``interop``, ``SubModulePass``).
+(the CUDA emitters and their programs, ``interop``, ``SubModulePass``, the
+sharding names).
 """
 from .compiler import CompiledModule, CompileStats, StitchOptions, compile_module
 from .codegen import KernelProgram, StitchedKernel, emit_fusion, emit_stitched_fusion
@@ -50,6 +54,7 @@ from .pipeline import (
     MemoryPass,
     PassPipeline,
     SchedulePass,
+    ShardingPass,
     SubModulePass,
     default_pipeline,
 )
@@ -71,6 +76,14 @@ from .schedule import (
     resolve_stitched,
     stitchable,
 )
+from .shard import (
+    MeshShape,
+    derive_layouts,
+    layout_to_placements,
+    mesh_axes_of,
+    propagate_layouts,
+    spec_to_layout,
+)
 from .signature import CacheEntry, KernelCache, fusion_signature, module_signature
 from .span import compute_spans, critical_path_length, layers
 from .tuning import TunedPlan, tune
@@ -81,6 +94,7 @@ from .verify import (
     resolve_verify_mode,
     verify_execution_plan,
     verify_module,
+    verify_shard_attrs,
     verify_state,
 )
 from .xla_baseline import xla_baseline_groups, xla_baseline_kernel_count
@@ -110,5 +124,7 @@ __all__ = [
     # the port's own
     "KernelProgram", "StitchedKernel", "emit_fusion", "emit_stitched_fusion",
     "LaunchStats", "module_from_reference", "torch_dtype", "SubModulePass",
-    "module_signature",
+    "module_signature", "ShardingPass", "MeshShape", "derive_layouts",
+    "layout_to_placements", "mesh_axes_of", "propagate_layouts", "spec_to_layout",
+    "verify_shard_attrs",
 ]

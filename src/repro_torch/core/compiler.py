@@ -4,13 +4,16 @@
 pipeline and returns a ``CompiledModule`` wrapping the planned executable
 and its stats.  It compiles for the card unless the caller asks for the
 CPU: ``device=None`` means ``"cuda"``, a missing card raises, and
-``device="cpu"`` runs every kernel's plain version.
+``device="cpu"`` runs every kernel's plain version.  With ``mesh=`` it is a
+sharded compile: the module is the per-shard body every rank of a
+``torch.distributed`` world runs (``core/executor.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,19 +22,19 @@ from .codegen import StitchedKernel
 from .device import resolve_device
 from .executor import StitchedExecutable
 from .fusion import FusionPlan, constant_like
-from .ir import COLLECTIVE_OPCODES, SHARDING_ITEM
 from .measure import MeasuredCostStore, device_fingerprint
 from .perf_library import PerfLibrary
 from .pipeline import CompilationState, default_pipeline
 from .schedule import REPLICATED
+from .shard import mesh_axes_of
 from .signature import KernelCache
 from .xla_baseline import xla_baseline_kernel_count
 
 
 @dataclass
 class StitchOptions:
-    """The reference's options minus ``mesh_axes`` (sharding is a later
-    slice) and minus ``interpret``: the compile's device takes its place."""
+    """The reference's options minus ``interpret``: the compile's device
+    takes its place."""
 
     fuse_dot: bool = True                    # user decision (paper §2.1)
     vmem_limit: int = 4 * 1024 * 1024        # scratch budget per kernel
@@ -63,6 +66,12 @@ class StitchOptions:
     autotune: bool = False
     measure_repeats: int = 5
     tuning_store_path: Optional[str] = None
+    # Shard-aware compilation: the (axis name, size) shape of the mesh the
+    # plan targets, e.g. (("data", 2), ("model", 4)).  Hashable: it salts
+    # the options fingerprint and the measured-store keys, while the live
+    # DeviceMesh is passed to ``compile_module`` apart.  None: a
+    # single-device compile, every cache key as before.
+    mesh_axes: Optional[Tuple[Tuple[str, int], ...]] = None
     # Pass-boundary verification (core/verify.py): "off", "checkpoint" (the
     # finished artifact, after FinalizePass) or "strict" (after every pass).
     # The REPRO_VERIFY environment variable overrides it.  Not part of the
@@ -99,6 +108,13 @@ class StitchOptions:
             )
         if self.measure_repeats < 1:
             raise ValueError(f"measure_repeats must be >= 1, got {self.measure_repeats}")
+        if self.mesh_axes is not None:
+            for entry in self.mesh_axes:
+                name, size = entry
+                if not isinstance(name, str) or int(size) < 1:
+                    raise ValueError(
+                        f"mesh_axes entries must be (name, size>=1) pairs, got {entry!r}"
+                    )
 
 
 @dataclass
@@ -160,9 +176,10 @@ class CompileStats:
     greedy_kernels: int = 0
     planner_kernels: int = 0
     unfused_kernels: int = 0                 # launches with no fusion at all
-    # runtime replay accounting (executor.LaunchStats): "graph" on the card
-    # with jit_replay where a replayed call dispatches no more than an eager
-    # one, else "eager"; dispatches the eager loop makes per call, and what
+    # runtime replay accounting (executor.LaunchStats): "sharded" for a
+    # compile with a mesh; "graph" on the card with jit_replay where a
+    # replayed call dispatches no more than an eager one, else "eager";
+    # dispatches the eager loop makes per call, and what
     # a replayed call makes (the graph's launch and the copies)
     replay_mode: str = "graph"
     eager_dispatches_per_call: int = 0
@@ -175,6 +192,15 @@ class CompileStats:
     measured_misses: int = 0
     measurements_taken: int = 0
     model_error_pct: Optional[float] = None
+    # shard-aware compilation (zero on single-device compiles): collective
+    # steps in the plan, counted apart from kernels and library calls;
+    # their modeled wire time; how many sit between two fused kernels
+    # (compute fused on both sides of the break); and how many
+    # instructions carry a non-trivial shard layout
+    collective_calls: int = 0
+    collective_time_s: float = 0.0
+    collective_breaks_spanned: int = 0
+    sharded_instrs: int = 0
     # pass-boundary verification (core/verify.py)
     verify_mode: str = "off"
     verify_boundaries: int = 0
@@ -294,9 +320,21 @@ def build_outputs(state: CompilationState) -> None:
         planner=state.fusion_plan.planner,
     )
     library_time = 0.0
+    collective_time = 0.0
+    collective_calls = 0
+    mesh_sizes = dict(state.options.mesh_axes or ())
     for s in plan.standalone:
         if s.opcode == "get":
             continue   # a projection of a loop output: no launch, no cost
+        if s.is_collective:
+            # wire traffic, not a launch: charged by the ring model and
+            # reported apart from kernel and library time
+            g = 1
+            for a in s.attrs.get("axes", ()):
+                g *= mesh_sizes.get(a, 1)
+            collective_time += lib.model.collective_op_time(s, g)
+            collective_calls += 1
+            continue
         if s.opcode == "call":
             # a loop costs its body's predicted time per iteration
             sub = s.attrs["compiled_body"].stats
@@ -312,9 +350,35 @@ def build_outputs(state: CompilationState) -> None:
         else:
             predicted += t
 
+    # collective breaks spanned by fused compute: a fused kernel runs
+    # upstream of the collective and another downstream (transitively: the
+    # value an all-reduce takes is often a library dot, the fused compute
+    # one hop further)
+    fused_ids = {m.id for f in final_fusions for m in f.members}
+
+    def _reaches(start, follow) -> bool:
+        seen, stack = set(), list(start)
+        while stack:
+            i = stack.pop()
+            if i.id in seen:
+                continue
+            seen.add(i.id)
+            if i.id in fused_ids:
+                return True
+            stack.extend(follow(i))
+        return False
+
+    breaks_spanned = sum(
+        1 for s in plan.standalone
+        if s.is_collective
+        and _reaches(s.operands, lambda i: i.operands)
+        and _reaches(s.users, lambda i: i.users)
+    )
+
     executable = StitchedExecutable(
         state.module, plan, kernels, state.device, jit_replay=state.options.jit_replay,
-        donate_params=state.donate_params,
+        donate_params=state.donate_params, mesh=state.mesh,
+        param_layouts=state.param_layouts, out_layouts=state.out_layouts,
     )
     st = executable.launch_stats()
     hits = sum(1 for p in state.planned if p.cache_hit)
@@ -386,6 +450,10 @@ def build_outputs(state: CompilationState) -> None:
         measured_misses=mstore.misses - state.measured_base_misses if mstore else 0,
         measurements_taken=state.measurements_taken,
         model_error_pct=float(np.mean(errors)) if errors else None,
+        collective_calls=collective_calls,
+        collective_time_s=collective_time,
+        collective_breaks_spanned=breaks_spanned,
+        sharded_instrs=state.shard_stats.get("sharded_instrs", 0),
         device=str(state.device),
     )
 
@@ -397,6 +465,9 @@ def compile_module(
     device=None,
     measured_store=None,
     donate_params=None,
+    mesh=None,
+    param_layouts=None,
+    out_layouts=None,
 ) -> CompiledModule:
     """Compile a StitchIR module through the default pass pipeline.
 
@@ -416,6 +487,15 @@ def compile_module(
     a donated parameter's shape and dtype into its buffer
     (``ExecutionPlan.donations``).  Runtime-only, never part of any cache
     key.
+
+    ``mesh``/``param_layouts``/``out_layouts`` make this a sharded compile:
+    the module holds the PER-SHARD computation (as ``frontend.aten_lower.
+    lower_sharded_graph`` produces it), ``mesh`` is the live
+    ``DeviceMesh`` whose ranks each run the plan (``replay_mode ==
+    "sharded"``), and the layouts map parameter names, and the roots in
+    order, to ``core.shard`` layout tuples.  ``mesh_axes_of(mesh)`` must
+    equal ``options.mesh_axes``, the hashable half that salts every cache
+    key; options without ``mesh_axes`` take the mesh's.
     """
     opts = options or StitchOptions()
     dev = resolve_device(device)
@@ -423,9 +503,17 @@ def compile_module(
     unknown = sorted((donate or frozenset()) - {p.name for p in module.parameters})
     if unknown:
         raise ValueError(f"donate_params names no parameter of {module.name!r}: {unknown}")
-    for instr in module.instructions:
-        if instr.opcode in COLLECTIVE_OPCODES:
-            raise NotImplementedError(f"{instr.name}: collectives are ported by {SHARDING_ITEM}")
+    if mesh is not None:
+        axes = mesh_axes_of(mesh)
+        if opts.mesh_axes is None:
+            opts = dataclasses.replace(opts, mesh_axes=axes)
+        elif tuple(tuple(e) for e in opts.mesh_axes) != axes:
+            raise ValueError(
+                f"options.mesh_axes {opts.mesh_axes} != the mesh's {axes}: the "
+                "fingerprint must describe the mesh the plan runs on"
+            )
+    elif (param_layouts or out_layouts) and not opts.mesh_axes:
+        raise ValueError("param_layouts/out_layouts need mesh= or options.mesh_axes")
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -447,6 +535,9 @@ def compile_module(
         measured_base_hits=store.hits if store else 0,
         measured_base_misses=store.misses if store else 0,
         donate_params=donate,
+        mesh=mesh,
+        param_layouts=dict(param_layouts) if param_layouts else None,
+        out_layouts=list(out_layouts) if out_layouts else None,
     )
     default_pipeline().run(state)
     state.stats.compile_time_s = time.perf_counter() - t0

@@ -99,7 +99,13 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
             seen.add(so)
             nvcc = nvcc or nvcc_path()
             cu = so.with_suffix(".cu")
-            cu.write_text(src)
+            # written whole under a name of its own, then renamed into
+            # place: a process building the same source never hands nvcc a
+            # half-written file
+            fd, cu_tmp = tempfile.mkstemp(prefix=so.stem + ".", suffix=".cu.tmp", dir=BUILD_DIR)
+            with os.fdopen(fd, "w") as f:
+                f.write(src)
+            os.replace(cu_tmp, cu)
             fd, tmp = tempfile.mkstemp(prefix=so.stem + ".", suffix=".so.tmp", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(

@@ -37,6 +37,20 @@ Which one a call takes is fixed when the plan is built
 (``traced_dispatches_per_call > eager_dispatches_per_call``, a plan of one
 kernel with its feed and root copies), which then runs eager.
 
+A plan compiled with a ``mesh`` is sharded (``replay_mode == "sharded"``).
+The reference traces its step loop once under ``shard_map`` and one
+controller runs it on every device.  The port is SPMD: every rank of a
+``torch.distributed`` world runs the same per-shard plan in its own
+process, through the eager loop, and a collective step calls
+``torch.distributed`` on the process group of its mesh axes
+(``core/comm.py``), group and form fixed when the plan is built.  Feeds
+and results are global, as in the reference: ``sharded_execute`` cuts each
+rank's block of a global feed by the rank's mesh coordinate and the
+parameter's layout, and all-gathers each sharded output once after the plan
+(``LaunchStats.assembly_gathers``, counted apart from the plan's
+collectives: the reference's ``out_specs`` assemble it for free).  There is
+no CUDA-graph capture of a sharded plan.
+
 Launch counters tick in the Python wrapper that launches a kernel, and a
 replay runs no wrapper: the plan undoes the ticks of its capture, records
 them, and adds them to each kernel's counter at every replay.  Those
@@ -52,10 +66,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import comm
 from .codegen import KernelProgram, StitchedKernel
 from .device import resolve_device
 from .fusion import FusionPlan, constant_like
 from .ir import Instruction, Module, apply_op, as_dtype, torch_dtype
+from .shard import block_cuts, local_block
 
 def as_feed(value, dtype, device) -> torch.Tensor:
     """A feed (numpy array or tensor) as a tensor of the parameter's dtype
@@ -102,6 +118,8 @@ class LaunchStats:
     # (one dispatch a group of ``_copy_groups``)
     traced_dispatches_per_call: int = 0
     donated_buffers: int = 0             # donated parameters whose buffer a later kernel writes
+    collective_calls: int = 0            # collective steps a call runs (wire traffic, not launches)
+    assembly_gathers: int = 0            # gathers a sharded call makes to return global outputs
 
 
 def order_units(plan: FusionPlan) -> List[object]:
@@ -157,15 +175,18 @@ class _KernelStep:
 
 
 class _OpStep:
-    """One standalone instruction (library dot etc.), pre-bound."""
+    """One standalone instruction (library dot, collective etc.),
+    pre-bound.  A collective of a sharded plan carries its process group
+    and form (``comm``), fixed when the plan is built."""
 
-    __slots__ = ("instr", "arg_slots", "out_slot", "release")
+    __slots__ = ("instr", "arg_slots", "out_slot", "release", "comm")
 
     def __init__(self, instr: Instruction, arg_slots, out_slot):
         self.instr = instr
         self.arg_slots = arg_slots
         self.out_slot = out_slot
         self.release: List[int] = []
+        self.comm: Optional[Tuple[object, str]] = None
 
 
 class _LoopStep:
@@ -376,7 +397,7 @@ class ExecutionPlan:
     """
 
     def __init__(self, module: Module, plan: FusionPlan,
-                 kernels: Dict[str, StitchedKernel], device, donate_params=None):
+                 kernels: Dict[str, StitchedKernel], device, donate_params=None, mesh=None):
         self.device = torch.device(device)
         member_ids = {m.id for f in plan.fusions for m in f.members}
         covered = member_ids | {s.id for s in plan.standalone}
@@ -445,6 +466,19 @@ class ExecutionPlan:
                 arg_slots = [slot_of[i.id] for i in k.inputs]
                 out_slots = [new_slot(r.id) for r in k.outputs]
                 self.steps.append(_KernelStep(k, arg_slots, out_slots))
+
+        # ---- collectives: each step's group and form, fixed here ------------
+        #: (instruction, opcode, axes, backend, form) of every collective step
+        self.collectives: List[Tuple[str, str, Tuple[str, ...], str, str]] = []
+        if mesh is not None:
+            for st in self.steps:
+                if type(st) is _OpStep and st.instr.is_collective:
+                    axes = tuple(st.instr.attrs["axes"])
+                    group = comm.axis_group(mesh, axes)
+                    form = comm.collective_form(st.instr.opcode, group, self.device)
+                    st.comm = (group, form)
+                    self.collectives.append((st.instr.name, st.instr.opcode, axes,
+                                             comm.backend_of(group), form))
 
         self.num_slots = len(slot_of)
         # a feed already a tensor of its parameter's dtype on this device
@@ -520,6 +554,8 @@ class ExecutionPlan:
             traced_dispatches_per_call=1 + len(g.in_groups) + len(g.out_groups),
             loop_calls=sum(1 for st in self.steps if type(st) is _LoopStep),
             donated_buffers=len(self.donations),
+            collective_calls=sum(1 for st in self.steps
+                                 if type(st) is _OpStep and st.instr.is_collective),
         )
 
     # ------------------------------------------------------------- steps
@@ -538,6 +574,9 @@ class ExecutionPlan:
         elif type(step) is _LoopStep:
             for s, o in zip(step.out_slots, step.run(args, self.device), strict=True):
                 buf[s] = o
+        elif step.comm is not None:
+            group, form = step.comm
+            buf[step.out_slot] = comm.run_collective(step.instr, args[0], group, form)
         else:
             buf[step.out_slot] = apply_op(step.instr, *args, device=self.device)
         for s in step.release:
@@ -666,16 +705,26 @@ class StitchedExecutable:
     card where that dispatches no more than the eager loop
     (``replay_mode``); on the CPU, with ``jit_replay=False`` and for the
     other plans, every call takes the eager step loop, the oracle the
-    replay is held against.  ``jit_execute`` replays whatever the mode."""
+    replay is held against.  ``jit_execute`` replays whatever the mode.
+
+    A ``mesh`` (a ``DeviceMesh``) makes this a sharded plan: every call,
+    ``jit_execute`` and ``execute_eager`` included, is ``sharded_execute``
+    on global feeds (module docstring)."""
 
     def __init__(self, module: Module, plan: FusionPlan,
                  kernels: Dict[str, StitchedKernel], device, jit_replay: bool = True,
-                 donate_params=None):
+                 donate_params=None, mesh=None, param_layouts=None, out_layouts=None):
         self.module = module
         self.plan = plan
         self.kernels = kernels
-        self.execution_plan = ExecutionPlan(module, plan, kernels, device, donate_params)
+        self.mesh = mesh
+        self.param_layouts = dict(param_layouts or {})
+        self.out_layouts = list(out_layouts) if out_layouts else None
+        self.execution_plan = ExecutionPlan(module, plan, kernels, device, donate_params,
+                                            mesh=mesh)
         self.jit_replay = jit_replay
+        if mesh is not None:
+            self._build_sharded()
 
     @property
     def device(self) -> torch.device:
@@ -683,15 +732,65 @@ class StitchedExecutable:
 
     @property
     def replay_mode(self) -> str:
-        """``"graph"`` where calls replay the CUDA graph, else ``"eager"``:
-        the graph on the card under ``jit_replay`` when a replayed call
-        makes no more dispatches than an eager one.  At a tie the replay
-        wins, as its dispatches are copies and one graph launch where the
-        eager loop's are kernel wrappers and torch ops."""
+        """``"sharded"`` for a plan with a mesh; else ``"graph"`` where
+        calls replay the CUDA graph, or ``"eager"``: the graph on the card
+        under ``jit_replay`` when a replayed call makes no more dispatches
+        than an eager one.  At a tie the replay wins, as its dispatches are
+        copies and one graph launch where the eager loop's are kernel
+        wrappers and torch ops."""
+        if self.mesh is not None:
+            return "sharded"
         if not self.jit_replay or self.device.type != "cuda":
             return "eager"
         st = self.execution_plan.stats
         return "graph" if st.traced_dispatches_per_call <= st.eager_dispatches_per_call else "eager"
+
+    # ----------------------------------------------------------- sharded
+    def _build_sharded(self) -> None:
+        """What a sharded call needs of the mesh, fixed once: this rank's
+        block of each sharded parameter (``shard.block_cuts``) and, per
+        root, the (dim, group, form) gathers that assemble it."""
+        mesh = self.mesh
+        self._blocks = {name: block_cuts(lay, mesh) for name, lay in self.param_layouts.items()}
+        ep = self.execution_plan
+        outs = self.out_layouts or [None] * len(ep._root_binds)
+        self._assembly: List[List[Tuple[int, object, str]]] = []
+        for lay in outs:
+            gathers = []
+            for d, e in enumerate(lay or ()):
+                if e:
+                    g = comm.axis_group(mesh, tuple(e))
+                    gathers.append((d, g, comm.collective_form("all_gather", g, self.device)))
+            self._assembly.append(gathers)
+        ep.stats.assembly_gathers = sum(len(g) for g in self._assembly)
+
+    def _global_shape(self, name: str, local: Tuple[int, ...]) -> Tuple[int, ...]:
+        out = list(local)
+        for d, _, n in self._blocks.get(name, ()):
+            out[d] *= n
+        return tuple(out)
+
+    def sharded_execute(self, feeds: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        """One call of the sharded plan on this rank: global feeds in, this
+        rank's blocks through the per-shard plan, global outputs back."""
+        ep = self.execution_plan
+        local: Dict[str, torch.Tensor] = {}
+        for name, _, dtype, shape in ep._param_binds:
+            if name not in feeds:
+                raise KeyError(f"missing feed for parameter {name}")
+            v = as_feed(feeds[name], dtype, self.device)
+            want = self._global_shape(name, shape)
+            if tuple(v.shape) != want:
+                raise ValueError(
+                    f"{name}: global feed shape {tuple(v.shape)} != {want} "
+                    f"(per-shard {tuple(shape)})"
+                )
+            local[name] = local_block(v, self._blocks.get(name, ()))
+        out = ep.execute(local)
+        for (name, _), gathers in zip(ep._root_binds, self._assembly, strict=True):
+            for d, group, form in gathers:
+                out[name] = comm.all_gather(out[name], d, group, form)
+        return out
 
     def launch_stats(self) -> LaunchStats:
         rt = self.execution_plan.stats
@@ -710,15 +809,24 @@ class StitchedExecutable:
             eager_dispatches_per_call=rt.eager_dispatches_per_call,
             traced_dispatches_per_call=rt.traced_dispatches_per_call,
             donated_buffers=rt.donated_buffers,
+            collective_calls=rt.collective_calls,
+            assembly_gathers=rt.assembly_gathers,
         )
 
     def execute_eager(self, feeds: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            return self.sharded_execute(feeds)
         return self.execution_plan.execute(feeds)
 
     def jit_execute(self, feeds: Dict[str, object]) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            return self.sharded_execute(feeds)
         return self.execution_plan.replay(feeds)
 
     def __call__(self, feeds: Dict[str, object]) -> Dict[str, torch.Tensor]:
-        if self.replay_mode == "graph":
+        mode = self.replay_mode
+        if mode == "sharded":
+            return self.sharded_execute(feeds)
+        if mode == "graph":
             return self.execution_plan.replay(feeds)
         return self.execution_plan.execute(feeds)

@@ -11,8 +11,11 @@ of the reference's jnp interpreter.  It is shared by the reference executor,
 the runtime's standalone ops and the kernels' plain block interpreters, so
 the oracle and the plain kernels agree by construction.  A ``call`` loop
 runs its body module's interpreter once per iteration (``_apply_call``).
-The cross-device collectives are a later slice of the port and raise
-``NotImplementedError`` naming the ROADMAP item.
+A cross-device collective calls ``torch.distributed`` on the process group
+of its mesh axes (``core/comm.py``): the active ``comm.mesh_scope``'s group
+of those axes, else the default world; with no world it raises naming the
+instruction.  A sharded plan's steps call ``comm.run_collective`` with the
+group and form fixed when the plan is built.
 """
 from __future__ import annotations
 
@@ -428,12 +431,17 @@ def apply_op(instr: Instruction, *vals, device=None):
     reference executor; block tiles inside the plain kernel interpreters).
 
     ``device`` places operand-free results (constants, iota), and defaults
-    to the first operand's device, else the CPU.
+    to the first operand's device, else the CPU.  A collective runs on
+    ``comm.default_group``'s process group.
     """
     op = instr.opcode
     a = instr.attrs
     if device is None:
         device = vals[0].device if vals else "cpu"
+    if op in COLLECTIVE_OPCODES:
+        from .comm import run_collective
+
+        return run_collective(instr, vals[0])
     out = _apply(instr, op, a, vals, device)
     if op == "call":
         return out    # every logical output, projected by ``get``
@@ -476,8 +484,6 @@ def _apply(instr, op, a, vals, device):
         return _apply_call(instr, vals)
     if op == "get":
         return vals[0][a["index"]]
-    if op in COLLECTIVE_OPCODES:
-        raise NotImplementedError(f"collective {op!r} is ported by {SHARDING_ITEM}")
     raise ValueError(f"cannot apply {op}")
 
 
@@ -706,6 +712,23 @@ class GraphBuilder:
 
     def iota(self, shape, dim=0, dtype=np.float32) -> Tensor:
         return self._emit("iota", shape, dtype, [], {"dim": dim})
+
+    # -- collectives (run by every rank of a sharded plan) ------------------
+    def all_reduce(self, x: Tensor, axes) -> Tensor:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return self._emit("all_reduce", x.shape, x.dtype, [x], {"axes": axes})
+
+    def all_gather(self, x: Tensor, axes, dim: int, group_size: int) -> Tensor:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        attrs = {"axes": axes, "dim": int(dim), "group_size": int(group_size)}
+        shape = infer_shape("all_gather", [x.shape], attrs)
+        return self._emit("all_gather", shape, x.dtype, [x], attrs)
+
+    def reduce_scatter(self, x: Tensor, axes, dim: int, group_size: int) -> Tensor:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        attrs = {"axes": axes, "dim": int(dim), "group_size": int(group_size)}
+        shape = infer_shape("reduce_scatter", [x.shape], attrs)
+        return self._emit("reduce_scatter", shape, x.dtype, [x], attrs)
 
     def call_loop(
         self,

@@ -11,12 +11,12 @@
     FinalizePass   execution-plan construction + CompileStats
 
 Around them, as in the reference: ``SubModulePass`` first compiles every
-loop body, ``AutotunePass`` after codegen times each unique kernel when
-``options.autotune`` asks, and ``PassPipeline`` verifies the artifact at the
-boundaries ``options.verify`` names (``core/verify.py``).  The planner
-passes are the reference's, decision for decision, under the reference's
-device constants.  ``ShardingPass`` is a later slice (``ROADMAP.md`` queue 1,
-item 14).
+loop body, ``ShardingPass`` stamps shard layouts before fusion when the
+compile targets a mesh, ``AutotunePass`` after codegen times each unique
+kernel when ``options.autotune`` asks, and ``PassPipeline`` verifies the
+artifact at the boundaries ``options.verify`` names (``core/verify.py``).
+The planner passes are the reference's, decision for decision, under the
+reference's device constants.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from .ir import Instruction, Module
 from .measure import measure_kernel
 from .memory import MemoryInfeasible, plan_memory, plan_stitched_memory
 from .perf_library import PerfLibrary
+from .shard import propagate_layouts
 from .schedule import (
     CONSISTENT,
     PhaseSolution,
@@ -105,6 +106,14 @@ class CompilationState:
     # parameter names whose buffers the caller donated (the frontend's
     # ``donate_argnums``): runtime-only, threaded to the ExecutionPlan
     donate_params: Optional[frozenset] = None
+    # shard-aware compilation (``options.mesh_axes`` set): the live
+    # DeviceMesh (runtime-only; its shape is fingerprinted through
+    # ``options.mesh_axes``), the parameter and output layouts, and
+    # ShardingPass's counters
+    mesh: Optional[object] = None
+    param_layouts: Optional[Dict[str, tuple]] = None
+    out_layouts: Optional[List] = None
+    shard_stats: Dict[str, int] = field(default_factory=dict)
     # filled by FinalizePass
     executable: Optional[object] = None
     stats: Optional[object] = None
@@ -193,6 +202,29 @@ class SubModulePass(Pass):
             instr.attrs["body_sig"] = sig
 
 
+class ShardingPass(Pass):
+    """Resolve shard layouts before fusion.
+
+    When the compile targets a mesh (``options.mesh_axes`` set), walk the
+    module once with ``shard.propagate_layouts``: derive a layout for every
+    instruction from the parameter layouts, stamp non-trivial results into
+    ``attrs["shard"]`` (which salts ``fusion_signature`` downstream, so the
+    kernel cache never aliases per-shard and full-shape kernels), track
+    pending partial sums, and validate collectives against the mesh.  A
+    compile without a mesh is untouched: no attr changes, so every
+    signature and cache key stays as it was.
+    """
+
+    name = "sharding"
+
+    def run(self, state: CompilationState) -> None:
+        if not state.options.mesh_axes:
+            return
+        state.shard_stats = propagate_layouts(
+            state.module, state.options.mesh_axes, state.param_layouts
+        )
+
+
 class FusionPass(Pass):
     """Deep fusion with the schedule+memory consistency checker (Fig. 4),
     cost-guided by the shared LatencyModel when ``options.planner`` is
@@ -216,6 +248,7 @@ class FusionPass(Pass):
                 stitch_max_blocks=opts.stitch_max_blocks,
                 measured=state.measured_store,
                 options_salt=_measure_salt(opts, state.device),
+                mesh_axes=opts.mesh_axes or (),
             )
 
         if scorer is not None:
@@ -282,11 +315,17 @@ def _measure_salt(opts, device) -> str:
     the autotune knobs, so a store warmed with ``autotune=True`` serves a
     later read-only ``tuning_store_path`` compile."""
     srl = _stitch_replicate_limit(opts)
-    return (
+    salt = (
         f"d{torch.device(device).type}:v{opts.vmem_limit}:r{opts.replicate_limit}"
         f":b{opts.max_blocks}:p{opts.planner}"
         f":st{int(opts.enable_stitching)}:sb{opts.stitch_max_blocks}:sr{srl}:"
     )
+    # the mesh shape enters the salt only for sharded compiles: per-shard
+    # costs measured on a 4-way mesh must not serve an 8-way (or unsharded)
+    # run, while every single-device key stays as it was
+    if opts.mesh_axes:
+        salt += "m" + ",".join(f"{a}{s}" for a, s in opts.mesh_axes) + ":"
+    return salt
 
 
 class SchedulePass(Pass):
@@ -581,6 +620,6 @@ class FinalizePass(Pass):
 
 def default_pipeline() -> PassPipeline:
     return PassPipeline([
-        SubModulePass(), FusionPass(), SchedulePass(), MemoryPass(), CodegenPass(),
-        AutotunePass(), FinalizePass(),
+        SubModulePass(), ShardingPass(), FusionPass(), SchedulePass(), MemoryPass(),
+        CodegenPass(), AutotunePass(), FinalizePass(),
     ])

@@ -13,7 +13,10 @@ number later.  Three families, as in the reference:
   ``call``/``get``/``constant``.  ``Module.verify()`` delegates here.
 * **Plan lint** (``PLAN0xx``): fusion groups are acyclic, never span an LC
   layer (``core/span.py``), hold no collective, library call, loop or
-  array constant; every instruction is covered exactly once; each planned
+  array constant; every instruction is covered exactly once; the stamped
+  shard layouts of a sharded compile equal a fresh derivation (PLAN007)
+  and no partial sum reaches a root unclosed (PLAN008,
+  ``verify_shard_attrs``); each planned
   entry's schedule solution is sound (per phase for stitched plans); and
   its memory plan fits the port's budgets (PLAN006): the plan's bytes
   within ``options.vmem_limit``, the budget the planner planned against,
@@ -28,9 +31,7 @@ number later.  Three families, as in the reference:
   and every slot a graph releases into its pool is dead after), and the
   kernel-cache signature audit (EXEC005).
 
-The reference's PLAN007 and PLAN008 read shard layouts, which the port
-makes only with sharding (``ROADMAP.md`` queue 1, item 14); they land with
-it.  ``PassPipeline.run`` calls ``verify_state`` as ``StitchOptions.verify``
+``PassPipeline.run`` calls ``verify_state`` as ``StitchOptions.verify``
 says (``off``, ``checkpoint``, ``strict``), and ``REPRO_VERIFY`` overrides
 the option.
 """
@@ -53,8 +54,7 @@ WARNING = "warning"
 VERIFY_MODES = ("off", "checkpoint", "strict")
 VERIFY_ENV_VAR = "REPRO_VERIFY"
 
-#: rule id -> one-line description: the reference's rules but PLAN007 and
-#: PLAN008, which wait for sharding
+#: rule id -> one-line description, the reference's rules
 RULES: Dict[str, str] = {
     "IR001": "operand is not an instruction of this module (dangling def)",
     "IR002": "operand stored after its user (topological order broken)",
@@ -70,6 +70,8 @@ RULES: Dict[str, str] = {
     "PLAN004": "non-scalar constant inside a kernel body",
     "PLAN005": "schedule solution unsound for its fusion",
     "PLAN006": "memory plan exceeds its budget (plan bytes or a block's shared memory)",
+    "PLAN007": "stamped shard layout disagrees with re-derivation",
+    "PLAN008": "partial sum reaches a module root unclosed",
     "PLAN009": "instruction not covered exactly once by the plan",
     "EXEC001": "slot read before written / written twice",
     "EXEC002": "slot read after its eager-release point",
@@ -525,16 +527,59 @@ def verify_execution_plan(ep, pass_name: str = "") -> List[Diagnostic]:
     return diags
 
 
+def verify_shard_attrs(module: Module, mesh_axes, param_layouts=None,
+                       pass_name: str = "") -> List[Diagnostic]:
+    """Shard-layout lint: re-derive every layout and partial sum from
+    scratch and compare with the stamped attrs (PLAN007); flag partial sums
+    that reach a root (PLAN008)."""
+    from .shard import derive_layouts, is_trivial_layout
+
+    try:
+        layouts, partial, _ = derive_layouts(module, mesh_axes, param_layouts)
+    except ValueError as e:
+        return [Diagnostic(ERROR, "PLAN007", str(e), module.name, pass_name)]
+
+    diags: List[Diagnostic] = []
+
+    def err(rule: str, subject: str, message: str) -> None:
+        diags.append(Diagnostic(ERROR, rule, message, subject, pass_name))
+
+    for instr in module.instructions:
+        expected = layouts.get(instr.id)
+        stamped = instr.attrs.get("shard")
+        if expected is not None and not is_trivial_layout(expected):
+            if stamped != expected:
+                err("PLAN007", instr.name, f"stamped shard {stamped!r} != derived {expected!r}")
+        elif stamped is not None:
+            err("PLAN007", instr.name,
+                f"stale shard stamp {stamped!r} (derived layout is trivial or unknown)")
+        want_partial = tuple(sorted(partial.get(instr.id, ())))
+        got_partial = tuple(instr.attrs.get("partial", ()))
+        if want_partial != got_partial:
+            err("PLAN007", instr.name,
+                f"stamped partial {got_partial!r} != derived {want_partial!r}")
+    for r in module.roots:
+        open_axes = tuple(sorted(partial.get(r.id, ())))
+        if open_axes:
+            err("PLAN008", r.name, f"root carries an open partial sum over axes {open_axes} "
+                "— missing all_reduce/reduce_scatter")
+    return diags
+
+
 # --------------------------------------------------------------------------
 # Boundary dispatch
 # --------------------------------------------------------------------------
 
 
 def verify_state(state, pass_name: str = "") -> List[Diagnostic]:
-    """Every analysis family the state's contents support: the fusion-plan
-    lint once FusionPass has planned, the entry lint once SchedulePass has,
-    the ExecutionPlan lint once FinalizePass has built it."""
+    """Every analysis family the state's contents support: the shard lint
+    once ShardingPass has stamped, the fusion-plan lint once FusionPass has
+    planned, the entry lint once SchedulePass has, the ExecutionPlan lint
+    once FinalizePass has built it."""
     diags: List[Diagnostic] = list(verify_module(state.module, pass_name))
+    if state.shard_stats and state.options.mesh_axes:
+        diags.extend(verify_shard_attrs(state.module, state.options.mesh_axes,
+                                        state.param_layouts, pass_name))
     view = _plan_view(state)
     if view is not None:
         fusions, standalone = view

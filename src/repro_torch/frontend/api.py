@@ -32,8 +32,15 @@ repeated calls at the same shapes never recompile, and the per-function
   * ``stitched.lower(*args)`` — a ``Lowered`` handle with ``.as_text()``,
     ``.num_kernels`` and ``.cost_estimate()``.
 
-The sharded form ``stitch(mesh=...)`` is ported with sharding
-(``ir.SHARDING_ITEM``) and raises until then.
+The sharded form ``stitch(fn, mesh=, in_specs=, out_specs=)`` takes ``fn``
+as the per-shard body, as ``shard_map`` does: it calls
+``torch.distributed._functional_collectives`` with ``(mesh, dim)`` or a
+process group.  Every rank of the ``torch.distributed`` world calls the
+stitched function with the GLOBAL arguments; local shapes come from
+``in_specs`` (one spec per positional argument: ``None``, an axis name or a
+tuple of names per dim), ``fn`` is captured at them and lowered by
+``lower_sharded_graph``, and the sharded plan returns global outputs
+(``out_specs``: one spec for a single output, one per output of a tuple).
 """
 from __future__ import annotations
 
@@ -50,9 +57,15 @@ import torch.utils._pytree as pytree
 
 from ..core.compiler import CompiledModule, CompileStats, StitchOptions, compile_module
 from ..core.device import resolve_device
-from ..core.ir import SHARDING_ITEM, Module
+from ..core.ir import Module
+from ..core.shard import mesh_axes_of, mesh_sizes, spec_to_layout, wrap_shard_map
 from ..core.signature import KernelCache
-from .aten_lower import LoweredGraph, UnsupportedPrimitiveError, lower_graph
+from .aten_lower import (
+    LoweredGraph,
+    UnsupportedPrimitiveError,
+    lower_graph,
+    lower_sharded_graph,
+)
 
 _FALLBACK_MODES = ("error", "fallback")
 
@@ -319,10 +332,11 @@ class StitchedFunction:
             raise ValueError(
                 f"on_unsupported={on_unsupported!r}; valid modes: {', '.join(_FALLBACK_MODES)}"
             )
-        if mesh is not None or in_specs is not None or out_specs is not None:
-            raise NotImplementedError(f"stitch(mesh=...) is ported by {SHARDING_ITEM}")
         self._fn = fn
         self.options = options if options is not None else StitchOptions()
+        self.mesh = mesh
+        self.in_specs = tuple(in_specs) if in_specs is not None else None
+        self.out_specs = out_specs
         self.on_unsupported = on_unsupported
         self.name = name or getattr(fn, "__name__", "stitched")
         if self.name == "<lambda>":
@@ -336,6 +350,21 @@ class StitchedFunction:
             raise ValueError(
                 f"static_argnums and donate_argnums cannot intersect: {sorted(overlap)}"
             )
+        if mesh is not None:
+            if in_specs is None or out_specs is None:
+                raise ValueError(
+                    "stitch(mesh=...) needs in_specs and out_specs: the placement of "
+                    "every argument and output"
+                )
+            if self.static_argnums or self.static_argnames or self.donate_argnums:
+                raise ValueError(
+                    "stitch(mesh=...) does not compose with static_argnums/"
+                    "static_argnames/donate_argnums yet"
+                )
+            if not self.options.mesh_axes:
+                self.options = dataclasses.replace(self.options, mesh_axes=mesh_axes_of(mesh))
+        elif in_specs is not None or out_specs is not None:
+            raise ValueError("in_specs/out_specs require mesh=...")
         self._plans: Dict[Any, _PlanEntry] = {}
         self._kernel_cache = KernelCache(self.options.kernel_cache_path)
         # Shared across this function's per-shape compiles (like the kernel
@@ -451,6 +480,8 @@ class StitchedFunction:
         return self._measured_store
 
     def _lower(self, args, kwargs, static_pos, leaves, spec) -> Tuple[LoweredGraph, Any, Tuple[int, ...]]:
+        if self.mesh is not None:
+            return self._lower_sharded(args, kwargs, leaves, spec)
         t0 = time.perf_counter()
         gm, out_spec = capture(self._bind_statics(args, kwargs, static_pos), leaves, spec)
         t1 = time.perf_counter()
@@ -459,23 +490,72 @@ class StitchedFunction:
         self.capture_s, self.lower_s = t1 - t0, time.perf_counter() - t1
         return lowered, out_spec, tensor_leaves
 
+    def _lower_sharded(self, args, kwargs, leaves, spec):
+        """Capture ``fn`` at the local shapes ``in_specs`` cut from the
+        global arguments, and lower it with its placement."""
+        if kwargs or len(args) != len(self.in_specs) or len(leaves) != len(args) \
+                or not all(_is_tensor_leaf(a) for a in leaves):
+            raise ValueError(
+                f"stitch(mesh=...) takes {len(self.in_specs)} positional tensor "
+                f"argument(s), one per in_spec"
+            )
+        sizes = mesh_sizes(self.mesh)
+        in_layouts, local = [], []
+        for k, (leaf, sp) in enumerate(zip(leaves, self.in_specs, strict=True)):
+            t = _as_tensor(leaf)
+            lay = spec_to_layout(sp, t.ndim)
+            shape = list(t.shape)
+            for d, e in enumerate(lay):
+                n = 1
+                for a in e or ():
+                    n *= sizes[a]
+                if shape[d] % n:
+                    raise ValueError(
+                        f"argument {k}: dim {d} of size {shape[d]} does not split {n} ways "
+                        f"over {e}"
+                    )
+                shape[d] //= n
+            in_layouts.append(lay)
+            local.append(torch.empty(shape, dtype=t.dtype, device="meta"))
+        t0 = time.perf_counter()
+        gm, out_spec = capture(self._fn, local, spec)
+        t1 = time.perf_counter()
+        outs = [n for n in gm.graph.nodes if n.op == "output"][0].args[0]
+        ranks = [len(o.meta["val"].shape) for o in outs]
+        specs = [self.out_specs] if out_spec.is_leaf() else list(self.out_specs)
+        if len(specs) != len(ranks):
+            raise ValueError(f"{len(specs)} out_specs for {len(ranks)} outputs")
+        lowered = lower_sharded_graph(
+            gm, self.mesh, in_layouts, [spec_to_layout(sp, r) for sp, r in zip(specs, ranks)],
+            name=self.name, fuse_dot=self.options.fuse_dot,
+        )
+        self.capture_s, self.lower_s = t1 - t0, time.perf_counter() - t1
+        return lowered, out_spec, tuple(range(len(leaves)))
+
     def _compile_lowered(self, lowered: LoweredGraph,
                          donate_params: Optional[frozenset]) -> CompiledModule:
+        sharded = self.mesh is not None
         return compile_module(
             lowered.module, self.options, kernel_cache=self._kernel_cache,
             device=self.device, measured_store=self._get_measured_store(),
             donate_params=donate_params,
+            mesh=self.mesh if sharded else None,
+            param_layouts=lowered.param_layouts if sharded else None,
+            out_layouts=lowered.out_layouts if sharded else None,
         )
 
     def _run_eager(self, args, kwargs):
         """The fallback: ``fn`` run eagerly as plain PyTorch on the plan's
-        device, its tensor and numpy arguments moved there."""
+        device, its tensor and numpy arguments moved there; under a mesh,
+        on each rank's blocks, its outputs gathered (``wrap_shard_map``)."""
         dev = resolve_device(self.device)
 
         def place(leaf):
             return _as_tensor(leaf).to(dev) if _is_tensor_leaf(leaf) else leaf
 
         args, kwargs = pytree.tree_map(place, (args, kwargs))
+        if self.mesh is not None:
+            return wrap_shard_map(self._fn, self.mesh, self.in_specs, self.out_specs)(*args)
         return self._fn(*args, **kwargs)
 
     def _compile(self, key, args, kwargs, static_pos, leaves, spec, dyn_args, n_args) -> _PlanEntry:
@@ -628,8 +708,9 @@ def stitch(
 
     ``autotune``: convenience override of ``options.autotune``.
 
-    ``mesh``/``in_specs``/``out_specs`` (the sharded form) raise
-    ``NotImplementedError`` until sharding is ported.
+    ``mesh``/``in_specs``/``out_specs`` give the sharded form (module
+    docstring): ``fn`` is the per-shard body, every rank calls with global
+    arguments and gets global outputs back.
     """
     if fn is None:
         return functools.partial(

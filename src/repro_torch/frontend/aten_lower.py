@@ -31,6 +31,17 @@ Lowering rules worth knowing (each the reference's, by name):
     torch's ``reverse=True``, a reversed loop); ``higher_order.while_loop``
     a loop where the canonical counter pattern proves a static trip count;
     ``higher_order.cond`` inlines both branches behind ``select``.
+  * collectives (``lower_sharded_graph``, a per-shard body captured at
+    local shapes): the ``_c10d_functional`` ops that
+    ``torch.distributed._functional_collectives`` leaves in the graph,
+    ``all_reduce`` (sum), ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor``, become StitchIR's collectives over the mesh
+    axes their process group names; ``wait_tensor`` lowers to nothing.  A
+    gather along dim d > 0 is captured as a dim-0 gather, an equal split
+    and a ``cat`` along d, and a scatter along d as a split along d and a
+    ``cat`` along 0 before a dim-0 scatter: each folds back into one
+    collective along d (``_collective_folds``), as the reference lowers
+    ``all_gather``/``psum_scatter`` with ``axis=d``.
 
 Anything else raises ``UnsupportedPrimitiveError`` naming the ATen op and
 the FX node (``repro_torch.stitch`` turns that into an eager run of the
@@ -130,9 +141,18 @@ CONTROL_FLOW_OPS = frozenset(
     {"higher_order.cond", "higher_order.scan", "higher_order.while_loop"}
 )
 
+#: cross-rank ops of a per-shard body (``lower_sharded_graph``): the three
+#: collectives, and the ``wait_tensor`` that follows each
+COLLECTIVE_OPS = frozenset(
+    {"_c10d_functional.all_reduce.default",
+     "_c10d_functional.all_gather_into_tensor.default",
+     "_c10d_functional.reduce_scatter_tensor.default",
+     "_c10d_functional.wait_tensor.default"}
+)
+
 SUPPORTED_OPS = frozenset(
     set(UNARY_OPS) | set(BINARY_OPS) | set(REDUCE_OPS)
-    | IDENTITY_OPS | STRUCTURAL_OPS | CONTROL_FLOW_OPS
+    | IDENTITY_OPS | STRUCTURAL_OPS | CONTROL_FLOW_OPS | COLLECTIVE_OPS
 )
 
 _COMPARE = frozenset({"lt", "le", "gt", "ge", "eq", "ne", "and", "or"})
@@ -260,10 +280,85 @@ def _dtype(node) -> np.dtype:
     return np_dtype(_meta(node).dtype)
 
 
+_SPLIT = "aten.split_with_sizes.default"
+_CAT = "aten.cat.default"
+
+
+def _equal_split(node, n: int) -> Optional[int]:
+    """The dim along which ``node`` splits its input into ``n`` equal
+    parts, each read by exactly one ``getitem`` in order, else None."""
+    if op_name(node.target) != _SPLIT:
+        return None
+    sizes = list(node.args[1])
+    if len(sizes) != n or len(set(sizes)) != 1:
+        return None
+    items = sorted(node.users, key=lambda u: u.args[1] if u.target is operator.getitem else -1)
+    if [u.args[1] if u.target is operator.getitem else None for u in items] != list(range(n)):
+        return None
+    rank = len(_meta(node.args[0]).shape)
+    return int(node.args[2] if len(node.args) > 2 else node.kwargs.get("dim", 0)) % rank
+
+
+def _cat_of_split(cat) -> Optional[Tuple[object, int, int]]:
+    """(split node, split dim, cat dim) when ``cat`` concatenates, in
+    order, every part of one equal split and nothing else reads them."""
+    parts = cat.args[0]
+    if not parts or any(p.target is not operator.getitem or len(p.users) != 1 for p in parts):
+        return None
+    split = parts[0].args[0]
+    if any(p.args[0] is not split or p.args[1] != i for i, p in enumerate(parts)):
+        return None
+    d = _equal_split(split, len(parts))
+    if d is None:
+        return None
+    rank = len(_meta(cat).shape)
+    cat_dim = int(cat.args[1] if len(cat.args) > 1 else cat.kwargs.get("dim", 0)) % rank
+    return split, d, cat_dim
+
+
+def _collective_folds(graph) -> Tuple[Dict, set]:
+    """The gathers and scatters along a dim > 0, as a capture spells them:
+    {node that yields the collective's value: (opcode, source, dim,
+    group size, group name)}, and the nodes the fold makes dead."""
+    folds: Dict = {}
+    dead: set = set()
+    for node in graph.nodes:
+        if node.op != "call_function" or op_name(node.target) != _CAT:
+            continue
+        hit = _cat_of_split(node)
+        if hit is None:
+            continue
+        split, d, cat_dim = hit
+        parts = list(node.args[0])
+        src = split.args[0]
+        n = len(parts)
+        # gather: wait(all_gather_into_tensor(x, n, g)) split on 0, cat on d
+        if d == 0 and cat_dim != 0 and op_name(src.target) == "_c10d_functional.wait_tensor.default" \
+                and len(src.users) == 1:
+            ag = src.args[0]
+            if op_name(ag.target) == "_c10d_functional.all_gather_into_tensor.default" \
+                    and len(ag.users) == 1 and int(ag.args[1]) == n:
+                folds[node] = ("all_gather", ag.args[0], cat_dim, n, ag.args[2])
+                dead.update([ag, src, split, *parts])
+                continue
+        # scatter: reduce_scatter_tensor(cat on 0 of x split on d)
+        if cat_dim == 0 and d != 0 and len(node.users) == 1:
+            rs = next(iter(node.users))
+            if op_name(rs.target) == "_c10d_functional.reduce_scatter_tensor.default" \
+                    and int(rs.args[2]) == n and rs.args[1] == "sum":
+                folds[rs] = ("reduce_scatter", src, d, n, rs.args[3])
+                dead.update([node, split, *parts])
+    return folds, dead
+
+
 class _Lowerer:
-    def __init__(self, builder: GraphBuilder, fuse_dot: bool):
+    def __init__(self, builder: GraphBuilder, fuse_dot: bool,
+                 group_axes: Optional[Dict[str, Tuple[str, ...]]] = None):
         self.b = builder
         self.fuse_dot = fuse_dot
+        #: process group name -> the mesh axes it spans (sharded capture)
+        self.group_axes = dict(group_axes or {})
+        self._folds: Dict = {}
         #: flip results -> their sources, so a flip of a flip (torch's
         #: reversed scan) cancels
         self._flip_of: Dict[int, Tensor] = {}
@@ -329,8 +424,10 @@ class _Lowerer:
                     op_name(node.target), node, "nondeterministic or side-effecting "
                     "op: it is never dropped, and StitchIR has no effects",
                 )
+        folds, dead = _collective_folds(gm.graph) if self.group_axes else ({}, set())
+        self._folds.update(folds)
         for node in gm.graph.nodes:
-            if node.op in ("placeholder", "output") or node not in live:
+            if node.op in ("placeholder", "output") or node not in live or node in dead:
                 continue
             if node.op == "get_attr":
                 value = getattr(gm, node.target)
@@ -359,6 +456,8 @@ class _Lowerer:
             return self._lower_while(env, node)
         if name == "higher_order.cond":
             return self._lower_cond(env, node)
+        if node in self._folds or (name in COLLECTIVE_OPS and self.group_axes):
+            return self._collective(env, node, name)
         if node.kwargs.get("alpha", 1) != 1:
             raise UnsupportedPrimitiveError(name, node, "alpha != 1")
         out_shape, out_dtype = _shape(node), _dtype(node)
@@ -465,6 +564,32 @@ class _Lowerer:
         raise UnsupportedPrimitiveError(name, node)
 
     # -- bespoke lowerings ------------------------------------------------
+    def _axes(self, node, name: str, group: str) -> Tuple[str, ...]:
+        if group not in self.group_axes:
+            raise UnsupportedPrimitiveError(
+                name, node, f"process group {group!r} is no group of the mesh's axes "
+                f"(the mesh's groups: {self.group_axes})",
+            )
+        return self.group_axes[group]
+
+    def _collective(self, env: Dict, node, name: str) -> Tensor:
+        b = self.b
+        if node in self._folds:
+            op, src, dim, n, group = self._folds[node]
+            emit = b.all_gather if op == "all_gather" else b.reduce_scatter
+            return emit(self.read(env, src), self._axes(node, name, group), dim, n)
+        args = node.args
+        if name == "_c10d_functional.wait_tensor.default":
+            return self.read(env, args[0])
+        x = self.read(env, args[0])
+        if name == "_c10d_functional.all_gather_into_tensor.default":
+            return b.all_gather(x, self._axes(node, name, args[2]), 0, int(args[1]))
+        if args[1] != "sum":
+            raise UnsupportedPrimitiveError(name, node, f"reduce op {args[1]!r}: only 'sum' lowers")
+        if name == "_c10d_functional.all_reduce.default":
+            return b.all_reduce(x, self._axes(node, name, args[2]))
+        return b.reduce_scatter(x, self._axes(node, name, args[3]), 0, int(args[2]))
+
     def _compute_dtype(self, args) -> np.dtype:
         """The dtype a comparison computes in: torch's promotion of its
         operands (a Python number takes the tensor's dtype category)."""
@@ -788,6 +913,57 @@ class _Lowerer:
         return [self.read(env, o) for o in _flat_outputs(gm.graph)]
 
 
+@dataclass
+class LoweredShardedGraph(LoweredGraph):
+    """A per-shard body: the module, captured at local shapes, plus the
+    placement its sharded plan runs under.  ``param_layouts`` maps
+    parameter names to ``core.shard`` layout tuples; ``out_layouts`` holds
+    one layout per module root, in ``module.roots`` order: what
+    ``compile_module(..., mesh=, param_layouts=, out_layouts=)`` takes."""
+
+    mesh: object = None
+    mesh_axes: Tuple = ()
+    param_layouts: Dict[str, Tuple] = None
+    out_layouts: List = None
+
+
+def lower_sharded_graph(
+    gm,
+    mesh,
+    in_layouts: Sequence[Tuple],
+    out_layouts: Sequence[Tuple],
+    *,
+    name: str = "stitched",
+    fuse_dot: bool = True,
+) -> LoweredShardedGraph:
+    """Lower a per-shard body captured at LOCAL shapes (``stitch(mesh=...)``
+    does so from the global arguments and ``in_specs``): the counterpart of
+    the reference's ``lower_sharded_jaxpr``.  ``in_layouts`` holds one
+    layout per placeholder and ``out_layouts`` one per flattened output.
+    A collective's process group maps back to mesh axes through
+    ``core.comm.group_names(mesh)``; a group that names no axes raises
+    ``UnsupportedPrimitiveError``, as does any other collective."""
+    from ..core.comm import group_names
+    from ..core.shard import mesh_axes_of
+
+    phs = [n for n in gm.graph.nodes if n.op == "placeholder"]
+    if len(in_layouts) != len(phs):
+        raise ValueError(f"{len(in_layouts)} input layouts for {len(phs)} arguments")
+    lowered = lower_graph(gm, name=name, fuse_dot=fuse_dot, group_axes=group_names(mesh))
+    if len(out_layouts) != len(lowered.output_names):
+        raise ValueError(
+            f"{len(out_layouts)} output layouts for {len(lowered.output_names)} outputs"
+        )
+    by_name = dict(zip(lowered.output_names, out_layouts, strict=True))
+    return LoweredShardedGraph(
+        lowered.module, lowered.param_names, lowered.output_names,
+        mesh=mesh,
+        mesh_axes=mesh_axes_of(mesh),
+        param_layouts=dict(zip(lowered.param_names, in_layouts, strict=True)),
+        out_layouts=[by_name.get(r.name) for r in lowered.module.roots],
+    )
+
+
 def lower_graph(
     gm,
     *,
@@ -795,6 +971,7 @@ def lower_graph(
     fuse_dot: bool = True,
     param_names: Optional[Sequence[str]] = None,
     param_order: Optional[Sequence[int]] = None,
+    group_axes: Optional[Dict[str, Tuple[str, ...]]] = None,
 ) -> LoweredGraph:
     """Lower a captured ``torch.fx.GraphModule`` into a StitchIR ``Module``.
 
@@ -803,7 +980,9 @@ def lower_graph(
     default their order) and named by ``param_names`` (one per created
     parameter; default ``arg0..argN``).  ``fuse_dot`` sets the per-dot
     ``fusable`` attr (the paper's user decision — ``StitchOptions.fuse_dot``
-    flows through here from ``repro_torch.stitch``).
+    flows through here from ``repro_torch.stitch``).  ``group_axes`` maps
+    process group names to mesh axes, and lowers collectives
+    (``lower_sharded_graph``); without it a collective raises.
     """
     phs = [n for n in gm.graph.nodes if n.op == "placeholder"]
     order = list(param_order) if param_order is not None else list(range(len(phs)))
@@ -812,7 +991,7 @@ def lower_graph(
     if len(param_names) != len(order):
         raise ValueError(f"{len(param_names)} param names for {len(order)} parameters")
     b = GraphBuilder(name)
-    lw = _Lowerer(b, fuse_dot)
+    lw = _Lowerer(b, fuse_dot, group_axes)
     env: Dict = {}
     for pname, k in zip(param_names, order, strict=True):
         v = _meta(phs[k])

@@ -1,2 +1,2 @@
-"""Launch tools of the port: ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.train``."""
+"""Launch tools of the port: ``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train`` and the meshes (``mesh``)."""

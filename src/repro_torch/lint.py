@@ -12,6 +12,7 @@ Usage::
     python -m repro_torch.lint                       # all graphs, both planners, on the card
     python -m repro_torch.lint --device cpu          # the plain kernels, no card
     python -m repro_torch.lint --graphs LR,NMT --planner greedy
+    python -m repro_torch.lint --rules                # the verifier's rules, then exit
 
 On the card every compile also builds its kernels with nvcc.
 """
@@ -21,7 +22,7 @@ import argparse
 import sys
 from typing import List
 
-from repro_torch.core import StitchOptions, VerificationError, compile_module
+from repro_torch.core import RULES, StitchOptions, VerificationError, compile_module
 from repro_torch.graphs import ALL_GRAPHS
 
 
@@ -53,7 +54,13 @@ def main(argv=None) -> int:
     ap.add_argument("--max-blocks", type=int, default=64)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the compiles run (default: the card)")
+    ap.add_argument("--rules", action="store_true",
+                    help="list the verifier's rules (id and description) and exit")
     args = ap.parse_args(argv)
+    if args.rules:
+        for rule, text in RULES.items():
+            print(f"{rule}  {text}")
+        return 0
 
     names = [n.strip() for n in args.graphs.split(",") if n.strip()] or list(ALL_GRAPHS)
     unknown = [n for n in names if n not in ALL_GRAPHS]

@@ -366,3 +366,52 @@ def test_share_member_reading_another_element_writes_through_a_stage():
     assert src.rindex("__syncthreads();", 0, copy) > stage.end()
     # the workspace holds the stage: one tile of 4096 bytes a block
     assert kernel.fn.workspace_bytes >= 4096
+
+
+_FAKE_NVCC = '''#!{python}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+cu = args[-1]
+for _ in range(20):                       # read it again and again: a rewrite shows
+    text = open(cu).read()
+    if not text.endswith("// end of source\\n"):
+        sys.exit("half-written source: %d bytes" % len(text))
+    time.sleep(0.005)
+open(out, "w").write(text)
+'''
+
+_BUILDER = '''
+import sys
+from pathlib import Path
+sys.path.insert(0, {src!r})
+from repro_torch.core import cuda_build as cb
+cb.BUILD_DIR = Path({build!r})
+source = open({source!r}).read()
+cb.build_all([source])
+assert open(cb.library_path(source)).read() == source
+'''
+
+
+def test_concurrent_builds_of_one_source_see_a_whole_file(tmp_path):
+    """Ranks that build the same kernel at once: each nvcc reads the whole
+    ``.cu``, never one that another process is writing (the source goes to
+    a file of its own and is renamed into place)."""
+    import os
+    import subprocess
+    import sys
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    source = tmp_path / "k.cu"
+    source.write_text("".join(f"// line {i:07d} of a large source\n" for i in range(200_000))
+                      + "// end of source\n")
+    src_root = str(cuda_build.CSRC.parents[1])
+    script = _BUILDER.format(src=src_root, build=str(tmp_path / "build"), source=str(source))
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"))
+    procs = [subprocess.Popen([sys.executable, "-c", script], env=env, stderr=subprocess.PIPE,
+                              text=True) for _ in range(3)]
+    errors = [p.communicate(timeout=120)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0], errors

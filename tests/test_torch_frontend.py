@@ -581,8 +581,10 @@ def test_option_validation(bad):
         with pytest.raises(TypeError, match="callable"):
             stitch(42)
     else:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            stitch(lambda x: x, mesh=object(), in_specs=(), out_specs=())
+        # the reference's refusal: a mesh needs the placement of every
+        # argument and output
+        with pytest.raises(ValueError, match="in_specs"):
+            stitch(lambda x: x, mesh=object())
 
 
 def test_lower_graph_standalone():

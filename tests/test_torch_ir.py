@@ -216,12 +216,24 @@ def test_constant(value):
     _close(*_run(ref, port))
 
 
-def test_loops_and_collectives_name_their_roadmap_item():
+def test_loops_and_collectives_name_their_roadmap_item(tmp_path):
+    import torch.distributed as dist
+
     b = tir.GraphBuilder("c")
     x = b.parameter("x", (4,), np.float32)
-    ar = b._emit("all_reduce", (4,), np.float32, [x], {"axes": ("d",)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 14"):
+    ar = b.all_reduce(x, "d")
+    # a collective runs in a torch.distributed world and names itself without one
+    with pytest.raises(RuntimeError, match=f"{ar.instr.name}.*no process group"):
         tir.apply_op(ar.instr, torch.zeros(4))
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        v = torch.arange(4, dtype=torch.float32)
+        assert torch.equal(tir.apply_op(ar.instr, v), v)
+        ag = b.all_gather(x, "d", dim=0, group_size=1)
+        assert torch.equal(tir.apply_op(ag.instr, v), v)
+    finally:
+        dist.destroy_process_group()
     # the verifier is ported: Module.verify runs, and rejects a broken module
     clean = tir.GraphBuilder("v")
     y = clean.parameter("y", (4,), np.float32)

@@ -26,6 +26,7 @@ PACKAGES = [
     ("repro.configs", "repro_torch.configs"),
     ("repro.data", "repro_torch.data"),
     ("repro.checkpoint", "repro_torch.checkpoint"),
+    ("repro.distributed", "repro_torch.distributed"),
 ]
 
 #: (reference package, name) -> the port's name for it, where the reference's
@@ -77,7 +78,8 @@ def test_every_reference_name_resolves_in_the_port(ref_name, port_name):
 
 
 @pytest.mark.parametrize("port_name", ["repro_torch", "repro_torch.core", "repro_torch.frontend",
-                                       "repro_torch.kernels.ops", "repro_torch.train"])
+                                       "repro_torch.kernels.ops", "repro_torch.train",
+                                       "repro_torch.distributed"])
 def test_all_lists_only_names_that_resolve(port_name):
     port = importlib.import_module(port_name)
     assert len(set(port.__all__)) == len(port.__all__)

@@ -4,8 +4,8 @@ Each mutation compiles a known-good state with ``verify="off"`` on the CPU,
 corrupts one artifact (module, fusion plan, schedule solution, cache entry,
 kernel record or execution plan) and asserts the matching family reports
 the documented rule id.  The reference's corpus is
-``tests/test_verify.py``; PLAN007 and PLAN008 (shard layouts) wait for the
-port's sharding.  Then the modes, the environment override, strict compiles
+``tests/test_verify.py``, PLAN007 and PLAN008 (shard layouts) included.
+Then the modes, the environment override, strict compiles
 of the ten graphs and the lint CLI.  Last, the port's verifier against the
 reference's (``repro.core.verify``): every rule but EXEC004 on the same
 mutated input in both packages must report the same rule ids, and the ten
@@ -36,6 +36,7 @@ from repro_torch.core.verify import (
     resolve_verify_mode,
     verify_fusion_groups,
     verify_planned_entries,
+    verify_shard_attrs,
 )
 from repro_torch.graphs import ALL_GRAPHS, LOOP_GRAPHS
 
@@ -261,11 +262,41 @@ def _exec005():
     return verify_planned_entries(state)
 
 
+_SHARD_MESH = (("model", 4),)
+_SHARD_LAYOUTS = {"x": (None, ("model",))}
+
+
+def _sharded_reduce_module(builder=GraphBuilder):
+    """A reduce over the model-sharded dim: a partial sum at the root."""
+    b = builder("shard")
+    x = b.parameter("x", (4, 8), F32)
+    b.tanh(b.reduce(b.square(x), (1,), "sum"))
+    return b.module
+
+
+def _plan007():
+    from repro_torch.core.shard import propagate_layouts
+
+    m = _sharded_reduce_module()
+    propagate_layouts(m, _SHARD_MESH, _SHARD_LAYOUTS)
+    _by_opcode(m, "elementwise").attrs["shard"] = (("model",), None)   # the wrong dim
+    return verify_shard_attrs(m, _SHARD_MESH, _SHARD_LAYOUTS)
+
+
+def _plan008():
+    from repro_torch.core.shard import propagate_layouts
+
+    m = _sharded_reduce_module()
+    propagate_layouts(m, _SHARD_MESH, _SHARD_LAYOUTS)   # honest stamps, no collective
+    return verify_shard_attrs(m, _SHARD_MESH, _SHARD_LAYOUTS)
+
+
 MUTATIONS = {
     "IR001": _ir001, "IR002": _ir002, "IR003": _ir003, "IR004": _ir004, "IR005": _ir005,
     "IR006": _ir006, "IR007": _ir007, "IR008": _ir008,
     "PLAN001": _plan001, "PLAN002": _plan002, "PLAN003": _plan003, "PLAN004": _plan004,
-    "PLAN005": _plan005, "PLAN006": _plan006, "PLAN009": _plan009,
+    "PLAN005": _plan005, "PLAN006": _plan006, "PLAN007": _plan007, "PLAN008": _plan008,
+    "PLAN009": _plan009,
     "EXEC001": _exec001, "EXEC002": _exec002, "EXEC003": _exec003, "EXEC004": _exec004,
     "EXEC005": _exec005,
 }
@@ -273,7 +304,7 @@ MUTATIONS = {
 
 def test_every_ported_rule_has_a_mutation():
     assert set(MUTATIONS) == set(RULES)
-    assert len(RULES) == 20 and "PLAN007" not in RULES and "PLAN008" not in RULES
+    assert len(RULES) == 22 and "PLAN007" in RULES and "PLAN008" in RULES
 
 
 @pytest.mark.parametrize("rule", sorted(MUTATIONS))
@@ -317,14 +348,14 @@ def test_verify_strict_checks_every_boundary():
     comp = compile_module(_rmsnorm_module(), StitchOptions(max_blocks=32, verify="strict"),
                           device="cpu")
     assert comp.stats.verify_mode == "strict"
-    assert comp.stats.verify_boundaries == len(default_pipeline().passes) == 7
+    assert comp.stats.verify_boundaries == len(default_pipeline().passes) == 8
     assert comp.stats.verify_warnings == 0
 
 
 def test_env_var_overrides_option(monkeypatch):
     monkeypatch.setenv("REPRO_VERIFY", "strict")
     comp = compile_module(_rmsnorm_module(), StitchOptions(max_blocks=32, verify="off"), device="cpu")
-    assert comp.stats.verify_mode == "strict" and comp.stats.verify_boundaries == 7
+    assert comp.stats.verify_mode == "strict" and comp.stats.verify_boundaries == 8
 
 
 def test_bad_env_value_rejected(monkeypatch):
@@ -366,7 +397,7 @@ def test_graphs_compile_clean_under_strict(planner):
     for name, build in {**ALL_GRAPHS, **LOOP_GRAPHS}.items():
         comp = compile_module(build(), StitchOptions(max_blocks=64, planner=planner, verify="strict"),
                               device="cpu")
-        assert comp.stats.verify_boundaries == 7 and comp.stats.verify_warnings == 0, name
+        assert comp.stats.verify_boundaries == 8 and comp.stats.verify_warnings == 0, name
 
 
 # -------------------------------------------------------------- the lint
@@ -374,7 +405,7 @@ def test_lint_exits_zero_on_the_ten_graphs(capsys):
     assert lint.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "clean: zero diagnostics" in out
-    assert out.count("boundaries=7") == 2 * len(ALL_GRAPHS)
+    assert out.count("boundaries=8") == 2 * len(ALL_GRAPHS)
 
 
 def test_lint_exits_one_on_a_diagnostic(monkeypatch, capsys):
@@ -500,6 +531,29 @@ def test_module_rules_match_the_reference(rule):
     assert _rules(verify_module(port)) == want
 
 
+#: rule -> the mutation of the sharded-reduce module, in place, both packages
+SHARD_PARITY = {
+    "PLAN007": lambda m, propagate: (
+        propagate(m, _SHARD_MESH, _SHARD_LAYOUTS),
+        _by_opcode(m, "elementwise").attrs.update(shard=(("model",), None)),
+    ),
+    "PLAN008": lambda m, propagate: propagate(m, _SHARD_MESH, _SHARD_LAYOUTS),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(SHARD_PARITY))
+def test_shard_rules_match_the_reference(rule):
+    from repro.core.shard import propagate_layouts as ref_propagate
+    from repro_torch.core.shard import propagate_layouts
+
+    ref, port = _both(lambda: _sharded_reduce_module(R.GraphBuilder))
+    SHARD_PARITY[rule](ref, ref_propagate)
+    SHARD_PARITY[rule](port, propagate_layouts)
+    want = _rules(RV.verify_shard_attrs(ref, _SHARD_MESH, _SHARD_LAYOUTS))
+    assert rule in want
+    assert _rules(verify_shard_attrs(port, _SHARD_MESH, _SHARD_LAYOUTS)) == want
+
+
 def _groups(members_of):
     """A fusion-group mutation: ``members_of(m)`` gives the members of the
     one fusion, everything else standalone."""
@@ -608,7 +662,7 @@ def test_compiled_state_rules_match_the_reference(rule):
 
 
 def test_parity_corpus_covers_every_shared_rule():
-    shared = set(MODULE_PARITY) | set(GROUP_PARITY) | set(STATE_PARITY)
+    shared = set(MODULE_PARITY) | set(GROUP_PARITY) | set(STATE_PARITY) | set(SHARD_PARITY)
     assert shared == set(RULES) - {"EXEC004"}
     assert set(RULES) <= set(RV.RULES)
 
