@@ -266,6 +266,43 @@ Phases, each fatal on failure:
    fails the phase (``spawn`` raises), and so does a world still running
    after ``SHARD_WORLD_DEADLINE_S`` (its ranks are killed; each rank first
    prints its stack).  Each rank prints a line as it finishes each case.
+17. sharded training and the launch tools.  (a) The sharded train step
+   (``make_sharded_train_step``, behind ``launch.train --mesh``) on
+   qwen1.5-0.5b at full width and depth (``SP_ARCH``: 24 layers, d_model
+   1024, 16 heads, d_ff 2816, vocab 151,936, bf16, remat "full"),
+   ``activation_sharding="sp"``, a global batch of ``SP_SHAPE`` (4 x 512)
+   tokens, ``SP_STEPS`` steps, by a world of ``SHARD_WORLD`` gloo ranks on
+   the one card on a (data 2, model 2) mesh, the params seeded alike in
+   every rank and placed by ``reshard_state``.  The oracle is the same
+   steps unsharded (``make_train_step``), in a fresh process on the card
+   first.  Checks: each step's loss and gradient norm within
+   ``SP_LOSS_RTOL`` of the unsharded one's; the gathered params within 2
+   lr_t a step, summed, and one bf16 ulp of the unsharded step's,
+   elementwise (``SP_PARAM_LR`` says why; the elements past 2 lr and the
+   update's relative L2 error are printed); the replicated leaves bit for bit
+   across ranks; every block at rest the rules' cut of the gathered
+   params; no kernel of the port launched (every count at 0 before the
+   steps, read after).  Per rank: ms a step (CUDA events), ms in
+   collectives (host clock, ``CollectiveMeter`` around ``core.comm``),
+   result bytes moved by kind, peak allocated bytes, and the bytes of
+   params, m, v and step at rest against the unsharded step's.  (b)
+   ``launch.train --mesh 2,2 --reduced --steps 2`` in every rank of the
+   same world must exit 0.  (c) ``launch.costmodel.fn_cost`` of phase 15's
+   granite-moe-3b-a800m train step (4 x 512, bf16, remat "full") and of
+   phase 13's ``forward`` (4 x 512) on meta tensors, the seconds each count
+   took, and ``launch.roofline.analyze``'s H100 terms and model flops
+   beside the device ms those phases measured in this run: the fraction
+   of the bound each reaches.  Then the device time of the generated
+   ``exp`` kernel over (8, 256) in one plan block (the H100 spec's launch
+   overhead) and over (8448, 256) in 1 and 8 plan blocks (its grid-step
+   overhead).  (d) ``launch.dryrun``'s measurement of (a)'s cell on a fake
+   world of 4 ranks (2 x 2), in a fresh process: its
+   ``argument_size_in_bytes`` must equal rank 0's measured blocks and
+   rows, its collective census must equal rank 0's bytes of a step kind for
+   kind, and its ``temp_size_in_bytes`` estimate is printed beside the
+   ranks' peak allocated bytes.  Each world stays inside
+   ``SHARD_WORLD_DEADLINE_S`` and its directory under ``build/`` is removed
+   once read.
 
 Every profile whose device kernels a call are none or not a whole number,
 or disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and
@@ -275,19 +312,21 @@ runs a collective, so a profile refused on one rank is taken again on
 every rank.  A run still going after ``DUMP_AFTER_S`` prints every
 thread's stack to standard error.
 
-Before the last two lines, phase 13's, 14's, 15's and 16's numbers as one
-JSON object each (``models``, ``serve``, ``train``, ``sharded``).  The line before the last
+Before the last two lines, phase 13's, 14's, 15's, 16's and 17's numbers as
+one JSON object each (``models``, ``serve``, ``train``, ``sharded``,
+``sharded_train`` and ``launch``).  The line before the last
 is one JSON object with a ``kernels`` list: one entry per emitter
 (``emit_fusion`` and ``emit_stitched_fusion``, with its launches in phase
 12's counted calls as ``frontend_launches``, in phase 13's as
 ``models_launches``, in phase 14's as ``serve_launches``, in phase 15's
 as ``train_launches`` and in phase 16's ranks' counted calls, summed over
-the ranks, as ``sharded_launches``) and one per hand-written kernel (with
+the ranks, as ``sharded_launches``, and in phase 17's ranks' steps as
+``sharded_train_launches``) and one per hand-written kernel (with
 its f16 numbers as ``f16_*`` keys); the last line is ``{"ok": true,
 "device": {...}}``.  ``--out`` also writes every per-graph, per-kernel and
 per-function number as JSON (phase 12's under ``"frontend"``, phase 14's
 under ``"serve"``, phase 15's under ``"train"``, phase 16's under
-``"sharded"``), with nvcc's register,
+``"sharded"``, phase 17's under ``"sharded_train"`` and ``"launch"``), with nvcc's register,
 shared-memory and spill lines.  Exits non-zero with no result when no card
 is present.
 """
@@ -3300,6 +3339,41 @@ def sharded_rank(rank, world, backend, outdir, device_type):
     faulthandler.cancel_dump_traceback_later()
 
 
+def world_dir(prefix):
+    """A fresh directory under ``build/`` for a world's store and files."""
+    import tempfile
+
+    base = os.path.join(HERE, "build")
+    os.makedirs(base, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=base)
+
+
+def spawn_ranks(target, args, nprocs, label):
+    """``nprocs`` processes of ``target(rank, *args)``: a failing one raises
+    here (``torch.multiprocessing.spawn``), and so does a world still
+    running after ``SHARD_WORLD_DEADLINE_S``, whose processes are killed."""
+    import torch.multiprocessing as mp
+
+    join_ranks(mp.spawn(target, args=args, nprocs=nprocs, join=False), label)
+
+
+def join_ranks(ctx, label):
+    """Wait for a spawned context as ``spawn_ranks`` does, from when this
+    is called."""
+    deadline = time.monotonic() + SHARD_WORLD_DEADLINE_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+                raise SystemExit(f"{label} still ran after {SHARD_WORLD_DEADLINE_S} s "
+                                 f"(ranks {alive} alive)")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
 def run_world(world, backend, device_type):
     """Spawn ``world`` ranks of ``sharded_rank``; a failing rank raises here
     (``torch.multiprocessing.spawn``), and fails the phase, and so does a
@@ -3307,30 +3381,13 @@ def run_world(world, backend, device_type):
     killed.  Returns each rank's numbers and outputs, and adds the ranks'
     refused profiles to ``RETAKES``; the world's directory under ``build/``
     (its store and the ranks' saved outputs) is removed once read."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
-    base = os.path.join(HERE, "build")
-    os.makedirs(base, exist_ok=True)
-    outdir = tempfile.mkdtemp(prefix="sharded.", dir=base)
+    outdir = world_dir("sharded.")
     out = []
     try:
-        ctx = mp.spawn(sharded_rank, args=(world, backend, outdir, device_type), nprocs=world,
-                       join=False)
-        deadline = time.monotonic() + SHARD_WORLD_DEADLINE_S
-        try:
-            while not ctx.join(timeout=1):
-                if time.monotonic() > deadline:
-                    alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
-                    raise SystemExit(f"sharded: the {backend} world of {world} still ran after "
-                                     f"{SHARD_WORLD_DEADLINE_S} s (ranks {alive} alive)")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                p.join()
+        spawn_ranks(sharded_rank, (world, backend, outdir, device_type), world,
+                    f"sharded: the {backend} world of {world}")
         for r in range(world):
             with open(os.path.join(outdir, f"rank{r}.json")) as fh:
                 res = json.load(fh)
@@ -3476,6 +3533,496 @@ def sharded_phase(dev, smi):
     return row, launches
 
 
+# ---- phase 17: sharded training and the launch tools -------------------------------
+
+# qwen1.5-0.5b, written out because this script imports nothing of the JAX
+# package: src/repro/configs/qwen1_5_0_5b.py (24 layers, d_model 1024, 16
+# heads, d_ff 2816, vocab 151,936, bf16, remat "full")
+SP_ARCH = "qwen1.5-0.5b"
+SP_MESH = (2, 2)                  # (data, model): SHARD_WORLD ranks on the one card
+SP_SHAPE = (4, 512)               # global batch, tokens
+SP_STEPS = 3
+SP_SEED = 17
+SP_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+SP_LOSS_RTOL = 2e-3
+# the gathered params against the unsharded step's, elementwise: 2 lr_t a
+# step summed over the steps, and one bf16 ulp of the value.  AdamW's first
+# updates are ±lr_t wherever the gradient is not zero, so an element whose
+# gradient is near zero, and whose sign the ranks' bf16 sums flip, moves by
+# 2 lr_t a step (the first chip run: 14,291 of 619,832,320 elements past 2 lr,
+# the largest 0.00146 = 2 (1.5e-4 + 3e-4 + 3e-4)).  The count past 2 lr and
+# |p - p_oracle| over |p_oracle - p_0| (L2 norms) are reported; each step's
+# gradient norm, a sum over every element, is held at SP_LOSS_RTOL.
+SP_PARAM_LR = 2 * SP_OPT["lr"]
+SP_LAUNCH_ARGV = ["--arch", SP_ARCH, "--mesh", "2,2", "--reduced", "--steps", "2",
+                  "--batch", "4", "--seq", "64"]
+#: the generated kernel whose device time gives the H100 spec's launch and
+#: grid-step overheads: exp over (rows, 256) f32
+OVERHEAD_ROWS = (8, 8448)
+OVERHEAD_BLOCKS = 8
+
+
+def sp_setup():
+    """(a)'s config (``activation_sharding="sp"``), optimizer config and
+    the global batches (numpy, from ``SyntheticLM``): the same in every
+    process."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import AdamWConfig
+
+    cfg = dataclasses.replace(get_config(SP_ARCH), activation_sharding="sp")
+    B, S = SP_SHAPE
+    data = SyntheticLM(cfg, S, B, seed=SP_SEED).iterate(0)
+    return cfg, AdamWConfig(**SP_OPT), [next(data) for _ in range(SP_STEPS)]
+
+
+def sp_oracle(rank, outdir, device_type):
+    """(a)'s oracle: the same steps unsharded (``make_train_step``, eager),
+    in a fresh process on the card; the losses, ms a step and the final
+    params, saved under ``outdir``."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.train import adamw_init, make_train_step
+
+    dev = torch.device(device_type)
+    cfg, ocfg, batches = sp_setup()
+    params = models.init_params(cfg, SP_SEED, device=dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for b in batches:
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        params, opt, m = step(params, opt, b)
+        t1.record()
+        torch.cuda.synchronize()
+        rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "ms": t0.elapsed_time(t1)})
+    res = {"steps": rows, "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": models.tree_bytes(params) + models.tree_bytes(opt.m)
+           + models.tree_bytes(opt.v) + opt.step.numel() * opt.step.element_size(),
+           "param_count": models.count_params(params)}
+    torch.save({k: t.cpu() for k, t in flat_leaves(params).items()},
+               os.path.join(outdir, "oracle.pt"))
+    with open(os.path.join(outdir, "oracle.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def flat_leaves(tree, prefix=""):
+    """{path: leaf} of a tree of dicts."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat_leaves(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+class CollectiveMeter:
+    """Counts, sizes (result bytes, by the census's kinds) and times (host
+    clock) every collective ``core.comm`` runs, by wrapping its tensor
+    collectives: a measurement, no change to what runs."""
+
+    KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter"}
+
+    def __init__(self):
+        from repro_torch.core import comm
+
+        self.reset()
+        for name, kind in self.KINDS.items():
+            inner = getattr(comm, name)
+
+            def timed(*args, _inner=inner, _kind=kind, **kw):
+                t0 = time.perf_counter()
+                out = _inner(*args, **kw)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                self.bytes[_kind] = self.bytes.get(_kind, 0) + out.numel() * out.element_size()
+                return out
+
+            setattr(comm, name, timed)
+
+    def reset(self):
+        self.calls, self.seconds, self.bytes = 0, 0.0, {}
+
+
+def sp_rank(rank, world, outdir, device_type):
+    """One rank of (a) and (b): the sharded steps, their checks and
+    numbers, then ``launch.train --mesh 2,2`` (module docstring)."""
+    import datetime
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.core.shard import block_cuts, dtensor_layout, local_block
+    from repro_torch.distributed import reshard_state
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.train import (
+        adamw_init, gather_tree, lr_at, make_sharded_train_step, rank_rows, row_axes,
+    )
+
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
+    if device_type == "cuda":
+        torch.cuda.set_device(0)       # every rank on the one card
+    faulthandler.dump_traceback_later(SHARD_WORLD_DEADLINE_S - 20, exit=True)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(outdir, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    t_start = time.perf_counter()
+
+    def done(case):
+        print(f"sharded_train rank {rank}/{world}: {case} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    cfg, ocfg, batches = sp_setup()
+    mesh = make_smoke_mesh(*SP_MESH, device=device_type)
+    params = models.init_params(cfg, SP_SEED, device=dev)
+    # params, f32 m and v, the int32 step, held whole by the unsharded step
+    unsharded = models.tree_bytes(params) + 2 * 4 * models.count_params(params) + 4
+    params, opt = reshard_state(params, adamw_init(params), mesh)
+    torch.cuda.synchronize()
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    meter = CollectiveMeter()
+    step = make_sharded_train_step(cfg, ocfg, mesh)
+    mine = rank_rows({k: torch.as_tensor(v) for k, v in batches[0].items()}, mesh)
+    res = {"rank": rank, "row_axes": list(row_axes(mesh, SP_SHAPE[0])),
+           "at_rest_bytes": dryrun.rank_argument_bytes(params, opt, {}),
+           "argument_bytes": dryrun.rank_argument_bytes(params, opt, mine),
+           "unsharded_state_bytes": unsharded, "steps": []}
+    zero_launches()
+    for b in batches:
+        meter.reset()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        params, opt, m = step(params, opt, b)
+        t1.record()
+        torch.cuda.synchronize()
+        res["steps"].append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "ms": t0.elapsed_time(t1), "collective_ms": meter.seconds * 1e3,
+                             "collective_calls": meter.calls, "bytes_by_kind": dict(meter.bytes)})
+    res["launches"] = read_launches("sharded train")
+    res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    done("steps")
+
+    # the checks: blocks at rest are the rules' cut of the gathered params,
+    # replicated leaves bit for bit across ranks, the params against the
+    # unsharded step's (rank 0)
+    full = gather_tree(params)
+    blocks_ok, leaves, replicated = 0, 0, {}
+    for path, p in flat_leaves(params).items():
+        g = flat_leaves(full)[path]
+        lay = dtensor_layout(p)
+        leaves += 1
+        blocks_ok += int(torch.equal(p.to_local(), local_block(g, block_cuts(lay, mesh))))
+        if not any(lay):
+            replicated[path] = p.to_local().cpu()
+    res["blocks_equal"], res["leaves"] = blocks_ok, leaves
+    torch.save(replicated, os.path.join(outdir, f"replicated{rank}.pt"))
+    if rank == 0:
+        want = torch.load(os.path.join(outdir, "oracle.pt"))
+        init = flat_leaves(models.init_params(cfg, SP_SEED, device=dev))
+        lr_sum = sum(float(lr_at(ocfg, i)) for i in range(SP_STEPS))
+        worst, over, over_2lr, diff2, upd2 = 0.0, 0, 0, 0.0, 0.0
+        for path, w in want.items():
+            g = flat_leaves(full)[path].cpu().float()
+            w = w.float()
+            err = (g - w).abs()
+            ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(g.abs(), w.abs())
+            over += int((err > 2 * lr_sum + ulp).sum())
+            over_2lr += int((err > SP_PARAM_LR + ulp).sum())
+            worst = max(worst, float(err.max()))
+            diff2 += float((err.double() ** 2).sum())
+            upd2 += float(((w - init[path].cpu().float()).double() ** 2).sum())
+        res.update(param_max_abs_err=worst, params_over_bound=over, params_over_2lr=over_2lr,
+                   param_bound=2 * lr_sum, update_rel_err=(diff2 / upd2) ** 0.5)
+    del full
+    done("checks")
+
+    # (b) the entry point in every rank of this world
+    ck = os.path.join(outdir, "ck")
+    t0 = time.perf_counter()
+    res["launch_rc"] = tlaunch.main(SP_LAUNCH_ARGV + ["--ckpt-dir", ck])
+    res["launch_s"] = time.perf_counter() - t0
+    done("launch.train")
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+
+
+def gc_collect():
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def sp_dryrun(rank, outdir):
+    """(d): ``run_cell``'s measurement of (a)'s cell, rank 0 of a fake
+    world of SHARD_WORLD ranks on a (data 2, model 2) mesh, on meta
+    tensors, in a fresh process."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+
+    _, ocfg, _ = sp_setup()
+    dryrun.fake_world(SHARD_WORLD)
+    try:
+        mesh = init_device_mesh("cpu", SP_MESH, mesh_dim_names=("data", "model"))
+        B, S = SP_SHAPE
+        t0 = time.perf_counter()
+        cell = dryrun.build_cell(SP_ARCH, "phase17", mesh, 1,
+                                 shape=dict(seq_len=S, global_batch=B, kind="train"),
+                                 opt_cfg=ocfg)
+        rec = dryrun.measure_cell(cell, "2x2", SHARD_WORLD, SP_ARCH, "phase17",
+                                  time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(outdir, "dryrun.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def overhead_module(rows, blocks, device):
+    """exp over (rows, 256) f32 compiled under ``max_blocks=blocks``."""
+    import numpy as np
+
+    from repro_torch.core import StitchOptions, compile_module, trace
+
+    module = trace(lambda b, x: b.exp(x), ("x", (rows, 256), np.float32))
+    return compile_module(module, StitchOptions(jit_replay=False, max_blocks=blocks),
+                          device=device)
+
+
+OVERHEAD_CASES = ((OVERHEAD_ROWS[0], 1), (OVERHEAD_ROWS[1], 1), (OVERHEAD_ROWS[1], OVERHEAD_BLOCKS))
+
+
+def launch_overheads(dev):
+    """The H100 spec's launch and grid-step overheads from the port's own
+    generated kernels: the device time of exp over (8, 256) f32 in one plan
+    block, and of exp over (8448, 256) f32 in 1 and in OVERHEAD_BLOCKS plan
+    blocks (the same bytes; the difference over the added blocks)."""
+    import torch
+
+    out = {}
+    for rows, blocks in OVERHEAD_CASES:
+        (kernel,) = overhead_module(rows, blocks, dev).kernels
+        x = torch.rand(rows, 256, device=dev)
+        _, by_name = profiled_launches(f"overhead exp ({rows}, 256) in {kernel.blocks} blocks",
+                                       lambda p=kernel.fn, x=x: p.launch(x, device=dev),
+                                       {kernel.fn.name: 1}, total=1)
+        out[f"{rows}x256_{kernel.blocks}_blocks_device_us"] = sum(
+            t for k, t in by_name.items() if kernel.fn.name in k)
+    one = out[f"{OVERHEAD_ROWS[0]}x256_1_blocks_device_us"]
+    few = out[f"{OVERHEAD_ROWS[1]}x256_1_blocks_device_us"]
+    many = [v for k, v in out.items() if k.startswith(f"{OVERHEAD_ROWS[1]}x") and v != few]
+    out["launch_overhead_us"] = one
+    out["grid_step_overhead_us"] = ((many[0] - few) / (OVERHEAD_BLOCKS - 1)) if many else None
+    return out
+
+
+def roofline_rows(models_row, train_row):
+    """(c): ``costmodel.fn_cost`` of phase 15's granite train step and of
+    phase 13's forward on meta tensors, ``roofline.analyze``'s H100 terms
+    for them, beside the device ms those phases measured in this run."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import costmodel, roofline
+    from repro_torch.train import AdamWConfig, adamw_init_specs, make_train_step
+
+    cfg = get_config(MODEL_ARCH)
+    pspecs = models.param_specs(cfg)
+    out = {}
+    for label, (B, S), kind, device_ms in (
+            ("train_step", TRAIN_SHAPE, "train", train_row["granite"]["replayed_device_ms"]),
+            ("forward", FORWARD_SHAPE, "prefill", models_row["forward_device_ms"])):
+        tokens = costmodel.to_meta({"tokens": torch_empty((B, S)), "labels": torch_empty((B, S))})
+        t0 = time.perf_counter()
+        if kind == "train":
+            step = make_train_step(cfg, AdamWConfig(**TRAIN_GRANITE_OPT))
+            cost = costmodel.fn_cost(step, pspecs, adamw_init_specs(pspecs), tokens)
+        else:
+            cost = costmodel.fn_cost(lambda p, b: models.forward(p, b, cfg), pspecs,
+                                     {"tokens": tokens["tokens"]})
+        count_s = time.perf_counter() - t0
+        rec = {"arch": MODEL_ARCH, "shape": f"{kind} {B}x{S}", "num_devices": 1,
+               "shape_spec": dict(seq_len=S, global_batch=B, kind=kind),
+               "flops": cost["flops"], "dot_flops": cost["dot_flops"],
+               "bytes_accessed": cost["bytes"], "bytes_min": cost["bytes_min"],
+               "collective_bytes": {}}
+        row = roofline.analyze(rec)
+        bound_ms = 1e3 * max(row["t_compute_s"], row["t_memory_s"], row["t_collective_s"])
+        out[label] = {k: row[k] for k in ("flops", "dot_flops", "bytes_accessed", "bytes_min",
+                                          "t_compute_s", "t_memory_s", "t_collective_s",
+                                          "dominant", "model_flops", "useful_ratio",
+                                          "roofline_fraction")}
+        out[label].update(count_s=count_s, device_ms=device_ms, bound_ms=bound_ms,
+                          fraction_of_bound=bound_ms / device_ms,
+                          model_flops_ms=1e3 * row["model_flops"] / roofline.PEAK_FLOPS,
+                          model_flops_fraction=1e3 * row["model_flops"] / roofline.PEAK_FLOPS
+                          / device_ms)
+        print(f"launch roofline {MODEL_ARCH} {label} {B}x{S}: counted in {count_s:.1f} s, "
+              f"{row['flops']:.4e} flops ({row['dot_flops']:.4e} in products), bytes "
+              f"{row['bytes_min']:.4e}..{row['bytes_accessed']:.4e}; H100 terms compute "
+              f"{row['t_compute_s'] * 1e3:.3f} ms, memory {row['t_memory_s'] * 1e3:.3f} ms "
+              f"({row['dominant']}); model flops {row['model_flops']:.4e}; device "
+              f"{device_ms:.2f} ms = {bound_ms / device_ms:.4f} of the bound, "
+              f"{out[label]['model_flops_fraction']:.4f} of model flops at peak")
+    return out
+
+
+def torch_empty(shape):
+    import torch
+
+    return torch.empty(shape, dtype=torch.int32, device="meta")
+
+
+def sharded_train_phase(dev, smi, models_row, train_row):
+    """Phase 17: the sharded train step and the launch tools on the card
+    (module docstring).  Returns the sharded_train and launch lines'
+    objects and each kernel's launches in (a)'s counted steps."""
+    import torch
+
+    gc_collect()
+    t0 = time.perf_counter()
+    seconds = {}
+    import torch.multiprocessing as mp
+
+    outdir = world_dir("sharded_train.")
+    try:
+        # the dry run (CPU, meta tensors) beside the oracle (the card), both
+        # before the world, whose host-staged collectives it would slow
+        dry = mp.spawn(sp_dryrun, args=(outdir,), nprocs=1, join=False)
+        try:
+            spawn_ranks(sp_oracle, (outdir, dev.type), 1, "sharded_train: the unsharded oracle")
+            seconds["oracle"] = time.perf_counter() - t0
+        finally:
+            join_ranks(dry, "sharded_train: the dry run")
+        seconds["oracle_and_dryrun"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        spawn_ranks(sp_rank, (SHARD_WORLD, outdir, dev.type), SHARD_WORLD,
+                    f"sharded_train: the gloo world of {SHARD_WORLD}")
+        seconds["world"] = time.perf_counter() - t1
+        with open(os.path.join(outdir, "oracle.json")) as fh:
+            oracle = json.load(fh)
+        with open(os.path.join(outdir, "dryrun.json")) as fh:
+            drec = json.load(fh)
+        ranks = []
+        for r in range(SHARD_WORLD):
+            with open(os.path.join(outdir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        replicated = [torch.load(os.path.join(outdir, f"replicated{r}.pt"))
+                      for r in range(SHARD_WORLD)]
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+    for res in ranks:
+        timed = res["steps"][1:]
+        res["ms_per_step"] = sum(s["ms"] for s in timed) / len(timed)
+        res["collective_ms_per_step"] = sum(s["collective_ms"] for s in timed) / len(timed)
+        print(f"sharded_train rank {res['rank']} {SP_ARCH} bf16 sp {SP_SHAPE[0]}x{SP_SHAPE[1]}: "
+              f"{res['ms_per_step']:.1f} ms a step ({res['collective_ms_per_step']:.1f} in "
+              f"collectives, {res['steps'][-1]['collective_calls']} calls, bytes "
+              f"{res['steps'][-1]['bytes_by_kind']}), losses "
+              f"{[round(s['loss'], 5) for s in res['steps']]}, peak "
+              f"{res['peak_allocated_bytes']} bytes, at rest {res['at_rest_bytes']} of "
+              f"{res['unsharded_state_bytes']} unsharded, launch.train "
+              f"{res['launch_s']:.1f} s ({smi})")
+    r0 = ranks[0]
+    oms = sum(s["ms"] for s in oracle["steps"][1:]) / (SP_STEPS - 1)
+    print(f"sharded_train: unsharded oracle {oms:.1f} ms a step, losses "
+          f"{[s['loss'] for s in oracle['steps']]}, grad norms "
+          f"{[s['grad_norm'] for s in oracle['steps']]} (rank 0: "
+          f"{[s['grad_norm'] for s in r0['steps']]}), peak {oracle['peak_allocated_bytes']} bytes; "
+          f"params max |err| {r0['param_max_abs_err']:.3e} (bound {r0['param_bound']:.3e} + a "
+          f"bf16 ulp; {r0['params_over_2lr']} elements past 2 lr), update rel err "
+          f"{r0['update_rel_err']:.3e}")
+
+    # ---- right ---------------------------------------------------------------------
+    loss_err = {"loss": 0.0, "grad_norm": 0.0}
+    for res in ranks:
+        for key in loss_err:
+            want = [s[key] for s in oracle["steps"]]
+            got = [s[key] for s in res["steps"]]
+            for g, w in zip(got, want, strict=True):
+                loss_err[key] = max(loss_err[key], abs(g - w) / abs(w))
+            if loss_err[key] > SP_LOSS_RTOL:
+                raise SystemExit(f"sharded_train rank {res['rank']}: {key} {got} vs unsharded "
+                                 f"{want}, past rtol {SP_LOSS_RTOL}")
+        if res["blocks_equal"] != res["leaves"]:
+            raise SystemExit(f"sharded_train rank {res['rank']}: {res['blocks_equal']} of "
+                             f"{res['leaves']} blocks equal the rules' cut")
+        if res["launch_rc"] != 0:
+            raise SystemExit(f"sharded_train rank {res['rank']}: launch.train --mesh 2,2 "
+                             f"exited {res['launch_rc']}")
+    for r, rep in enumerate(replicated[1:], 1):
+        for path, t in rep.items():
+            if not same(t, replicated[0][path]):
+                raise SystemExit(f"sharded_train: replicated {path} differs on rank {r}")
+    if r0["params_over_bound"]:
+        raise SystemExit(f"sharded_train: {r0['params_over_bound']} params past "
+                         f"{r0['param_bound']} + a bf16 ulp of the unsharded step's (max |err| "
+                         f"{r0['param_max_abs_err']})")
+    # (d) the dry run against the ranks: rank 0's argument bytes exactly, the
+    # census kind for kind against a step's bytes
+    if drec["memory"]["argument_size_in_bytes"] != r0["argument_bytes"]:
+        raise SystemExit(f"sharded_train dry run: argument bytes "
+                         f"{drec['memory']['argument_size_in_bytes']} vs rank 0's measured "
+                         f"{r0['argument_bytes']}")
+    measured = {k: float(v) for k, v in r0["steps"][-1]["bytes_by_kind"].items()}
+    if drec["collective_bytes"] != measured:
+        raise SystemExit(f"sharded_train dry run: census {drec['collective_bytes']} vs a "
+                         f"step's bytes {measured}")
+    seconds["checked"] = time.perf_counter() - t0
+
+    # ---- numbers -------------------------------------------------------------------
+    t1 = time.perf_counter()
+    overheads = launch_overheads(dev)
+    roof = roofline_rows(models_row, train_row)
+    seconds["roofline"] = time.perf_counter() - t1
+    launches = {}
+    for res in ranks:
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"sharded_train: max rel err against the unsharded step: {loss_err}")
+    print(f"sharded_train dry run (2x2 fake world, meta): argument "
+          f"{drec['memory']['argument_size_in_bytes']} bytes (rank 0 measured "
+          f"{r0['argument_bytes']}); temp estimate {drec['memory']['temp_size_in_bytes']} bytes "
+          f"against max allocated {[r['peak_allocated_bytes'] for r in ranks]}; census "
+          f"{drec['collective_bytes']} against a step's {measured}; counted in "
+          f"{drec['compile_s']} s")
+    print(f"launch overheads: {overheads}")
+    seconds["phase"] = time.perf_counter() - t0
+    print(f"sharded_train: launches {launches}; seconds "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    sharded_row = {
+        "card": smi, "arch": SP_ARCH, "mesh": list(SP_MESH), "world": SHARD_WORLD,
+        "backend": "gloo", "shape": list(SP_SHAPE), "steps": SP_STEPS, "opt": SP_OPT,
+        "param_count": oracle["param_count"], "oracle": oracle, "ranks": ranks,
+        "max_rel_err": loss_err, "param_max_abs_err": r0["param_max_abs_err"],
+        "params_over_2lr": r0["params_over_2lr"], "update_rel_err": r0["update_rel_err"],
+        "oracle_ms_per_step": oms,
+        "tolerances": {"loss_and_grad_norm_rtol": SP_LOSS_RTOL,
+                       "params": "2 sum(lr_t) + one bf16 ulp"},
+        "seconds": seconds,
+    }
+    launch_row = {"card": smi, "dryrun_2x2": drec, "roofline": roof, "overheads": overheads}
+    return sharded_row, launch_row, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number as JSON here")
@@ -3527,8 +4074,9 @@ def main(argv=None) -> int:
     # phase 12: the frontend's functions and the families' hand-built graphs
     cases = frontend_cases()
     extra += frontend_sources(cases)
-    # phase 15: the stitched train step's plan
+    # phase 15: the stitched train step's plan; phase 17: the overhead kernels
     extra += train_sources()
+    extra += [overhead_module(rows, blocks, "cpu").cuda_source for rows, blocks in OVERHEAD_CASES]
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
@@ -3842,6 +4390,13 @@ def main(argv=None) -> int:
         # the generated kernels of the ranks' counted calls; the sharded
         # path calls no hand-written kernel (counted: each rank fails on one)
         entry["sharded_launches"] = sharded_launches.get(entry["name"], 0)
+
+    # ---- 17. sharded training and the launch tools -----------------------------------
+    sp_row, launch_row, sp_launches = sharded_train_phase(dev, smi, models_row, train_row)
+    for entry in entries:
+        # the sharded step runs the models' training: no kernel of the port,
+        # counted in every rank (each fails on one)
+        entry["sharded_train_launches"] = sp_launches[entry["name"]]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3852,6 +4407,7 @@ def main(argv=None) -> int:
                        "autotune": autotune_rows, "fault_modules": fault_rows,
                        "frontend": frontend_rows, "models": models_row, "serve": serve_row,
                        "train": train_row, "sharded": sharded_row,
+                       "sharded_train": sp_row, "launch": launch_row,
                        "profile_retakes": RETAKES}, f, indent=1)
     print(f"profiles taken again: {sum(len(r['refused']) for r in RETAKES)} "
           f"({', '.join(r['label'] for r in RETAKES) or 'none'})")
@@ -3860,6 +4416,8 @@ def main(argv=None) -> int:
     print(json.dumps({"serve": serve_row}))
     print(json.dumps({"train": train_row}))
     print(json.dumps({"sharded": sharded_row}))
+    print(json.dumps({"sharded_train": sp_row}))
+    print(json.dumps({"launch": launch_row}))
     print(json.dumps({"kernels": entries}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -14,6 +14,14 @@ dtype, one ``<u2`` field named ``bfloat16``).  A 2-byte void array (what an
 ml_dtypes bf16 array's ``.npy`` header reads back as) is taken by its bits
 the same way.  A checkpoint the reference writes for an f32 config
 restores to the same values.
+
+Sharded state (``DTensor`` leaves, the sharded train step's) is saved as
+the reference saves a global array: every rank gathers each leaf through
+the port's collectives (``shard.gather_dtensor``), rank 0 alone writes (at
+once: ``async_save`` applies to unsharded state), and the save returns once
+every rank has passed a barrier after the write.  On
+restore every rank reads the global arrays and keeps its block of each
+(``shard.dtensor_like``), placed as its template is.
 """
 from __future__ import annotations
 
@@ -30,10 +38,21 @@ from ..core.ir import BFLOAT16
 from ..train.optimizer import AdamWState
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def to_host(t) -> np.ndarray:
-    """A tensor as a host array: bf16 by its bits (``BFLOAT16``)."""
+    """A tensor as a host array: bf16 by its bits (``BFLOAT16``); a
+    ``DTensor`` as its global value (a collective of its mesh)."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if _is_dtensor(t):
+        from ..core.shard import gather_dtensor
+
+        t = gather_dtensor(t)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view(np.uint16).view(BFLOAT16)
@@ -84,30 +103,39 @@ class CheckpointManager:
         host_params = _flatten_with_paths(params)
         host_m = _flatten_with_paths(opt_state.m)
         host_v = _flatten_with_paths(opt_state.v)
-        host_step = int(opt_state.step)
+        sharded = _is_dtensor(opt_state.step)
+        host_step = int(opt_state.step.to_local() if sharded else opt_state.step)
+        if sharded:
+            import torch.distributed as dist
 
-        def _write():
-            tmp = os.path.join(self.dir, f".tmp_step_{step}")
-            final = os.path.join(self.dir, f"step_{step}")
-            if os.path.exists(tmp):
-                shutil.rmtree(tmp)
-            os.makedirs(tmp)
-            np.savez(os.path.join(tmp, "params.npz"), **host_params)
-            np.savez(os.path.join(tmp, "opt_m.npz"), **host_m)
-            np.savez(os.path.join(tmp, "opt_v.npz"), **host_v)
-            with open(os.path.join(tmp, "META"), "w") as f:
-                json.dump({"step": step, "opt_step": host_step}, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.replace(tmp, final)          # atomic publish
-            self._gc()
+            if dist.get_rank() == 0:
+                self._write(step, host_params, host_m, host_v, host_step)
+            dist.barrier()
+            return os.path.join(self.dir, f"step_{step}")
 
+        args = (step, host_params, host_m, host_v, host_step)
         if self.async_save:
-            self._pending = threading.Thread(target=_write, daemon=True)
+            self._pending = threading.Thread(target=self._write, args=args, daemon=True)
             self._pending.start()
         else:
-            _write()
+            self._write(*args)
         return os.path.join(self.dir, f"step_{step}")
+
+    def _write(self, step, host_params, host_m, host_v, host_step):
+        tmp = os.path.join(self.dir, f".tmp_step_{step}")
+        final = os.path.join(self.dir, f"step_{step}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "params.npz"), **host_params)
+        np.savez(os.path.join(tmp, "opt_m.npz"), **host_m)
+        np.savez(os.path.join(tmp, "opt_v.npz"), **host_v)
+        with open(os.path.join(tmp, "META"), "w") as f:
+            json.dump({"step": step, "opt_step": host_step}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)          # atomic publish
+        self._gc()
 
     def wait(self):
         if self._pending is not None:
@@ -142,6 +170,10 @@ class CheckpointManager:
         with np.load(os.path.join(base, "opt_v.npz")) as npz:
             v = _unflatten_like(like_opt.v, npz)
         opt_step = torch.tensor(meta["opt_step"], dtype=torch.int32, device=like_opt.step.device)
+        if _is_dtensor(like_opt.step):
+            from ..core.shard import dtensor_like
+
+            opt_step = dtensor_like(opt_step, like_opt.step)
         return params, AdamWState(opt_step, m, v), meta["step"]
 
     def restore_latest(self, like_params=None, like_opt=None):
@@ -161,6 +193,10 @@ def _unflatten_like(template, npz) -> Any:
         if isinstance(node, (tuple, list)):
             vals = [walk(f"{prefix}/{i}", v) for i, v in enumerate(node)]
             return type(node)(vals) if not hasattr(node, "_fields") else type(node)(*vals)
+        if _is_dtensor(node):
+            from ..core.shard import dtensor_like
+
+            return dtensor_like(from_host(npz[prefix], node.dtype, node.device), node)
         return from_host(npz[prefix], node.dtype, node.device)
 
     return walk("", template)

@@ -27,7 +27,7 @@ from .fusion import (
 )
 from .interop import module_from_reference
 from .ir import GraphBuilder, Instruction, Module, Tensor, apply_op, torch_dtype, trace
-from .latency import TPU_V5E, DeviceSpec, LatencyModel, instr_flops
+from .latency import H100, TPU_V5E, DeviceSpec, LatencyModel, instr_flops
 from .measure import (
     MeasuredCost,
     MeasuredCostStore,
@@ -122,7 +122,7 @@ __all__ = [
     "Diagnostic", "VerificationError", "RULES", "resolve_verify_mode",
     "verify_module", "verify_state", "verify_execution_plan",
     # the port's own
-    "KernelProgram", "StitchedKernel", "emit_fusion", "emit_stitched_fusion",
+    "H100", "KernelProgram", "StitchedKernel", "emit_fusion", "emit_stitched_fusion",
     "LaunchStats", "module_from_reference", "torch_dtype", "SubModulePass",
     "module_signature", "ShardingPass", "MeshShape", "derive_layouts",
     "layout_to_placements", "mesh_axes_of", "propagate_layouts", "spec_to_layout",

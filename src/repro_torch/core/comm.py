@@ -66,10 +66,17 @@ def _world_groups() -> Dict[tuple, object]:
     return _GROUPS["groups"]
 
 
+def active_mesh():
+    """The mesh of the innermost ``mesh_scope`` block, or None."""
+    return _ACTIVE_MESH[-1] if _ACTIVE_MESH else None
+
+
 @contextlib.contextmanager
 def mesh_scope(mesh):
     """Collectives evaluated outside a plan (``apply_op``) take their groups
-    from ``mesh`` inside this block."""
+    from ``mesh`` inside this block, and the models' sharding hooks
+    (``distributed.sharding.current_mesh``) see it: the port's ``with
+    mesh:``."""
     _ACTIVE_MESH.append(mesh)
     try:
         yield mesh

@@ -89,9 +89,6 @@ COLLECTIVE_OPCODES = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
 
 _COMPARE_FNS = frozenset({"lt", "le", "gt", "ge", "eq", "ne", "and", "or", "not"})
 
-# the ROADMAP.md queue 1 item that ports what the port still leaves out
-SHARDING_ITEM = "ROADMAP.md queue 1, item 14 (sharding and distributed)"
-
 #: the IR's bfloat16.  numpy has none (the reference takes ml_dtypes', a
 #: package the port does not depend on), so the port keys it by a 2-byte
 #: structured dtype of its own: ``np.dtype`` accepts it and gives its

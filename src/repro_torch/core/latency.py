@@ -1,15 +1,14 @@
 """The unified analytic latency model — ONE place for device constants and
 roofline math.
 
-Before this module, cost knowledge was split three ways and drifted
-independently: ``core/perf_library.py`` carried a ``TpuSpec`` + per-op
-roofline miss handler, ``launch/roofline.py`` re-declared the same peak
-FLOPs / HBM / ICI numbers as module constants, and ``launch/costmodel.py``
-walked jaxprs with its own byte conventions.  ``DeviceSpec`` is now the
-single source of truth for hardware constants (both older sites re-export
-it) and ``LatencyModel`` is the one scoring object shared by the fusion
-planner, the schedule tuner (through ``PerfLibrary.model``), and the
-module-level roofline table.
+``DeviceSpec`` is the single source of hardware constants
+(``core/perf_library.py`` re-exports it as ``TpuSpec``) and
+``LatencyModel`` is the one scoring object shared by the fusion planner
+and the schedule tuner (through ``PerfLibrary.model``).  Two specs: the
+planner scores every plan with ``TPU_V5E``, the reference's constants, so
+the port's plans stay the reference's; ``H100`` holds the card's, from its
+data sheet and from ``chip_smoke.py``'s measurements, and
+``launch/roofline.py`` derives its peaks from it.
 
 What the model charges (see README "LatencyModel conventions"):
   * one ``launch_overhead_s`` per kernel plus ``grid_step_overhead_s`` per
@@ -52,11 +51,10 @@ from .schedule import (
 
 @dataclass(frozen=True)
 class DeviceSpec:
-    """TPU v5e per-chip numbers — the single source of hardware truth.
+    """Per-chip numbers; the defaults are TPU v5e's (``TPU_V5E``).
 
-    ``core/perf_library.py`` re-exports this as ``TpuSpec`` and
-    ``launch/roofline.py`` derives its module constants from ``TPU_V5E``;
-    neither keeps its own copy anymore.
+    ``core/perf_library.py`` re-exports this as ``TpuSpec``;
+    ``launch/roofline.py`` derives its module constants from ``H100``.
     """
 
     peak_flops_bf16: float = 197e12
@@ -85,6 +83,34 @@ class DeviceSpec:
 
 
 TPU_V5E = DeviceSpec()
+
+_NOT_MEASURED = float("nan")
+
+#: NVIDIA H100 SXM5 80 GB.  Peaks and rates from the data sheet; the launch
+#: and grid-step overheads measured by ``chip_smoke.py`` phase 17 (c) (the
+#: device time of a one-block generated kernel, and what each further plan
+#: block of the same work adds).  A field the card has no number for is NaN,
+#: so a score that reads it is NaN, never another chip's value.
+H100 = DeviceSpec(
+    peak_flops_bf16=989e12,          # dense bf16 on the tensor cores
+    peak_flops_f32=67e12,            # f32 without the tensor cores (TF32 off)
+    vpu_flops=67e12,                 # elementwise f32 on the CUDA cores
+    hbm_bw=3.35e12,                  # HBM3
+    vmem_bw=_NOT_MEASURED,           # shared memory: no data-sheet figure
+    vmem_bytes=232448,               # shared memory a block (codegen.SMEM_LIMIT)
+    ici_bw=900e9,                    # NVLink 4, both directions summed (450 GB/s each way)
+    ici_latency_s=_NOT_MEASURED,     # one card: no collective between cards measured
+    # chip_smoke.py phase 17 (c) on an H100 (700 W): the generated exp
+    # kernel's device time over (8, 256) f32 in one plan block, 1.150 µs;
+    # over (8448, 256) f32 in 8 plan blocks against 1, (6.398 - 5.887) / 7 µs
+    launch_overhead_s=1.15e-6,
+    grid_step_overhead_s=7.3e-8,
+    phase_loop_overhead_s=_NOT_MEASURED,  # a grid barrier alone is not measured
+    # the (sublane, lane) tile is the TPU's vector register; a GPU has no
+    # such tile: a warp of 32 threads is the nearest unit
+    sublane=1,
+    lane=32,
+)
 
 # VPU op weight: how many vector-op equivalents one element costs.
 _EW_WEIGHT = {"add": 1, "sub": 1, "mul": 1, "max": 1, "min": 1, "neg": 1,

@@ -171,6 +171,45 @@ def assemble(value, layout: Optional[Layout], mesh):
     return value
 
 
+def placements_to_layout(placements, mesh, rank: int) -> Layout:
+    """A DTensor's placements -> its layout: each tensor dim split over the
+    mesh dims whose placement is ``Shard`` of it, major to minor (the
+    inverse of ``layout_to_placements``)."""
+    from torch.distributed.tensor import Shard
+
+    names = list(mesh_sizes(mesh))
+    dims: List[List[str]] = [[] for _ in range(rank)]
+    for name, p in zip(names, placements, strict=True):
+        if isinstance(p, Shard):
+            dims[p.dim % rank].append(name)
+        elif not p.is_replicate():
+            raise ValueError(f"placement {p} on mesh axis {name!r} is neither Shard nor Replicate")
+    return tuple(tuple(e) or None for e in dims)
+
+
+def dtensor_layout(x) -> Layout:
+    """The layout of a ``DTensor`` on its own mesh."""
+    return placements_to_layout(x.placements, x.device_mesh, x.ndim)
+
+
+def gather_dtensor(x):
+    """A ``DTensor``'s global value, on every rank, by the port's gathers
+    (``assemble``: ``core.comm``, which picks the backend's form), never
+    ``full_tensor()``."""
+    return assemble(x.to_local(), dtensor_layout(x), x.device_mesh)
+
+
+def dtensor_like(value, like):
+    """This rank's block of the global ``value`` as a ``DTensor`` placed as
+    ``like`` is (a cut, no communication)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = like.device_mesh
+    local = local_block(value, block_cuts(dtensor_layout(like), mesh))
+    return DTensor.from_local(local, mesh, list(like.placements), run_check=False,
+                              shape=tuple(value.shape), stride=value.contiguous().stride())
+
+
 def wrap_shard_map(fn, mesh, in_specs, out_specs):
     """``fn``, the per-shard body, as a function of global arguments: each
     rank runs ``fn`` eagerly on its blocks of the positional arguments

@@ -2,8 +2,7 @@
 (``sharding``), collective helpers (``collectives``) and elastic re-meshing
 (``elastic``), over ``torch.distributed`` and ``DeviceMesh``.
 
-``__all__`` holds the reference package's names but ``current_mesh`` and
-``constrain_sp``, which come with the sharded train step; ``wrap_shard_map``
+``__all__`` holds the reference package's names; ``wrap_shard_map``
 is the port's eager SPMD form of ``shard_map`` (``core.shard``).  Then the
 port's own: ``MeshShape``, ``Sharding``, ``axis_sizes``.
 """
@@ -17,6 +16,8 @@ from .sharding import (
     batch_spec,
     cache_shardings,
     cache_spec,
+    constrain_sp,
+    current_mesh,
     opt_state_shardings,
     param_layout,
     param_spec,
@@ -28,7 +29,7 @@ __all__ = [
     "wrap_shard_map", "bucketed_psum", "cross_pod_mean", "psum_tree",
     "choose_mesh_shape", "make_elastic_mesh", "reshard_state",
     "batch_shardings", "batch_spec", "cache_shardings", "cache_spec",
-    "opt_state_shardings", "param_layout", "param_spec", "params_shardings",
+    "constrain_sp", "current_mesh", "opt_state_shardings", "param_layout", "param_spec", "params_shardings",
     # the port's own
     "MeshShape", "Sharding", "axis_sizes",
 ]

@@ -22,14 +22,17 @@ as ``None``.  So ``tuple(reference_spec) == port_spec`` compares them.  A
 
 A mesh is a ``DeviceMesh``, or a shape-only ``MeshShape`` (or any mesh with
 ``axis_names`` and a ``shape`` dict): ``axis_sizes`` reads each, so the
-rules on a (16, 16) or (2, 16, 16) mesh need no world of 256 ranks.  The
-reference's ``current_mesh`` and ``constrain_sp`` (the models'
-sequence-parallel hooks) come with the sharded train step, in a later
-slice.
+rules on a (16, 16) or (2, 16, 16) mesh need no world of 256 ranks.
+
+The models' sequence-parallel hooks read ``current_mesh``: the mesh a
+``with core.comm.mesh_scope(mesh):`` block installs, the port's ``with
+mesh:``.  In SPMD every rank holds plain tensors, its own values, which a
+hook returns as they are; a ``DTensor`` is redistributed to the
+placements the reference's constraint names.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 from ..core.shard import layout_to_placements, mesh_sizes, spec_to_layout
 
@@ -217,6 +220,42 @@ def cache_shardings(cache_tree, mesh, global_batch: int):
     return _walk(cache_tree,
                  lambda path, t, st: sharding(mesh, cache_spec(path, tuple(t.shape), mesh,
                                                               global_batch)))
+
+
+def current_mesh() -> Optional[Any]:
+    """The mesh installed by a ``with mesh_scope(mesh):`` block, if any."""
+    from ..core import comm
+
+    return comm.active_mesh()
+
+
+def constrain(x, spec: tuple):
+    """``x`` under ``spec`` on the current mesh: a ``DTensor`` is
+    redistributed to the spec's placements; a plain tensor (a rank's own
+    value in SPMD) is returned as it is, the same object."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    placements = layout_to_placements(spec_to_layout(spec, x.ndim), mesh)
+    if list(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def constrain_sp(x):
+    """Sequence-parallel constraint on a (B, S, d) residual-stream tensor:
+    batch over (pod, data) when divisible, SEQUENCE over 'model'.  No-op
+    outside a mesh, on fewer than 3 dims, or on a plain tensor."""
+    mesh = current_mesh()
+    if mesh is None or x.ndim < 3 or "model" not in axis_sizes(mesh):
+        return x
+    baxes = batch_axes(mesh, x.shape[0])
+    seq_ax = "model" if x.shape[1] % axis_size(mesh, "model") == 0 else None
+    spec = [baxes if len(baxes) > 1 else (baxes[0] if baxes else None), seq_ax]
+    spec += [None] * (x.ndim - 2)
+    return constrain(x, tuple(spec))
 
 
 def opt_state_shardings(opt_specs, params_shard, mesh):

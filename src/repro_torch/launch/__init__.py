@@ -1,2 +1,5 @@
 """Launch tools of the port: ``python -m repro_torch.launch.serve``,
-``python -m repro_torch.launch.train`` and the meshes (``mesh``)."""
+``python -m repro_torch.launch.train`` (``--mesh`` for the sharded step),
+the meshes (``mesh``), the dry run (``dryrun``) with its cost model
+(``costmodel``) and collective census (``hlostats``), and the roofline
+table (``roofline``)."""

@@ -7,8 +7,10 @@ Plain torch ops, function for function the reference's
 (``repro/models/layers.py``), with the same dtypes: products promote their
 operands as ``jnp.einsum`` does (``einsum``), norms and softmaxes compute
 in float32.  Every tensor a function makes lies on its inputs' device.
-The reference's sharding constraints are no-ops on one device and have no
-counterpart here; sharding is ROADMAP.md queue 1, item 14.
+The reference's sharding constraints are ``_constrain_last_dim_model`` and
+``_constrain_rows_model``: inside a ``mesh_scope`` they redistribute a
+``DTensor`` as the reference constrains its array, and return a plain
+tensor (a rank's own value in SPMD) as it is.
 """
 from __future__ import annotations
 
@@ -198,6 +200,8 @@ def decode_attention(q, k_cache, v_cache, length, k_scale=None, v_scale=None):
     G = H // Hkv
     scale = hd ** -0.5
     qg = q.reshape(B, Hkv, G, hd).to(F32) * scale
+    # q's head dim on the cache's 'model' sharding, where the reference pins it
+    qg = _constrain_last_dim_model(qg)
     kc = k_cache.to(F32)
     vc = v_cache.to(F32)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, kc)                 # (B, Hkv, G, S)
@@ -214,6 +218,31 @@ def decode_attention(q, k_cache, v_cache, length, k_scale=None, v_scale=None):
         torch.exp(s - m), dim=-1
     )[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def _constrain_last_dim_model(x):
+    """Shard the last dim over 'model' when a mesh is active and divides."""
+    from ..distributed.sharding import axis_size, axis_sizes, constrain, current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or "model" not in axis_sizes(mesh):
+        return x
+    if x.shape[-1] % axis_size(mesh, "model"):
+        return x
+    return constrain(x, (None,) * (x.ndim - 1) + ("model",))
+
+
+def _constrain_rows_model(x):
+    """Shard a (rows, d) expert-dispatch buffer's rows over 'model' (EP).
+    No-op outside a mesh context."""
+    from ..distributed.sharding import axis_size, axis_sizes, constrain, current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or "model" not in axis_sizes(mesh):
+        return x
+    if x.shape[0] % axis_size(mesh, "model"):
+        return x
+    return constrain(x, ("model", None))
 
 
 def quantize_kv_int8(x):

@@ -14,7 +14,9 @@ write the parking slot or block) and returned, as the reference returns
 its new cache.  ``cfg.remat`` (``_remat``) recomputes each layer's
 activations in the backward pass with ``torch.utils.checkpoint``, as the
 reference's ``jax.checkpoint`` does, and changes no value;
-``activation_sharding="sp"`` raises, as sharding is item 14.
+``activation_sharding="sp"`` puts the residual stream under
+``constrain_sp`` before the loop and after each layer, as the reference
+does (a no-op outside a ``mesh_scope`` and on a rank's plain tensors).
 """
 from __future__ import annotations
 
@@ -24,7 +26,6 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..core.device import resolve_device
-from ..core.ir import SHARDING_ITEM
 from . import layers as L
 from . import ssm as S
 from .module import Creator, Params, layer_slice, stack_layers, tree_leaves, tree_map
@@ -248,17 +249,22 @@ def _scan_layers(stacked, x, body, cfg=None):
     one to the next.  ``stacked`` is the stacked tree, or a list of one
     tree a layer (the train step's leaves for autograd, whose gradients
     then come a layer apiece instead of each one summed into a zeroed copy
-    of the whole stack)."""
-    if cfg is not None and cfg.activation_sharding == "sp":
-        raise NotImplementedError(
-            f"activation_sharding='sp' (sequence-parallel) is ported by {SHARDING_ITEM}"
-        )
+    of the whole stack).  Under ``activation_sharding="sp"`` the stream
+    is constrained sequence-parallel before the loop and after each layer
+    (``constrain_sp``)."""
+    sp = cfg is not None and cfg.activation_sharding == "sp"
+    if sp:
+        from ..distributed.sharding import constrain_sp
+
+        x = constrain_sp(x)
     if isinstance(stacked, (list, tuple)):
         layers = stacked
     else:
         layers = (layer_slice(stacked, i) for i in range(_depth(stacked)))
     for lp in layers:
         x = body(lp, x)
+        if sp:
+            x = constrain_sp(x)     # shard the remat stash 'model'-ways
     return x
 
 

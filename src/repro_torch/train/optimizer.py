@@ -136,8 +136,8 @@ def _update_leaf(cfg: AdamWConfig, p, g, m, v, scale, lr, b1c, b2c) -> torch.Ten
     return (p.to(F32) - delta.mul_(lr)).to(p.dtype)
 
 
-def _update(cfg: AdamWConfig, params, grads, state: AdamWState, inplace: bool):
-    gnorm = global_norm(grads)
+def _update(cfg: AdamWConfig, params, grads, state: AdamWState, inplace: bool, norm=None):
+    gnorm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(gnorm, cfg.grad_clip_norm)
     lr = lr_at(cfg, state.step)
     stepf = (state.step + 1).to(F32)
@@ -159,12 +159,14 @@ def _update(cfg: AdamWConfig, params, grads, state: AdamWState, inplace: bool):
     return new_params, AdamWState(state.step + 1, state.m, state.v), metrics
 
 
-def adamw_update_(cfg: AdamWConfig, params, grads, state: AdamWState
+def adamw_update_(cfg: AdamWConfig, params, grads, state: AdamWState, norm=None
                   ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """The AdamW step in place: ``params``, ``state.m``, ``state.v`` and
     ``state.step`` are written and returned.  No host sync: the schedule,
-    the bias corrections and the clip scale stay on the device."""
-    return _update(cfg, params, grads, state, inplace=True)
+    the bias corrections and the clip scale stay on the device.  ``norm``,
+    when given, is the gradients' global norm (a sharded step passes the
+    whole gradient's while ``grads`` holds its blocks)."""
+    return _update(cfg, params, grads, state, inplace=True, norm=norm)
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState

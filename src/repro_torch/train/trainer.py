@@ -61,23 +61,17 @@ def _chunk_len(S: int, target: int) -> int:
     return c
 
 
-def make_loss_fn(cfg):
-    """Chunked CE: the (B, S, Vp) logits tensor is never materialized — the
-    unembed product and the CE run per sequence chunk.
-
-    Autograd would keep every chunk's f32 logits (and their exponentials)
-    alive until the backward pass, as the reference's scan would without
-    remat, so each chunk runs under ``torch.utils.checkpoint``: only its
-    (B, c, d) hidden slice is kept, and its logits are made again in the
-    backward pass.  That changes no value; the peak is one chunk's
-    logits."""
+def make_loss_sums_fn(cfg):
+    """(params, batch) -> (sum nll, count of valid labels): the chunked CE
+    of ``make_loss_fn`` before its division, which a sharded step divides
+    by the count over every rank's rows."""
     from torch.utils.checkpoint import checkpoint
 
     def chunk_sums(embed, hc, lc):
         logits = L.unembed(embed, hc).to(F32)
         return cross_entropy_sums(logits, lc, cfg.vocab_size)
 
-    def loss_fn(params, batch):
+    def sums_fn(params, batch):
         hidden = forward(params, batch, cfg, return_hidden=True)   # (B, S, d)
         labels = torch.as_tensor(batch["labels"], device=hidden.device)
         B, S, d = hidden.shape
@@ -85,7 +79,7 @@ def make_loss_fn(cfg):
         nc = S // c
         if nc <= 1:
             logits = L.unembed(params["embed"], hidden).to(F32)
-            return cross_entropy(logits, labels, cfg.vocab_size)
+            return cross_entropy_sums(logits, labels, cfg.vocab_size)
         tot = torch.zeros((), dtype=F32, device=hidden.device)
         cnt = torch.zeros((), dtype=F32, device=hidden.device)
         for i in range(nc):
@@ -96,6 +90,25 @@ def make_loss_fn(cfg):
             else:
                 t, n = chunk_sums(params["embed"], hc, lc)
             tot, cnt = tot + t, cnt + n
+        return tot, cnt
+
+    return sums_fn
+
+
+def make_loss_fn(cfg):
+    """Chunked CE: the (B, S, Vp) logits tensor is never materialized — the
+    unembed product and the CE run per sequence chunk.
+
+    Autograd would keep every chunk's f32 logits (and their exponentials)
+    alive until the backward pass, as the reference's scan would without
+    remat, so each chunk runs under ``torch.utils.checkpoint``: only its
+    (B, c, d) hidden slice is kept, and its logits are made again in the
+    backward pass.  That changes no value; the peak is one chunk's
+    logits."""
+    sums_fn = make_loss_sums_fn(cfg)
+
+    def loss_fn(params, batch):
+        tot, cnt = sums_fn(params, batch)
         return tot / torch.clamp(cnt, min=1.0)
 
     return loss_fn

@@ -24,7 +24,7 @@ from repro.models import init_params as rinit_params
 from repro_torch import train as ttrain
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.core.ir import BFLOAT16, SHARDING_ITEM
+from repro_torch.core.ir import BFLOAT16
 from repro_torch.data import SyntheticLM
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import init_params, opt_state_from_reference, params_from_reference
@@ -249,7 +249,10 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
 
 
 def test_launch_train_mesh_raises_naming_the_sharding_item(tmp_path):
-    with pytest.raises(NotImplementedError, match=re.escape(SHARDING_ITEM)):
+    """Kept under its old name: ``--mesh 2,2`` with no ``torch.distributed``
+    world raises, naming the 4 ranks it needs (``tests/test_torch_sharded_train.py``
+    runs it in a world of four)."""
+    with pytest.raises(RuntimeError, match=re.escape("needs a world of 4 ranks")):
         tlaunch.main(["--arch", "qwen1.5-0.5b", "--device", "cpu", "--mesh", "2,2",
                       "--ckpt-dir", str(tmp_path)])
 

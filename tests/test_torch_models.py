@@ -164,10 +164,14 @@ def test_forward_return_hidden_and_moe_scatter_match_the_reference():
 
 
 def test_sequence_parallel_activations_raise_naming_the_sharding_item():
+    """Kept under its old name: ``activation_sharding="sp"`` no longer
+    raises; its forward equals ``"none"`` bit for bit (outside a mesh the
+    hooks change nothing; ``tests/test_torch_sp.py`` holds them inside)."""
     _, tcfg = _cfgs("qwen2.5-14b", activation_sharding="sp")
     params = tmodels.init_params(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmodels.forward(params, _batch(tcfg), tcfg)
+    batch = _batch(tcfg)
+    none = dataclasses.replace(tcfg, activation_sharding="none")
+    assert torch.equal(tmodels.forward(params, batch, tcfg), tmodels.forward(params, batch, none))
 
 
 # ----------------------------------------------------------- layer functions
