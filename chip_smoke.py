@@ -52,7 +52,8 @@ Phases, each fatal on failure:
    seeded lengths, and the MoE router gate.  The counters are set to 0
    just before those five calls and must read just after one launch each,
    two for decode (its split and combine kernels), through the expected
-   launchers (``launchers``: bf16 flash on the tensor-core kernel, RMSNorm
+   launchers (``launchers``: bf16 flash at D = 64 on the wgmma kernel
+   ``sx_flash_wgmma_kernel``, RMSNorm
    on its 16-byte kernel ``sx_rmsnorm_vec_kernel``, the vocab softmax on
    its cluster kernel ``sx_softmax_cluster_kernel``), and the gate's grid
    must hold at least 132 blocks (one per SM).  Then
@@ -62,8 +63,11 @@ Phases, each fatal on failure:
    the test file leaves out: flash and decode attention at D = 32 and 128
    in f32 and bf16 (the default blocks, whose f32 K/V tiles need more than
    48 KB of shared memory at D = 128), flash with block_q != block_k, bf16
-   flash at S = 48 and 80 (not multiples of its 64-row tile) with D = 8, 16
-   and 64 and G = 8, bf16 decode at lengths 0, 1, split - 1, split, split
+   flash at S = 48 and 80 (not multiples of its 64- or 128-row tiles) with
+   D = 8, 16 (the mma.sync kernel) and 64 (the wgmma kernel) and G = 8, bf16
+   flash on the wgmma kernel over several 128-key tiles (D = 64 at S = 256
+   and 2048, causal and not; D = 128 at S = 2048, causal), held at the
+   full-width limits, bf16 decode at lengths 0, 1, split - 1, split, split
    + 1 and S with G = 1, 3 and 8 and D = 64 and 128, softmax and
    rmsnorm at 16 and 32 rows per block, the gate at E = 32, 33, 64, 65,
    128 and 256 (1, 2, 4 and 8 slots a lane), at T = 4100 (a short last
@@ -261,7 +265,10 @@ Phases, each fatal on failure:
    ranks against each other bit for bit.  Last, a one-rank NCCL world runs
    the f32 MLP at mesh (model 1), held at ``TOL``, and takes the numbers of
    the unsharded plan of the same function (its kernels a call beside a
-   rank's), in a fresh process as the ranks take theirs.  The world's
+   rank's), in a fresh process as the ranks take theirs.  Every rank's and
+   the unsharded plan's generated kernels are printed with their grid,
+   threads, workspace bytes and device µs a call; the bf16 plans' silu x
+   mul kernel must keep no workspace (its convert held in a register).  The world's
    directory under ``build/`` is removed once read.  Any rank's failure
    fails the phase (``spawn`` raises), and so does a world still running
    after ``SHARD_WORLD_DEADLINE_S`` (its ranks are killed; each rank first
@@ -304,11 +311,14 @@ Phases, each fatal on failure:
    ``SHARD_WORLD_DEADLINE_S`` and its directory under ``build/`` is removed
    once read.
 
-Every profile whose device kernels a call are none or not a whole number,
-or disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and
-each refused reading, with the pad kernels it kept, goes into ``--out`` as
-``profile_retakes``.  In phase 16's world of four ranks each profiled call
-runs a collective, so a profile refused on one rank is taken again on
+A profile is read only between two long marks, with a call and short pads
+outside each (``PAD_KERNEL``).  Every profile that kept other than two
+marks, or whose device kernels a call are none or not a whole number, or
+disagree with the plan, is taken again (up to ``PROFILE_TRIES``), and each
+refused reading, with the pads and marks it kept, goes into ``--out`` as
+``profile_retakes``; each accepted one whose session lost pads goes in as
+``profile_edge_losses``.  In phase 16's world of four ranks each profiled
+call runs a collective, so a profile refused on one rank is taken again on
 every rank.  A run still going after ``DUMP_AFTER_S`` prints every
 thread's stack to standard error.
 
@@ -580,25 +590,36 @@ def work(kernel):
     return nbytes, ops
 
 
-#: ``torch.cuda._sleep``'s kernel, launched around the profiled calls (16 a
-#: side: a session of some 11,000 device kernels lost 4 pads and 1-2 kernels
-#: at an edge in 5 of 6 profiles with 4)
+#: ``torch.cuda._sleep``'s kernel.  A profiled session launches, in order:
+#: ``PAD_LAUNCHES`` short pads, one call of the function, a long mark, the
+#: measured calls, a long mark, one more call and ``PAD_LAUNCHES`` short
+#: pads; only the kernels between the two marks are read.  On an H100 the
+#: profiler lost the kernels at a session's edge: whole sessions, or the 16
+#: leading pads and 1-8 kernels after them, the same count in every retake of
+#: one profile once a process had run a dozen phases, whatever the pads'
+#: length or a host wait after the start.  The calls and pads around the
+#: marks take such a loss in place of the measured calls.
 PAD_KERNEL = "spin_kernel"
-PAD_LAUNCHES = 16
+PAD_LAUNCHES = 64
+PAD_CYCLES = 1_000
+MARK_CYCLES = 200_000
+#: a spin kernel that ran this long (about 100 µs for ``MARK_CYCLES``) is a
+#: mark, a shorter one (about 1 µs) a pad
+MARK_MIN_US = 20.0
 #: profiles taken of one function before one whose kernel count is wrong fails
 PROFILE_TRIES = 8
 #: every profile taken again: (label, each reading that was refused)
 RETAKES = []
+#: every accepted profile whose session lost pads at an edge: (label, pads
+#: kept before the first mark and after it)
+EDGE_LOSSES = []
 
 
 def device_events(fn, calls):
     """The device kernels of ``calls`` calls as torch.profiler records
-    them: a list of (name, device microseconds), and how many of the
-    ``2 * PAD_LAUNCHES`` pad kernels it recorded.  The calls sit between
-    ``PAD_LAUNCHES`` short ``torch.cuda._sleep`` kernels on each side,
-    which the list leaves out: the profiler lost device kernels of some
-    sessions on an H100, and the pads say whether a loss reached the
-    session's edges (on the H100 it took whole sessions, pads included)."""
+    them, as ``between_marks`` reads them from a session that runs the
+    calls between two long marks, with one call and ``PAD_LAUNCHES`` short
+    pads outside each mark (see ``PAD_KERNEL``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -606,16 +627,39 @@ def device_events(fn, calls):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PAD_LAUNCHES):
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(PAD_CYCLES)
+        fn()
+        torch.cuda._sleep(MARK_CYCLES)
         for _ in range(calls):
             fn()
+        torch.cuda._sleep(MARK_CYCLES)
+        fn()
         for _ in range(PAD_LAUNCHES):
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(PAD_CYCLES)
         torch.cuda.synchronize()
-    device = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return ([(n, us) for n, us in device if PAD_KERNEL not in n],
-            sum(1 for n, _ in device if PAD_KERNEL in n))
+    return between_marks([(e.time_range.start, e.name, e.time_range.elapsed_us())
+                          for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA])
+
+
+def between_marks(device):
+    """(name, device µs) of the kernels that started between a session's
+    two marks, from its device events (start, name, µs), or None where the
+    profiler kept other than two marks; and what it kept at the edges: the
+    pads before the first mark and after it, and the marks."""
+    device = sorted(device)
+    spins = [(i, us >= MARK_MIN_US) for i, (_, n, us) in enumerate(device) if PAD_KERNEL in n]
+    marks = [i for i, mark in spins if mark]
+    lead = sum(1 for i, mark in spins if not mark and (not marks or i < marks[0]))
+    edges = {"pads": [lead, sum(1 for _, mark in spins if not mark) - lead], "marks": len(marks)}
+    if len(marks) != 2:
+        return None, edges
+    return [(n, us) for _, n, us in device[marks[0] + 1:marks[1]]], edges
+
+
+def edge_loss(label, edges):
+    """Note an accepted profile whose session lost pads at an edge."""
+    if edges["pads"] != [PAD_LAUNCHES, PAD_LAUNCHES]:
+        EDGE_LOSSES.append({"label": label, "pads": edges["pads"]})
 
 
 def profile_again(label, reading):
@@ -631,8 +675,9 @@ def device_profile(fn, calls, label="profile", per_call=None, ignore=(), counts=
                    every_rank=None):
     """Device activity of ``calls`` calls as torch.profiler records it: the
     device kernels per call, and their device microseconds per call by
-    kernel name.  A profile whose device kernels a call are none or not a
-    whole number (events lost) is taken again, up to ``PROFILE_TRIES``
+    kernel name.  A profile whose session kept other than two marks, or
+    whose device kernels a call are none or not a whole number (events
+    lost), is taken again, up to ``PROFILE_TRIES``
     times, and so is one in which ``per_call`` (names, n), where given,
     does not hold: the kernels whose names hold one of ``names`` number n
     a call.  Events whose names start with one of ``ignore`` are left out
@@ -644,14 +689,15 @@ def device_profile(fn, calls, label="profile", per_call=None, ignore=(), counts=
     readings = []
     held = None
     for _ in range(PROFILE_TRIES):
-        events, pads = device_events(fn, calls)
+        events, edges = device_events(fn, calls)
         if held is None:
-            events = [(n, us) for n, us in events if not n.startswith(tuple(ignore))]
+            events = [(n, us) for n, us in events or () if not n.startswith(tuple(ignore))]
             seen = len(events) / calls
             mine = None
             if per_call is not None:
                 mine = sum(1 for n, _ in events if any(k in n for k in per_call[0])) / calls
-            if seen > 0 and seen.is_integer() and (per_call is None or mine == per_call[1]):
+            if (edges["marks"] == 2 and seen > 0 and seen.is_integer()
+                    and (per_call is None or mine == per_call[1])):
                 by_name = {}
                 for name, us in events:
                     by_name[name] = by_name.get(name, 0.0) + us / calls
@@ -659,8 +705,9 @@ def device_profile(fn, calls, label="profile", per_call=None, ignore=(), counts=
                     for name in by_name:
                         counts[name] = sum(1 for n, _ in events if n == name) / calls
                 held = seen, by_name
+                edge_loss(label, edges)
             else:
-                reading = {"device_kernels_a_call": seen, "pads_seen": pads, "named_a_call": mine}
+                reading = {"device_kernels_a_call": seen, "edges_seen": edges, "named_a_call": mine}
                 readings.append(reading)
                 profile_again(label, reading)
         if (held is not None) if every_rank is None else every_rank(held is not None):
@@ -678,19 +725,22 @@ def profiled_launches(label, fn, want, total=None):
     graph that runs 4): a profile that disagrees, or whose device kernels a
     call are not a whole number (an event of a library call lost), is
     taken again, up to ``PROFILE_TRIES`` times, and one that never agrees
-    fails the run."""
+    fails the run; so does one whose session kept other than two marks."""
     readings = []
     for _ in range(PROFILE_TRIES):
-        events, pads = device_events(fn, PROFILED_CALLS)
+        events, edges = device_events(fn, PROFILED_CALLS)
+        events = events or []
         seen = len(events) / PROFILED_CALLS
         got = {k: sum(1 for name, _ in events if k in name) / PROFILED_CALLS for k in want}
-        if got == want and seen.is_integer() and (total is None or seen == total):
+        if (edges["marks"] == 2 and got == want and seen.is_integer()
+                and (total is None or seen == total)):
             by_name = {}
             for name, us in events:
                 by_name[name] = by_name.get(name, 0.0) + us / PROFILED_CALLS
+            edge_loss(label, edges)
             return seen, by_name
         readings.append((seen, got))
-        profile_again(label, {"device_kernels_a_call": seen, "pads_seen": pads,
+        profile_again(label, {"device_kernels_a_call": seen, "edges_seen": edges,
                               "generated_a_call": got, "plan": want, "total": total})
     raise SystemExit(f"{label}: the profiler's device kernels a call disagree with the plan "
                      f"({PROFILE_TRIES} profiles): want {want}, total {total}; read {readings}")
@@ -701,7 +751,7 @@ def profiled_launches(label, fn, want, total=None):
 DEVICE_KERNEL = {
     "stitched_rmsnorm": ("sx_rmsnorm_vec_kernel", "sx_rmsnorm_kernel"),
     "stitched_softmax": ("sx_softmax_kernel", "sx_softmax_cluster_kernel"),
-    "stitched_flash_attention": ("sx_flash_kernel", "sx_flash_mma_kernel"),
+    "stitched_flash_attention": ("sx_flash_kernel", "sx_flash_mma_kernel", "sx_flash_wgmma_kernel"),
     "stitched_decode_attention": ("sx_decode_split_kernel", "sx_decode_combine_kernel"),
     "stitched_moe_gate": ("sx_moe_gate_kernel",),
 }
@@ -712,9 +762,14 @@ def device_us_of(kernel, by_name):
     return sum(t for name, t in by_name.items() if any(g in name for g in DEVICE_KERNEL[kernel]))
 
 
-def launchers(kernel, dtype, scalar=False, cluster=False):
+# the head dims at which bf16 and f16 flash attention runs the wgmma kernel
+FLASH_WGMMA_DIMS = (64, 128)
+
+
+def launchers(kernel, dtype, scalar=False, cluster=False, head_dim=None):
     """The launchers one call of a kernel runs, each once: flash attention
-    runs the tensor-core kernel in bf16 and f16 and the f32 kernel in f32, decode
+    runs the wgmma kernel in bf16 and f16 at ``head_dim`` 64 and 128, the
+    mma.sync kernel at the smaller head dims and the f32 kernel in f32, decode
     attention its split and combine kernels, RMSNorm its 16-byte kernel
     unless ``scalar`` (rows it cannot serve), softmax its cluster kernel
     where ``cluster`` (wide rows) and its row kernel else, the gate one."""
@@ -722,7 +777,9 @@ def launchers(kernel, dtype, scalar=False, cluster=False):
 
     sfx = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype, "f32")
     if kernel == "stitched_flash_attention":
-        return {f"sx_flash_mma_attention_{sfx}" if sfx != "f32" else "sx_flash_attention_f32": 1}
+        if sfx == "f32":
+            return {"sx_flash_attention_f32": 1}
+        return {f"sx_flash_{'wgmma' if head_dim in FLASH_WGMMA_DIMS else 'mma'}_attention_{sfx}": 1}
     if kernel == "stitched_decode_attention":
         return {f"sx_decode_split_{sfx}": 1, f"sx_decode_combine_{sfx}": 1}
     if kernel == "stitched_rmsnorm":
@@ -805,6 +862,7 @@ def full_width_calls(dev, rng, randn, wide, rows):
         plain=lambda: ref.attention_ref(q, k, v, causal=True),
         library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
         bytes=nbytes(q, k, v, q), ops=4 * Hq * D * S * (S + 1) // 2, peak=BF16_OPS_PER_S, dtype=wide,
+        head_dim=D,
     ))
     B, Sc = 16, 4096
     qd = randn((B, Hq, D), wide)
@@ -916,7 +974,7 @@ def kernels_phase(dev):
     add("stitched_flash_attention", "(1, 2, 2, 16, 8) bfloat16",
         lambda qs=qs, ks=ks, vs=vs: ops.attention(qs, ks, vs, causal=True, block_q=8, block_k=8),
         lambda qs=qs, ks=ks, vs=vs: ref.attention_ref(qs, ks, vs, causal=True),
-        ATTENTION_TOL["bfloat16"], dtype=bf16)
+        ATTENTION_TOL["bfloat16"], dtype=bf16, head_dim=8)
     for (b, hq, hkv, s, dd) in [(2, 4, 2, 32, 8), (1, 8, 1, 64, 16), (3, 2, 2, 16, 8)]:
         qq, kk, vv = randn((b, hq, dd), f32), randn((b, hkv, s, dd), f32), randn((b, hkv, s, dd), f32)
         ln = torch.as_tensor(rng.randint(1, s + 1, size=b), dtype=torch.int32, device=dev)
@@ -934,7 +992,7 @@ def kernels_phase(dev):
             add("stitched_flash_attention", f"(1, 4, 2, 256, {dd}) {name} causal default blocks",
                 lambda qs=qs, ks=ks, vs=vs: ops.attention(qs, ks, vs, causal=True),
                 lambda qs=qs, ks=ks, vs=vs: ref.attention_ref(qs, ks, vs, causal=True),
-                ATTENTION_TOL[name], dtype=dtype)
+                ATTENTION_TOL[name], dtype=dtype, head_dim=dd)
             qq, kk, vv = randn((2, 4, dd), dtype), randn((2, 2, 512, dd), dtype), randn((2, 2, 512, dd), dtype)
             ln = torch.as_tensor(rng.randint(1, 513, size=2), dtype=torch.int32, device=dev)
             add("stitched_decode_attention", f"(2, 4, 2, 512, {dd}) {name} lengths={ln.tolist()}",
@@ -959,7 +1017,18 @@ def kernels_phase(dev):
                 add("stitched_flash_attention", f"(1, 8, 1, {s}, {dd}) bfloat16 causal={causal}",
                     lambda qs=qs, ks=ks, vs=vs, c=causal: ops.attention(qs, ks, vs, causal=c),
                     lambda qs=qs, ks=ks, vs=vs, c=causal: ref.attention_ref(qs, ks, vs, causal=c),
-                    ATTENTION_TOL["bfloat16"], dtype=bf16)
+                    ATTENTION_TOL["bfloat16"], dtype=bf16, head_dim=dd)
+    # the wgmma kernel over several KV tiles of 128 keys: D = 64 at S = 256
+    # and 2048, causal and not (where an earlier wgmma attempt failed), and
+    # D = 128 at S = 2048, held at the full-width limits
+    for (hq, hkv, s, dd) in ((4, 2, 256, 64), (4, 2, 2048, 64), (16, 8, 2048, 128)):
+        for causal in (True, False) if dd == 64 else (True,):
+            qs, ks, vs = randn((1, hq, s, dd), bf16), randn((1, hkv, s, dd), bf16), randn((1, hkv, s, dd), bf16)
+            small.append(dict(
+                kernel="stitched_flash_attention", label=f"(1, {hq}, {hkv}, {s}, {dd}) bfloat16 causal={causal}",
+                call=lambda qs=qs, ks=ks, vs=vs, c=causal: ops.attention(qs, ks, vs, causal=c),
+                plain=lambda qs=qs, ks=ks, vs=vs, c=causal: ref.attention_ref(qs, ks, vs, causal=c),
+                tol=FULL_TOL["stitched_flash_attention"], dtype=bf16, head_dim=dd))
     sd = 512
     split = decode_splits(sd)[0]
     edge_lengths = [0, 1, split - 1, split, split + 1, sd]
@@ -1053,7 +1122,8 @@ def kernels_phase(dev):
     # ---- the main path: one call of each kernel at full width -----------------------
     def expect(c):
         """The launches of one call of ``c``: each launcher's count."""
-        return launchers(c["kernel"], c.get("dtype"), c.get("scalar", False), c.get("cluster", False))
+        return launchers(c["kernel"], c.get("dtype"), c.get("scalar", False), c.get("cluster", False),
+                         c.get("head_dim"))
 
     for kern in kernels.values():
         kern.launches, kern.by_symbol = 0, {}
@@ -1535,7 +1605,7 @@ def f16_phase(dev):
     torch.cuda.synchronize()
     for c, out in zip(calls, outs, strict=True):
         kern = kernels[c["kernel"]]
-        expect = launchers(c["kernel"], f16, cluster=c.get("cluster", False))
+        expect = launchers(c["kernel"], f16, cluster=c.get("cluster", False), head_dim=c.get("head_dim"))
         if kern.by_symbol != expect:
             raise SystemExit(f"{c['kernel']} f16: launchers {kern.by_symbol}, expected {expect}")
         want = c["plain"]()
@@ -1558,7 +1628,8 @@ def f16_phase(dev):
         out[name] = {f"f16_{k}": v for k, v in t.items() if k != "bound_by"}
         out[name].update({
             "f16_shape": c["label"], "f16_max_abs_err": c["err"], "f16_tolerance": list(c["tol"]),
-            "f16_launches": sum(launchers(name, f16, cluster=c.get("cluster", False)).values()),
+            "f16_launches": sum(launchers(name, f16, cluster=c.get("cluster", False),
+                                          head_dim=c.get("head_dim")).values()),
         })
         print(f"kernel {name} {c['label']}: ms={t['ms']:.4f} "
               f"device_ms={t['device_ms'] or 'not measured'} plain_ms={t['plain_ms']:.4f} "
@@ -3103,6 +3174,24 @@ class CollectiveClock:
         self.calls, self.seconds = 0, 0.0
 
 
+def generated_kernels(compiled, device_us_by_kernel):
+    """Each generated kernel of a plan: its emitter, the grid and threads
+    its launcher gives (None for a cooperative launch, whose grid is the
+    card's), its workspace bytes and its device µs a call (from
+    ``rank_numbers``' ``device_us_by_kernel``)."""
+    import re
+
+    out = []
+    for k in compiled.kernels:
+        launch = re.search(r"<<<(\d+), (\d+), ", k.fn.source)
+        out.append({"name": k.fn.name, "emitter": k.fn.emitter,
+                    "grid": int(launch[1]) if launch else None,
+                    "threads": int(launch[2]) if launch else None,
+                    "workspace_bytes": k.fn.workspace_bytes,
+                    "device_us": sum(us for n, us in device_us_by_kernel.items() if k.fn.name in n)})
+    return out
+
+
 def rank_numbers(label, fn, args, planned, clock, every_rank=None):
     """One rank's numbers of one function: ms a call (CUDA events), ms
     inside its collectives (host clock), device µs, kernels and copies a
@@ -3231,6 +3320,7 @@ def sharded_rank(rank, world, backend, outdir, device_type):
             res[f"unsharded_{label}"] = {
                 **{k: v for k, v in numbers.items() if k != "device_us_by_kernel"},
                 "top_kernels": top_kernels(numbers["device_us_by_kernel"]),
+                "generated": generated_kernels(compiled, numbers["device_us_by_kernel"]),
                 "replay_mode": compiled.stats.replay_mode,
                 "plan": {"stitched_kernels": compiled.stats.stitched_kernels,
                          "standalone_kernels": compiled.stats.standalone_kernels}}
@@ -3270,6 +3360,8 @@ def sharded_rank(rank, world, backend, outdir, device_type):
         compiled = f._last.compiled
         ep = compiled.executable.execution_plan
         saved[label] = out.cpu()
+        numbers = rank_numbers(f"sharded {label} rank {rank}", f, args,
+                               planned_launches(compiled), clock, every_rank)
         res[label] = {
             "launches": launches, "planned": planned_launches(compiled),
             "collective_steps": steps, "collective_calls": compiled.stats.collective_calls,
@@ -3279,8 +3371,8 @@ def sharded_rank(rank, world, backend, outdir, device_type):
                      "standalone_kernels": compiled.stats.standalone_kernels,
                      "library_calls": compiled.stats.library_calls},
             "collectives": [list(c) for c in ep.collectives],
-            "numbers": rank_numbers(f"sharded {label} rank {rank}", f, args,
-                                    planned_launches(compiled), clock, every_rank),
+            "numbers": numbers,
+            "generated": generated_kernels(compiled, numbers["device_us_by_kernel"]),
         }
         del args
         done(label)
@@ -3332,6 +3424,7 @@ def sharded_rank(rank, world, backend, outdir, device_type):
         done("reshard")
 
     res["profile_retakes"] = RETAKES
+    res["profile_edge_losses"] = EDGE_LOSSES
     torch.save(saved, os.path.join(outdir, f"rank{rank}.pt"))
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
@@ -3393,6 +3486,7 @@ def run_world(world, backend, device_type):
                 res = json.load(fh)
             res["outputs"] = torch.load(os.path.join(outdir, f"rank{r}.pt"))
             RETAKES.extend(res.pop("profile_retakes"))
+            EDGE_LOSSES.extend(res.pop("profile_edge_losses"))
             out.append(res)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
@@ -3505,6 +3599,18 @@ def sharded_phase(dev, smi):
                   f"{res[label]['launches']['emit_stitched_fusion']} "
                   f"(planned {res[label]['planned']}), peak {n['peak_allocated_bytes']} bytes, "
                   f"ops {res[label]['collectives']} ({smi})")
+    for label in ("mlp_f32", "mlp_bf16"):
+        # the generated kernels (silu x mul) of each rank and of the unsharded plan
+        for who, gen in [(f"rank {res['rank']}", res[label]["generated"]) for res in ranks] + [
+                ("unsharded", n0[f"unsharded_{label}"]["generated"])]:
+            for k in gen:
+                print(f"sharded {label} {who}: generated kernel {k['name']} ({k['emitter']}): "
+                      f"grid {k['grid']} x {k['threads']} threads, {k['workspace_bytes']} workspace "
+                      f"bytes, {k['device_us']:.2f} device us a call ({smi})")
+                # silu x mul holds its convert in a register: a pure map, no workspace
+                if k["emitter"] == "emit_fusion" and k["workspace_bytes"]:
+                    raise SystemExit(f"sharded {label} {who}: {k['name']} keeps "
+                                     f"{k['workspace_bytes']} workspace bytes")
     for label in ("mlp_f32", "mlp_bf16"):
         n = n0[f"unsharded_{label}"]
         print(f"sharded: unsharded plan {label}, one process: {n['ms_per_call']:.3f} ms a call, "
@@ -4408,9 +4514,12 @@ def main(argv=None) -> int:
                        "frontend": frontend_rows, "models": models_row, "serve": serve_row,
                        "train": train_row, "sharded": sharded_row,
                        "sharded_train": sp_row, "launch": launch_row,
-                       "profile_retakes": RETAKES}, f, indent=1)
+                       "profile_retakes": RETAKES, "profile_edge_losses": EDGE_LOSSES},
+                      f, indent=1)
     print(f"profiles taken again: {sum(len(r['refused']) for r in RETAKES)} "
           f"({', '.join(r['label'] for r in RETAKES) or 'none'})")
+    lost = ", ".join(f"{e['label']} {e['pads']}" for e in EDGE_LOSSES)
+    print(f"profiles kept whose sessions lost pads at an edge: {len(EDGE_LOSSES)} ({lost or 'none'})")
     print(f"card: {smi}")
     print(json.dumps({"models": models_row}))
     print(json.dumps({"serve": serve_row}))

@@ -20,12 +20,19 @@ through the eager step loop (``graph-eager:GRAPH``, ``jit_replay=False``)
 and replayed through its CUDA graph (``graph-replay:GRAPH``, a compile
 with the default options, ``jit_execute``; only in a checkout that has
 the replay), and unfused through ``reference_execute``
-(``unfused:GRAPH``).  The kernels' inputs are recorded in the eager
-compile, so no copy of them is captured into a graph.  The last line
-gives each number's median over the rounds per checkout.  Exits non-zero
-when no card is present.
+(``unfused:GRAPH``), and the generated kernel of ``repro_torch.stitch``
+over ``F.silu(a) * b`` (qwen2.5-14b's MLP activation: 512 tokens by 3456
+columns, one of four ranks, and by 13824, unsharded) in bf16 and f32
+(``silu_mul:DTYPE:COLS``).  The kernels' inputs are recorded in the eager
+compile, so no copy of them is captured into a graph.  A run also gives
+each silu x mul kernel's grid, threads and workspace bytes, and a SHA-256
+of its output; the last line says whether every run's digest equals the
+first run's (the outputs bit for bit across checkouts), and gives each
+number's median over the rounds per checkout.  Exits non-zero when no
+card is present.
 """
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -37,14 +44,19 @@ CALLS, WARMUP = 20, 50
 
 
 def measure(root):
-    """One run in checkout ``root``: a dict of device us per kernel."""
+    """One run in checkout ``root``: device us per kernel, and each silu x
+    mul kernel's launch and output digest."""
+    import re
+
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import GRANITE   # puts this checkout's src on the path: root's goes first
 
     sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch import stitch
     from repro_torch.core import StitchOptions, compile_module, reference_execute
     from repro_torch.graphs import ALL_GRAPHS, random_feeds
     from repro_torch.kernels import ops
@@ -107,6 +119,34 @@ def measure(root):
             calls[f"graph-replay:{gname}"] = (lambda x=replayed, f=feeds: x.jit_execute(f), None)
         calls[f"unfused:{gname}"] = (lambda m=module, f=feeds: reference_execute(m, f, device=dev), None)
 
+    # silu(a) * b through stitch, eager, its one generated kernel recorded
+    silu_rng = np.random.RandomState(24)
+    silu = {}
+    for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for cols in (3456, 13824):
+            a, b = (torch.as_tensor(silu_rng.uniform(-4, 4, (512, cols)).astype(np.float32),
+                                    device=dev).to(dtype) for _ in range(2))
+            fn = stitch(lambda x, y: F.silu(x) * y, options=eager_opts, device=dev)
+            fn(a, b)
+            (k,) = fn._last.compiled.kernels
+            seen = []
+
+            def record(*xs, device, _launch=k.fn.launch):
+                seen.append([t.clone() for t in xs])
+                return _launch(*xs, device=device)
+
+            k.fn.launch = record
+            out = fn(a, b)
+            del k.fn.launch
+            torch.cuda.synchronize()
+            launch = re.search(r"<<<(\d+), (\d+), ", k.fn.source)
+            key = f"silu_mul:{dname}:{cols}"
+            silu[key] = {"kernel": k.fn.name, "grid": int(launch[1]), "threads": int(launch[2]),
+                         "workspace_bytes": k.fn.workspace_bytes,
+                         "sha256": hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
+                                                  .tobytes()).hexdigest()}
+            calls[key] = (lambda p=k.fn, xs=seen[0]: p.launch(*xs, device=dev), (k.fn.name,))
+
     g, bf16, f32 = GRANITE, torch.bfloat16, torch.float32
     x, gamma = randn((8, 512, g["d_model"]), bf16), randn((g["d_model"],), bf16)
     logits = randn((16, g["vocab"]), f32)
@@ -124,7 +164,8 @@ def measure(root):
         "stitched_decode_attention": (lambda: ops.attention_decode(qd, kc, vc, lengths), ("sx_decode",)),
         "stitched_moe_gate": (lambda: ops.moe_gate(gl, g["top_k"]), ("sx_moe_gate",)),
     })
-    return {name: device_us(fn, names) for name, (fn, names) in calls.items()}
+    return {"device_us": {name: device_us(fn, names) for name, (fn, names) in calls.items()},
+            "silu_mul": silu}
 
 
 def main(argv=None) -> int:
@@ -160,18 +201,25 @@ def main(argv=None) -> int:
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
                 raise SystemExit(f"kernel_ab: the run in {d} failed with exit {proc.returncode}")
-            run = {"round": r, "checkout": d, "clocks": clocks,
-                   "device_us": json.loads(proc.stdout.strip().splitlines()[-1])}
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            run = {"round": r, "checkout": d, "clocks": clocks, "device_us": got["device_us"],
+                   "silu_mul": got["silu_mul"]}
             runs.append(run)
             print(json.dumps(run))
     medians = {}
     for d in args.dirs:
         mine = [run["device_us"] for run in runs if run["checkout"] == d]
         medians[d] = {k: statistics.median(us[k] for us in mine) for k in mine[0]}
+    # the silu x mul outputs of every run against the first run's, bit for bit
+    first = runs[0]["silu_mul"]
+    same = {k: all(run["silu_mul"][k]["sha256"] == v["sha256"] for run in runs) for k, v in first.items()}
+    launches = {d: next(run["silu_mul"] for run in runs if run["checkout"] == d) for d in args.dirs}
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "runs": runs, "medians": medians}, f, indent=1)
-    print(json.dumps({"card": card, "medians": medians}))
+            json.dump({"card": card, "runs": runs, "medians": medians, "silu_mul_launches": launches,
+                       "silu_mul_outputs_equal": same}, f, indent=1)
+    print(json.dumps({"card": card, "medians": medians, "silu_mul_launches": launches,
+                      "silu_mul_outputs_equal": same}))
     return 0
 
 

@@ -36,7 +36,7 @@ version beside it:
 Design of ``emit_fusion``: one launch of the same phase emitter
 (``_Phase``) the stitched kernel runs each phase through, over the
 fusion's ``MemoryPlan``.  ALLOC/SHARE members live in the plan's slots, in
-dynamic shared memory at the plan's offsets (past ``SMEM_LIMIT``, in a
+dynamic shared memory at the slots' offsets (past ``SMEM_LIMIT``, in a
 per-block region of the workspace); INLINE members are composed into their
 consumers and write nothing; outputs are written straight to ``out*``.  A
 plan block's members run in order, each a fixed-count unrolled loop over
@@ -48,8 +48,23 @@ warps, the whole block, partial results combined through shared memory.
 A fused dot gives each thread a 4 x 4 register tile of outputs with f32
 FMAs (no tensor cores, no TF32).  A fusion with no slot is a pure map over
 the grid.  Threads per block follow the plan (``fusion_threads``: 128 to
-512).  At these sizes what bounds the kernels on the card is latency: the
-launch, and the dependent loads and barriers between members.
+512).
+
+What bounds these kernels on the H100: an elementwise fusion is bound by
+the bytes it reads and writes (the card's 3.35 TB/s), a small one by the
+launch and by the dependent loads and barriers between members.  A slot
+that buys nothing costs both: bf16 ``F.silu(a) * b`` reads the f32 convert
+of ``a`` twice, so the plan gives it an ALLOC slot of 442,368 bytes a plan
+block at (512, 3456), past what a block's shared memory holds; the kernel
+then ran one CUDA block per plan block (16 of 512 threads) and sent every
+element through the workspace and back: 153-158 device µs on an H100
+against a bound of 3.2.  So a member that every reader reads at the element it would
+write, and that reads every slot it reads at that element too, is held in
+a register (``held_in_registers``): each loop that reads it computes it
+once per element into a ``const`` of its compute type, with the same
+operations and roundings, and a phase that keeps no slot is the pure map
+over the grid (3456 blocks of 512 threads there, no workspace).  The plan
+itself, and what the reference reports of it, is unchanged.
 
 Every member computes in ``float`` (bf16, f16) or ``int`` (int8, uint8, int16)
 where it is stored narrower and is rounded, or wrapped, to its dtype where
@@ -739,14 +754,16 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
     label = {**in_name, **{m.id: f"m{k}" for k, m in enumerate(fusion.members)}}
     out_of = {r.id: (f"out{k}", tuple(r.shape)) for k, r in enumerate(roots)}
     threads = fusion_threads(fusion, solution, plan)
-    _, size = _slot_layout(plan)
+    held = held_in_registers(fusion.members, solution.assignment, plan, out_of)
+    tiles = _tile_slots(fusion.members, plan, held)
+    _, size = _slot_layout(plan, set(tiles.values()))
     base, groups = None, None
-    if plan.slots:
+    if tiles:
         # shared memory holds the slots and the block reduces' partials
         base = "sx_smem" if size + reduce_part_bytes(threads) <= SMEM_LIMIT else "pr0"
         groups = _independent_groups(fusion)
     ph = _Phase(0, PhaseSolution(fusion.members, roots, solution), plan, threads,
-                in_name, {}, out_of, label, base, groups)
+                in_name, {}, out_of, label, base, groups, held)
     phase = ph.emit()
     grid = max(1, ph.useful_blocks)
     body = []
@@ -764,20 +781,109 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
         f"// emit_fusion: {len(fusion.members)} members, {solution.blocks} plan blocks, "
         f"one launch of {grid} blocks of {threads} threads, {smem} bytes of shared memory "
         f"a block, {ws} workspace bytes"
+        + (f", {len(held)} of the plan's slot members held in registers" if held else "")
     )
     name, text = _finish_source(header, body, inputs, roots, grid, threads, smem, ph.part_bytes)
     return name, text, ws, smem + ph.part_bytes
 
 
-def _slot_layout(pplan: MemoryPlan) -> Tuple[List[int], int]:
-    """Byte offsets of a phase plan's slots, each 16-byte aligned, and
-    their total: the shared memory (or per-block workspace region) the
-    phase's ALLOC/SHARE members live in."""
-    offs, size = [], 0
-    for shape, dtype in pplan.slots:
-        offs.append(size)
-        size += -(-_prod(shape) * np.dtype(dtype).itemsize // _ALIGN) * _ALIGN
+def _slot_layout(pplan: MemoryPlan, used) -> Tuple[Dict[int, int], int]:
+    """Byte offsets of the slots of a phase plan that members still write
+    (``used``), each 16-byte aligned, in slot order, and their total: the
+    shared memory (or per-block workspace region) the phase's tiled
+    ALLOC/SHARE members live in."""
+    offs, size = {}, 0
+    for slot, (shape, dtype) in enumerate(pplan.slots):
+        if slot in used:
+            offs[slot] = size
+            size += -(-_prod(shape) * np.dtype(dtype).itemsize // _ALIGN) * _ALIGN
     return offs, size
+
+
+#: members whose element ``i`` is computed from element ``i`` of each operand
+_PER_ELEMENT = ("elementwise", "select")
+
+
+def _tile_slots(members: Sequence[Instruction], pplan: MemoryPlan, held=frozenset()) -> Dict[int, int]:
+    """Each member of a phase that writes a tile, and its slot: the plan's
+    ALLOC/SHARE members but constants (read as literals) and ``held``."""
+    out = {}
+    for m in members:
+        e = pplan.entries.get(m.id)
+        if e is not None and e.action in (ALLOC, SHARE) and m.opcode != "constant" and m.id not in held:
+            out[m.id] = e.slot
+    return out
+
+
+def held_in_registers(members: Sequence[Instruction], assign, pplan: MemoryPlan, written) -> set:
+    """The ALLOC/SHARE members of one phase that are held in a register in
+    place of their slot.  Such a member is per-element (``_PER_ELEMENT``),
+    the phase need not write it (``written``: its outputs and staged
+    interfaces), every reader reads it at the very element it would have
+    written (the same ``Sched`` and tile, no re-tiling through ``_adapt``,
+    and only per-element members between it and the loop that reads it),
+    it reads every slot it reads at that element too (a member that reads
+    a slot across threads, as a transposed SHARE member does, keeps its
+    tile), and no member overwrites a slot it reads before that loop.  Each
+    loop that reads it computes it once per element, from the same operands
+    in the same order with the same roundings: its slot bought nothing but
+    a round trip through memory and a barrier."""
+    ids = {m.id: m for m in members}
+    pos = {m.id: k for k, m in enumerate(members)}
+    tiles = _tile_slots(members, pplan)
+    held = {i for i in tiles if ids[i].opcode in _PER_ELEMENT and i not in written}
+
+    def loops(x: Instruction) -> Optional[set]:
+        """The loops that compute ``x`` where it is held, or None where a
+        reader reads it at another element (or outside the phase)."""
+        out = set()
+        for u in x.users:
+            if u.id not in ids and x.id in written:
+                continue                   # it reads x where x is written
+            if u.id not in ids or u.opcode not in _PER_ELEMENT or tuple(u.shape) != tuple(x.shape):
+                return None
+            for o, ns in zip(u.operands, propagate(u, assign[u.id]), strict=False):
+                if o.id == x.id and ns != assign[x.id]:
+                    return None
+            if u.id in tiles and u.id not in held:
+                out.add(u.id)              # it reads x in its own loop
+                continue
+            if u.id in written:
+                out.add(u.id)
+            inner = loops(u)               # u is composed into its readers
+            if inner is None:
+                return None
+            out |= inner
+        return out
+
+    def slots_read(m: Instruction) -> Dict[int, bool]:
+        """The slots ``m``'s value reads, each True where every read is at
+        ``m``'s own element."""
+        out: Dict[int, bool] = {}
+        for o, ns in zip(m.operands, propagate(m, assign[m.id]), strict=False):
+            if o.id not in ids or o.opcode == "constant":
+                continue
+            same = (m.opcode in _PER_ELEMENT and ns == assign[o.id]
+                    and tuple(o.shape) == tuple(m.shape))
+            reads = {tiles[o.id]: True} if o.id in tiles and o.id not in held else slots_read(o)
+            for slot, own in reads.items():
+                out[slot] = out.get(slot, True) and own and same
+        return out
+
+    def keeps(x: Instruction) -> bool:
+        where = loops(x)
+        read = slots_read(x)
+        if where is None or not all(read.values()):
+            return False
+        return not any(pos[x.id] < pos[w] < pos[u] and tiles[w] in read
+                       for u in where for w in tiles if w not in held)
+
+    changed = True
+    while changed:
+        dropped = {i for i in held if not keeps(ids[i])}
+        held -= dropped
+        changed = bool(dropped)
+    return held
 
 
 def reduce_part_bytes(threads: int) -> int:
@@ -809,15 +915,16 @@ def stitched_threads(plan: StitchedMemoryPlan) -> int:
 def fusion_threads(fusion: FusedComputation, solution: ScheduleSolution, plan: MemoryPlan) -> int:
     """Threads of each block of a single-phase kernel, from its plan: the
     fewest, from 128 up to 512, that leave every loop of a plan block (each
-    member that writes a slot or an output) at most
+    member that writes a slot or an output; a member held in a register
+    writes neither) at most
     ``STITCHED_ELEMS_PER_THREAD`` elements, or a reduce's terms, a thread,
     and give every reduce output a warp."""
     roots = {r.id for r in fusion.roots}
+    tiles = _tile_slots(fusion.members, plan,
+                        held_in_registers(fusion.members, solution.assignment, plan, roots))
     want = 1
     for m in fusion.members:
-        e = plan.entries.get(m.id)
-        kept = m.id in roots or (e is not None and e.action in (ALLOC, SHARE))
-        if m.opcode == "constant" or not kept:
+        if m.opcode == "constant" or not (m.id in roots or m.id in tiles):
             continue
         sched = solution.assignment[m.id]
         n = _prod(chunk_shape(m.shape, sched))
@@ -894,16 +1001,35 @@ class _Lazy:
         return self.phase.value(m, sched, j, _lin(j, chunk_shape(m.shape, sched)), self.phase.fresh())
 
 
+class _Held(_Lazy):
+    """A member held in a register (``held_in_registers``): the loop that
+    reads it computes it at its element once, into a ``const`` of the type
+    it computes in, and reads that at every use."""
+
+    def at(self, idx) -> str:
+        ph = self.phase
+        key = (self.m.id, tuple(str(i) for i in idx))
+        if key not in ph.regs:
+            expr = super().at(idx)
+            var = f"r{ph.label[self.m.id]}" + (f"_{len(ph.regs)}" if ph.regs else "")
+            ph.lines.append(f"{ph.ind}const {_c_compute(self.m.dtype)} {var} = {expr};")
+            ph.regs[key] = var
+        return ph.regs[key]
+
+
 class _Phase:
     """The CUDA text of one phase: a phase of a stitched kernel, or the
     single phase of an ``emit_fusion`` kernel.  ``slot_base`` names where
-    the plan's ALLOC/SHARE slots live (None: the phase has no slot and is a
-    pure map over the grid).  ``groups``, for a single-phase kernel with
-    slots, splits the members into independent groups (``_independent_groups``),
-    each run by a CUDA block of its own for each plan block."""
+    the slots that members still write live (None: no member writes one,
+    and the phase is a pure map over the grid).  ``groups``, for a
+    single-phase kernel with slots, splits the members into independent
+    groups (``_independent_groups``), each run by a CUDA block of its own
+    for each plan block.  ``held`` are the ALLOC/SHARE members held in a
+    register in place of their slot (``held_in_registers``)."""
 
     def __init__(self, pk: int, phase, pplan: MemoryPlan, threads: int, in_name, staged, out_of,
-                 label, slot_base: Optional[str], groups: Optional[List[List[int]]] = None):
+                 label, slot_base: Optional[str], groups: Optional[List[List[int]]] = None,
+                 held=frozenset()):
         self.pk, self.phase, self.pplan, self.threads = pk, phase, pplan, threads
         self.assign = phase.solution.assignment
         self.blocks = phase.solution.blocks
@@ -911,16 +1037,16 @@ class _Phase:
         self.in_name, self.staged, self.out_of, self.label = in_name, staged, out_of, label
         self.ids = {m.id for m in phase.members}
         self.const_ids = {m.id for m in phase.members if m.opcode == "constant"}
-        self.offs, self.slot_bytes = _slot_layout(pplan)
         self.slot_base = slot_base            # None: a pure map, no slot
         self.groups = groups
+        self.held = set(held)                 # members held in a register
         self.slot_ptr: Dict[int, str] = {}    # slot index -> pointer name
         self.tiles: Dict[int, str] = {}       # ALLOC/SHARE member -> its slot
-        for m in phase.members:
-            e = pplan.entries.get(m.id)
-            if e is not None and e.action in (ALLOC, SHARE) and m.id not in self.const_ids:
-                self.slot_ptr.setdefault(e.slot, f"p{pk}s{e.slot}")
-                self.tiles[m.id] = self.slot_ptr[e.slot]
+        for mid, slot in _tile_slots(phase.members, pplan, self.held).items():
+            self.slot_ptr.setdefault(slot, f"p{pk}s{slot}")
+            self.tiles[mid] = self.slot_ptr[slot]
+        self.offs, self.slot_bytes = _slot_layout(pplan, set(self.slot_ptr))
+        self.regs: Dict[Tuple[int, Tuple[str, ...]], str] = {}  # this loop's held values
         self.lines: List[str] = []
         self.ind = ""
         self.n = 0
@@ -942,6 +1068,8 @@ class _Phase:
         if o.id in self.tiles:
             st = self.assign[o.id]
             return _tile_view(self.tiles[o.id], chunk_shape(o.shape, st), st, ns, o, self.b, full=False)
+        if o.id in self.held:
+            return _Held(self, o, self.assign[o.id], ns, self.b)
         if o.id in self.ids:
             return _Lazy(self, o, self.assign[o.id], ns, self.b)
         # kernel input or staged interface: stored whole
@@ -1021,7 +1149,7 @@ class _Phase:
         out_chunk = chunk_shape(m.shape, sched)
         body = ind + "  "
         lines = self._loop_head("i", _prod(out_chunk), sched, ind)
-        self.lines, self.ind = [], body
+        self.lines, self.ind, self.regs = [], body, {}
         idx = _unravel(self.lines, "i", out_chunk, "o", body)
         expr = self.value(m, sched, idx, "i", "")
         stmts = self.lines
@@ -1214,10 +1342,11 @@ class _Phase:
         pk, ph = self.pk, self.phase
         stored = [m for m in ph.members
                   if m.id in self.tiles or m.id in self.out_of or m.id in self.staged]
+        held = [self._comment(m, "  ") for m in ph.members if m.id in self.held]
         if self.slot_base is None:
             head = (f"  // phase {pk}: {len(ph.members)} members, {self.blocks} plan blocks, "
                     "no slot: a pure map over the grid")
-            out = [head]
+            out = [head] + held
             for m in stored:
                 out.append(self._comment(m, "  "))
                 out += self.member_loop(m, "  ")
@@ -1229,7 +1358,7 @@ class _Phase:
         head = f"  // phase {pk}: {len(ph.members)} members, {self.blocks} plan blocks over the grid, "
         if len(groups) > 1:
             head += f"{len(groups)} independent member groups a plan block, "
-        out = [head + f"slots {self.slot_bytes} bytes in {where}", "  {"]
+        out = [head + f"slots {self.slot_bytes} bytes in {where}"] + held + ["  {"]
         for slot, ptr in sorted(self.slot_ptr.items()):
             T = _c_type(self.pplan.slots[slot][1])
             out.append(f"    {T}* const {ptr} = reinterpret_cast<{T}*>({self.slot_base} + {self.offs[slot]});")
@@ -1262,6 +1391,9 @@ class _Phase:
         what = m.opcode + "".join(f":{m.attrs[a]}" for a in ("fn", "kind") if a in m.attrs)
         ops = ", ".join(self.label[o.id] for o in m.operands)
         where = f" -> slot {self.tiles[m.id]}" if m.id in self.tiles else ""
+        if m.id in self.held:
+            slot = self.pplan.entries[m.id].slot
+            where = f" -> held in a register where it is read, not in the plan's slot {slot}"
         return f"{ind}// {self.label[m.id]} = {what}({ops}) on tile {list(chunk_shape(m.shape, sched))}{where}"
 
 
@@ -1281,9 +1413,12 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
     body = list(ws.decls)
     # slots: in shared memory where a phase's fit, else in a region of the
     # workspace for each CUDA block that runs one of the phase's plan blocks
+    held = [held_in_registers(phase.members, phase.solution.assignment, pplan, {**out_of, **staged})
+            for pplan, phase in zip(plan.phase_plans, stitched.phases, strict=True)]
+    sizes = [_slot_layout(pplan, set(_tile_slots(phase.members, pplan, h).values()))[1]
+             for pplan, phase, h in zip(plan.phase_plans, stitched.phases, held, strict=True)]
     smem, region = 0, 0
-    for pplan, phase in zip(plan.phase_plans, stitched.phases, strict=True):
-        _, size = _slot_layout(pplan)
+    for phase, size in zip(stitched.phases, sizes, strict=True):
         if size <= SMEM_LIMIT:
             smem = max(smem, size)
         else:
@@ -1294,14 +1429,14 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
     for pk, (phase, pplan) in enumerate(zip(stitched.phases, plan.phase_plans, strict=True)):
         if pk:
             body.append("  sx_grid_sync();")
-        _, size = _slot_layout(pplan)
+        size = sizes[pk]
         base = None
-        if pplan.slots:
+        if size:
             base = "sx_smem" if size <= SMEM_LIMIT else f"pr{pk}"
             if base != "sx_smem":
                 body.append(f"  unsigned char* const {base} = ws + {ws.size} + "
                             f"static_cast<size_t>(blockIdx.x) * {size};")
-        ph = _Phase(pk, phase, pplan, threads, in_name, staged, out_of, label, base)
+        ph = _Phase(pk, phase, pplan, threads, in_name, staged, out_of, label, base, held=held[pk])
         body += ph.emit()
         grid = max(grid, ph.useful_blocks)
         static_smem = max(static_smem, ph.part_bytes)

@@ -3,6 +3,10 @@
 // gate (redux.sync, ballot, ffs) and the warp-level PTX instructions of the
 // attention kernels (cp.async, ldmatrix, mma.sync).
 //
+// The Hopper section at the end holds the mbarrier, TMA, wgmma and
+// setmaxnreg instructions of the wgmma flash kernel; they exist only for
+// sm_90a, and where __CUDA_ARCH__ is not defined they do nothing.
+//
 // Every kernel reads float, bf16 or f16, computes in f32 and casts once
 // when it stores, as the Pallas kernels it replaces do.  bf16 and f16
 // stores round to nearest even (__float2bfloat16, __float2half_rn), as
@@ -309,3 +313,346 @@ SX_D void sx_mma_16816(float (&d)[4], const unsigned (&a)[4], const unsigned (&b
   }
 #endif
 }
+
+// ---------------------------------------------------------------------------
+// Hopper (sm_90a): mbarriers, TMA tile loads, wgmma and setmaxnreg, one PTX
+// instruction each (PTX ISA: "mbarrier", "cp.async.bulk.tensor",
+// "Asynchronous Warpgroup Level Matrix Multiply-Accumulate Operation").
+// Shared-memory operands are 32-bit shared-window addresses
+// (sx_smem_addr).  They have no host branch: a rehearsal on the host
+// cannot run the wgmma kernel.
+
+SX_D unsigned sx_smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Initialise an mbarrier that completes a phase after `count` arrivals
+// (and, where a TMA load expects bytes, after they have landed).
+SX_D void sx_mbar_init(unsigned bar, unsigned count) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+#endif
+}
+
+// Make the initialised barriers visible to the async proxy (TMA).
+SX_D void sx_mbar_fence_init() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+SX_D void sx_mbar_arrive(unsigned bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+#endif
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+SX_D void sx_mbar_expect_tx(unsigned bar, unsigned bytes) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+#endif
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that
+// lasts past SX_MBAR_TIMEOUT cycles (about 2.3 s at 1.755 GHz) traps: a
+// fault in the pipeline ends the launch with an error instead of hanging
+// the card.
+constexpr long long SX_MBAR_TIMEOUT = 4000000000LL;
+SX_D void sx_mbar_wait(unsigned bar, unsigned parity) {
+#ifdef __CUDA_ARCH__
+  unsigned done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > SX_MBAR_TIMEOUT) {
+      __trap();
+    }
+  }
+#endif
+}
+
+// A box of a 3-D tensor map (coordinates innermost first) into shared
+// memory at `dst`, completing `bytes` of `bar`'s transactions.  Elements
+// past the tensor's extent land as zeros.
+SX_D void sx_tma_load_3d(unsigned dst, const void* map, unsigned bar, int c0, int c1, int c2) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+#endif
+}
+
+// The tensor map's descriptor line into the cache before its first use.
+SX_D void sx_tma_prefetch(const void* map) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<unsigned long long>(map))
+               : "memory");
+#endif
+}
+
+// max(a, b) that propagates NaN, as sx_max does, in one instruction.
+SX_D float sx_fmax_nan(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return sx_max(a, b);
+#endif
+}
+
+// 2^x on the special-function unit (ex2.approx, results below 2^-126
+// flushed to 0): what exp2f compiles to, without its denormal fix-ups.
+SX_D float sx_exp2(float x) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+#else
+  return exp2f(x);
+#endif
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') of `threads` threads:
+// sync waits for all of them, arrive counts this warp in and goes on.
+SX_D void sx_bar_sync(int id, int threads) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+#endif
+}
+SX_D void sx_bar_arrive(int id, int threads) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+#endif
+}
+
+// Registers a thread of this warpgroup may hold from here on.
+template <int N>
+SX_D void sx_setmaxnreg_inc() {
+#ifdef __CUDA_ARCH__
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+#endif
+}
+template <int N>
+SX_D void sx_setmaxnreg_dec() {
+#ifdef __CUDA_ARCH__
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+#endif
+}
+
+// A shared-memory matrix descriptor of wgmma in the 128-byte swizzle: the
+// start address, the leading and stride byte offsets (16-byte units) and
+// layout type 1 (SWIZZLE_128B) in bits 62-63.  The swizzle atom is 8 rows
+// of 128 bytes; every atom must start on a 1024-byte boundary, so the base
+// offset (bits 49-51) stays 0.
+SX_D uint64_t sx_wgmma_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 | 1ull << 62;
+}
+
+// Order this warpgroup's register and shared-memory writes before the
+// wgmma that follows reads them: needed before the first wgmma and after
+// any other instruction wrote an accumulator or A register.
+SX_D void sx_wgmma_fence() {
+#ifdef __CUDA_ARCH__
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+SX_D void sx_wgmma_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#endif
+}
+
+template <int N>
+SX_D void sx_wgmma_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// Pin registers in place across the asynchronous products: the compiler
+// sees each wgmma's accumulators written when it is issued, so without this
+// it may move a read of them above wgmma.wait_group, or a write of them
+// (the O rescale) below the wgmma that reads them.
+template <int N>
+SX_D void sx_pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+SX_D void sx_pin(unsigned (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x N f32 accumulators of the warpgroup, N / 2 a thread) = or += a b
+// on the tensor cores, wgmma m64nNk16, bf16 or f16 in.  ss (N = 128): a and
+// b are shared-memory descriptors, both K-major; scale_d 0 gives d = a b.  rs: a
+// is this thread's A fragment in registers (the layout of mma.sync
+// m16n8k16's A for the warp's 16 rows), b a descriptor of an MN-major
+// (transposed) matrix; d += a b.  Accumulator layout: warp w of the group
+// holds rows 16 w + g and 16 w + g + 8; element 4 j + 2 r + c is column
+// 8 j + 2 t + c of row 16 w + g + 8 r.
+template <typename T, int N>
+struct SxWgmma;
+template <>
+struct SxWgmma<__nv_bfloat16, 64> {
+  SX_D static void rs(float (&d)[32], const unsigned (&a)[4], uint64_t db) {
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#endif
+  }
+};
+template <>
+struct SxWgmma<__nv_bfloat16, 128> {
+  SX_D static void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+#endif
+  }
+  SX_D static void rs(float (&d)[64], const unsigned (&a)[4], uint64_t db) {
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#endif
+  }
+};
+template <>
+struct SxWgmma<__half, 64> {
+  SX_D static void rs(float (&d)[32], const unsigned (&a)[4], uint64_t db) {
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#endif
+  }
+};
+template <>
+struct SxWgmma<__half, 128> {
+  SX_D static void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+#endif
+  }
+  SX_D static void rs(float (&d)[64], const unsigned (&a)[4], uint64_t db) {
+#ifdef __CUDA_ARCH__
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#endif
+  }
+};

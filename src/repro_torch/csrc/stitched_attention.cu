@@ -28,27 +28,60 @@
 //   flash_attention (_flash_kernel).
 //   Bound by operations: 4 * D per visible (query, key) pair, about 1.3e10
 //   for one causal 2048-token layer of granite-moe, 13 us at the tensor
-//   cores' 989 TFLOP/s bf16.
-//   bf16 and f16, sx_flash_mma_kernel<T>: both products on the tensor cores
-//   (mma.sync m16n8k16, bf16 or f16 in, f32 sums; f16 takes the .f16 form
-//   of the instruction and the same tiles).  One block of 4 warps owns 64
-//   query rows of one (query head, sequence), 16 rows a warp; q fragments
-//   are loaded once.  K and V tiles of 64 keys stay bf16 in shared memory,
-//   two stages filled by 16-byte cp.async while the previous tile computes;
-//   rows are padded by 16 bytes so ldmatrix's eight row addresses fall in
-//   distinct banks.  S = Q K^T per warp in registers, the online softmax
-//   per row in registers (a row's max by shuffles among the 4 lanes that
-//   hold it), P taken straight from the S accumulators into the A
-//   fragments of O += P V, V read through ldmatrix.trans.  P goes in as two
-//   bf16 terms, hi = bf16(p) and lo = bf16(p - hi), two products instead of
-//   one: with hi alone each weight moves by up to 2^-9 of itself, which
-//   moves outputs near 0 past the full-width limit of 1e-2 |o| + 1e-4
+//   cores' 989 TFLOP/s bf16.  P goes into O += P V as two terms of T, hi =
+//   T(p) and lo = T(p - hi), two products instead of one: with hi alone
+//   each bf16 weight moves by up to 2^-9 of itself, which moves outputs
+//   near 0 past the full-width limit of 1e-2 |o| + 1e-4
 //   (tests/test_torch_kernels.py pins that), and the two terms keep about
-//   16 bits of p.  l sums the f32 p.  Causal tiles wholly above the diagonal are never loaded, the
-//   diagonal tile is masked, and the heaviest q tiles launch first.  D = 8
-//   runs as D = 16 with zero columns in shared memory.  Rows past S (S not
-//   a multiple of 64) are zero-filled and masked.  wgmma and TMA are later
-//   work.
+//   16 bits of p.  So the tensor work is 1.5 times the bound's.  l sums the
+//   f32 p.  The wrapper picks one of three kernels by dtype and D before
+//   the launch.
+//   bf16 and f16 at D = 64 and 128, sx_flash_wgmma_kernel<T, D>: a block
+//   of three warpgroups owns 128 query rows of one (query head, sequence).
+//   The producer warpgroup gives up its registers (setmaxnreg 24) and one
+//   of its threads loads Q once and K and V tiles of 128 keys by TMA
+//   (tensor maps built by the launcher, the driver's cuTensorMapEncodeTiled
+//   reached through cudaGetDriverEntryPoint, so the library needs no
+//   -lcuda) into a ring of three stages, each tile as 64-column panels in
+//   the 128-byte swizzle, full and empty mbarriers between it and the two
+//   consumer warpgroups (setmaxnreg 240) of 64 rows each.  S = Q K^T is
+//   wgmma m64n128k16 from shared memory (K-major Q and K); O += P V is
+//   wgmma m64nDk16 with P's hi and lo terms from registers and V MN-major
+//   (transposed) in shared memory.  Step j issues S_j and the P V of tile
+//   j - 1 back to back and then runs the softmax of S_j; named barriers
+//   hand the tensor cores from one consumer to the other, so one's softmax
+//   runs while the other's products do.  The softmax takes each row's max
+//   and sum as trees (no dependency chain the length of a row), exp2 on
+//   the special-function unit, and s * scale log2(e) - m as one FMA.
+//   What bounds it on this card is that softmax, not the products or the
+//   loads: 64 exp2s and the hi + lo packing of 64 weights a thread per
+//   tile, issued by one warp a scheduler for each consumer, whose latency
+//   nothing else hides; the registers (S 64, O up to 64, P's two terms 64 a
+//   thread) leave no room for a second S in flight or a third consumer.
+//   Causal tiles wholly above the diagonal are never loaded, the diagonal
+//   tile is masked, the heaviest q tiles launch first; TMA zero-fills rows
+//   past S, and keys past S are masked.
+//   An earlier wgmma attempt, fed by cp.async, agreed at D = 128 and failed
+//   at D = 64 past one KV tile; its code was withdrawn and is not in this
+//   repository, so the fault cannot be read back.  This kernel closes the two places it could
+//   lie: every stage, panel and consumer's rows start on a 1024-byte swizzle
+//   atom (static_asserts in SxWgTile), and each wgmma batch is preceded by
+//   wgmma.fence after the O rescale and the P packing, with the registers
+//   pinned (sx_pin) so the compiler moves no read of S or O above
+//   wgmma.wait_group and no write of O or P below the wgmma that reads
+//   it.  D = 64 past many tiles agrees (chip_smoke.py phase 6).
+//   bf16 and f16 at D = 8, 16 and 32, sx_flash_mma_kernel<T, D>: both
+//   products on mma.sync m16n8k16 (the .f16 form for f16, the same tiles).
+//   One block of 4 warps owns 64 query rows of one (query head, sequence),
+//   16 rows a warp; q fragments are loaded once.  K and V tiles of 64 keys
+//   stay in shared memory, two stages filled by 16-byte cp.async while the
+//   previous tile computes; rows are padded by 16 bytes so ldmatrix's eight
+//   row addresses fall in distinct banks.  S = Q K^T per warp in registers,
+//   the online softmax per row in registers (a row's max by shuffles among
+//   the 4 lanes that hold it), P taken straight from the S accumulators
+//   into the A fragments of O += P V, V read through ldmatrix.trans.  The
+//   same causal skipping and order; D = 8 runs as D = 16 with zero columns
+//   in shared memory; rows past S are zero-filled and masked.
 //   f32, sx_flash_kernel: tensor cores at f32 would mean TF32 and move
 //   results past the f32 limits, so f32 keeps the first design: f32 FMAs, one
 //   block per (q tile, query head, sequence) and one thread per query row,
@@ -59,8 +92,13 @@
 // Each launcher is extern "C", one per element type, and returns the first
 // CUDA error: cudaFuncSetAttribute's, else cudaGetLastError()'s after the
 // launch, so a refused launch reaches the Python wrapper.  The head dim D
-// is a template argument (8, 16, 32, 64 or 128); any other D is refused
-// with cudaErrorInvalidValue.
+// is a template argument (8, 16, 32, 64 or 128; the wgmma launchers take
+// 64 and 128, the mma.sync ones 8, 16 and 32); any other D is refused with
+// cudaErrorInvalidValue.
+
+#include <cuda.h>
+
+#include <atomic>
 
 #include "hand_kernels.cuh"
 
@@ -532,9 +570,7 @@ static int sx_flash_mma_dispatch(const T* q, const T* k, const T* v, T* o, int B
     case 8: return sx_flash_mma_launch<T, 8>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
     case 16: return sx_flash_mma_launch<T, 16>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
     case 32: return sx_flash_mma_launch<T, 32>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 64: return sx_flash_mma_launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    case 128: return sx_flash_mma_launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // D = 64 and 128 run on wgmma
   }
 }
 
@@ -549,6 +585,368 @@ extern "C" int sx_flash_mma_attention_f16(const __half* q, const __half* k, cons
                                           __half* o, int B, int Hq, int Hkv, int S, int D,
                                           int causal, float scale, void* stream) {
   return sx_flash_mma_dispatch(q, k, v, o, B, Hq, Hkv, S, D, causal, scale, stream);
+}
+
+// ------------------------------------------- prefill, bf16 and f16 on wgmma and TMA
+constexpr int SX_WG_BQ = 128;             // query rows of a block: two consumer warpgroups of 64
+constexpr int SX_WG_BK = 128;             // keys of a K or V tile
+constexpr int SX_WG_STAGES = 3;           // K and V tiles in flight
+constexpr int SX_WG_THREADS = 3 * 128;    // a producer warpgroup and two consumers
+constexpr int SX_WG_CONSUMERS = 2 * 128;  // arrivals that free a stage
+constexpr int SX_WG_PANEL = 64;           // elements of one 128-byte swizzled row
+constexpr int SX_WG_TURN = 1;             // named barriers 1 and 2: each consumer's turn
+// registers a thread: 24 for the producer, 240 for the consumers (the
+// launch's 168 each, 384 x 168 = 64,512 of the SM's 65,536, moved over)
+constexpr int SX_WG_PRODUCER_REGS = 24;
+constexpr int SX_WG_CONSUMER_REGS = 240;
+
+// Shared memory of the wgmma kernel, from a 1024-byte aligned base: Q, the
+// K stages, the V stages, then the mbarriers.  Each tile is stored as D / 64
+// panels of 64 columns, a panel's rows 128 bytes each in the 128-byte swizzle
+// that TMA writes and wgmma reads.
+template <int D>
+struct SxWgTile {
+  static constexpr int PANELS = D / SX_WG_PANEL;
+  static constexpr int Q_PANEL = SX_WG_BQ * 128;   // bytes of one panel of Q
+  static constexpr int KV_PANEL = SX_WG_BK * 128;  // bytes of one panel of a K or V tile
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + SX_WG_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + SX_WG_STAGES * KV_BYTES;
+  static constexpr int BARS = 1 + 3 * SX_WG_STAGES;  // q_full, k_full[], v_full[], empty[]
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * BARS;
+  static_assert(D % SX_WG_PANEL == 0, "D is a multiple of 64");
+  static_assert(SMEM <= 232448, "a block's shared memory on Hopper");
+  static_assert(Q_PANEL % 1024 == 0 && KV_PANEL % 1024 == 0 && (64 * 128) % 1024 == 0,
+                "every panel, stage and consumer's rows start on a 1024-byte swizzle atom");
+};
+
+// v[0] = op over v[0 .. 2 W - 1], as a tree of depth log2(2 W): v[i] = op(v[i], v[i + W]),
+// then the same over the first W
+template <int W, typename Op>
+SX_D void sx_fold(float* v, Op op) {
+  if constexpr (W > 0) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) v[i] = op(v[i], v[i + W]);
+    sx_fold<W / 2>(v, op);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(SX_WG_THREADS, 1) sx_flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, T* __restrict__ o, int Hq, int Hkv, int S,
+    int causal, float scale_log2) {
+  using Tile = SxWgTile<D>;
+  constexpr int ST = SX_WG_STAGES;
+  extern __shared__ __align__(16) unsigned char sx_wg_smem[];
+  const unsigned base = (sx_smem_addr(sx_wg_smem) + 1023u) & ~1023u;
+  const unsigned qs = base, ks = base + Tile::K_OFF, vs = base + Tile::V_OFF;
+  const unsigned q_full = base + Tile::BAR_OFF;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + ST + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + 2 * ST + s); };
+  const int iq = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = iq * SX_WG_BQ;
+  const int n_kv = causal ? iq + 1 : (S + SX_WG_BK - 1) / SX_WG_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sx_mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      sx_mbar_init(k_full(s), 1);
+      sx_mbar_init(v_full(s), 1);
+      sx_mbar_init(empty(s), SX_WG_CONSUMERS);
+    }
+    sx_mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads of K and V in flight
+    sx_setmaxnreg_dec<SX_WG_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      sx_tma_prefetch(&qmap);
+      sx_tma_prefetch(&kmap);
+      sx_tma_prefetch(&vmap);
+      const int kvz = b * Hkv + h / (Hq / Hkv);
+      sx_mbar_expect_tx(q_full, Tile::Q_BYTES);
+      for (int p = 0; p < Tile::PANELS; ++p)
+        sx_tma_load_3d(qs + p * Tile::Q_PANEL, &qmap, q_full, p * SX_WG_PANEL, q0, b * Hq + h);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % ST;
+        if (j >= ST) sx_mbar_wait(empty(s), ((j / ST) & 1) ^ 1);  // its last tile is consumed
+        sx_mbar_expect_tx(k_full(s), Tile::KV_BYTES);
+        for (int p = 0; p < Tile::PANELS; ++p)
+          sx_tma_load_3d(ks + s * Tile::KV_BYTES + p * Tile::KV_PANEL, &kmap, k_full(s),
+                         p * SX_WG_PANEL, j * SX_WG_BK, kvz);
+        sx_mbar_expect_tx(v_full(s), Tile::KV_BYTES);
+        for (int p = 0; p < Tile::PANELS; ++p)
+          sx_tma_load_3d(vs + s * Tile::KV_BYTES + p * Tile::KV_PANEL, &vmap, v_full(s),
+                         p * SX_WG_PANEL, j * SX_WG_BK, kvz);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows q0 + 64 c .. q0 + 64 c + 63
+  sx_setmaxnreg_inc<SX_WG_CONSUMER_REGS>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid / 32, lane = tid & 31, g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * c + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+  const unsigned qc = qs + 64 * c * 128;         // this warpgroup's 64 rows of each Q panel
+  float of[D / 2], m[2] = {SX_NEG_INF, SX_NEG_INF}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) of[i] = 0.0f;
+  float sf[SX_WG_BK / 2];
+  // P of the previous tile as two terms of T, hi = T(p) and lo = T(p - hi),
+  // in the A fragments of its 16-key steps
+  unsigned ph[SX_WG_BK / 16][4], pl[SX_WG_BK / 16][4];
+
+  // S = Q K_j^T: K-major Q and K, 16 columns of D a step (32 bytes into a
+  // panel's swizzled row, the next panel every 4 steps)
+  auto issue_s = [&](int j) {
+    const unsigned kt = ks + (j % ST) * Tile::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const unsigned step = (kk % 4) * 32;
+      const uint64_t da = sx_wgmma_desc(qc + (kk / 4) * Tile::Q_PANEL + step, 16, 1024);
+      const uint64_t db = sx_wgmma_desc(kt + (kk / 4) * Tile::KV_PANEL + step, 16, 1024);
+      SxWgmma<T, SX_WG_BK>::ss(sf, da, db, kk > 0);
+    }
+  };
+  // O += P V_j: V is MN-major (rows are keys, D contiguous), 16 keys a step
+  // (two 1024-byte atoms of 8 keys), the next 64 columns of D a panel away;
+  // P's hi and lo terms one product each
+  auto issue_pv = [&](int j) {
+    const unsigned vt = vs + (j % ST) * Tile::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < SX_WG_BK / 16; ++kk) {
+      const uint64_t dv = sx_wgmma_desc(vt + kk * 16 * 128, Tile::KV_PANEL, 1024);
+      SxWgmma<T, D>::rs(of, ph[kk], dv);
+      SxWgmma<T, D>::rs(of, pl[kk], dv);
+    }
+  };
+  // this warpgroup's turn on the tensor cores: the products' registers
+  // settled, then the fence before wgmma reads them
+  auto begin_turn = [&]() {
+    sx_bar_sync(SX_WG_TURN + c, SX_WG_CONSUMERS);
+    sx_pin(of);
+#pragma unroll
+    for (int kk = 0; kk < SX_WG_BK / 16; ++kk) {
+      sx_pin(ph[kk]);
+      sx_pin(pl[kk]);
+    }
+    sx_wgmma_fence();  // the rescaled O and the packed P are written by other instructions
+  };
+  // the softmax of S_j: O and l rescaled, P_j packed
+  auto softmax = [&](int j) {
+    // keys past S and, on the diagonal, past the row masked (the test is
+    // the same for the whole warpgroup)
+    const int k0 = j * SX_WG_BK;
+    if ((causal && k0 + SX_WG_BK - 1 > q0 + 64 * c) || k0 + SX_WG_BK > S) {
+#pragma unroll
+      for (int i = 0; i < SX_WG_BK / 2; ++i) {
+        const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1), row = row0 + 8 * ((i >> 1) & 1);
+        if (key >= S || (causal && key > row)) sf[i] = SX_NEG_INF;
+      }
+    }
+    // online softmax of rows row0 (r = 0) and row0 + 8 (r = 1), each held
+    // by 4 lanes, both rows at once; maxima and sums taken as trees, so no
+    // chain of dependent instructions runs the length of a row.  Scores
+    // are in log2 units, s * scale_log2: the maximum of the scaled scores
+    // is the scaled maximum (the scale is positive), and exp2 takes
+    // s * scale_log2 - m as one FMA.
+    float v[2][SX_WG_BK / 8], mx[2], alpha[2];
+#pragma unroll
+    for (int n8 = 0; n8 < SX_WG_BK / 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) v[r][n8] = sx_fmax_nan(sf[4 * n8 + 2 * r], sf[4 * n8 + 2 * r + 1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sx_fold<SX_WG_BK / 16>(v[r], [](float a, float b) { return sx_fmax_nan(a, b); });
+      mx[r] = sx_fmax_nan(m[r], v[r][0] * scale_log2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] = sx_fmax_nan(mx[r], __shfl_xor_sync(SX_FULL_MASK, mx[r], 1));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = sx_fmax_nan(mx[r], __shfl_xor_sync(SX_FULL_MASK, mx[r], 2));
+      alpha[r] = sx_exp2(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < SX_WG_BK / 2; ++i) sf[i] = sx_exp2(fmaf(sf[i], scale_log2, -mx[(i >> 1) & 1]));
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) of[4 * n8 + i] *= alpha[i >> 1];
+#pragma unroll
+    for (int n8 = 0; n8 < SX_WG_BK / 8; ++n8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) v[r][n8] = sf[4 * n8 + 2 * r] + sf[4 * n8 + 2 * r + 1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sx_fold<SX_WG_BK / 16>(v[r], [](float a, float b) { return a + b; });
+      l[r] = l[r] * alpha[r] + v[r][0];  // this lane's part of the row sum, from the f32 p
+    }
+    // P's A fragments: registers x = 0..3 of step kk are accumulators
+    // 8 kk + 2 x and 8 kk + 2 x + 1 (key tiles 2 kk and 2 kk + 1, rows g and g + 8)
+#pragma unroll
+    for (int kk = 0; kk < SX_WG_BK / 16; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float p0 = sf[8 * kk + 2 * x], p1 = sf[8 * kk + 2 * x + 1];
+        ph[kk][x] = SxPair<T>::pack(p0, p1);
+        pl[kk][x] = SxPair<T>::pack(p0 - SxPair<T>::lo(ph[kk][x]), p1 - SxPair<T>::hi(ph[kk][x]));
+      }
+    }
+  };
+
+  // Step j issues S_j = Q K_j^T and O += P_{j-1} V_{j-1} back to back, hands
+  // the tensor cores to the other warpgroup (named barriers SX_WG_TURN + c),
+  // and runs the softmax of S_j while they work: the two warpgroups'
+  // products and softmaxes alternate.  Step 0 has no P V, the last step
+  // (n_kv) no S.
+  sx_mbar_wait(q_full, 0);
+  if (c == 1) sx_bar_arrive(SX_WG_TURN, SX_WG_CONSUMERS);  // warpgroup 0 issues first
+  sx_mbar_wait(k_full(0), 0);
+  begin_turn();
+  issue_s(0);
+  sx_wgmma_commit();
+  sx_bar_arrive(SX_WG_TURN + 1 - c, SX_WG_CONSUMERS);
+  sx_wgmma_wait<0>();
+  sx_pin(sf);
+  softmax(0);
+  for (int j = 1; j < n_kv; ++j) {
+    sx_mbar_wait(k_full(j % ST), (j / ST) & 1);
+    sx_mbar_wait(v_full((j - 1) % ST), ((j - 1) / ST) & 1);
+    begin_turn();
+    issue_s(j);
+    issue_pv(j - 1);
+    sx_wgmma_commit();
+    sx_bar_arrive(SX_WG_TURN + 1 - c, SX_WG_CONSUMERS);
+    sx_wgmma_wait<0>();
+    sx_pin(sf);
+    sx_pin(of);
+    sx_mbar_arrive(empty((j - 1) % ST));  // this thread is done with tile j - 1
+    softmax(j);
+  }
+  sx_mbar_wait(v_full((n_kv - 1) % ST), ((n_kv - 1) / ST) & 1);
+  begin_turn();
+  issue_pv(n_kv - 1);
+  sx_wgmma_commit();
+  if (c == 0) sx_bar_arrive(SX_WG_TURN + 1, SX_WG_CONSUMERS);  // warpgroup 1's last turn
+  sx_wgmma_wait<0>();
+  sx_pin(of);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(SX_FULL_MASK, l[r], 1);
+    l[r] += __shfl_xor_sync(SX_FULL_MASK, l[r], 2);
+  }
+  T* oh = o + ((long long)b * Hq + h) * S * D;
+#pragma unroll
+  for (int n8 = 0; n8 < D / 8; ++n8) {
+    const int col = 8 * n8 + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < S) {
+        *reinterpret_cast<unsigned*>(oh + (long long)row * D + col) =
+            SxPair<T>::pack(of[4 * n8 + 2 * r] / l[r], of[4 * n8 + 2 * r + 1] / l[r]);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime's
+// cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
+using SxEncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static SxEncodeTiled sx_encode_tiled() {
+  static std::atomic<SxEncodeTiled> cached{nullptr};
+  SxEncodeTiled fn = cached.load(std::memory_order_acquire);
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || p == nullptr) return nullptr;
+    fn = reinterpret_cast<SxEncodeTiled>(p);
+    cached.store(fn, std::memory_order_release);
+  }
+  return fn;
+}
+
+// heads matrices of rows x D elements, contiguous, as a 3-D tensor map
+// (D, rows, heads) whose box is 64 columns by box_rows rows of one head,
+// in the 128-byte swizzle; rows past the matrix read as zeros.
+template <typename T>
+static int sx_tensor_map(CUtensorMap* map, const T* base, int D, int rows, int heads, int box_rows) {
+  const SxEncodeTiled encode = sx_encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T), (cuuint64_t)rows * D * sizeof(T)};
+  const cuuint32_t box[3] = {SX_WG_PANEL, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, 3, const_cast<T*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int D>
+static int sx_flash_wgmma_launch(const T* q, const T* k, const T* v, T* o, int B, int Hq, int Hkv,
+                                 int S, int causal, float scale, void* stream) {
+  CUtensorMap qm, km, vm;
+  int e = sx_tensor_map(&qm, q, D, S, B * Hq, SX_WG_BQ);
+  if (e == 0) e = sx_tensor_map(&km, k, D, S, B * Hkv, SX_WG_BK);
+  if (e == 0) e = sx_tensor_map(&vm, v, D, S, B * Hkv, SX_WG_BK);
+  if (e != 0) return e;
+  constexpr int smem = SxWgTile<D>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      sx_flash_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sx_flash_wgmma_kernel<T, D><<<dim3((S + SX_WG_BQ - 1) / SX_WG_BQ, Hq, B), SX_WG_THREADS, smem,
+                                static_cast<cudaStream_t>(stream)>>>(qm, km, vm, o, Hq, Hkv, S,
+                                                                     causal, scale * SX_LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int sx_flash_wgmma_dispatch(const T* q, const T* k, const T* v, T* o, int B, int Hq,
+                                   int Hkv, int S, int D, int causal, float scale, void* stream) {
+  switch (D) {
+    case 64: return sx_flash_wgmma_launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
+    case 128: return sx_flash_wgmma_launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, causal, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int sx_flash_wgmma_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                             const __nv_bfloat16* v, __nv_bfloat16* o, int B,
+                                             int Hq, int Hkv, int S, int D, int causal,
+                                             float scale, void* stream) {
+  return sx_flash_wgmma_dispatch(q, k, v, o, B, Hq, Hkv, S, D, causal, scale, stream);
+}
+
+extern "C" int sx_flash_wgmma_attention_f16(const __half* q, const __half* k, const __half* v,
+                                            __half* o, int B, int Hq, int Hkv, int S, int D,
+                                            int causal, float scale, void* stream) {
+  return sx_flash_wgmma_dispatch(q, k, v, o, B, Hq, Hkv, S, D, causal, scale, stream);
 }
 
 // ------------------------------------------------------------ prefill, f32 on the CUDA cores

@@ -6,15 +6,17 @@ step to the next.  CUDA blocks run in no order and carry nothing, so in
 the hand-written kernels (``csrc/stitched_attention.cu``) the KV loop runs
 inside each block:
 
-  * ``flash_attention`` — prefill, bound by operations.  bf16 and f16 run
-    ``sx_flash_mma_kernel``: both products on the tensor cores (``mma.sync``
-    m16n8k16 in its bf16 or f16 form, f32 sums), a block of 4 warps per 64
-    query rows, K/V
-    tiles of 64 keys double-buffered in shared memory by ``cp.async``, the
-    heaviest causal q tiles first.  f32 runs ``sx_flash_kernel`` (one
-    thread per query row, f32 FMAs): the tensor cores at f32 would be TF32,
-    outside the f32 limits.  Causal tiles wholly above the diagonal
-    are skipped by both.  One launch per call.
+  * ``flash_attention`` — prefill, bound by operations.  The launcher is
+    chosen by dtype and head dim before any launch, never as a fallback:
+    bf16 and f16 at D = 64 and 128 run ``sx_flash_wgmma_kernel`` (both
+    products on ``wgmma``, K and V tiles of 128 keys brought in by TMA by a
+    producer warpgroup, two consumer warpgroups of 64 query rows); bf16 and
+    f16 at D = 8, 16 and 32 run ``sx_flash_mma_kernel`` (``mma.sync``
+    m16n8k16, K/V tiles of 64 keys double-buffered by ``cp.async``); f32
+    runs ``sx_flash_kernel`` (one thread per query row, f32 FMAs): the
+    tensor cores at f32 would be TF32, outside the f32 limits.  All three
+    skip causal tiles wholly above the diagonal and launch the heaviest
+    causal q tiles first.  One launch per call.
   * ``decode_attention`` — one new token per sequence against a KV cache
     with per-sequence valid ``lengths``, bound by bytes.  Two launches per
     call: ``sx_decode_split_kernel``, one block per (split of
@@ -47,6 +49,7 @@ DECODE = HandKernel(
 )
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # the head dims the kernels are instantiated for
+WGMMA_HEAD_DIMS = (64, 128)        # bf16 and f16 head dims of the wgmma kernel
 MAX_BLOCK_Q = 256                  # SX_FLASH_MAX_BQ: one thread per query row (f32 flash)
 SMEM_BYTES = 232_448               # shared memory one block may use on Hopper
 DECODE_SPLIT = 256                 # SX_DECODE_MAX_SPLIT: keys of one decode split at most
@@ -95,9 +98,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Prefill attention, causal or not.  ``block_q`` and ``block_k`` keep
     the reference's signature and its check that S is a multiple of both;
-    they size the tiles of the f32 kernel only.  The bf16 and f16 kernel takes 64
-    query rows and 64 keys at a time whatever their value, and masks an S
-    that is not a multiple of 64."""
+    they size the tiles of the f32 kernel only.  The bf16 and f16 kernels
+    take their own tiles whatever their value (128 query rows and 128 keys
+    at D = 64 and 128, 64 and 64 below) and mask an S that is not a
+    multiple of them."""
     name = FLASH.name
     _check_qkv(name, q, k, v, 4)
     B, Hq, S, D = q.shape
@@ -119,8 +123,9 @@ def flash_attention(
     o = torch.empty_like(q)
     if q.dtype in (torch.bfloat16, torch.float16):  # the tensor cores
         _check_aligned(name, q=q, k=k, v=v, o=o)
+        route = "wgmma" if D in WGMMA_HEAD_DIMS else "mma"
         FLASH.launch(
-            f"sx_flash_mma_attention_{DTYPE_SUFFIX[q.dtype]}", q, k, v, o,
+            f"sx_flash_{route}_attention_{DTYPE_SUFFIX[q.dtype]}", q, k, v, o,
             B, Hq, k.shape[1], S, D, int(bool(causal)), float(scale), device=dev,
         )
     else:  # f32 FMAs on the CUDA cores

@@ -175,30 +175,38 @@ def test_stitched_source_loops_over_its_phases(case, rng):
     assert src.count("sx_grid_sync();") == kernel.num_phases - 1
     threads = codegen.stitched_threads(kernel.plan)
     assert f"__launch_bounds__({threads}) {kernel.fn.name}(" in src
+    # the members of each phase that write a tile: its ALLOC/SHARE members
+    # but those held in a register (``held_in_registers``)
+    written = {r.id for r in kernel.fusion.roots} | set(kernel.plan.interfaces)
+    tiles = [codegen._tile_slots(ph.members, pp, codegen.held_in_registers(
+                 ph.members, ph.solution.assignment, pp, written))
+             for ph, pp in zip(kernel.stitched.phases, kernel.plan.phase_plans, strict=True)]
     smem = 0
     for pk, pplan in enumerate(kernel.plan.phase_plans):
         head = next(line for line in src.splitlines() if line.startswith(f"  // phase {pk}:"))
-        if not pplan.slots:
+        _, size = codegen._slot_layout(pplan, set(tiles[pk].values()))
+        assert size <= pplan.total_bytes
+        if not tiles[pk]:
             assert head.endswith("no slot: a pure map over the grid")
-        elif pplan.total_bytes <= codegen.SMEM_LIMIT:
-            assert head.endswith(f"slots {pplan.total_bytes} bytes in shared memory")
-            smem = max(smem, pplan.total_bytes)
+        elif size <= codegen.SMEM_LIMIT:
+            assert head.endswith(f"slots {size} bytes in shared memory")
+            smem = max(smem, size)
         else:
-            assert head.endswith(f"slots {pplan.total_bytes} bytes in a per-block workspace region")
+            assert head.endswith(f"slots {size} bytes in a per-block workspace region")
             blocks = kernel.stitched.phases[pk].solution.blocks
-            assert kernel.fn.workspace_bytes >= kernel.plan.interface_bytes + blocks * pplan.total_bytes
+            assert kernel.fn.workspace_bytes >= kernel.plan.interface_bytes + blocks * size
     assert f"dim3({threads}), args, {smem}, " in src
-    # a tile is written for the ALLOC/SHARE members only, one loop each
+    # a tile is written for the ALLOC/SHARE members that are not held in a
+    # register only, one loop each
     label = {m.id: f"m{k}" for k, m in enumerate(kernel.fusion.members)}
-    for phase, pplan in zip(kernel.stitched.phases, kernel.plan.phase_plans, strict=True):
+    for phase, pplan, tiled in zip(kernel.stitched.phases, kernel.plan.phase_plans, tiles, strict=True):
         for m in phase.members:
-            kept = pplan.entries[m.id].action in ("ALLOC", "SHARE")
-            assert (f"// {label[m.id]} = " in src and "-> slot" in src.split(f"// {label[m.id]} = ")[1]
-                    .splitlines()[0]) == kept
+            held = pplan.entries[m.id].action in ("ALLOC", "SHARE") and m.id not in tiled
+            line = src.split(f"// {label[m.id]} = ")[1].splitlines()[0] if f"// {label[m.id]} = " in src else ""
+            assert ("-> slot" in line) == (m.id in tiled)
+            assert ("-> held in a register" in line) == (held and m.opcode != "constant")
     writes = re.findall(r"\bp\d+s\d+\[[^\]]*\] = v;", src)
-    assert len(writes) == sum(pp.entries[m.id].action in ("ALLOC", "SHARE")
-                              for ph, pp in zip(kernel.stitched.phases, kernel.plan.phase_plans,
-                                                strict=True) for m in ph.members)
+    assert len(writes) == sum(len(t) for t in tiles)
     # the plain version against the JAX package's stitched kernel
     (fname, ref_kernel), = ref.executable.kernels.items()
     assert port.executable.kernels[fname].fn is kernel.fn
@@ -238,13 +246,16 @@ def test_fusion_source_reads_its_memory_plan(case):
         assert src.count("__global__") == 1 and "cudaLaunchCooperativeKernel" not in src
         threads = codegen.fusion_threads(k.fusion, k.solution, plan)
         assert f"__launch_bounds__({threads}) {k.fn.name}(" in src
-        offs, size = codegen._slot_layout(plan)
-        assert size == plan.total_bytes
+        roots = {r.id for r in k.fusion.roots}
+        held = codegen.held_in_registers(k.fusion.members, k.solution.assignment, plan, roots)
+        tiles = codegen._tile_slots(k.fusion.members, plan, held)
+        offs, size = codegen._slot_layout(plan, set(tiles.values()))
+        assert size <= plan.total_bytes and (held or size == plan.total_bytes)
         head = next(line for line in src.splitlines() if line.startswith("  // phase 0:"))
         groups = [g for g in codegen._independent_groups(k.fusion)
-                  if any(plan.action(m) != "INLINE" or m.id in {r.id for r in k.fusion.roots}
+                  if any(m.id in tiles or m.id in roots
                          for m in k.fusion.members if m.id in set(g) and m.opcode != "constant")]
-        if not plan.slots:
+        if not tiles:
             assert head.endswith("no slot: a pure map over the grid") and "sx_smem" not in src
             grid = None
         elif size + codegen.reduce_part_bytes(threads) <= codegen.SMEM_LIMIT:
@@ -261,33 +272,190 @@ def test_fusion_source_reads_its_memory_plan(case):
             grid = k.blocks * len(groups)
         if grid is not None and len(groups) > 1:
             assert f"{len(groups)} independent member groups a plan block" in head
-        for slot, off in enumerate(offs):
-            if any(e.slot == slot for e in plan.entries.values() if e.action in ("ALLOC", "SHARE")):
-                base = "sx_smem" if "sx_smem[]" in src else "pr0"
-                assert f"p0s{slot} = reinterpret_cast<float*>({base} + {off});" in src
+        assert set(offs) == set(tiles.values())
+        for slot, off in offs.items():
+            base = "sx_smem" if "sx_smem[]" in src else "pr0"
+            assert f"p0s{slot} = reinterpret_cast<float*>({base} + {off});" in src
         label = {m.id: f"m{j}" for j, m in enumerate(k.fusion.members)}
-        roots = {r.id for r in k.fusion.roots}
         comments = {line.split(" = ")[0].strip().removeprefix("// "): line
                     for line in src.splitlines() if line.strip().startswith("// m")}
         for m in k.fusion.members:
-            kept = plan.action(m) in ("ALLOC", "SHARE") and m.opcode != "constant"
+            kept = m.id in tiles
             line = comments.get(label[m.id])
-            # a loop for each member that writes a slot or an output, no other
-            assert (line is not None) == (kept or m.id in roots), (case, m.name)
+            # a loop for each member that writes a slot or an output, no
+            # other; a comment names each member held in a register
+            assert (line is not None) == (kept or m.id in roots or m.id in held), (case, m.name)
             assert (line is not None and "-> slot p0s" in line) == kept, (case, m.name)
+            assert (line is not None and "-> held in a register" in line) == (m.id in held)
             if m.opcode == "reduce" and line is not None:
                 body = src.split(line)[1].split("// m")[0]
                 assert "sx_warp_allreduce(acc, " in body
                 outs = codegen._prod(chunk_shape(m.shape, k.solution.assignment[m.id]))
-                if plan.slots and 2 * outs <= threads // 32:
+                if tiles and 2 * outs <= threads // 32:
                     assert f"{threads // 32 // outs} warps an output" in body
-        # INLINE members write no tile: the only slot writes are kept members'
+        # INLINE and held members write no tile: the only slot writes are kept members'
         for w in re.findall(r"\bp0s(\d+)\[[^\]]*\] = ", src):
-            assert int(w) < len(plan.slots)
+            assert int(w) in offs
     if case == "ReduceTowers":
         (k,) = kernels
         assert "6 independent member groups a plan block" in k.fn.source
         assert k.fn.source.count("4 warps an output") == 6
+
+
+# ------------------------------------------- members held in registers
+def _silu_mul(a, b):
+    import torch.nn.functional as F
+
+    return F.silu(a) * b
+
+
+# bf16 silu(a) * b: the captured graph converts a to f32 and reads it twice
+# (x and sigmoid(x)), so the plan gives the convert a slot; every reader
+# reads it at the element it was written, so the kernel holds it in a
+# register.  (512, 3456) is qwen2.5-14b's MLP width over 512 tokens on
+# each of four ranks, (512, 13824) the whole of it.
+SILU_SHAPES = [(4, 64), (512, 3456), (512, 13824)]
+
+
+@pytest.mark.parametrize("shape", SILU_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_silu_mul_is_a_pure_map_over_the_grid(shape):
+    import repro_torch
+
+    rng = np.random.RandomState(0)
+    a, b = (torch.as_tensor(rng.uniform(-4, 4, shape).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    fn = repro_torch.stitch(_silu_mul, device="cpu")
+    got = fn(a, b)
+    (k,) = fn._last.compiled.kernels
+    assert k.fn.emitter == "emit_fusion"
+    plan, src = k.plan, k.fn.source
+    (slot,) = [e for e in plan.entries.values() if e.action in ("ALLOC", "SHARE")]
+    assert plan.total_bytes == slot.nbytes > 0              # the plan is unchanged
+    assert fn._last.compiled.stats.reports[0].scratch_bytes == plan.total_bytes
+    held = codegen.held_in_registers(k.fusion.members, k.solution.assignment, plan,
+                                     {r.id for r in k.fusion.roots})
+    assert len(held) == 1
+    assert "-> slot" not in src and "-> held in a register" in src
+    assert "no slot: a pure map over the grid" in src and "__syncthreads" not in src
+    assert k.fn.workspace_bytes == 0 and "sx_smem" not in src
+    threads = codegen.fusion_threads(k.fusion, k.solution, plan)
+    grid = -(-int(np.prod(shape)) // threads)
+    assert f"<<<{grid}, {threads}, 0, " in src
+    # the register is computed once per element and read at both uses
+    (reg,) = re.findall(r"const float (rm\d+) = ", src)
+    assert src.count(reg) == 3
+    if shape == (512, 3456):
+        assert (grid, threads, k.blocks) == (3456, 512, 16)
+    if shape == (512, 13824):
+        assert (grid, threads, k.blocks) == (13824, 512, 32)
+    # the plain version: torch's own bf16 silu and mul, bit for bit
+    assert torch.equal(got, _silu_mul(a, b))
+
+
+def _gated_mlp(x, w_gate, w_up, w_down):
+    import torch.nn.functional as F
+
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def test_bf16_gated_mlp_silu_mul_is_a_pure_map_over_the_grid():
+    """The MLP's fusion of silu x mul, whose output the last product reads
+    outside the kernel, holds the convert in a register too, at qwen2.5-14b's
+    MLP width on one of four ranks (3456 columns), the model dim cut to 64."""
+    import repro_torch
+
+    rng = np.random.RandomState(2)
+    shapes = [(512, 64), (64, 3456), (64, 3456), (3456, 64)]
+    args = [torch.as_tensor(rng.uniform(-1, 1, s).astype(np.float32) / s[0] ** 0.5).to(torch.bfloat16)
+            for s in shapes]
+    fn = repro_torch.stitch(_gated_mlp, device="cpu")
+    got = fn(*args)
+    (k,) = fn._last.compiled.kernels
+    src = k.fn.source
+    assert k.fn.emitter == "emit_fusion" and k.blocks == 16
+    assert "-> held in a register" in src and "-> slot" not in src
+    assert k.fn.workspace_bytes == 0 and "<<<3456, 512, 0, " in src
+    torch.testing.assert_close(got, _gated_mlp(*args), rtol=2 ** -7, atol=2 ** -7 * float(got.abs().max()))
+
+
+def test_bf16_silu_mul_plain_version_matches_reference():
+    import jax
+
+    import repro
+    import repro_torch
+
+    rng = np.random.RandomState(1)
+    a, b = (rng.uniform(-4, 4, (16, 96)).astype(np.float32) for _ in range(2))
+    got = repro_torch.stitch(_silu_mul, device="cpu")(
+        torch.as_tensor(a).to(torch.bfloat16), torch.as_tensor(b).to(torch.bfloat16))
+
+    def jnp_silu_mul(x, y):   # jax.nn.silu is a jit, which repro.stitch does not lower
+        x32 = x.astype(jnp.float32)
+        return (x32 * jax.lax.logistic(x32)).astype(jnp.bfloat16) * y
+
+    want = repro.stitch(jnp_silu_mul)(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want).astype(np.float32))
+
+
+def _reduced(b, x):
+    """An exp read by a row sum and by the divide after it."""
+    e = b.exp(x)
+    return e / b.broadcast(b.reduce(e, (1,), "sum"), x.shape, (0,))
+
+
+def _broadcast(b, x, v):
+    """A tanh of a row vector read through two broadcasts."""
+    t = b.tanh(v)
+    return x * b.broadcast(t, x.shape, (1,)) + b.broadcast(t, x.shape, (1,))
+
+
+# (module, the functions of the members that keep their slot); "retiled"
+# is the SHARE case below: its second phase's tanh is read transposed, and
+# the add that takes its slot reads it across threads
+SLOT_KEEPERS = {
+    "retiled": (lambda: _share_transposed_module(), ("tanh", "add")),
+    "reduced": (lambda: ref_trace(_reduced, ("x", (32, 64), jnp.float32)), ("exp",)),
+    "broadcast": (lambda: ref_trace(_broadcast, ("x", (32, 64), jnp.float32), ("v", (64,), jnp.float32)),
+                  ("tanh",)),
+}
+
+
+@pytest.mark.parametrize("case", list(SLOT_KEEPERS))
+def test_member_read_at_other_elements_keeps_its_slot(case):
+    """A member that a reader re-tiles, reduces or broadcasts is read at
+    elements other than its own: it keeps its slot and its loop, and the
+    plain version still equals the reference."""
+    build, fn_names = SLOT_KEEPERS[case]
+    ref_module = build()
+    port = compile_module(module_from_reference(ref_module), device="cpu")
+    ref = ref_compile(ref_module, RefOptions())
+    assert _plan_of(port.stats) == _plan_of(ref.stats)
+    kept = []
+    for k in port.kernels:
+        written = {r.id for r in k.fusion.roots}
+        if k.stitched is None:
+            phases = [(k.fusion.members, k.solution, k.plan)]
+        else:
+            written |= set(k.plan.interfaces)
+            phases = [(ph.members, ph.solution, pp)
+                      for ph, pp in zip(k.stitched.phases, k.plan.phase_plans, strict=True)]
+        assert "-> held in a register" not in k.fn.source
+        label = {m.id: f"m{j}" for j, m in enumerate(k.fusion.members)}
+        for pk, (members, solution, plan) in enumerate(phases):
+            assert not codegen.held_in_registers(members, solution.assignment, plan, written)
+            for m in members:
+                if plan.action(m) in ("ALLOC", "SHARE") and m.opcode == "elementwise":
+                    fn = m.attrs["fn"]
+                    assert re.search(rf"// {label[m.id]} = elementwise:{fn}\(.* -> slot p{pk}s\d+\n",
+                                     k.fn.source)
+                    kept.append(fn)
+    assert sorted(kept) == sorted(fn_names)
+    rng = np.random.RandomState(0)
+    feeds = {p.name: rng.uniform(-1, 1, p.shape).astype(np.float32) for p in ref_module.parameters}
+    got = port(feeds)
+    for want, what in ((ref(feeds), "compile_module"), (ref_execute(ref_module, feeds), "reference_execute")):
+        for key in want:
+            _close(got[key].numpy(), np.asarray(want[key]), f"{case}:{key} vs {what}")
 
 
 # ------------------------------------------------- emission faults, repaired

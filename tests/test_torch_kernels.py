@@ -429,22 +429,50 @@ def recorded(monkeypatch):
     return lib
 
 
-@pytest.mark.parametrize("dtype, symbol", [
-    (torch.bfloat16, "sx_flash_mma_attention_bf16"),
-    (torch.float16, "sx_flash_mma_attention_f16"),
-    (torch.float32, "sx_flash_attention_f32"),
+@pytest.mark.parametrize("dtype, D, symbol", [
+    (torch.bfloat16, 64, "sx_flash_wgmma_attention_bf16"),
+    (torch.bfloat16, 128, "sx_flash_wgmma_attention_bf16"),
+    (torch.float16, 64, "sx_flash_wgmma_attention_f16"),
+    (torch.float16, 128, "sx_flash_wgmma_attention_f16"),
+    (torch.bfloat16, 8, "sx_flash_mma_attention_bf16"),
+    (torch.bfloat16, 16, "sx_flash_mma_attention_bf16"),
+    (torch.bfloat16, 32, "sx_flash_mma_attention_bf16"),
+    (torch.float16, 8, "sx_flash_mma_attention_f16"),
+    (torch.float16, 32, "sx_flash_mma_attention_f16"),
+    (torch.float32, 64, "sx_flash_attention_f32"),
+    (torch.float32, 128, "sx_flash_attention_f32"),
 ])
-def test_flash_launches_the_tensor_core_kernel_in_bf16_only(recorded, dtype, symbol):
-    """bf16 and f16 take the tensor-core kernel, f32 the CUDA cores'."""
-    q, k, v = _t(1, 6, 80, 64, dtype=dtype), _t(1, 2, 80, 64, dtype=dtype), _t(1, 2, 80, 64, dtype=dtype)
+def test_flash_launches_the_tensor_core_kernel_in_bf16_only(recorded, dtype, D, symbol):
+    """The launcher is chosen by dtype and head dim before the launch: bf16
+    and f16 at D = 64 and 128 take the wgmma kernel, at D = 8 to 32 the
+    mma.sync one, f32 the CUDA cores'.  Each call is one launch."""
+    q, k, v = _t(1, 6, 80, D, dtype=dtype), _t(1, 2, 80, D, dtype=dtype), _t(1, 2, 80, D, dtype=dtype)
     before = ops.KERNELS["stitched_flash_attention"].launches
+    by_symbol = dict(ops.KERNELS["stitched_flash_attention"].by_symbol)
     ops.attention(q, k, v, causal=True)
     assert [c[0] for c in recorded.calls] == [symbol]
     assert ops.KERNELS["stitched_flash_attention"].launches == before + 1
+    assert ops.KERNELS["stitched_flash_attention"].by_symbol[symbol] == by_symbol.get(symbol, 0) + 1
     values = recorded.calls[0][1]
     # q, k, v, o, then B, Hq, Hkv, S, D; the current stream comes last
     assert values[:3] == tuple(t.data_ptr() for t in (q, k, v))
-    assert values[4:9] == (1, 6, 2, 80, 64) and values[-1] == 0
+    assert values[4:9] == (1, 6, 2, 80, D) and values[-1] == 0
+
+
+def test_flash_launch_refused_by_the_wgmma_kernel_raises(recorded, monkeypatch):
+    """A refused launch of the wgmma kernel raises with its CUDA error; the
+    wrapper does not try another launcher."""
+    calls = []
+
+    def refuse(*values):
+        calls.append(values)
+        return 1   # cudaErrorInvalidValue
+
+    monkeypatch.setattr(recorded, "sx_flash_wgmma_attention_bf16", refuse, raising=False)
+    q = _t(1, 2, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="sx_flash_wgmma_attention_bf16 failed with cudaError 1"):
+        ops.attention(q, q, q, causal=False)
+    assert len(calls) == 1 and recorded.calls == []
 
 
 @pytest.mark.parametrize("op", ["flash", "decode"])
