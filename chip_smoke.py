@@ -8,17 +8,24 @@ Phases, each fatal on failure:
 1. device — the card's name, the device count, and nvidia-smi's name and
    power limit;
 2. build — compile the ten paper graphs (``repro_torch.graphs``) under the
-   default ``StitchOptions``: every graph's generated ``.cu`` is built with
-   nvcc (one process per source, all started together) into
-   ``build/repro_torch/``, then each graph is compiled for ``"cuda"``;
-3. main path — one call of every compiled graph on seeded feeds, through
-   the eager step loop (``jit_replay=False``, so each launch goes through
-   its wrapper), with every kernel's launch counter set to 0 just before
-   and read just after: each graph must launch exactly its planned fused
-   kernels (35 in all) and every unique kernel at least once;
-4. right — each graph's outputs against the port's ``reference_execute`` on
-   the card (one torch op per instruction), and every unique kernel against
-   its plain version on the card, on the inputs the main path gave it.
+   reference's spec (``ref_options``: ``TPU_V5E`` and 4 MiB, what every
+   phase that holds a plan against the reference's counts compiles with)
+   and under the default ``StitchOptions``, whose compile for the card
+   plans with ``H100``: every plan's generated ``.cu`` is built with nvcc
+   (one process per source, all started together) into
+   ``build/repro_torch/``, then each graph is compiled for ``"cuda"``
+   under both;
+3. main path — one call of every compiled graph on seeded feeds under each
+   spec, through the eager step loop (``jit_replay=False``, so each launch
+   goes through its wrapper), with every kernel's launch counter set to 0
+   just before and read just after: each graph must launch exactly its
+   planned fused kernels (``REFERENCE_KERNELS``, 35, in all under
+   ``TPU_V5E``) and every unique kernel at least once;
+4. right — each graph's outputs under both specs against the port's
+   ``reference_execute`` on the card (one torch op per instruction), and
+   every unique kernel against its plain version on the card, on the
+   inputs the main path gave it; no H100 plan may keep an ALLOC/SHARE slot
+   in the workspace (``launch_shapes``).
    Then the stitched compiles beside the main path (``STITCHED_COMPILES``):
    StitchPipe under ``stitch_max_blocks`` 1 and 4 and ``max_blocks`` 8 and
    64 (phase 0 in 1, 4, 8 and 16 plan blocks; at 1 its slots outgrow shared
@@ -41,7 +48,9 @@ Phases, each fatal on failure:
    gives each kernel's device time, and each graph's device kernels and
    device time per call, from which its device idle share follows, and the
    device time of each graph's unfused ``reference_execute`` (the yardstick
-   of StitchPipe's stitched kernel).  Each ``emit_fusion`` kernel's line
+   of StitchPipe's stitched kernel); the ten graphs' pass under each spec,
+   naming each graph whose H100 plan takes over 1.05x its ``TPU_V5E``
+   plan's device time.  Each ``emit_fusion`` kernel's line
    also gives its members, plan blocks, grid, threads, bytes of shared
    memory, and ``ptxas``'s registers and spill bytes.
 
@@ -138,10 +147,13 @@ Phases, each fatal on failure:
    (the card), eager (``jit_replay=False``) and replayed, over
    ``frontend_cases``: the three ``TORCH_FAMILIES`` at the reference's
    dimensions, StitchPipe's computation (the stitched emitter's plan,
-   held against ``stitch_pipeline_graph`` as a family is), four end-to-end functions at granite-moe-3b-a800m's width
-   over 512 tokens (rmsnorm and layer_stats on (512, 1536), the gated MLP
-   with two (1536, 512) weights, the Figure-3 attention on q, k, v of
-   (1, 24, 512, 64)), a decode-loop scan, a counted while_loop, a cond
+   held against ``stitch_pipeline_graph`` as a family is), four end-to-end
+   functions at granite-moe-3b-a800m's width over 512 tokens
+   (``model_width_cases``: rmsnorm and layer_stats on (512, 1536), the
+   gated MLP with two (1536, 512) weights, the Figure-3 attention on q, k,
+   v of (1, 24, 512, 64)) under the default options (the card's plan) and
+   under the parent's (``TPU_V5E``, max_blocks 32, named with
+   ``TPU_TAG``), a decode-loop scan, a counted while_loop, a cond
    both ways and ``grad_and_value`` of an MLP loss.  The plans' sources
    are built in phase 2.  Each function's counters are set to 0 just
    before one eager call and read just after: its planned launches, every
@@ -157,7 +169,14 @@ Phases, each fatal on failure:
    (the profiler); µs per call (CUDA events, 200 calls) through ``stitch``
    eager and by default, of the plan's own replay (which leaves out
    ``stitch``'s host path) and of the plain function; device µs and idle
-   share of each.  Last, ``donate_argnums`` on the card: a donated input's
+   share of each.  For the four granite-width functions
+   (``model_width_numbers``): each plan's plan and CUDA blocks and slot
+   bytes in shared memory and in the workspace, its device µs under both
+   specs, the plain function's, the one PyTorch call's
+   (``F.scaled_dot_product_attention``, ``F.rms_norm``, ``F.layer_norm``;
+   held against the plain function) and the bound; a default plan that
+   keeps a slot in the workspace fails the phase.  Last,
+   ``donate_argnums`` on the card: a donated input's
    buffer takes a later kernel's output, the other inputs unchanged.
 13. models — ``repro_torch.models`` on the card, no kernel of the port on
    its path (every kernel's launch count, the hand-written kernels'
@@ -299,10 +318,17 @@ Phases, each fatal on failure:
    phase 13's ``forward`` (4 x 512) on meta tensors, the seconds each count
    took, and ``launch.roofline.analyze``'s H100 terms and model flops
    beside the device ms those phases measured in this run: the fraction
-   of the bound each reaches.  Then the device time of the generated
-   ``exp`` kernel over (8, 256) in one plan block (the H100 spec's launch
-   overhead) and over (8448, 256) in 1 and 8 plan blocks (its grid-step
-   overhead).  (d) ``launch.dryrun``'s measurement of (a)'s cell on a fake
+   of the bound each reaches.  Then the H100 spec's measured constants
+   (``launch_overheads``): the device time of the generated ``exp`` kernel
+   over (8, 256) in one plan block (the launch overhead) and over (8448,
+   256) in 1 and 8 plan blocks (the grid-step overhead); the SM count; the
+   block-count curve (a generated kernel with a slot over the same bytes
+   at 1 .. 264 plan blocks, one CUDA block each: the fraction of 3.35 TB/s
+   each reaches); ``vmem_bw`` (two generated kernels that differ only in
+   one ALLOC slot: the bytes its loop moves through shared memory over the
+   difference in device time); and ``phase_loop_overhead_s`` (a stitched
+   kernel of the same work in 1 .. 8 phases: the slope of its device
+   time), each kernel held against its plain version.  (d) ``launch.dryrun``'s measurement of (a)'s cell on a fake
    world of 4 ranks (2 x 2), in a fresh process: its
    ``argument_size_in_bytes`` must equal rank 0's measured blocks and
    rows, its collective census must equal rank 0's bytes of a step kind for
@@ -390,6 +416,22 @@ ATTENTION_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 GATE_TIE = 2e-6      # gate picks may swap only between probabilities this close
 
 
+#: the fused kernels one pass of the ten graphs launches under the
+#: reference's plans (the reference's count)
+REFERENCE_KERNELS = 35
+
+
+def ref_options(**kw):
+    """Options that plan with the reference's ``TPU_V5E`` spec and 4 MiB, as
+    every compile for the CPU does: the phases that hold the card's plans
+    against the reference's counts compile with them, explicitly, since a
+    compile for the card plans with ``H100`` by default."""
+    from repro_torch.core import StitchOptions
+    from repro_torch.core.latency import TPU_V5E
+
+    return StitchOptions(device_spec=TPU_V5E, **kw)
+
+
 def softmax_transpose(b, x, g):
     """The break module of tests/test_stitching.py: a row softmax feeding a
     2-D transpose, a schedule break once (32, 48) passes the replicate limit."""
@@ -454,7 +496,7 @@ def dtype_compile(module_name, dtype, opts, device):
     """One of DTYPE_COMPILES (or FUSION_COMPILES, in f32), compiled for ``device``."""
     import numpy as np
 
-    from repro_torch.core import StitchOptions, compile_module, trace
+    from repro_torch.core import compile_module, trace
     from repro_torch.core.ir import BFLOAT16
 
     dt = BFLOAT16 if dtype == "bfloat16" else np.dtype(dtype)
@@ -465,7 +507,7 @@ def dtype_compile(module_name, dtype, opts, device):
     else:
         fn = softmax_transpose if module_name == "break" else int_break
         module = trace(fn, ("x", (32, 48), dt), ("g", (48,), dt))
-    return module, compile_module(module, StitchOptions(jit_replay=False, **opts), device=device)
+    return module, compile_module(module, ref_options(jit_replay=False, **opts), device=device)
 
 
 def ptxas_by_kernel(logs):
@@ -504,14 +546,14 @@ def stitched_compile(module_name, opts, device):
     """One of STITCHED_COMPILES, compiled for ``device``."""
     import numpy as np
 
-    from repro_torch.core import StitchOptions, compile_module, trace
+    from repro_torch.core import compile_module, trace
     from repro_torch.graphs import ALL_GRAPHS
 
     if module_name == "break":
         module = trace(softmax_transpose, ("x", (32, 48), np.float32), ("g", (48,), np.float32))
     else:
         module = ALL_GRAPHS[module_name]()
-    return compile_module(module, StitchOptions(jit_replay=False, **opts), device=device)
+    return compile_module(module, ref_options(jit_replay=False, **opts), device=device)
 
 # (rtol, atol) of each full-width call.  The kernel and its plain version
 # both compute in f32 and round once to the output dtype, so a bf16 output
@@ -1345,7 +1387,7 @@ def replay_phase(dev, graphs, eager_out):
 
     rows = []
     for name, (module, eager, feeds, dfeeds) in graphs.items():
-        rp = compile_module(module, device=dev)          # the defaults: jit_replay=True
+        rp = compile_module(module, ref_options(), device=dev)   # jit_replay=True
         s, ex = rp.stats, rp.executable
         mode = "graph" if s.traced_dispatches_per_call <= s.eager_dispatches_per_call else "eager"
         if s.replay_mode != mode or ex.replay_mode != mode:
@@ -1416,7 +1458,7 @@ def loops_phase(dev):
     import numpy as np
     import torch
 
-    from repro_torch.core import StitchOptions, compile_module, reference_execute
+    from repro_torch.core import compile_module, reference_execute
     from repro_torch.core.ir import apply_op
     from repro_torch.graphs import LOOP_GRAPHS, rnn_graph
 
@@ -1426,8 +1468,8 @@ def loops_phase(dev):
         rng = np.random.RandomState(2)
         feeds = {p.name: torch.as_tensor((rng.randn(*p.shape) * 0.3).astype(np.float32), device=dev)
                  for p in module.parameters}
-        eager = compile_module(module, StitchOptions(jit_replay=False), device=dev)
-        rp = compile_module(module, device=dev)
+        eager = compile_module(module, ref_options(jit_replay=False), device=dev)
+        rp = compile_module(module, ref_options(), device=dev)
         plain = reference_execute(module, feeds, device=dev)
         progs = {**programs_of(eager), **programs_of(rp)}
         for p in progs.values():
@@ -1519,7 +1561,7 @@ def autotune_phase(dev, graphs):
     reference_execute."""
     import torch
 
-    from repro_torch.core import StitchOptions, compile_module, reference_execute
+    from repro_torch.core import compile_module, reference_execute
     from repro_torch.core.latency import TPU_V5E
     from repro_torch.core.measure import MeasuredCostStore, device_fingerprint
     from repro_torch.graphs import ALL_GRAPHS
@@ -1531,9 +1573,9 @@ def autotune_phase(dev, graphs):
         if os.path.exists(path):
             os.remove(path)
         store = MeasuredCostStore(path, device_fp=fp)
-        opts = StitchOptions(planner=planner, autotune=True, tuning_store_path=path,
-                             jit_replay=False)
-        default = StitchOptions(planner=planner, jit_replay=False)
+        opts = ref_options(planner=planner, autotune=True, tuning_store_path=path,
+                           jit_replay=False)
+        default = ref_options(planner=planner, jit_replay=False)
         for name, (module, _, feeds, dfeeds) in graphs.items():
             base = compile_module(ALL_GRAPHS[name](), default, device="cpu")
             compiles = []
@@ -1646,12 +1688,12 @@ def faults_phase(dev):
     import numpy as np
     import torch
 
-    from repro_torch.core import StitchOptions, compile_module, reference_execute
+    from repro_torch.core import compile_module, reference_execute
 
     rows = []
     for name, build in FAULT_MODULES.items():
         module = build()
-        compiled = compile_module(module, StitchOptions(jit_replay=False), device=dev)
+        compiled = compile_module(module, ref_options(jit_replay=False), device=dev)
         (kernel,) = compiled.kernels
         rng = np.random.RandomState(4)
         feeds = {p.name: torch.as_tensor((rng.randn(*p.shape) * 0.1).astype(np.float32), device=dev)
@@ -1699,26 +1741,18 @@ FRONTEND_MAX_BLOCKS = 32
 FRONTEND_TOKENS = 512
 
 
-def frontend_cases():
-    """Phase 12's functions: (name, fn, numpy args, StitchOptions, family).
-    The three ``TORCH_FAMILIES`` at the reference's dimensions and
-    StitchPipe's computation (held against its hand-built graph); four of
-    tests/test_torch_frontend.py's functions at granite-moe-3b-a800m's width
-    over ``FRONTEND_TOKENS`` tokens; the control-flow functions and the MLP
-    loss's gradient of tests/test_torch_frontend_controlflow.py at its
-    sizes."""
-    import dataclasses
+#: the suffix of a phase-12 case compiled under the parent's plan
+TPU_TAG = "@TPU_V5E"
 
+
+def model_width_cases():
+    """Four of tests/test_torch_frontend.py's functions at
+    granite-moe-3b-a800m's width over ``FRONTEND_TOKENS`` tokens: (name, fn,
+    numpy args, the one PyTorch call that computes the same function or
+    None, the f32 operations of its products)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from torch._higher_order_ops.scan import scan
-    from torch._higher_order_ops.while_loop import while_loop
-
-    from repro_torch.core import StitchOptions
-    from repro_torch.graphs import TORCH_FAMILIES, stitch_pipeline_graph
-
-    opts = StitchOptions(max_blocks=FRONTEND_MAX_BLOCKS)
 
     def fig3_attention(q, k, v):
         d = q.shape[-1]
@@ -1738,6 +1772,44 @@ def frontend_cases():
         mu = torch.mean(x, dim=-1, keepdim=True)
         var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
         return (x - mu) * torch.rsqrt(var + 1e-5)
+
+    rng = np.random.RandomState(1)
+    t, d, ff = FRONTEND_TOKENS, GRANITE["d_model"], GRANITE["d_ff"]
+    h, hd = GRANITE["heads"], GRANITE["head_dim"]
+    f4 = np.float32
+    return [
+        ("rmsnorm", rmsnorm, (rng.randn(t, d).astype(f4), rng.randn(d).astype(f4)),
+         lambda x, g: F.rms_norm(x, (x.shape[-1],), g, eps=1e-6), 0.0),
+        ("layer_stats", layer_stats, (rng.randn(t, d).astype(f4),),
+         lambda x: F.layer_norm(x, (x.shape[-1],), eps=1e-5), 0.0),
+        ("gated_mlp", gated_mlp, (rng.randn(t, d).astype(f4), rng.randn(d, ff).astype(f4),
+                                  rng.randn(d, ff).astype(f4)), None, 2 * 2.0 * t * d * ff),
+        ("fig3_attention", fig3_attention,
+         tuple(rng.randn(1, h, t, hd).astype(f4) for _ in range(3)),
+         lambda q, k, v: F.scaled_dot_product_attention(q, k, v), 2 * 2.0 * h * t * t * hd),
+    ]
+
+
+def frontend_cases():
+    """Phase 12's functions: (name, fn, numpy args, StitchOptions, family).
+    The three ``TORCH_FAMILIES`` at the reference's dimensions and
+    StitchPipe's computation (held against its hand-built graph); the four
+    ``model_width_cases`` under the default options (the card's plan) and
+    under the parent's (``TPU_V5E``, max_blocks 32; name + ``TPU_TAG``); the
+    control-flow functions and the MLP loss's gradient of
+    tests/test_torch_frontend_controlflow.py at its sizes.  Every case but
+    the four defaults plans with ``TPU_V5E`` (``ref_options``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch._higher_order_ops.scan import scan
+    from torch._higher_order_ops.while_loop import while_loop
+
+    from repro_torch.core import StitchOptions
+    from repro_torch.graphs import TORCH_FAMILIES, stitch_pipeline_graph
+
+    opts = ref_options(max_blocks=FRONTEND_MAX_BLOCKS)
 
     def decode_loop(h, w):
         def step(carry, _x):
@@ -1773,18 +1845,12 @@ def frontend_cases():
                   tuple(np.random.RandomState(0).randn(*sh).astype(np.float32)
                         for sh in ((512, 320), (320,))),
                   opts, {"module": stitch_pipeline_graph}))
-    rng = np.random.RandomState(1)
-    t, d, ff = FRONTEND_TOKENS, GRANITE["d_model"], GRANITE["d_ff"]
-    h, hd = GRANITE["heads"], GRANITE["head_dim"]
+    # the four granite-width functions under the parent's plan (TPU_V5E,
+    # max_blocks 32) and under the default, the card's (H100)
+    for name, fn, args, _, _ in model_width_cases():
+        cases.append((name + TPU_TAG, fn, args, opts, None))
+        cases.append((name, fn, args, StitchOptions(), None))
     f4 = np.float32
-    cases += [
-        ("rmsnorm", rmsnorm, (rng.randn(t, d).astype(f4), rng.randn(d).astype(f4)), opts, None),
-        ("layer_stats", layer_stats, (rng.randn(t, d).astype(f4),), opts, None),
-        ("gated_mlp", gated_mlp, (rng.randn(t, d).astype(f4), rng.randn(d, ff).astype(f4),
-                                  rng.randn(d, ff).astype(f4)), opts, None),
-        ("fig3_attention", fig3_attention,
-         tuple(rng.randn(1, h, t, hd).astype(f4) for _ in range(3)), opts, None),
-    ]
     g = np.random.default_rng(0)
     params = {"w1": g.normal(size=(8, 16), scale=0.3).astype(f4), "b1": np.zeros(16, f4),
               "w2": g.normal(size=(16, 4), scale=0.3).astype(f4), "b2": np.zeros(4, f4)}
@@ -1806,11 +1872,17 @@ def frontend_sources(cases):
     """The CUDA sources phase 12 builds: each function's plan, compiled here
     for the CPU (the same text the card's compile emits), and each family's
     hand-built module's, and ``donation_check``'s function's."""
+    import dataclasses
+
     from repro_torch import stitch
     from repro_torch.core import compile_module
 
+    from repro_torch.core.latency import H100
+
     out = []
     for _, fn, args, opts, fam in cases + [("donation", *donation_case(), None)]:
+        if opts.device_spec is None:    # a default case: the card plans with H100
+            opts = dataclasses.replace(opts, device_spec=H100)
         out += sources_of(stitch(fn, options=opts, device="cpu").lower(*args).compile())
         if fam is not None:
             out += sources_of(compile_module(fam["module"](), opts, device="cpu"))
@@ -1955,6 +2027,7 @@ def frontend_phase(dev, cases):
             "plan_replay_idle_share": 1.0 - r_dev / replay_us,
             "plain_idle_share": 1.0 - p_dev / plain_us,
         }
+        row["kernel_launches"] = launch_shapes(comp_e)
         rows.append(row)
         print(f"frontend {name}: capture {row['capture_s']:.3f} s, lower {row['lower_s']:.3f} s, "
               f"compile {row['compile_s']:.3f} s; fused={s.stitched_kernels} "
@@ -1982,19 +2055,101 @@ def frontend_phase(dev, cases):
     return rows, by_emitter
 
 
+def launch_shapes(compiled):
+    """Each generated kernel of a plan as its source's header and phase
+    comments state it: emitter, plan blocks, CUDA blocks (a cooperative
+    kernel's most), threads, shared memory and workspace bytes a block,
+    and the bytes of its slots in shared memory and in the workspace."""
+    import re
+
+    out = []
+    for k in compiled.kernels:
+        src = k.fn.source
+        head = re.search(r"(\d+) plan blocks(?: in all)?, (?:one launch of|one cooperative launch "
+                         r"of up to) (\d+) blocks of (\d+) threads, (\d+) bytes of shared memory "
+                         r"a block, (\d+) workspace bytes", src)
+        out.append({
+            "fusion": k.fusion.name, "kernel": k.fn.name, "emitter": k.fn.emitter,
+            "plan_blocks": int(head.group(1)), "cuda_blocks": int(head.group(2)),
+            "threads": int(head.group(3)), "smem_bytes": int(head.group(4)),
+            "workspace_bytes": int(head.group(5)),
+            "slot_bytes_in_smem": sum(int(b) for b in re.findall(
+                r"slots (\d+) bytes in shared memory", src)),
+            "slot_bytes_in_workspace": sum(int(b) for b in re.findall(
+                r"slots (\d+) bytes in a per-block workspace region", src)),
+        })
+    return out
+
+
+def model_width_numbers(dev, rows):
+    """Phase 12's four granite-width functions, each under the default (the
+    card's plan) beside its ``TPU_V5E`` plan in the same run: plan and CUDA
+    blocks, slot bytes in shared memory and in the workspace, device µs;
+    beside them the plain function's, the one PyTorch call's (held against
+    the plain function at ``TOL``) and the bound (the arguments read once
+    and the output written once at ``HBM_BYTES_PER_S``, the products'
+    operations at ``F32_OPS_PER_S``).  Fails if a default plan keeps a slot
+    in the workspace."""
+    import numpy as np
+    import torch
+
+    by_name = {r["function"]: r for r in rows}
+    out = []
+    for name, fn, args, library, ops in model_width_cases():
+        dargs = [torch.as_tensor(a, device=dev) for a in args]
+        plain = fn(*dargs)
+        row = {"function": name, "args": [list(np.shape(a)) for a in args]}
+        for label, key in (("default", name), ("tpu_v5e", name + TPU_TAG)):
+            r = by_name[key]
+            row[label] = {"device_us": r["eager_device_us_per_call"],
+                          "launches": r["launches_per_call"], "max_abs_err": r["max_abs_err"],
+                          "kernels": r["kernel_launches"]}
+        kept = [k for k in row["default"]["kernels"] if k["slot_bytes_in_workspace"]
+                or (k["emitter"] == "emit_fusion" and k["workspace_bytes"])]
+        if kept:
+            raise SystemExit(f"model width {name}: the default plan keeps slots in the workspace: "
+                             f"{kept}")
+        row["plain_device_us"] = by_name[name]["plain_device_us_per_call"]
+        if library is not None:
+            got = library(*dargs)
+            e, ok = max_err(got, plain, None)
+            if not ok:
+                raise SystemExit(f"model width {name}: the library call vs plain {e:.3e}")
+            _, lib_by = device_profile(lambda: library(*dargs), PROFILED_CALLS, f"library {name}")
+            row["library_device_us"] = sum(lib_by.values())
+            row["library_max_abs_err"] = e
+        else:
+            row["library_device_us"] = None
+        nbytes = sum(a.nbytes for a in args) + plain.numel() * plain.element_size()
+        b_us, o_us = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / F32_OPS_PER_S
+        row.update(bound_us=max(b_us, o_us), bound_by="bytes" if b_us >= o_us else "operations")
+        d, t = row["default"], row["tpu_v5e"]
+        row["default_over_tpu_v5e"] = d["device_us"] / t["device_us"]
+        out.append(row)
+
+        def shape(p):
+            return ", ".join(f"{k['plan_blocks']} plan / {k['cuda_blocks']} CUDA blocks x "
+                             f"{k['threads']} (slots {k['slot_bytes_in_smem']} B smem, "
+                             f"{k['slot_bytes_in_workspace']} B workspace)" for k in p["kernels"])
+        print(f"model width {name}: default {d['device_us']:.2f} device us [{shape(d)}]; "
+              f"TPU_V5E {t['device_us']:.2f} [{shape(t)}]; ratio "
+              f"{row['default_over_tpu_v5e']:.3f}; plain {row['plain_device_us']:.2f}; library "
+              f"{row['library_device_us'] if row['library_device_us'] is not None else 'none'}; "
+              f"bound {row['bound_us']:.2f} ({row['bound_by']})")
+    return out
+
+
 def donation_case():
     """The function, numpy arguments and options of ``donation_check``."""
     import numpy as np
     import torch
-
-    from repro_torch import StitchOptions
 
     def fn(x, w, y):
         return torch.tanh(torch.exp(x) @ w) + y
 
     rng = np.random.RandomState(2)
     args = tuple(rng.randn(256, 256).astype(np.float32) * 0.1 for _ in range(3))
-    return fn, args, StitchOptions(max_blocks=FRONTEND_MAX_BLOCKS, fuse_dot=False, jit_replay=False)
+    return fn, args, ref_options(max_blocks=FRONTEND_MAX_BLOCKS, fuse_dot=False, jit_replay=False)
 
 
 def donation_check(dev):
@@ -2718,27 +2873,30 @@ def stitched_step_case():
     return loss_fn, params, batches
 
 
-def stitched_step(device, replay):
+def stitched_step(device, replay, spec=None):
+    """examples/train_stitched.py's step; ``spec`` None plans for the
+    device (the card's H100 there)."""
     from repro_torch.core import StitchOptions
     from repro_torch.train import AdamWConfig, make_stitched_train_step
 
     loss_fn, _, _ = stitched_step_case()
-    opts = StitchOptions(max_blocks=32, jit_replay=replay)
+    opts = StitchOptions(max_blocks=32, jit_replay=replay, device_spec=spec)
     return make_stitched_train_step(loss_fn, AdamWConfig(**STITCH_OPT), options=opts,
                                     device=device)
 
 
 def train_sources():
-    """The CUDA source (b) builds: the stitched step's plan, compiled here for
-    the CPU (the same text the card's compile emits)."""
+    """The CUDA source (b) builds: the stitched step's plan under the card's
+    spec, compiled here for the CPU (the same text the card's compile emits)."""
     import torch
 
+    from repro_torch.core.latency import H100
     from repro_torch.train import adamw_init
 
     _, params, batches = stitched_step_case()
     p = {k: torch.as_tensor(v) for k, v in params.items()}
     x, y = (torch.as_tensor(a) for a in batches[0])
-    return sources_of(stitched_step("cpu", False).lower(p, adamw_init(p), (x, y)).compile())
+    return sources_of(stitched_step("cpu", False, H100).lower(p, adamw_init(p), (x, y)).compile())
 
 
 def stitched_train(dev):
@@ -3907,21 +4065,192 @@ def overhead_module(rows, blocks, device):
     import numpy as np
 
     from repro_torch.core import StitchOptions, compile_module, trace
+    from repro_torch.core.latency import TPU_V5E
 
     module = trace(lambda b, x: b.exp(x), ("x", (rows, 256), np.float32))
-    return compile_module(module, StitchOptions(jit_replay=False, max_blocks=blocks),
-                          device=device)
+    return compile_module(module, StitchOptions(jit_replay=False, max_blocks=blocks,
+                                                device_spec=TPU_V5E), device=device)
 
 
 OVERHEAD_CASES = ((OVERHEAD_ROWS[0], 1), (OVERHEAD_ROWS[1], 1), (OVERHEAD_ROWS[1], OVERHEAD_BLOCKS))
 
 
+#: (c)'s block-count curve: one generated memory-bound kernel with a slot
+#: (x * rsqrt(mean(x * x)) over (CURVE_ROWS, CURVE_WIDTH) f32), so that each
+#: plan block runs on a CUDA block of its own, at each of these plan blocks
+CURVE_ROWS, CURVE_WIDTH = 8448, 256
+CURVE_BLOCKS = (1, 2, 4, 8, 16, 32, 64, 128, 132, 256, 264)
+#: (c)'s shared-memory rate: kernels over (CURVE_ROWS, VMEM_WIDTH) f32 in
+#: VMEM_BLOCKS plan blocks that keep 1 .. VMEM_STEPS[-1] chained slots, the
+#: same bytes in and out of global memory in each
+VMEM_BLOCKS, VMEM_WIDTH = 264, 64
+VMEM_STEPS = (1, 2, 3, 4, 5, 6, 7, 8)
+#: (c)'s grid barrier: one stitched kernel of an elementwise chain over
+#: PHASE_SHAPE cut into 1 .. PHASE_COUNTS[-1] phases, the same work in each
+PHASE_SHAPE = (528, 128)
+PHASE_CHAIN = 8
+PHASE_COUNTS = (1, 2, 3, 4, 5, 6, 7, 8)
+
+
+def forced_kernel(module, blocks, vmem_limit=None):
+    """The one fusion of ``module``'s plan emitted under a chosen schedule:
+    its root split into ``blocks`` plan blocks on dim 0, memory planned for
+    the H100 within ``vmem_limit`` (the spec's budget when None)."""
+    from repro_torch.core import StitchOptions, compile_module
+    from repro_torch.core.codegen import emit_fusion
+    from repro_torch.core.latency import H100
+    from repro_torch.core.memory import plan_memory
+    from repro_torch.core.pipeline import default_vmem_limit
+    from repro_torch.core.schedule import ROW, Sched, resolve_schedules
+
+    (fusion,) = compile_module(module, StitchOptions(device_spec=H100, jit_replay=False),
+                               device="cpu").executable.plan.fusions
+    roots = fusion.roots
+    sol = resolve_schedules(fusion.members, roots,
+                            {r.id: Sched("chunked", 0, blocks, ROW) for r in roots}, 512 * 1024)
+    limit = default_vmem_limit(H100) if vmem_limit is None else vmem_limit
+    return emit_fusion(fusion, sol, plan_memory(fusion.members, roots, sol, limit, H100))
+
+
+def curve_module():
+    import numpy as np
+
+    from repro_torch.core import trace
+
+    def f(b, x):
+        r = b.rsqrt(b.reduce(x * x, (1,)) * (1.0 / CURVE_WIDTH) + 1e-6)
+        return x * b.broadcast(r, x.shape, (0,))
+
+    return trace(f, ("x", (CURVE_ROWS, CURVE_WIDTH), np.float32), name="curve")
+
+
+def vmem_module(steps):
+    """a_1 = 1.5 x + 0.25, a_i = 1.5 a_(i-1) + 0.25, each read by a reduce
+    r_i and by the next step, and out = a_steps * (r_1 + ... + r_steps):
+    each a_i keeps a slot (a reduce reads it), and each step adds a loop
+    that reads a slot and writes one and a reduce that reads it again, and
+    no byte of global memory."""
+    import numpy as np
+
+    from repro_torch.core import trace
+
+    def f(b, x):
+        a, total = x, None
+        for _ in range(steps):
+            a = a * 1.5 + 0.25
+            r = b.reduce(a, (1,))
+            total = r if total is None else total + r
+        return a * b.broadcast(total, x.shape, (0,))
+
+    return trace(f, ("x", (CURVE_ROWS, VMEM_WIDTH), np.float32), name=f"vmem{steps}")
+
+
+def vmem_kernels():
+    """One generated kernel for each count of VMEM_STEPS, every a_i in a
+    slot of shared memory (none shrunk), and the bytes one step moves
+    through shared memory in all plan blocks (a slot read, a slot written,
+    the reduce's read)."""
+    from repro_torch.core.memory import ALLOC, SHARE
+
+    out = []
+    for n in VMEM_STEPS:
+        kernel = forced_kernel(vmem_module(n), VMEM_BLOCKS)
+        slots = [e for e in kernel.plan.entries.values() if e.action in (ALLOC, SHARE)]
+        if kernel.plan.shrunk or len([e for e in slots if e.nbytes > 4 * 64]) < n:
+            raise SystemExit(f"vmem kernel of {n} steps: shrunk {kernel.plan.shrunk}, "
+                             f"{len(slots)} slots")
+        out.append(kernel)
+    tile = (CURVE_ROWS // VMEM_BLOCKS) * VMEM_WIDTH * 4
+    return out, 3 * tile * VMEM_BLOCKS
+
+
+def phase_kernels():
+    """One stitched kernel per count in PHASE_COUNTS: the chain
+    x -> x * 1.5 + 0.25 (PHASE_CHAIN times) cut into that many phases."""
+    import numpy as np
+
+    from repro_torch.core import StitchOptions, compile_module, trace
+    from repro_torch.core.codegen import emit_stitched_fusion
+    from repro_torch.core.fusion import FusedComputation, constant_like
+    from repro_torch.core.latency import H100
+    from repro_torch.core.memory import plan_stitched_memory
+    from repro_torch.core.pipeline import default_vmem_limit
+    from repro_torch.core.schedule import (
+        ROW, PhaseSolution, Sched, StitchedSolution, resolve_schedules)
+
+    def f(b, x):
+        for _ in range(PHASE_CHAIN):
+            x = x * 1.5 + 0.25
+        return x
+
+    module = trace(f, ("x", PHASE_SHAPE, np.float32), name="phases")
+    (fusion,) = compile_module(module, StitchOptions(device_spec=H100, jit_replay=False),
+                               device="cpu").executable.plan.fusions
+    ops = [m for m in fusion.members if not constant_like(m)]
+    out = []
+    for n in PHASE_COUNTS:
+        cut = {m.id: k * n // len(ops) for k, m in enumerate(ops)}
+        phase_of = {}
+        for m in reversed(fusion.members):
+            phase_of[m.id] = cut.get(m.id, min((phase_of[u.id] for u in m.users
+                                                if u.id in phase_of), default=0))
+        phases = []
+        for k in range(n):
+            members = [m for m in fusion.members if phase_of[m.id] == k]
+            ids = {m.id for m in members}
+            roots = [m for m in members if not m.users or any(u.id not in ids for u in m.users)]
+            sol = resolve_schedules(members, roots,
+                                    {r.id: Sched("chunked", 0, 1, ROW) for r in roots}, 512 * 1024)
+            phases.append(PhaseSolution(members, roots, sol))
+        ifaces = [m for m in fusion.members
+                  if any(phase_of.get(u.id, -1) > phase_of[m.id] for u in m.users)]
+        st = StitchedSolution(phases, ifaces)
+        mem = plan_stitched_memory(st, default_vmem_limit(H100), H100)
+        out.append(emit_stitched_fusion(FusedComputation(list(fusion.members), name="phases"),
+                                        st, mem))
+    return out
+
+
+def overhead_sources():
+    """The sources of (c)'s kernels, built in phase 2 with the rest."""
+    from repro_torch.core.codegen import assemble_source
+
+    kernels = [forced_kernel(curve_module(), b) for b in CURVE_BLOCKS]
+    kernels += vmem_kernels()[0] + phase_kernels()
+    return ([overhead_module(rows, blocks, "cpu").cuda_source for rows, blocks in OVERHEAD_CASES]
+            + [assemble_source([k.fn]) for k in kernels])
+
+
+def kernel_device_us(label, kernel, args, dev):
+    """Device µs of one launch of a generated kernel (built and loaded)."""
+    from repro_torch.core import cuda_build
+    from repro_torch.core.codegen import assemble_source
+
+    lib, _ = cuda_build.load(assemble_source([kernel.fn]))
+    kernel.fn.load(lib)
+    _, by_name = profiled_launches(label, lambda p=kernel.fn, a=args: p.launch(*a, device=dev),
+                                   {kernel.fn.name: 1}, total=1)
+    return sum(t for k, t in by_name.items() if kernel.fn.name in k)
+
+
 def launch_overheads(dev):
-    """The H100 spec's launch and grid-step overheads from the port's own
-    generated kernels: the device time of exp over (8, 256) f32 in one plan
-    block, and of exp over (8448, 256) f32 in 1 and in OVERHEAD_BLOCKS plan
-    blocks (the same bytes; the difference over the added blocks)."""
+    """The H100 spec's measured constants from the port's own generated
+    kernels: the launch and grid-step overheads (exp over (8, 256) f32 in
+    one plan block, and over (8448, 256) f32 in 1 and in OVERHEAD_BLOCKS
+    plan blocks, the same bytes: the difference over the added blocks);
+    ``sm_count``; the block-count curve (the fraction of ``hbm_bw`` the
+    CURVE kernel reaches at each of CURVE_BLOCKS plan blocks, each on a
+    CUDA block of its own); ``vmem_bw`` (the bytes a step of
+    ``vmem_kernels`` moves through shared memory over the least-squares
+    slope of their device time over their steps); and
+    ``phase_loop_overhead_s`` (the least-squares slope of the stitched
+    chain's device time over its phase count: one grid barrier and one
+    staged interface of PHASE_SHAPE f32).  Each kernel is held against its
+    plain version at ``TOL``."""
+    import numpy as np
     import torch
+
+    from repro_torch.core.latency import H100
 
     out = {}
     for rows, blocks in OVERHEAD_CASES:
@@ -3937,6 +4266,54 @@ def launch_overheads(dev):
     many = [v for k, v in out.items() if k.startswith(f"{OVERHEAD_ROWS[1]}x") and v != few]
     out["launch_overhead_us"] = one
     out["grid_step_overhead_us"] = ((many[0] - few) / (OVERHEAD_BLOCKS - 1)) if many else None
+    out["sm_count"] = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def held(label, kernel, args):
+        got = kernel.fn.launch(*args, device=dev)
+        want = kernel.fn.plain(*args, device=dev)
+        for g, w in zip(got, want, strict=True):
+            e, ok = max_err(g, w, None)
+            if not ok:
+                raise SystemExit(f"{label}: kernel vs plain {e:.3e} (TOL {TOL})")
+
+    x = torch.rand(CURVE_ROWS, CURVE_WIDTH, device=dev) + 0.5
+    nbytes = 2 * x.numel() * 4
+    curve = []
+    for b in CURVE_BLOCKS:
+        kernel = forced_kernel(curve_module(), b)
+        us = kernel_device_us(f"curve {b} plan blocks", kernel, (x,), dev)
+        held(f"curve {b} plan blocks", kernel, (x,))
+        grid = int(geometry(kernel.fn.source)["grid"])
+        if grid != b:
+            raise SystemExit(f"curve: {b} plan blocks launched {grid} CUDA blocks")
+        curve.append({"blocks": b, "device_us": us, "fraction_of_hbm_bw":
+                      nbytes / (us * 1e-6) / H100.hbm_bw})
+    out["block_curve"] = curve
+
+    kernels, step_bytes = vmem_kernels()
+    xv = torch.rand(CURVE_ROWS, VMEM_WIDTH, device=dev)
+    tv = []
+    for n, kernel in zip(VMEM_STEPS, kernels, strict=True):
+        tv.append(kernel_device_us(f"vmem chain of {n} slots", kernel, (xv,), dev))
+        held(f"vmem chain of {n} slots", kernel, (xv,))
+    vslope = float(np.polyfit(np.asarray(VMEM_STEPS, float), np.asarray(tv), 1)[0])
+    out["vmem"] = {"steps": list(VMEM_STEPS), "device_us": tv, "bytes_a_step": step_bytes,
+                   "us_a_step": vslope,
+                   "vmem_bw": step_bytes / (vslope * 1e-6) if vslope > 0 else None}
+
+    xs = torch.rand(*PHASE_SHAPE, device=dev)
+    ts = []
+    for n, kernel in zip(PHASE_COUNTS, phase_kernels(), strict=True):
+        if kernel.num_phases != n:
+            raise SystemExit(f"phases: {kernel.num_phases} phases, built for {n}")
+        ts.append(kernel_device_us(f"stitched chain in {n} phases", kernel, (xs,), dev))
+        held(f"stitched chain in {n} phases", kernel, (xs,))
+    slope = float(np.polyfit(np.asarray(PHASE_COUNTS, float), np.asarray(ts), 1)[0])
+    out["phases"] = {"counts": list(PHASE_COUNTS), "device_us": ts,
+                     "phase_loop_overhead_us": slope}
+    print(f"H100 constants: sm_count {out['sm_count']}; block curve "
+          f"{[(c['blocks'], round(c['device_us'], 2), round(c['fraction_of_hbm_bw'], 4)) for c in curve]}; "
+          f"vmem {out['vmem']}; phases {ts} -> {slope:.4f} us a phase")
     return out
 
 
@@ -4142,6 +4519,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.core import StitchOptions, compile_module, cuda_build, reference_execute
     from repro_torch.core.codegen import REPLACES
+    from repro_torch.core.latency import H100
     from repro_torch.graphs import ALL_GRAPHS, LOOP_GRAPHS, random_feeds
     from repro_torch.kernels.cuda import SOURCES as HAND_SOURCES
 
@@ -4162,7 +4540,11 @@ def main(argv=None) -> int:
 
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
+    # the ten graphs under the reference's spec (the CPU's default) and
+    # under the card's (phase 3 runs both)
     sources = [compile_module(g(), device="cpu").cuda_source for g in ALL_GRAPHS.values()]
+    sources += [compile_module(g(), StitchOptions(device_spec=H100), device="cpu").cuda_source
+                for g in ALL_GRAPHS.values()]
     extra = [stitched_compile(name, opts, "cpu").cuda_source for _, name, opts, _ in STITCHED_COMPILES]
     extra += [dtype_compile(name, dt, opts, "cpu")[1].cuda_source
               for _, name, dt, opts, _, _ in DTYPE_COMPILES]
@@ -4174,7 +4556,9 @@ def main(argv=None) -> int:
     for g in ALL_GRAPHS.values():
         extra += sources_of(compile_module(g(), StitchOptions(planner="greedy"), device="cpu"))
         for planner in ("cost", "greedy"):
-            lint_opts = StitchOptions(max_blocks=LINT_MAX_BLOCKS, planner=planner)
+            # repro_torch.lint compiles for the card: the H100's plans
+            lint_opts = StitchOptions(max_blocks=LINT_MAX_BLOCKS, planner=planner,
+                                      device_spec=H100)
             extra += sources_of(compile_module(g(), lint_opts, device="cpu"))
     extra += [compile_module(build(), device="cpu").cuda_source for build in FAULT_MODULES.values()]
     # phase 12: the frontend's functions and the families' hand-built graphs
@@ -4182,12 +4566,13 @@ def main(argv=None) -> int:
     extra += frontend_sources(cases)
     # phase 15: the stitched train step's plan; phase 17: the overhead kernels
     extra += train_sources()
-    extra += [overhead_module(rows, blocks, "cpu").cuda_source for rows, blocks in OVERHEAD_CASES]
+    extra += overhead_sources()
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
     build_s = time.perf_counter() - t0
-    print(f"build: planned 10 graphs and {len(extra)} more compiles in {plan_s:.2f} s; "
+    print(f"build: planned 10 graphs under TPU_V5E and H100 and {len(extra)} more compiles in "
+          f"{plan_s:.2f} s; "
           f"nvcc built {len(logs)} libraries (the compiles' and {len(HAND_SOURCES)} "
           f"hand-written) in parallel in {build_s:.2f} s")
     ptxas = [line.split("ptxas info    :")[-1].strip()
@@ -4196,62 +4581,84 @@ def main(argv=None) -> int:
     for line in ptxas:
         print("  ptxas:", line)
     regs = ptxas_by_kernel(logs)
-    graphs = {}
+    graphs, h100_graphs = {}, {}
     for name, build in ALL_GRAPHS.items():
         module = build()
-        # the eager step loop: phase 3 counts each launch through its wrapper
-        compiled = compile_module(module, StitchOptions(jit_replay=False), device=dev)
+        # the eager step loop: phase 3 counts each launch through its wrapper,
+        # under the reference's spec (the reference's plans: 35 kernels) and
+        # under the default, the card's
+        compiled = compile_module(module, ref_options(jit_replay=False), device=dev)
         feeds = random_feeds(module, np.random.RandomState(0))
         dfeeds = {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
         graphs[name] = (module, compiled, feeds, dfeeds)
+        h100 = compile_module(module, StitchOptions(jit_replay=False), device=dev)
+        h100_graphs[name] = (module, h100, feeds, dfeeds)
+    by_spec = {"TPU_V5E": graphs, "H100": h100_graphs}
 
     # ---- 3. the main path, with launch counters ---------------------------------
-    programs = {}          # id -> (graph, program, kernel)
-    for name, (_, compiled, _, _) in graphs.items():
-        for k in compiled.kernels:
-            programs[id(k.fn)] = (name, k.fn, k)
-    for _, prog, _ in programs.values():
+    programs = {}          # id -> (graph, program, kernel, spec)
+    for spec, gs in by_spec.items():
+        for name, (_, compiled, _, _) in gs.items():
+            for k in compiled.kernels:
+                programs[id(k.fn)] = (name, k.fn, k, spec)
+    for _, prog, _, _ in programs.values():
         prog.launches = 0
     outputs = {name: compiled(dfeeds) for name, (_, compiled, _, dfeeds) in graphs.items()}
+    h100_outputs = {name: compiled(dfeeds) for name, (_, compiled, _, dfeeds) in h100_graphs.items()}
     torch.cuda.synchronize()
-    launches = {pid: prog.launches for pid, (_, prog, _) in programs.items()}
-    total_planned = 0
-    for name, (_, compiled, _, _) in graphs.items():
-        got = sum(launches[id(k.fn)] for k in compiled.kernels)
-        want = compiled.stats.stitched_kernels
-        total_planned += want
-        if got != want:
-            raise SystemExit(f"{name}: {got} kernel launches, planned {want}")
-    never = [prog.name for pid, (_, prog, _) in programs.items() if launches[pid] == 0]
+    launches = {pid: prog.launches for pid, (_, prog, _, _) in programs.items()}
+    planned_by_spec = {}
+    for spec, gs in by_spec.items():
+        planned_by_spec[spec] = 0
+        for name, (_, compiled, _, _) in gs.items():
+            got = sum(launches[id(k.fn)] for k in compiled.kernels)
+            want = compiled.stats.stitched_kernels
+            planned_by_spec[spec] += want
+            if got != want:
+                raise SystemExit(f"{name} [{spec}]: {got} kernel launches, planned {want}")
+    if planned_by_spec["TPU_V5E"] != REFERENCE_KERNELS:
+        raise SystemExit(f"the TPU_V5E plans launch {planned_by_spec['TPU_V5E']} kernels, the "
+                         f"reference's {REFERENCE_KERNELS}")
+    never = [prog.name for pid, (_, prog, _, _) in programs.items() if launches[pid] == 0]
     if never:
         raise SystemExit(f"kernels the main path never launched: {never}")
     print(f"main path: {sum(launches.values())} launches of {len(programs)} unique kernels "
-          f"= {total_planned} planned fused kernels")
+          f"= {planned_by_spec} planned fused kernels by spec")
 
     # ---- 4. right ---------------------------------------------------------------
-    for name, (module, compiled, feeds, dfeeds) in graphs.items():
-        want = reference_execute(module, dfeeds, device=dev)
-        for root, w in want.items():
-            g = outputs[name][root]
-            if g.device.type != "cuda" or tuple(g.shape) != tuple(w.shape):
-                raise SystemExit(f"{name}:{root}: {g.device} {tuple(g.shape)} vs {tuple(w.shape)}")
-            if not bool(torch.isfinite(g).all()):
-                raise SystemExit(f"{name}:{root}: non-finite output")
-            err, ok = max_err(g, w, degenerate_mask(name, root, feeds, tuple(g.shape)))
-            if not ok:
-                raise SystemExit(f"{name}:{root}: max |compiled - reference| {err:.3e} over tolerance")
+    # an H100 plan keeps every ALLOC/SHARE slot in shared memory
+    for name, (_, compiled, _, _) in h100_graphs.items():
+        kept = [k for k in launch_shapes(compiled) if k["slot_bytes_in_workspace"]
+                or (k["emitter"] == "emit_fusion" and k["workspace_bytes"])]
+        if kept:
+            raise SystemExit(f"{name} [H100]: slots in the workspace: {kept}")
+    for spec, outs in (("TPU_V5E", outputs), ("H100", h100_outputs)):
+        for name, (module, compiled, feeds, dfeeds) in graphs.items():
+            want = reference_execute(module, dfeeds, device=dev)
+            for root, w in want.items():
+                g = outs[name][root]
+                if g.device.type != "cuda" or tuple(g.shape) != tuple(w.shape):
+                    raise SystemExit(f"{name}:{root} [{spec}]: {g.device} {tuple(g.shape)} vs "
+                                     f"{tuple(w.shape)}")
+                if not bool(torch.isfinite(g).all()):
+                    raise SystemExit(f"{name}:{root} [{spec}]: non-finite output")
+                err, ok = max_err(g, w, degenerate_mask(name, root, feeds, tuple(g.shape)))
+                if not ok:
+                    raise SystemExit(f"{name}:{root} [{spec}]: max |compiled - reference| "
+                                     f"{err:.3e} over tolerance")
     captured = {}
-    for pid, (_, prog, _) in programs.items():
+    for pid, (_, prog, _, _) in programs.items():
         def record(*a, device, _pid=pid, _launch=prog.launch):
             captured.setdefault(_pid, [t.clone() for t in a])
             return _launch(*a, device=device)
         prog.launch = record
-    for name, (_, compiled, _, dfeeds) in graphs.items():
-        compiled(dfeeds)
-    for _, prog, _ in programs.values():
+    for gs in by_spec.values():
+        for name, (_, compiled, _, dfeeds) in gs.items():
+            compiled(dfeeds)
+    for _, prog, _, _ in programs.values():
         del prog.launch
     rows, timed = [], []
-    for pid, (gname, prog, kernel) in programs.items():
+    for pid, (gname, prog, kernel, spec) in programs.items():
         a = captured[pid]
         got = prog.launch(*a, device=dev)
         want = prog.plain(*a, device=dev)
@@ -4266,14 +4673,15 @@ def main(argv=None) -> int:
             raise SystemExit(f"{gname}:{kernel.fusion.name} {prog.name}: kernel vs plain {err:.3e}")
         nbytes, ops = work(kernel)
         rows.append({
-            "graph": gname, "fusion": kernel.fusion.name, "kernel": prog.name,
+            "graph": gname, "spec": spec, "fusion": kernel.fusion.name, "kernel": prog.name,
             "emitter": prog.emitter, "blocks": kernel.blocks, "phases": kernel.num_phases,
             "members": len(kernel.fusion.members), "launches": launches[pid], "max_abs_err": err, "bytes": nbytes, "ops": ops,
         })
         timed.append((prog, a))
-    print(f"right: 10 graphs vs reference_execute and {len(rows)} kernels vs their plain "
-          f"versions on the card, within rtol=atol={TOL} ({DEGENERATE_TOL} on Speech's "
-          "degenerate columns)")
+    print(f"right: 10 graphs under TPU_V5E and H100 vs reference_execute and {len(rows)} "
+          f"kernels vs their plain versions on the card, within rtol=atol={TOL} "
+          f"({DEGENERATE_TOL} on Speech's degenerate columns); no H100 plan keeps a slot in "
+          "the workspace")
     stitched_rows = []
     rng = np.random.RandomState(1)
     for label, name, opts, blocks in STITCHED_COMPILES:
@@ -4362,7 +4770,7 @@ def main(argv=None) -> int:
     # ---- 5. numbers -------------------------------------------------------------
     for row, (prog, a) in zip(rows, timed, strict=True):
         row["us"] = 1e3 * time_ms(lambda p=prog, a=a: p.launch(*a, device=dev), CALLS)
-        _, by_name = profiled_launches(f"kernel {row['graph']}:{row['fusion']}",
+        _, by_name = profiled_launches(f"kernel {row['graph']}:{row['fusion']} [{row['spec']}]",
                                        lambda p=prog, a=a: p.launch(*a, device=dev),
                                        {prog.name: 1}, total=1)
         row["device_us"] = sum(t for k, t in by_name.items() if prog.name in k)
@@ -4373,35 +4781,42 @@ def main(argv=None) -> int:
         row["bound_by"] = "bytes" if b_us >= o_us else "operations"
         if row["emitter"] == "emit_fusion":
             row.update(geometry(prog.source), **regs.get(prog.name, {}))
-            print(f"  {row['graph']}:{row['fusion']} {prog.name}: {row['members']} members, "
+            print(f"  {row['graph']}:{row['fusion']} [{row['spec']}] {prog.name}: "
+                  f"{row['members']} members, "
                   f"{row['blocks']} plan blocks, grid {row['grid']} x {row['threads']} threads, "
                   f"{row['smem_bytes']} bytes of shared memory, "
                   f"registers {row.get('registers', 'not built here')}, spill stores "
                   f"{row.get('spill_stores', '-')} loads {row.get('spill_loads', '-')}")
         print(
-            f"kernel {row['graph']}:{row['fusion']} {row['emitter']} {row['kernel']} "
+            f"kernel {row['graph']}:{row['fusion']} [{row['spec']}] {row['emitter']} {row['kernel']} "
             f"blocks={row['blocks']} launches/call={row['launches']} "
             f"us={row['us']:.2f} device_us={row['device_us'] or 'not measured'} "
             f"plain_us={row['plain_us']:.2f} "
             f"bound_us={row['bound_us']:.4f} ({row['bound_by']}) err={row['max_abs_err']:.2e}"
         )
-    per_graph = []
-    for name, (module, compiled, _, dfeeds) in graphs.items():
+    per_graph, unfused = [], {}
+    for spec, name in [(sp, n) for sp in by_spec for n in ALL_GRAPHS]:
+        module, compiled, _, dfeeds = by_spec[spec][name]
         st = compiled.stats
         us = 1e3 * time_ms(lambda c=compiled, f=dfeeds: c(f), CALLS)
-        ref_us = 1e3 * time_ms(lambda m=module, f=dfeeds: reference_execute(m, f, device=dev), CALLS)
         planned = st.stitched_kernels + st.standalone_kernels + st.library_calls
-        seen, by_name = profiled_launches(f"graph {name}", lambda c=compiled, f=dfeeds: c(f),
+        seen, by_name = profiled_launches(f"graph {name} [{spec}]",
+                                          lambda c=compiled, f=dfeeds: c(f),
                                           planned_by_program(compiled))
         device_us = sum(by_name.values())
         idle = 1.0 - device_us / us if device_us else None
-        # the unfused path's device time: every device kernel its torch ops run
-        ref_seen, ref_by_name = device_profile(
-            lambda m=module, f=dfeeds: reference_execute(m, f, device=dev), PROFILED_CALLS,
-            f"unfused {name}")
-        ref_device_us = sum(ref_by_name.values()) or None
+        if name not in unfused:
+            # the unfused path's device time: every device kernel its torch ops
+            # run (one module, the same under both specs)
+            ref_us = 1e3 * time_ms(lambda m=module, f=dfeeds: reference_execute(m, f, device=dev),
+                                   CALLS)
+            ref_seen, ref_by_name = device_profile(
+                lambda m=module, f=dfeeds: reference_execute(m, f, device=dev), PROFILED_CALLS,
+                f"unfused {name}")
+            unfused[name] = (ref_us, ref_seen, sum(ref_by_name.values()) or None)
+        ref_us, ref_seen, ref_device_us = unfused[name]
         per_graph.append({
-            "graph": name, "us_per_call": us, "reference_us_per_call": ref_us,
+            "graph": name, "spec": spec, "us_per_call": us, "reference_us_per_call": ref_us,
             "fused_kernels": st.stitched_kernels, "standalone": st.standalone_kernels,
             "library_dots": st.library_calls, "unique_kernels": st.unique_kernels,
             "xla_baseline_kernels": st.xla_baseline_kernels, "planned_launches": planned,
@@ -4410,7 +4825,7 @@ def main(argv=None) -> int:
             "reference_device_us_per_call": ref_device_us,
         })
         print(
-            f"graph {name}: us_per_call={us:.1f} reference_us_per_call={ref_us:.1f} "
+            f"graph {name} [{spec}]: us_per_call={us:.1f} reference_us_per_call={ref_us:.1f} "
             f"fused={st.stitched_kernels} standalone={st.standalone_kernels} "
             f"library={st.library_calls} planned_launches={planned} "
             f"profiler_device_kernels={seen if seen else 'none seen'} "
@@ -4419,6 +4834,16 @@ def main(argv=None) -> int:
             f"reference_device_kernels={ref_seen if ref_seen else 'none seen'} "
             f"reference_device_us_per_call={ref_device_us or 'not measured'}"
         )
+    passes = {spec: sum(g["device_us_per_call"] for g in per_graph if g["spec"] == spec)
+              for spec in by_spec}
+    print(f"the ten graphs' pass, device us per call: {passes}")
+    for g in per_graph:
+        if g["spec"] == "H100":
+            t = next(x for x in per_graph if x["spec"] == "TPU_V5E" and x["graph"] == g["graph"])
+            g["over_tpu_v5e"] = g["device_us_per_call"] / t["device_us_per_call"]
+            if g["over_tpu_v5e"] > 1.05:
+                print(f"graph {g['graph']}: the H100 plan takes {g['over_tpu_v5e']:.3f}x the "
+                      "TPU_V5E plan's device time")
 
     entries = []
     for emitter in ("emit_fusion", "emit_stitched_fusion"):
@@ -4443,11 +4868,19 @@ def main(argv=None) -> int:
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": None,
             "unique_kernels": len(mine), "tolerance": TOL,
+            # one pass of the ten graphs under each spec: launches, event ms
+            # and device ms of this emitter's kernels
+            "by_spec": {spec: {
+                "launches": sum(r["launches"] for r in mine if r["spec"] == spec),
+                "ms": sum(r["us"] * r["launches"] for r in mine if r["spec"] == spec) / 1e3,
+                "device_ms": sum(r["device_us"] * r["launches"] for r in mine
+                                 if r["spec"] == spec) / 1e3,
+            } for spec in by_spec},
         })
         if emitter == "emit_stitched_fusion":
             # the same graphs unfused (reference_execute), device time per pass
             ref_us = [g["reference_device_us_per_call"] for g in per_graph
-                      if g["graph"] in {r["graph"] for r in mine}]
+                      if g["spec"] == "TPU_V5E" and g["graph"] in {r["graph"] for r in mine}]
             entries[-1]["unfused_device_ms"] = sum(ref_us) / 1e3 if all(ref_us) else None
 
     # ---- 6. kernels ---------------------------------------------------------------
@@ -4466,6 +4899,7 @@ def main(argv=None) -> int:
 
     # ---- 12. the frontend ---------------------------------------------------------
     frontend_rows, frontend_launches = frontend_phase(dev, cases)
+    model_rows = model_width_numbers(dev, frontend_rows)
     for entry in entries:
         # the hand-written kernels are not on the frontend's path: 0
         entry["frontend_launches"] = frontend_launches.get(entry["name"], 0)
@@ -4511,7 +4945,8 @@ def main(argv=None) -> int:
                        "stitched_compiles": stitched_rows, "extra_compiles": extra_rows,
                        "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
                        "autotune": autotune_rows, "fault_modules": fault_rows,
-                       "frontend": frontend_rows, "models": models_row, "serve": serve_row,
+                       "frontend": frontend_rows, "model_width": model_rows,
+                       "models": models_row, "serve": serve_row,
                        "train": train_row, "sharded": sharded_row,
                        "sharded_train": sp_row, "launch": launch_row,
                        "profile_retakes": RETAKES, "profile_edge_losses": EDGE_LOSSES},
@@ -4521,6 +4956,7 @@ def main(argv=None) -> int:
     lost = ", ".join(f"{e['label']} {e['pads']}" for e in EDGE_LOSSES)
     print(f"profiles kept whose sessions lost pads at an edge: {len(EDGE_LOSSES)} ({lost or 'none'})")
     print(f"card: {smi}")
+    print(json.dumps({"model_width": model_rows}))
     print(json.dumps({"models": models_row}))
     print(json.dumps({"serve": serve_row}))
     print(json.dumps({"train": train_row}))

@@ -23,8 +23,14 @@ the replay), and unfused through ``reference_execute``
 (``unfused:GRAPH``), and the generated kernel of ``repro_torch.stitch``
 over ``F.silu(a) * b`` (qwen2.5-14b's MLP activation: 512 tokens by 3456
 columns, one of four ranks, and by 13824, unsharded) in bf16 and f32
-(``silu_mul:DTYPE:COLS``).  The kernels' inputs are recorded in the eager
-compile, so no copy of them is captured into a graph.  A run also gives
+(``silu_mul:DTYPE:COLS``), and of ``chip_smoke.model_width_cases``' four
+functions at granite-moe-3b-a800m's width over 512 tokens
+(``model:NAME``: rmsnorm, layer_stats, gated_mlp, the Figure-3 attention),
+each through ``repro_torch.stitch`` under the checkout's default options,
+so the parent's plan against the change's; each run gives their plan
+blocks and CUDA blocks a kernel and holds their outputs against the plain
+function at ``chip_smoke.TOL`` (failing past it).  The kernels' inputs are
+recorded in the eager compile, so no copy of them is captured into a graph.  A run also gives
 each silu x mul kernel's grid, threads and workspace bytes, and a SHA-256
 of its output; the last line says whether every run's digest equals the
 first run's (the outputs bit for bit across checkouts), and gives each
@@ -53,7 +59,7 @@ def measure(root):
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import GRANITE   # puts this checkout's src on the path: root's goes first
+    from chip_smoke import GRANITE, TOL, model_width_cases  # root's src goes first
 
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch import stitch
@@ -147,6 +153,26 @@ def measure(root):
                                                   .tobytes()).hexdigest()}
             calls[key] = (lambda p=k.fn, xs=seen[0]: p.launch(*xs, device=dev), (k.fn.name,))
 
+    # the four granite-width functions under the checkout's default plan
+    model = {}
+    for name, fn, args, _, _ in model_width_cases():
+        dargs = [torch.as_tensor(a, device=dev) for a in args]
+        st = stitch(fn, options=eager_opts, device=dev)
+        out = st(*dargs)
+        plain = fn(*dargs)
+        torch.cuda.synchronize()
+        err = float((out.double() - plain.double()).abs().max())
+        if not bool(torch.isclose(out.double(), plain.double(), rtol=TOL, atol=TOL).all()):
+            raise SystemExit(f"kernel_ab: model:{name} vs the plain function {err:.3e} (TOL {TOL})")
+        shapes = []
+        for k in st._last.compiled.kernels:
+            head = re.search(r"(\d+) plan blocks(?: in all)?, (?:one launch of|one cooperative "
+                             r"launch of up to) (\d+) blocks", k.fn.source)
+            shapes.append({"fusion": k.fusion.name, "plan_blocks": int(head[1]),
+                           "cuda_blocks": int(head[2]), "workspace_bytes": k.fn.workspace_bytes})
+        model[f"model:{name}"] = {"max_abs_err": err, "kernels": shapes}
+        calls[f"model:{name}"] = (lambda s=st, a=dargs: s(*a), None)
+
     g, bf16, f32 = GRANITE, torch.bfloat16, torch.float32
     x, gamma = randn((8, 512, g["d_model"]), bf16), randn((g["d_model"],), bf16)
     logits = randn((16, g["vocab"]), f32)
@@ -165,7 +191,7 @@ def measure(root):
         "stitched_moe_gate": (lambda: ops.moe_gate(gl, g["top_k"]), ("sx_moe_gate",)),
     })
     return {"device_us": {name: device_us(fn, names) for name, (fn, names) in calls.items()},
-            "silu_mul": silu}
+            "silu_mul": silu, "model_width": model}
 
 
 def main(argv=None) -> int:
@@ -203,7 +229,7 @@ def main(argv=None) -> int:
                 raise SystemExit(f"kernel_ab: the run in {d} failed with exit {proc.returncode}")
             got = json.loads(proc.stdout.strip().splitlines()[-1])
             run = {"round": r, "checkout": d, "clocks": clocks, "device_us": got["device_us"],
-                   "silu_mul": got["silu_mul"]}
+                   "silu_mul": got["silu_mul"], "model_width": got["model_width"]}
             runs.append(run)
             print(json.dumps(run))
     medians = {}
@@ -214,12 +240,13 @@ def main(argv=None) -> int:
     first = runs[0]["silu_mul"]
     same = {k: all(run["silu_mul"][k]["sha256"] == v["sha256"] for run in runs) for k, v in first.items()}
     launches = {d: next(run["silu_mul"] for run in runs if run["checkout"] == d) for d in args.dirs}
+    plans = {d: next(run["model_width"] for run in runs if run["checkout"] == d) for d in args.dirs}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "runs": runs, "medians": medians, "silu_mul_launches": launches,
-                       "silu_mul_outputs_equal": same}, f, indent=1)
+                       "silu_mul_outputs_equal": same, "model_width_plans": plans}, f, indent=1)
     print(json.dumps({"card": card, "medians": medians, "silu_mul_launches": launches,
-                      "silu_mul_outputs_equal": same}))
+                      "silu_mul_outputs_equal": same, "model_width_plans": plans}))
     return 0
 
 

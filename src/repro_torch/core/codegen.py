@@ -100,7 +100,7 @@ from .ir import (
     iota,
     torch_dtype,
 )
-from .memory import ALLOC, SHARE, MemoryPlan, StitchedMemoryPlan
+from .memory import ALLOC, SHARE, SLOT_ALIGN, MemoryPlan, StitchedMemoryPlan
 from .schedule import (
     REPLICATED,
     Sched,
@@ -126,7 +126,7 @@ STITCHED_ELEMS_PER_THREAD = 16
 SMEM_LIMIT = 232_448
 STATIC_SMEM_LIMIT = 48 * 1024
 GRID_CACHE_DEVICES = 16   # devices whose cooperative grid a launcher caches
-_ALIGN = 16
+_ALIGN = SLOT_ALIGN
 
 
 def _prod(xs: Sequence[int]) -> int:
@@ -918,13 +918,51 @@ def fusion_threads(fusion: FusedComputation, solution: ScheduleSolution, plan: M
     member that writes a slot or an output; a member held in a register
     writes neither) at most
     ``STITCHED_ELEMS_PER_THREAD`` elements, or a reduce's terms, a thread,
-    and give every reduce output a warp."""
-    roots = {r.id for r in fusion.roots}
-    tiles = _tile_slots(fusion.members, plan,
-                        held_in_registers(fusion.members, solution.assignment, plan, roots))
+    and give every reduce output a warp (``fusion_launch``)."""
+    return fusion_launch(fusion.members, fusion.roots, solution, plan)[1]
+
+
+def _map_loop_grid(m: Instruction, sched: Sched, blocks: int, threads: int) -> int:
+    """Blocks a pure map's loop over ``m`` keeps busy (``_Phase._loop_head``,
+    ``reduce_loop``, ``dot_loop`` with no slot base): its elements, a
+    warp per reduce output, or a thread per dot register tile, over every
+    plan block, ``threads`` a block."""
+    reps = blocks if sched.kind == "chunked" else 1
+    out_chunk = chunk_shape(m.shape, sched)
+    if m.opcode == "reduce":
+        return -(-_prod(out_chunk) * reps * 32 // threads)
+    if m.opcode == "dot":
+        rows, cols = out_chunk[-2], out_chunk[-1]
+        rm = next(r for r in (4, 2, 1) if rows % r == 0)
+        rn = next(r for r in (4, 2, 1) if cols % r == 0)
+        return -(-_prod(out_chunk) // (rm * rn) * reps // threads)
+    return -(-_prod(out_chunk) * reps // threads)
+
+
+def _stored_tiles(members: Sequence[Instruction], solution: ScheduleSolution, plan, written):
+    """The members of a phase that write a slot (``_tile_slots`` after
+    ``held_in_registers``); without a memory plan, each reduce or dot read
+    inside the phase, the buffers ``memory.plan_memory`` always requires."""
+    if plan is not None:
+        return _tile_slots(members, plan,
+                           held_in_registers(members, solution.assignment, plan, written))
+    ids = {m.id for m in members}
+    return {m.id: 0 for m in members
+            if m.opcode in ("reduce", "dot") and any(u.id in ids for u in m.users)}
+
+
+def fusion_launch(members: Sequence[Instruction], roots: Sequence[Instruction],
+                  solution: ScheduleSolution, plan: Optional[MemoryPlan] = None) -> Tuple[int, int]:
+    """(CUDA blocks, threads a block) of the launch ``emit_fusion`` makes for
+    this plan: plan blocks x independent member groups where a member keeps
+    a slot, else the pure map's grid.  The planner's GPU model reads it
+    (``latency.launch_grid``)."""
+    fusion = FusedComputation(list(members), name="launch")
+    root_ids = {r.id for r in roots}
+    tiles = _stored_tiles(fusion.members, solution, plan, root_ids)
     want = 1
     for m in fusion.members:
-        if m.opcode == "constant" or not (m.id in roots or m.id in tiles):
+        if m.opcode == "constant" or not (m.id in root_ids or m.id in tiles):
             continue
         sched = solution.assignment[m.id]
         n = _prod(chunk_shape(m.shape, sched))
@@ -934,7 +972,41 @@ def fusion_threads(fusion: FusedComputation, solution: ScheduleSolution, plan: M
             want = max(want, 32 * n, -(-terms // STITCHED_ELEMS_PER_THREAD))
         else:
             want = max(want, -(-n // STITCHED_ELEMS_PER_THREAD))
-    return _threads_for(want)
+    threads = _threads_for(want)
+    blocks = max(1, solution.blocks)
+    stored = {m.id for m in fusion.members
+              if m.opcode != "constant" and (m.id in root_ids or m.id in tiles)}
+    if tiles:
+        groups = [g for g in _independent_groups(fusion) if stored & set(g)]
+        return blocks * max(1, len(groups)), threads
+    grid = max((_map_loop_grid(m, solution.assignment[m.id], blocks, threads)
+                for m in fusion.members if m.id in stored), default=1)
+    return max(1, grid), threads
+
+
+def stitched_launch(stitched: StitchedSolution,
+                    plan: Optional[StitchedMemoryPlan] = None) -> Tuple[Tuple[int, ...], int]:
+    """(each phase's CUDA blocks, threads a block) in
+    ``emit_stitched_fusion``'s cooperative launch: a phase's plan blocks
+    where a member keeps a slot, else its pure map's grid, at
+    ``stitched_threads`` a block (512 without a plan)."""
+    group_ids = {m.id for p in stitched.phases for m in p.members}
+    staged = {i.id for i in stitched.interfaces}
+    threads = stitched_threads(plan) if plan is not None else STITCHED_MAX_THREADS
+    out = []
+    for k, p in enumerate(stitched.phases):
+        written = {m.id for m in p.members
+                   if m.id in staged or not m.users or any(u.id not in group_ids for u in m.users)}
+        pplan = plan.phase_plans[k] if plan is not None else None
+        tiles = _stored_tiles(p.members, p.solution, pplan, written)
+        blocks = max(1, p.solution.blocks)
+        if tiles:
+            out.append(blocks)
+            continue
+        out.append(max(1, max((_map_loop_grid(m, p.solution.assignment[m.id], blocks, threads)
+                               for m in p.members if m.id in written and m.opcode != "constant"),
+                              default=1)))
+    return tuple(out), threads
 
 
 def _lin(idx, shape) -> str:

@@ -7,6 +7,13 @@ CPU: ``device=None`` means ``"cuda"``, a missing card raises, and
 ``device="cpu"`` runs every kernel's plain version.  With ``mesh=`` it is a
 sharded compile: the module is the per-shard body every rank of a
 ``torch.distributed`` world runs (``core/executor.py``).
+
+The planner plans for the device the compile targets (``resolve_options``):
+on the card the ``H100`` spec, and a slot budget of one block's shared
+memory less the reduce partials of the largest block, so every ALLOC/SHARE
+slot of an admitted plan lives in shared memory; on the CPU the
+reference's ``TPU_V5E`` and 4 MiB, so the CPU's plans are the reference's.
+``StitchOptions.device_spec`` and ``vmem_limit`` override either.
 """
 from __future__ import annotations
 
@@ -22,9 +29,10 @@ from .codegen import StitchedKernel
 from .device import resolve_device
 from .executor import StitchedExecutable
 from .fusion import FusionPlan, constant_like
+from .latency import DeviceSpec, LatencyModel
 from .measure import MeasuredCostStore, device_fingerprint
 from .perf_library import PerfLibrary
-from .pipeline import CompilationState, default_pipeline
+from .pipeline import CompilationState, default_pipeline, resolve_options
 from .schedule import REPLICATED
 from .shard import mesh_axes_of
 from .signature import KernelCache
@@ -37,7 +45,10 @@ class StitchOptions:
     takes its place."""
 
     fuse_dot: bool = True                    # user decision (paper §2.1)
-    vmem_limit: int = 4 * 1024 * 1024        # scratch budget per kernel
+    # the device the planner scores for and its scratch budget per kernel;
+    # None: the compile's device decides (``resolve_options``)
+    device_spec: Optional[DeviceSpec] = None
+    vmem_limit: Optional[int] = None
     replicate_limit: int = 512 * 1024
     max_blocks: int = 4096
     ew_footprint_limit: int = 64 * 1024 * 1024
@@ -99,7 +110,7 @@ class StitchOptions:
                      "ew_footprint_limit", "max_fusion_ops",
                      "stitch_max_blocks"):
             v = getattr(self, name)
-            if v < 0:
+            if v is not None and v < 0:
                 raise ValueError(f"{name} must be >= 0, got {v}")
         if self.stitch_replicate_limit is not None and self.stitch_replicate_limit < 0:
             raise ValueError(
@@ -198,7 +209,7 @@ class CompileStats:
     # (compute fused on both sides of the break); and how many
     # instructions carry a non-trivial shard layout
     collective_calls: int = 0
-    collective_time_s: float = 0.0
+    collective_time_s: Optional[float] = 0.0   # None: the spec has no link numbers
     collective_breaks_spanned: int = 0
     sharded_instrs: int = 0
     # pass-boundary verification (core/verify.py)
@@ -328,12 +339,16 @@ def build_outputs(state: CompilationState) -> None:
             continue   # a projection of a loop output: no launch, no cost
         if s.is_collective:
             # wire traffic, not a launch: charged by the ring model and
-            # reported apart from kernel and library time
+            # reported apart from kernel and library time; None ("not
+            # measured") where the spec has no link numbers
+            collective_calls += 1
+            if not lib.model.prices_collectives:
+                collective_time = None
+                continue
             g = 1
             for a in s.attrs.get("axes", ()):
                 g *= mesh_sizes.get(a, 1)
             collective_time += lib.model.collective_op_time(s, g)
-            collective_calls += 1
             continue
         if s.opcode == "call":
             # a loop costs its body's predicted time per iteration
@@ -497,8 +512,8 @@ def compile_module(
     equal ``options.mesh_axes``, the hashable half that salts every cache
     key; options without ``mesh_axes`` take the mesh's.
     """
-    opts = options or StitchOptions()
     dev = resolve_device(device)
+    opts = resolve_options(options or StitchOptions(), dev)
     donate = frozenset(donate_params) if donate_params else None
     unknown = sorted((donate or frozenset()) - {p.name for p in module.parameters})
     if unknown:
@@ -517,7 +532,7 @@ def compile_module(
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    library = PerfLibrary(opts.perf_library_path)
+    library = PerfLibrary(opts.perf_library_path, model=LatencyModel(opts.device_spec))
     store = measured_store
     if store is None and (opts.autotune or opts.tuning_store_path):
         store = MeasuredCostStore(

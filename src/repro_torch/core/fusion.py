@@ -49,7 +49,9 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 from .ir import Instruction, Module
 from .latency import LatencyModel
 from .memory import MemoryInfeasible, plan_memory, plan_stitched_memory
+from .perf_library import PerfLibrary
 from .schedule import CONSISTENT, STITCHABLE, StitchVerdict, stitchable
+from .tuning import tune_kernel, tune_phases
 from . import span as span_lib
 
 # Opcodes that may live inside a fused computation.  Collectives
@@ -263,6 +265,13 @@ class FusionScorer:
     prior.  Feasibility itself NEVER consults measurements — an infeasible
     group stays None no matter what the store claims — so a warm store can
     flip plan *choices* but never plan *validity*.
+
+    On a GPU (``model.spec.is_gpu``) a group is scored as the kernel the
+    pipeline would build from it: the tuned schedule whose memory plan fits
+    ``vmem_limit`` (``tuning.tune_kernel``; stitched phases tuned as
+    ``SchedulePass`` tunes them), since the schedule decides the grid and
+    so the share of the card the kernel fills.  A group none of whose
+    schedules fits is infeasible.
     """
 
     def __init__(
@@ -293,6 +302,8 @@ class FusionScorer:
             vmem_limit if stitch_replicate_limit is None else stitch_replicate_limit
         )
         self.stitch_max_blocks = stitch_max_blocks
+        self.spec = self.model.spec
+        self._lib = PerfLibrary(model=self.model)   # the GPU scorer's tuner
         self._memo: Dict[frozenset, Optional[float]] = {}
         self._verdicts: Dict[frozenset, StitchVerdict] = {}
 
@@ -343,9 +354,11 @@ class FusionScorer:
             return self._maybe_measured(fusion, self.standalone_cost(members[0]))
         roots = fusion.roots
         v = self.verdict(members)
+        if self.spec.is_gpu:
+            return self._gpu_cost(fusion, members, roots, v)
         if v.verdict == CONSISTENT:
             try:
-                plan_memory(members, roots, v.solution, self.vmem_limit)
+                plan_memory(members, roots, v.solution, self.vmem_limit, self.spec)
             except MemoryInfeasible:
                 return None
             return self._maybe_measured(
@@ -353,7 +366,7 @@ class FusionScorer:
             )
         if v.verdict == STITCHABLE:
             try:
-                plan_stitched_memory(v.stitched, self.vmem_limit)
+                plan_stitched_memory(v.stitched, self.vmem_limit, self.spec)
             except MemoryInfeasible:
                 return None
             # Sign the candidate with the phase structure it would lower
@@ -362,6 +375,28 @@ class FusionScorer:
             return self._maybe_measured(
                 fusion, self.model.stitched_fusion_time(v.stitched)
             )
+        return None
+
+    def _gpu_cost(self, fusion, members, roots, v) -> Optional[float]:
+        lib = self._lib
+        if v.verdict == CONSISTENT:
+            found = tune_kernel(members, roots, lib, self.max_blocks,
+                                self.replicate_limit, self.vmem_limit)
+            if found is None:
+                return None
+            tuned, mem = found
+            return self._maybe_measured(
+                fusion, self.model.fusion_time(members, roots, tuned.solution, mem)
+            )
+        if v.verdict == STITCHABLE:
+            st = tune_phases(v.stitched, lib, min(self.max_blocks, self.stitch_max_blocks),
+                             self.replicate_limit, self.vmem_limit)
+            try:
+                mem = plan_stitched_memory(st, self.vmem_limit, self.spec)
+            except MemoryInfeasible:
+                return None
+            fusion.stitch_phases = st.phase_sizes
+            return self._maybe_measured(fusion, self.model.stitched_fusion_time(st, mem))
         return None
 
     def _maybe_measured(
@@ -948,12 +983,14 @@ def deep_fuse(module: Module, cfg: Optional[FusionConfig] = None) -> FusionPlan:
         1 for f in plan.fusions if f.stitch_phases is not None
     )
     if scorer is not None:
+        # a collective is priced only where the spec holds link numbers
+        # (never on one card); it decides no plan either way
         shared_cost = sum(
             scorer.standalone_cost(s) for s in shared_standalone
         ) + sum(
             scorer.standalone_cost(s)
             for s in plan.standalone
-            if s.is_collective
+            if s.is_collective and scorer.model.prices_collectives
         )
         stats.predicted_s = shared_cost + sum(
             f.modeled_cost_s

@@ -42,7 +42,7 @@ from .codegen import StitchedKernel, assemble_source, emit_fusion, emit_stitched
 from .device import resolve_device
 from .fusion import FusedComputation
 from .ir import Instruction, torch_dtype
-from .latency import TPU_V5E, DeviceSpec
+from .latency import H100, TPU_V5E, DeviceSpec, LatencyModel
 from .memory import MemoryInfeasible, plan_memory, plan_stitched_memory
 from .perf_library import JsonStore, PerfLibrary
 from .schedule import resolve_stitched
@@ -234,7 +234,7 @@ def emit_group(
     members: List[Instruction],
     library: Optional[PerfLibrary] = None,
     *,
-    vmem_limit: int = 4 * 1024 * 1024,
+    vmem_limit: Optional[int] = None,
     replicate_limit: int = 512 * 1024,
     max_blocks: int = 4096,
     stitch_replicate_limit: Optional[int] = None,
@@ -246,21 +246,34 @@ def emit_group(
     multi-phase stitched lowering where no single schedule exists; on the
     card (the default; ``device="cpu"`` asks for the plain version) the
     kernel is built and loaded.  None where the group has no feasible
-    lowering under the limits (the sets the scorer refuses)."""
+    lowering under the limits (the sets the scorer refuses).  It plans for
+    ``library``'s spec, by default the device's (``H100`` on the card,
+    ``TPU_V5E`` on the CPU), within ``vmem_limit``, by default the spec's
+    (``pipeline.default_vmem_limit``)."""
+    from .pipeline import (  # pipeline imports this module
+        default_stitch_replicate_limit,
+        default_vmem_limit,
+    )
+
     device = resolve_device(device)
-    lib = library or PerfLibrary()
+    lib = library or PerfLibrary(model=LatencyModel(H100 if device.type == "cuda" else TPU_V5E))
+    spec = lib.model.spec
+    if vmem_limit is None:
+        vmem_limit = default_vmem_limit(spec)
     fusion = FusedComputation(list(members), name="measured")
     roots = fusion.roots
     kernel = None
-    tuned = tune(members, roots, lib, max_blocks=max_blocks, replicate_limit=replicate_limit)
+    tuned = tune(members, roots, lib, max_blocks=max_blocks, replicate_limit=replicate_limit,
+                 vmem_limit=vmem_limit)
     if tuned is not None:
         try:
-            mem = plan_memory(members, roots, tuned.solution, vmem_limit)
+            mem = plan_memory(members, roots, tuned.solution, vmem_limit, spec)
         except MemoryInfeasible:
             return None
         kernel = emit_fusion(fusion, tuned.solution, mem)
     else:
-        srl = vmem_limit if stitch_replicate_limit is None else stitch_replicate_limit
+        srl = (default_stitch_replicate_limit(spec, vmem_limit)
+               if stitch_replicate_limit is None else stitch_replicate_limit)
         st = resolve_stitched(
             members, roots, replicate_limit=replicate_limit, max_blocks=max_blocks,
             stitch_replicate_limit=srl, stitch_max_blocks=stitch_max_blocks,
@@ -268,7 +281,7 @@ def emit_group(
         if st is None:
             return None
         try:
-            mem = plan_stitched_memory(st, vmem_limit)
+            mem = plan_stitched_memory(st, vmem_limit, spec)
         except MemoryInfeasible:
             return None
         kernel = emit_stitched_fusion(fusion, st, mem)

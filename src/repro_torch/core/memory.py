@@ -23,6 +23,13 @@ Three phases, faithfully ported from GPU shared memory to TPU VMEM scratch:
      provably dead.  We additionally verify deadness with explicit liveness
      on the emission order (belt and braces) and require identical
      chunk-shape/dtype so the Pallas scratch ref can be reused as-is.
+
+On a GPU (``spec.is_gpu``) a slot lives in one CUDA block's shared memory:
+each slot's bytes count rounded up to ``SLOT_ALIGN`` (the offsets
+``codegen._slot_layout`` gives them), and a stitched kernel's staged
+interfaces and whole-tensor I/O live in the global workspace, so each of its
+phases plans against the whole budget (phases run in turn and share a
+block's shared memory).  The TPU's plans are the reference's.
 """
 from __future__ import annotations
 
@@ -32,7 +39,11 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 
 from .ir import Instruction
+from .latency import DeviceSpec
 from .schedule import ScheduleSolution, StitchedSolution, chunk_shape
+
+#: bytes each slot of a generated CUDA kernel starts on (``codegen``)
+SLOT_ALIGN = 16
 
 ALLOC = "ALLOC"
 SHARE = "SHARE"
@@ -60,10 +71,18 @@ class MemoryPlan:
     total_bytes: int
     shared_bytes: int
     shrunk: List[str] = field(default_factory=list)
+    align: int = 1              # bytes each slot rounds up to in the budget
 
     @property
     def num_shrinks(self) -> int:
         return len(self.shrunk)
+
+    @property
+    def budget_bytes(self) -> int:
+        """What the plan takes of the scratch budget: its slots, each
+        rounded up to ``align``."""
+        a = self.align
+        return sum(-(-_nbytes(shape, dtype) // a) * a for shape, dtype in self.slots)
 
     @property
     def shared_ratio(self) -> float:
@@ -163,12 +182,25 @@ def _feeds_dot_through_shape_ops(instr: Instruction, member_ids: Set[int]) -> bo
     return False
 
 
+def _nbytes(shape, dtype) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+
+
+def slot_align(spec: Optional[DeviceSpec]) -> int:
+    """Bytes a slot rounds up to in the budget: ``SLOT_ALIGN`` on a GPU."""
+    return SLOT_ALIGN if spec is not None and spec.is_gpu else 1
+
+
 def plan_memory(
     members: List[Instruction],
     roots: List[Instruction],
     solution: ScheduleSolution,
     vmem_limit: int = 4 * 1024 * 1024,
+    spec: Optional[DeviceSpec] = None,
 ) -> MemoryPlan:
+    """Plan one kernel's scratch against ``vmem_limit`` (module docstring);
+    ``spec`` is the device the plan is for (None: the TPU's rules)."""
+    align = slot_align(spec)
     member_ids = {m.id for m in members}
     root_ids = {r.id for r in roots}
 
@@ -203,7 +235,7 @@ def plan_memory(
     shrunk: List[str] = []
 
     def demand() -> int:
-        return sum(sizes[i][1] for i in candidates)
+        return sum(-(-sizes[i][1] // align) * align for i in candidates)
 
     while demand() > vmem_limit:
         droppable = [i for i, cat in candidates.items() if cat > 0]
@@ -267,7 +299,7 @@ def plan_memory(
         if m.id not in entries:
             entries[m.id] = BufferEntry(INLINE)
 
-    return MemoryPlan(entries, slots, total, shared, shrunk)
+    return MemoryPlan(entries, slots, total, shared, shrunk, align)
 
 
 # --------------------------------------------------------------------------
@@ -309,10 +341,21 @@ class StitchedMemoryPlan:
     phase_plans: List[MemoryPlan]
     interface_bytes: int
     io_bytes: int = 0        # whole-tensor input/output blocks (trivial grid)
+    # False on a GPU: interfaces and I/O live in the global workspace, and
+    # the phases take a block's shared memory in turn
+    staged_in_scratch: bool = True
 
     @property
     def num_phases(self) -> int:
         return len(self.phase_plans)
+
+    @property
+    def budget_bytes(self) -> int:
+        """What the plan takes of the scratch budget: interfaces, I/O and
+        every phase's slots at once, or on a GPU its largest phase."""
+        if self.staged_in_scratch:
+            return self.total_bytes + self.io_bytes
+        return max((p.budget_bytes for p in self.phase_plans), default=0)
 
     # ---- MemoryPlan-compatible reporting surface -------------------------
     @property
@@ -337,6 +380,7 @@ class StitchedMemoryPlan:
 def plan_stitched_memory(
     stitched: StitchedSolution,
     vmem_limit: int = 4 * 1024 * 1024,
+    spec: Optional[DeviceSpec] = None,
 ) -> StitchedMemoryPlan:
     """Plan VMEM for a stitched kernel: one full-size staging buffer per
     interface tensor plus one chunk-granular plan per phase, checked against
@@ -383,6 +427,13 @@ def plan_stitched_memory(
                 io_bytes += int(m.bytesize)
 
     iface_bytes = sum(b.nbytes for b in interfaces.values())
+    if spec is not None and spec.is_gpu:
+        # interfaces and I/O in the global workspace; each phase has the
+        # whole of a block's shared memory while it runs
+        phase_plans = [plan_memory(p.members, p.roots, p.solution, vmem_limit, spec)
+                       for p in stitched.phases]
+        return StitchedMemoryPlan(interfaces, phase_plans, iface_bytes, io_bytes,
+                                  staged_in_scratch=False)
     if iface_bytes + io_bytes > vmem_limit:
         raise MemoryInfeasible(
             f"staged interfaces ({iface_bytes}B) + whole-tensor kernel I/O "

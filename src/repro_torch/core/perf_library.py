@@ -112,16 +112,20 @@ class JsonStore:
 
 
 class PerfLibrary(JsonStore):
-    """Persistent KV store of per-op schedule timings (paper §4.4)."""
+    """Persistent KV store of per-op schedule timings (paper §4.4).  Its
+    model's spec is the device the timings describe: keys under any spec
+    other than ``TPU_V5E`` carry the spec's fingerprint, so one file never
+    serves two devices."""
 
     def __init__(self, path: Optional[str] = None, model: Optional[LatencyModel] = None):
         super().__init__(path)
         self.model = model or LatencyModel()
+        spec = self.model.spec
+        self._salt = "" if spec == TPU_V5E else f"{spec.fingerprint()}|"
         self.hits = 0
         self.misses = 0
 
-    @staticmethod
-    def key(instr: Instruction, sched: Sched, launch_blocks: int) -> str:
+    def key(self, instr: Instruction, sched: Sched, launch_blocks: int) -> str:
         feats = (
             instr.opcode,
             instr.attrs.get("fn", instr.attrs.get("kind", "")),
@@ -133,7 +137,7 @@ class PerfLibrary(JsonStore):
             sched.sched_type,
             launch_blocks,
         )
-        return repr(feats)
+        return self._salt + repr(feats)
 
     def lookup(self, instr: Instruction, sched: Sched, launch_blocks: int) -> float:
         k = self.key(instr, sched, launch_blocks)

@@ -15,11 +15,14 @@ loop body, ``ShardingPass`` stamps shard layouts before fusion when the
 compile targets a mesh, ``AutotunePass`` after codegen times each unique
 kernel when ``options.autotune`` asks, and ``PassPipeline`` verifies the
 artifact at the boundaries ``options.verify`` names (``core/verify.py``).
-The planner passes are the reference's, decision for decision, under the
-reference's device constants.
+The planner passes are the reference's; they plan for the resolved
+``options.device_spec`` within ``options.vmem_limit``
+(``compiler.resolve_options``): under ``TPU_V5E`` decision for decision
+the reference's, under ``H100`` for the card (``tuning``, ``FusionScorer``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -27,7 +30,15 @@ from typing import Dict, List, Optional
 import torch
 
 from . import cuda_build
-from .codegen import StitchedKernel, assemble_source, emit_fusion, emit_stitched_fusion
+from .codegen import (
+    SMEM_LIMIT,
+    STITCHED_MAX_THREADS,
+    StitchedKernel,
+    assemble_source,
+    emit_fusion,
+    emit_stitched_fusion,
+    reduce_part_bytes,
+)
 from .fusion import (
     FusedComputation,
     FusionConfig,
@@ -36,20 +47,46 @@ from .fusion import (
     deep_fuse,
 )
 from .ir import Instruction, Module
+from .latency import H100, TPU_V5E, DeviceSpec, LatencyModel
 from .measure import measure_kernel
 from .memory import MemoryInfeasible, plan_memory, plan_stitched_memory
 from .perf_library import PerfLibrary
 from .shard import propagate_layouts
 from .schedule import (
     CONSISTENT,
-    PhaseSolution,
     Unsatisfiable,
     resolve_schedules,
     resolve_stitched,
     stitchable,
 )
 from .signature import CacheEntry, KernelCache, fusion_signature
-from .tuning import TunedPlan, score, tune
+from .tuning import TunedPlan, score, tune, tune_phases
+
+
+#: the TPU's scratch budget per kernel (the reference's ``vmem_limit``)
+TPU_VMEM_LIMIT = 4 * 1024 * 1024
+
+
+def default_vmem_limit(spec: DeviceSpec) -> int:
+    """The slot budget a spec plans with when the options name none: on a
+    GPU one block's shared memory (``codegen.SMEM_LIMIT``) less the reduce
+    partials of the largest block, else the TPU's 4 MiB."""
+    if spec.is_gpu:
+        return SMEM_LIMIT - reduce_part_bytes(STITCHED_MAX_THREADS)
+    return TPU_VMEM_LIMIT
+
+
+def resolve_options(opts, device):
+    """``opts`` with the device spec and the slot budget the compile plans
+    with: an explicit value wins; else ``H100`` for the card and
+    ``TPU_V5E`` for the CPU, and the spec's ``default_vmem_limit``."""
+    spec = opts.device_spec
+    if spec is None:
+        spec = H100 if torch.device(device).type == "cuda" else TPU_V5E
+    limit = opts.vmem_limit if opts.vmem_limit is not None else default_vmem_limit(spec)
+    if spec is opts.device_spec and limit == opts.vmem_limit:
+        return opts
+    return dataclasses.replace(opts, device_spec=spec, vmem_limit=limit)
 
 
 @dataclass
@@ -133,6 +170,10 @@ class PassPipeline:
     def run(self, state: CompilationState) -> CompilationState:
         from .verify import ERROR, VerificationError, resolve_verify_mode, verify_state
 
+        state.options = resolve_options(state.options, state.device)
+        spec = state.options.device_spec
+        if state.library.model.spec != spec:
+            state.library = PerfLibrary(state.library.path, model=LatencyModel(spec))
         mode = resolve_verify_mode(state.options)
         verify_time = 0.0
         boundaries = 0
@@ -272,7 +313,8 @@ class FusionPass(Pass):
                 if v.verdict != CONSISTENT:
                     return False
                 try:
-                    plan_memory(members, roots, v.solution, opts.vmem_limit)
+                    plan_memory(members, roots, v.solution, opts.vmem_limit,
+                                opts.device_spec)
                 except MemoryInfeasible:
                     return False
                 return True
@@ -290,11 +332,20 @@ class FusionPass(Pass):
         state.fusion_plan = deep_fuse(state.module, fcfg)
 
 
+def default_stitch_replicate_limit(spec: DeviceSpec, vmem_limit: int) -> int:
+    """How much a stitched phase may replicate when the options name no
+    limit: the scratch budget on the TPU, where a phase's working set is
+    staged in VMEM; on a GPU the L2 (``spec.l2_bytes``), since staged
+    tensors live in the global workspace and every block re-reads a
+    replicated one from the L2, never from its shared memory."""
+    return spec.l2_bytes if spec.is_gpu else vmem_limit
+
+
 def _stitch_replicate_limit(opts) -> int:
-    """Resolved stitched-phase replicate limit (None = the scratch budget);
+    """Resolved stitched-phase replicate limit (None: the spec's default);
     an explicit 0 means "no relaxed replication" and is honored."""
     if opts.stitch_replicate_limit is None:
-        return opts.vmem_limit
+        return default_stitch_replicate_limit(opts.device_spec, opts.vmem_limit)
     return opts.stitch_replicate_limit
 
 
@@ -311,15 +362,21 @@ def _options_fingerprint(opts, device) -> str:
 def _measure_salt(opts, device) -> str:
     """Options salt for measured-store keys: everything that changes what a
     kernel IS — the device it runs on (in place of the reference's
-    ``interpret``), memory budgets, blocks, planner and stitching — but not
+    ``interpret``), the spec it was planned for, memory budgets, blocks,
+    planner and stitching — but not
     the autotune knobs, so a store warmed with ``autotune=True`` serves a
     later read-only ``tuning_store_path`` compile."""
+    opts = resolve_options(opts, device)
     srl = _stitch_replicate_limit(opts)
     salt = (
         f"d{torch.device(device).type}:v{opts.vmem_limit}:r{opts.replicate_limit}"
         f":b{opts.max_blocks}:p{opts.planner}"
         f":st{int(opts.enable_stitching)}:sb{opts.stitch_max_blocks}:sr{srl}:"
     )
+    # the spec the planner scored with: any but the reference's enters the
+    # salt, so no kernel-cache or measured-store entry serves two specs
+    if opts.device_spec is not None and opts.device_spec != TPU_V5E:
+        salt += f"s{opts.device_spec.fingerprint()}:"
     # the mesh shape enters the salt only for sharded compiles: per-shard
     # costs measured on a 4-way mesh must not serve an 8-way (or unsharded)
     # run, while every single-device key stays as it was
@@ -410,7 +467,8 @@ class SchedulePass(Pass):
                         {r.id: s for r, s in zip(roots, hint, strict=False)},
                         opts.replicate_limit,
                     )
-                    return TunedPlan(sol, score(members, sol, state.library)), True
+                    return TunedPlan(sol, score(members, sol, state.library,
+                                                vmem_limit=opts.vmem_limit)), True
                 except Unsatisfiable:
                     pass  # stale record — fall back to the full search
         tuned = tune(
@@ -419,6 +477,7 @@ class SchedulePass(Pass):
             state.library,
             max_blocks=opts.max_blocks,
             replicate_limit=opts.replicate_limit,
+            vmem_limit=opts.vmem_limit,
         )
         return tuned, False
 
@@ -437,18 +496,15 @@ class SchedulePass(Pass):
         )
         if st is None:
             return None
-        cap = min(opts.max_blocks, opts.stitch_max_blocks)
-        for k, p in enumerate(st.phases):
-            tuned = tune(
-                p.members,
-                p.roots,
-                state.library,
-                max_blocks=cap,
-                replicate_limit=opts.replicate_limit,
-            )
-            if tuned is not None:
-                st.phases[k] = PhaseSolution(p.members, p.roots, tuned.solution)
-        cost = state.library.model.stitched_fusion_time(st)
+        st = tune_phases(st, state.library, min(opts.max_blocks, opts.stitch_max_blocks),
+                         opts.replicate_limit, opts.vmem_limit)
+        mem = None
+        if opts.device_spec.is_gpu:
+            try:
+                mem = plan_stitched_memory(st, opts.vmem_limit, opts.device_spec)
+            except MemoryInfeasible:
+                pass   # MemoryPass demotes it
+        cost = state.library.model.stitched_fusion_time(st, mem)
         return CacheEntry(
             signature=sig,
             solution=None,
@@ -490,7 +546,8 @@ class MemoryPass(Pass):
         members, roots = fusion.members, fusion.roots
         if entry.stitched is not None:
             try:
-                entry.memory = plan_stitched_memory(entry.stitched, opts.vmem_limit)
+                entry.memory = plan_stitched_memory(entry.stitched, opts.vmem_limit,
+                                                    opts.device_spec)
             except MemoryInfeasible:
                 state.demoted.extend(fusion.members)
                 return False
@@ -500,7 +557,8 @@ class MemoryPass(Pass):
         dropped: List[Instruction] = []
         while tuned is not None:
             try:
-                mem = plan_memory(members, roots, tuned.solution, opts.vmem_limit)
+                mem = plan_memory(members, roots, tuned.solution, opts.vmem_limit,
+                                  opts.device_spec)
             except MemoryInfeasible:
                 if len(members) <= 1:
                     tuned = None
@@ -515,6 +573,7 @@ class MemoryPass(Pass):
                     state.library,
                     max_blocks=opts.max_blocks,
                     replicate_limit=opts.replicate_limit,
+                    vmem_limit=opts.vmem_limit,
                 )
                 continue
             state.demoted.extend(dropped)

@@ -235,8 +235,20 @@ def propagate(instr: Instruction, sched: Sched) -> List[Sched]:
         opnd = instr.operands[0]
         if s in dims:
             i = dims.index(s)
-            if opnd.shape[i] == instr.shape[s]:
-                # minor/major coverage: operand dims map monotonically
+            # the operand's block index equals the output's only where the
+            # dims the index is spread over map one to one: under Row the
+            # operand's major dims must be the output's innermost major
+            # dims, under Column its minor dims the output's minor dims;
+            # otherwise the operand is read whole and each block slices it
+            # by its own output window (``codegen._emit_instr``)
+            if t == ROW:
+                spread = dims[:i] == tuple(range(s - i, s))
+                same = all(opnd.shape[j] == instr.shape[dims[j]] for j in range(i))
+            else:
+                spread = dims[i + 1:] == tuple(range(s + 1, instr.ndim))
+                same = all(opnd.shape[j] == instr.shape[dims[j]]
+                           for j in range(i + 1, len(dims)))
+            if opnd.shape[i] == instr.shape[s] and spread and same:
                 return [Sched("chunked", i, w, t)]
         return [REPLICATED]
 

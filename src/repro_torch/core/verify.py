@@ -442,7 +442,7 @@ def verify_planned_entries(state, pass_name: str = "") -> List[Diagnostic]:
 
         mem = entry.memory
         if mem is not None:
-            used = mem.total_bytes + getattr(mem, "io_bytes", 0)
+            used = mem.budget_bytes
             if used > opts.vmem_limit:
                 err("PLAN006", fusion.name, f"memory plan needs {used}B > budget {opts.vmem_limit}B")
         kernel = p.kernel

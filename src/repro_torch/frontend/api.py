@@ -468,14 +468,15 @@ class StitchedFunction:
         if self._measured_store is None and (
             self.options.autotune or self.options.tuning_store_path
         ):
-            from ..core.latency import TPU_V5E
             from ..core.measure import MeasuredCostStore, device_fingerprint
+            from ..core.pipeline import resolve_options
 
-            # keyed as compile_module keys its own store: the planner's
-            # DeviceSpec and this function's device
+            # keyed as compile_module keys its own store: the spec the
+            # compile plans with and this function's device
+            dev = resolve_device(self.device)
             self._measured_store = MeasuredCostStore(
                 self.options.tuning_store_path,
-                device_fp=device_fingerprint(TPU_V5E, self.device),
+                device_fp=device_fingerprint(resolve_options(self.options, dev).device_spec, dev),
             )
         return self._measured_store
 
