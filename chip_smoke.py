@@ -39,7 +39,19 @@ Phases, each fatal on failure:
    ``emit_stitched_fusion``, and a (128, 512) softmax in one plan block
    whose slots pass a block's shared memory (``FUSION_COMPILES``): each
    launch counted, every kernel held against its plain version and the
-   outputs against ``reference_execute``, bf16 at one ulp, int8 exactly;
+   outputs against ``reference_execute``, bf16 at one ulp, int8 exactly.
+   Then the 64-bit cases (``index64_check``): x * 1.5 + 0.25 over
+   ``INDEX64_SHAPES`` f32, 2,147,549,184 elements and 1,310,760,000 (under
+   2^31 - 1, but its grid-stride loop's variable passes it), under the
+   card's plan, whose kernel must index in 64 bits, held exactly against
+   torch chunk by chunk.  Then the fused dots (``staged_dots_check``): NMT and the
+   Figure-3 attention at granite width (``STAGED_CASES``) under
+   ``TPU_V5E``, whose plan staging leaves unchanged, with their dots
+   staged and on the register-tile loop (``StitchOptions.stage_dots``), bit for
+   bit, and under the card's default plan (``H100``, row-split dots)
+   against their plain kernels and ``reference_execute`` at ``TOL``; with
+   each dot kernel's device µs, loop, CUDA blocks and share of its bound
+   (``dot_lines``);
 5. numbers — CUDA-event times: microseconds per call of each compiled graph
    and of ``reference_execute``, and per launch of each kernel and of its
    plain version, beside the kernel's bound (bytes in and out over 3.35
@@ -52,7 +64,9 @@ Phases, each fatal on failure:
    naming each graph whose H100 plan takes over 1.05x its ``TPU_V5E``
    plan's device time.  Each ``emit_fusion`` kernel's line
    also gives its members, plan blocks, grid, threads, bytes of shared
-   memory, and ``ptxas``'s registers and spill bytes.
+   memory, and ``ptxas``'s registers and spill bytes, and each kernel that
+   holds a fused dot a line of its own (``dot_lines``: the loop each dot
+   took, CUDA blocks, device µs, share of its bound).
 
 6. kernels — the hand-written kernels of ``repro_torch.kernels`` through
    their public entry point ``repro_torch.kernels.ops``, at the full width
@@ -175,7 +189,8 @@ Phases, each fatal on failure:
    specs, the plain function's, the one PyTorch call's
    (``F.scaled_dot_product_attention``, ``F.rms_norm``, ``F.layer_norm``;
    held against the plain function) and the bound; a default plan that
-   keeps a slot in the workspace fails the phase.  Last,
+   keeps a slot in the workspace fails the phase; each kernel that holds a
+   fused dot gets its ``dot_lines``.  Last,
    ``donate_argnums`` on the card: a donated input's
    buffer takes a later kernel's output, the other inputs unchanged.
 13. models — ``repro_torch.models`` on the card, no kernel of the port on
@@ -328,7 +343,14 @@ Phases, each fatal on failure:
    one ALLOC slot: the bytes its loop moves through shared memory over the
    difference in device time); and ``phase_loop_overhead_s`` (a stitched
    kernel of the same work in 1 .. 8 phases: the slope of its device
-   time), each kernel held against its plain version.  (d) ``launch.dryrun``'s measurement of (a)'s cell on a fake
+   time), each kernel held against its plain version; and the staged
+   dots' constants (``staged_constants``): ``l2_bw`` and
+   ``l2_read_limit`` (a row-split dot of one row a block, each block
+   staging its batch's whole rhs: those bytes over its device time, at
+   each of ``L2_CASES``' whole rhs from 128 KiB to 48 MiB) and
+   ``staged_op_rates`` (a staged dot whose lhs composes
+   ``STAGED_CHAIN`` applications of each of ``STAGED_OPS`` against the
+   same dot on a stored lhs: elements over the added device time).  (d) ``launch.dryrun``'s measurement of (a)'s cell on a fake
    world of 4 ranks (2 x 2), in a fresh process: its
    ``argument_size_in_bytes`` must equal rank 0's measured blocks and
    rows, its collective census must equal rank 0's bytes of a step kind for
@@ -2027,7 +2049,8 @@ def frontend_phase(dev, cases):
             "plan_replay_idle_share": 1.0 - r_dev / replay_us,
             "plain_idle_share": 1.0 - p_dev / plain_us,
         }
-        row["kernel_launches"] = launch_shapes(comp_e)
+        row["kernel_launches"] = launch_shapes(comp_e.kernels)
+        row["dot_kernels"] = dot_lines(f"frontend {name}", comp_e.kernels, e_by)
         rows.append(row)
         print(f"frontend {name}: capture {row['capture_s']:.3f} s, lower {row['lower_s']:.3f} s, "
               f"compile {row['compile_s']:.3f} s; fused={s.stitched_kernels} "
@@ -2055,20 +2078,224 @@ def frontend_phase(dev, cases):
     return rows, by_emitter
 
 
-def launch_shapes(compiled):
-    """Each generated kernel of a plan as its source's header and phase
-    comments state it: emitter, plan blocks, CUDA blocks (a cooperative
-    kernel's most), threads, shared memory and workspace bytes a block,
-    and the bytes of its slots in shared memory and in the workspace."""
+#: the 64-bit cases of phase 4: x * 1.5 + 0.25 over 2,147,549,184 f32
+#: elements, past 2^31 - 1 (8.59 GB in and 8.59 GB out), and over
+#: 1,310,760,000, whose grid-stride loop's variable passes 2^31 - 1
+INDEX64_SHAPES = ((65536, 32769), (40000, 32769))
+#: rows of it compared with torch at a time (no third full-size copy)
+INDEX64_CHUNK = 4096
+#: the functions whose fused dots phase 4 holds against the register-tile
+#: loop (``StitchOptions(stage_dots=False)``) bit for bit under ``TPU_V5E``
+STAGED_CASES = ("NMT", "fig3_attention")
+
+
+def index64_module(shape):
+    import numpy as np
+
+    from repro_torch.core import trace
+
+    return trace(lambda b, x: x * 1.5 + 0.25, ("x", shape, np.float32), name="index64")
+
+
+def index64_check(dev, shape):
+    """Phase 4's 64-bit case: the generated map over ``shape`` f32
+    under the card's default plan, which must index in 64 bits; its output
+    held exactly, chunk by chunk, against torch: against x * 1.5 + 0.25
+    rounded once (the FMA nvcc forms) or twice (torch's two ops), whichever
+    the whole output equals."""
+    import torch
+
+    from repro_torch.core import StitchOptions, compile_module
+
+    compiled = compile_module(index64_module(shape), StitchOptions(jit_replay=False), device=dev)
+    (kernel,) = compiled.kernels
+    if "64-bit indices and offsets" not in kernel.fn.source.splitlines()[0]:
+        raise SystemExit(f"index64: {kernel.fn.name} does not index in 64 bits")
+    x = torch.rand(shape, device=dev)
+    kernel.fn.launches = 0
+    (y,) = kernel.fn(x)
+    torch.cuda.synchronize()
+    if kernel.fn.launches != 1:
+        raise SystemExit(f"index64: {kernel.fn.launches} launches, expected 1")
+    once = twice = True
+    for r in range(0, shape[0], INDEX64_CHUNK):
+        xs, ys = x[r:r + INDEX64_CHUNK], y[r:r + INDEX64_CHUNK]
+        once = once and torch.equal(ys, (xs.double() * 1.5 + 0.25).float())
+        twice = twice and torch.equal(ys, xs * 1.5 + 0.25)
+    if not (once or twice):
+        raise SystemExit("index64: the 64-bit kernel's output differs from torch's")
+    _, by_name = profiled_launches("index64", lambda: kernel.fn.launch(x, device=dev),
+                                   {kernel.fn.name: 1}, total=1)
+    device_us = sum(t for k, t in by_name.items() if kernel.fn.name in k)
+    nbytes = 2 * x.numel() * 4
+    row = {"shape": list(shape), "elements": x.numel(), "kernel": kernel.fn.name,
+           "grid": geometry(kernel.fn.source)["grid"], "exact": "fma" if once else "two roundings",
+           "device_us": device_us, "bound_us": 1e6 * nbytes / HBM_BYTES_PER_S}
+    del x, y
+    torch.cuda.empty_cache()
+    print(f"index64: x * 1.5 + 0.25 over {shape} f32 ({row['elements']} elements) in 64-bit "
+          f"indices, grid {row['grid']}, equal to torch ({row['exact']}); device_us "
+          f"{device_us:.1f}, bound {row['bound_us']:.1f}")
+    return row
+
+
+def staged_case(name, dev, spec_name, stage=True):
+    """(compiled, feeds) of one of ``STAGED_CASES`` on ``dev`` under
+    ``spec_name``'s plan, its dots staged or (``stage`` False) on the
+    register-tile loop: NMT at its graph's size, the Figure-3 attention at
+    granite width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import stitch
+    from repro_torch.core import StitchOptions, compile_module
+    from repro_torch.core.latency import H100, TPU_V5E
+    from repro_torch.graphs import ALL_GRAPHS, random_feeds
+
+    opts = StitchOptions(device_spec=TPU_V5E if spec_name == "TPU_V5E" else H100, jit_replay=False,
+                         stage_dots=stage)
+    if name == "NMT":
+        module = ALL_GRAPHS["NMT"]()
+        feeds = random_feeds(module, np.random.RandomState(0))
+        return module, compile_module(module, opts, device=dev), {
+            k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
+    (fn, args) = next((fn, args) for n, fn, args, _, _ in model_width_cases() if n == name)
+    lowered = stitch(fn, options=dataclasses.replace(opts, max_blocks=FRONTEND_MAX_BLOCKS)
+                     if spec_name == "TPU_V5E" else opts, device=dev).lower(*args)
+    feeds = dict(zip(lowered.param_names, args, strict=True))
+    return lowered.module, lowered.compile(), {
+        k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
+
+
+def staged_sources():
+    """Phase 4's compiles of ``STAGED_CASES`` (under ``TPU_V5E`` on both
+    loops, under ``H100`` staged) and the 64-bit cases, planned for the
+    CPU: the text the card's compiles emit, built in phase 2."""
+    out = [staged_case_cpu(name, spec, stage) for name in STAGED_CASES
+           for spec, stage in (("TPU_V5E", True), ("TPU_V5E", False), ("H100", True))]
+    from repro_torch.core import StitchOptions, compile_module
+    from repro_torch.core.latency import H100
+
+    return out + [compile_module(index64_module(shape), StitchOptions(device_spec=H100),
+                                 device="cpu").cuda_source for shape in INDEX64_SHAPES]
+
+
+def staged_case_cpu(name, spec_name, stage):
+    import torch
+
+    return staged_case(name, torch.device("cpu"), spec_name, stage)[1].cuda_source
+
+
+def dot_lines(label, kernels, by_name):
+    """For each of ``kernels`` (generated kernels) that holds a fused dot:
+    its device µs (from ``by_name``), which loop each dot took (staged or
+    the register-tile loop), its CUDA blocks and its share of its bound."""
+    out = []
+    for k, shape in zip(kernels, launch_shapes(kernels), strict=True):
+        if not any(m.opcode == "dot" for m in k.fusion.members):
+            continue
+        nbytes, ops = work(k)
+        b_us, o_us = 1e6 * nbytes / HBM_BYTES_PER_S, 1e6 * ops / F32_OPS_PER_S
+        us = sum(t for n, t in by_name.items() if k.fn.name in n)
+        row = {"kernel": k.fn.name, "dots": shape["dots"], "staged": "staged in" in shape["dots"],
+               "cuda_blocks": shape["cuda_blocks"], "threads": shape["threads"],
+               "smem_bytes": shape["smem_bytes"], "device_us": us,
+               "bound_us": max(b_us, o_us), "bound_by": "bytes" if b_us >= o_us else "operations",
+               "share_of_bound": max(b_us, o_us) / us if us else None}
+        out.append(row)
+        print(f"  dot kernel {label} {k.fn.name}: {row['dots']}; {row['cuda_blocks']} CUDA blocks "
+              f"x {row['threads']}, {row['smem_bytes']} B shared; device_us "
+              f"{us if us else 'not measured'}; bound {row['bound_us']:.2f} ({row['bound_by']}); "
+              f"share of bound {row['share_of_bound'] if us else 'not measured'}")
+    return out
+
+
+def staged_dots_check(dev):
+    """Phase 4: each of ``STAGED_CASES`` under ``TPU_V5E`` (the reference's
+    plan, which staging leaves unchanged) with its dots staged and on the
+    register-tile loop, bit for bit; and under the card's default plan
+    (``H100``) against its plain kernels and ``reference_execute`` at
+    ``TOL``; with each dot kernel's line (``dot_lines``)."""
+    import torch
+
+    from repro_torch.core import reference_execute
+
+    out = []
+    for name in STAGED_CASES:
+        module, staged, feeds = staged_case(name, dev, "TPU_V5E")
+        _, loop, _ = staged_case(name, dev, "TPU_V5E", stage=False)
+        if [k.solution.blocks if k.solution else k.blocks for k in staged.kernels] != \
+                [k.solution.blocks if k.solution else k.blocks for k in loop.kernels]:
+            raise SystemExit(f"staged {name}: the TPU_V5E plan changed with the dot loop")
+        # two compiles name their roots apart: outputs in the plan's order
+        got, want = list(staged(feeds).values()), list(loop(feeds).values())
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            if not same(g, w):
+                e, _ = max_err(g, w, None)
+                raise SystemExit(f"staged {name} [TPU_V5E]: output {i} staged vs register-tile "
+                                 f"loop differs (max {e:.3e})")
+        row = {"case": name, "tpu_v5e_bitwise": True}
+        for label, compiled in (("TPU_V5E staged", staged), ("TPU_V5E register-tile", loop)):
+            _, by = profiled_launches(f"staged {name} {label}", lambda c=compiled: c(feeds),
+                                      planned_by_program(compiled))
+            row[label] = {"device_us": sum(by.values()),
+                          "dot_kernels": dot_lines(f"{name} [{label}]", compiled.kernels, by)}
+        module, h100, feeds = staged_case(name, dev, "H100")
+        got = h100(feeds)
+        ref = reference_execute(module, feeds, device=dev)
+        err = 0.0
+        for root, w in ref.items():
+            e, ok = max_err(got[root], w, None)
+            err = max(err, e)
+            if not ok or not bool(torch.isfinite(got[root]).all()):
+                raise SystemExit(f"staged {name} [H100]: {root} vs reference_execute {e:.3e}")
+        inputs = {}
+        for k in h100.kernels:
+            def record(*a, device, _fn=k.fn, _launch=k.fn.launch):
+                inputs.setdefault(id(_fn), [t.clone() for t in a])
+                return _launch(*a, device=device)
+            k.fn.launch = record
+        h100(feeds)
+        for k in h100.kernels:
+            del k.fn.launch
+            a = inputs[id(k.fn)]
+            for g, w in zip(k.fn.launch(*a, device=dev), k.fn.plain(*a, device=dev), strict=True):
+                e, ok = max_err(g, w, None)
+                err = max(err, e)
+                if not ok:
+                    raise SystemExit(f"staged {name} [H100] {k.fn.name}: kernel vs plain {e:.3e}")
+        _, by = profiled_launches(f"staged {name} H100", lambda: h100(feeds),
+                                  planned_by_program(h100))
+        row["H100"] = {"device_us": sum(by.values()), "kernels": len(h100.kernels),
+                       "max_abs_err": err, "dot_kernels": dot_lines(f"{name} [H100]", h100.kernels, by)}
+        out.append(row)
+        print(f"staged {name}: TPU_V5E staged {row['TPU_V5E staged']['device_us']:.2f} device us, "
+              f"register-tile loop {row['TPU_V5E register-tile']['device_us']:.2f}, bit for bit; "
+              f"H100 {row['H100']['device_us']:.2f} in {row['H100']['kernels']} kernels, err "
+              f"{err:.2e} vs plain and reference_execute")
+    return out
+
+
+def launch_shapes(kernels):
+    """Each of ``kernels`` (a plan's generated kernels) as its source's
+    header and phase comments state it: emitter, plan blocks, CUDA blocks
+    (a cooperative kernel's most), threads, shared memory and workspace
+    bytes a block, the bytes of its slots in shared memory and in the
+    workspace, and the loop each of its fused dots took."""
     import re
 
     out = []
-    for k in compiled.kernels:
+    for k in kernels:
         src = k.fn.source
         head = re.search(r"(\d+) plan blocks(?: in all)?, (?:one launch of|one cooperative launch "
                          r"of up to) (\d+) blocks of (\d+) threads, (\d+) bytes of shared memory "
                          r"a block, (\d+) workspace bytes", src)
+        dots = re.search(r"; dots: (.*)$", src.splitlines()[0])
         out.append({
+            "dots": dots.group(1) if dots else "",
             "fusion": k.fusion.name, "kernel": k.fn.name, "emitter": k.fn.emitter,
             "plan_blocks": int(head.group(1)), "cuda_blocks": int(head.group(2)),
             "threads": int(head.group(3)), "smem_bytes": int(head.group(4)),
@@ -4211,12 +4438,122 @@ def phase_kernels():
     return out
 
 
+#: (c)'s L2 read rate: a batched dot split at its rows, one row a plan
+#: block, each block staging its batch's whole (L2_K, L2_N) rhs (131,072
+#: bytes) from the L2; (batches, rows a batch), the whole rhs 128 KiB, 3 MiB
+#: (the Figure-3 attention's v at granite width), 12 MiB and 48 MiB
+L2_CASES = ((1, 2048), (24, 512), (96, 512), (384, 512))
+L2_K, L2_N = 512, 64
+#: the replicate limit those plans are resolved under: every case's rhs,
+#: whatever the spec's own L2 limit
+L2_REPLICATE_LIMIT = 64 << 20
+#: (c)'s rates of ops composed into a staged dot's lhs: a chain of
+#: STAGED_CHAIN applications of each op over the (B, M, K) lhs of a dot with
+#: an (B, K, N) rhs, split into STAGED_ROW_BLOCKS row blocks a batch (a
+#: multiply's added time stayed within the run's noise: it is left unpriced)
+STAGED_OPS = ("exp", "div")
+STAGED_CHAIN = 8
+STAGED_B, STAGED_M, STAGED_K, STAGED_N = 8, 512, 512, 256
+STAGED_ROW_BLOCKS = 16
+
+
+def staged_modules():
+    """(c)'s modules: ("l2 B", the row-split dot of B batches) for each of
+    L2_CASES, ("plain", the staged dot on a stored lhs) and (op, the same
+    dot on STAGED_CHAIN applications of op composed into its lhs) for each
+    of STAGED_OPS."""
+    import numpy as np
+
+    from repro_torch.core import trace
+
+    f4 = np.float32
+    out = [(f"l2 {bs}", trace(lambda b, x, w: b.dot(x, w, fusable=True),
+                              ("x", (bs, rows, L2_K), f4), ("w", (bs, L2_K, L2_N), f4),
+                              name="l2_dot")) for bs, rows in L2_CASES]
+    step = {"plain": None, "exp": lambda b, y: b.exp(-y), "div": lambda b, y: y / 1.01}
+    for op in ("plain",) + STAGED_OPS:
+        def f(b, x, w, op=op):
+            for _ in range(STAGED_CHAIN if step[op] else 0):
+                x = step[op](b, x)
+            return b.dot(x, w, fusable=True)
+        out.append((op, trace(f, ("x", (STAGED_B, STAGED_M, STAGED_K), f4),
+                              ("w", (STAGED_B, STAGED_K, STAGED_N), f4), name=f"staged_{op}")))
+    return out
+
+
+def staged_kernel(module, row_blocks, replicate_limit=512 * 1024):
+    """The fusion of ``module`` holding its dot, split at the dot's rows
+    into ``row_blocks`` plan blocks a batch (``schedule.dot_row_split``),
+    every member composed (a memory plan of 0 bytes), emitted; its rhs
+    replicated up to ``replicate_limit`` bytes or the spec's L2 limit."""
+    from repro_torch.core import StitchOptions, compile_module
+    from repro_torch.core.codegen import emit_fusion
+    from repro_torch.core.latency import H100
+    from repro_torch.core.memory import plan_memory
+    from repro_torch.core.schedule import ROW, Sched, resolve_schedules
+
+    fusions = compile_module(module, StitchOptions(device_spec=H100, jit_replay=False),
+                             device="cpu").executable.plan.fusions
+    (fusion,) = [f for f in fusions if any(m.opcode == "dot" for m in f.members)]
+    if len(fusion.members) != len([i for i in module.instructions if i.opcode != "parameter"]):
+        raise SystemExit(f"{module.name}: the dot's fusion leaves members out")
+    (root,) = fusion.roots
+    sol = resolve_schedules(fusion.members, fusion.roots,
+                            {root.id: Sched("chunked", root.ndim - 2, row_blocks, ROW)},
+                            replicate_limit, H100)
+    return emit_fusion(fusion, sol, plan_memory(fusion.members, fusion.roots, sol, 0, H100))
+
+
+def staged_constants(dev, held):
+    """(c)'s staged-dot constants: ``l2_bw``, the rhs bytes every block of
+    a row-split dot reads from the L2 over its device time, at each of
+    L2_CASES' whole rhs (``l2_read_limit``: the largest of them), and
+    ``staged_op_rates``, each op's elements a second where it is composed
+    into a staged dot's lhs: STAGED_CHAIN x the lhs's elements over the
+    device time the chain adds to the dot on a stored lhs."""
+    import torch
+
+    mods = dict(staged_modules())
+    out = {"l2": []}
+    for bs, rows in L2_CASES:
+        k = staged_kernel(mods[f"l2 {bs}"], rows, L2_REPLICATE_LIMIT)
+        x = torch.rand(bs, rows, L2_K, device=dev)
+        w = torch.rand(bs, L2_K, L2_N, device=dev)
+        label = f"l2 row-split dot, {bs} batches"
+        us = kernel_device_us(label, k, (x, w), dev)
+        held(label, k, (x, w))
+        l2_bytes = bs * rows * L2_K * L2_N * 4
+        out["l2"].append({"kernel": k.fn.source.splitlines()[0], "device_us": us,
+                          "whole_rhs_bytes": w.numel() * 4, "rhs_bytes_read": l2_bytes,
+                          "l2_bw": l2_bytes / (us * 1e-6)})
+        del x, w
+    x = torch.rand(STAGED_B, STAGED_M, STAGED_K, device=dev)
+    w = torch.rand(STAGED_B, STAGED_K, STAGED_N, device=dev)
+    times = {}
+    for op in ("plain",) + STAGED_OPS:
+        k = staged_kernel(mods[op], STAGED_ROW_BLOCKS)
+        times[op] = kernel_device_us(f"staged dot {op}", k, (x, w), dev)
+        held(f"staged dot {op}", k, (x, w))
+    elems = STAGED_CHAIN * x.numel()
+    out["ops"] = {op: {"device_us": times[op], "plain_device_us": times["plain"],
+                       "rate": elems / ((times[op] - times["plain"]) * 1e-6)
+                       if times[op] > times["plain"] else None} for op in STAGED_OPS}
+    l2 = [(r["whole_rhs_bytes"], round(r["l2_bw"] / 1e12, 4), round(r["device_us"], 2))
+          for r in out["l2"]]
+    print(f"H100 staged dots: (whole rhs bytes, l2_bw TB/s, device us) {l2}; composed op "
+          f"rates {[(op, r['rate']) for op, r in out['ops'].items()]} (plain {times['plain']:.2f} us)")
+    return out
+
+
 def overhead_sources():
     """The sources of (c)'s kernels, built in phase 2 with the rest."""
     from repro_torch.core.codegen import assemble_source
 
     kernels = [forced_kernel(curve_module(), b) for b in CURVE_BLOCKS]
     kernels += vmem_kernels()[0] + phase_kernels()
+    mods = dict(staged_modules())
+    kernels += [staged_kernel(mods[f"l2 {bs}"], rows, L2_REPLICATE_LIMIT) for bs, rows in L2_CASES]
+    kernels += [staged_kernel(mods[op], STAGED_ROW_BLOCKS) for op in ("plain",) + STAGED_OPS]
     return ([overhead_module(rows, blocks, "cpu").cuda_source for rows, blocks in OVERHEAD_CASES]
             + [assemble_source([k.fn]) for k in kernels])
 
@@ -4311,6 +4648,7 @@ def launch_overheads(dev):
     slope = float(np.polyfit(np.asarray(PHASE_COUNTS, float), np.asarray(ts), 1)[0])
     out["phases"] = {"counts": list(PHASE_COUNTS), "device_us": ts,
                      "phase_loop_overhead_us": slope}
+    out["staged"] = staged_constants(dev, held)
     print(f"H100 constants: sm_count {out['sm_count']}; block curve "
           f"{[(c['blocks'], round(c['device_us'], 2), round(c['fraction_of_hbm_bw'], 4)) for c in curve]}; "
           f"vmem {out['vmem']}; phases {ts} -> {slope:.4f} us a phase")
@@ -4567,6 +4905,8 @@ def main(argv=None) -> int:
     # phase 15: the stitched train step's plan; phase 17: the overhead kernels
     extra += train_sources()
     extra += overhead_sources()
+    # phase 4: the staged dots against the register-tile loop, the 64-bit case
+    extra += staged_sources()
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     logs = cuda_build.build_all(sources + extra + [src.path.read_text() for src in HAND_SOURCES])
@@ -4628,7 +4968,7 @@ def main(argv=None) -> int:
     # ---- 4. right ---------------------------------------------------------------
     # an H100 plan keeps every ALLOC/SHARE slot in shared memory
     for name, (_, compiled, _, _) in h100_graphs.items():
-        kept = [k for k in launch_shapes(compiled) if k["slot_bytes_in_workspace"]
+        kept = [k for k in launch_shapes(compiled.kernels) if k["slot_bytes_in_workspace"]
                 or (k["emitter"] == "emit_fusion" and k["workspace_bytes"])]
         if kept:
             raise SystemExit(f"{name} [H100]: slots in the workspace: {kept}")
@@ -4767,6 +5107,9 @@ def main(argv=None) -> int:
         print(f"{emitter} compile {label}: {n} launches, vs plain and reference_execute "
               f"err={err:.2e} (rtol, atol)={tol} device_us={device_us or 'not measured'}")
 
+    index64_rows = [index64_check(dev, shape) for shape in INDEX64_SHAPES]
+    staged_rows = staged_dots_check(dev)
+
     # ---- 5. numbers -------------------------------------------------------------
     for row, (prog, a) in zip(rows, timed, strict=True):
         row["us"] = 1e3 * time_ms(lambda p=prog, a=a: p.launch(*a, device=dev), CALLS)
@@ -4779,6 +5122,9 @@ def main(argv=None) -> int:
         o_us = 1e6 * row["ops"] / F32_OPS_PER_S
         row["bound_us"] = max(b_us, o_us)
         row["bound_by"] = "bytes" if b_us >= o_us else "operations"
+        if any(m.opcode == "dot" for m in kernel.fusion.members):
+            row["dot_kernel"] = dot_lines(f"{row['graph']}:{row['fusion']} [{row['spec']}]",
+                                          [kernel], by_name)[0]
         if row["emitter"] == "emit_fusion":
             row.update(geometry(prog.source), **regs.get(prog.name, {}))
             print(f"  {row['graph']}:{row['fusion']} [{row['spec']}] {prog.name}: "
@@ -4943,6 +5289,7 @@ def main(argv=None) -> int:
             json.dump({"device": kind, "nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
                        "graphs": per_graph, "kernels": rows, "emitters": entries,
                        "stitched_compiles": stitched_rows, "extra_compiles": extra_rows,
+                       "index64": index64_rows, "staged_dots": staged_rows,
                        "hand_kernel_calls": hand_calls, "replay": replay_rows, "loops": loop_rows,
                        "autotune": autotune_rows, "fault_modules": fault_rows,
                        "frontend": frontend_rows, "model_width": model_rows,

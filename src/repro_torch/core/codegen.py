@@ -45,10 +45,23 @@ its tile with a barrier after it.  Members that share no value form groups
 CUDA block of its own: ReduceTowers' six towers on six SMs.  A reduce
 takes a warp per output, or, where a plan block has fewer outputs than
 warps, the whole block, partial results combined through shared memory.
-A fused dot gives each thread a 4 x 4 register tile of outputs with f32
-FMAs (no tensor cores, no TF32).  A fusion with no slot is a pure map over
-the grid.  Threads per block follow the plan (``fusion_threads``: 128 to
-512).
+A fused dot is staged (``_Phase.staged_dot_loop``): a block computes BM x BN
+tiles of its output chunk, each thread a register tile of up to 8 x 4 of
+one, and walks k in steps of BK, its threads staging the two operands'
+k-blocks in shared memory after the slots (the next step's values held in
+registers meanwhile), each value (a composed operand computed) read once
+and along its source's contiguous dimension; f32 FMAs in the reference's
+order of k (no tensor cores, no TF32), so the outputs are the
+register-tile loop's bit for bit.  Where the staging does not fit beside
+the slots, the dot keeps that loop: each thread reads its operands where
+they are.  The header names the loop each dot took.  A fusion with no slot
+is a pure map over the grid.  Threads per block follow the plan
+(``fusion_threads``: 128 to 512).
+
+Indices are ``int`` unless a tensor a kernel addresses, or a loop it runs,
+passes 2^31 - 1 elements: then every loop variable, block index and
+offset of the kernel is ``long long`` (``_wide``; the header says so), and
+a launch past 2^31 - 1 blocks raises ``NotImplementedError``.
 
 What bounds these kernels on the H100: an elementwise fusion is bound by
 the bytes it reads and writes (the card's 3.35 TB/s), a small one by the
@@ -127,6 +140,8 @@ SMEM_LIMIT = 232_448
 STATIC_SMEM_LIMIT = 48 * 1024
 GRID_CACHE_DEVICES = 16   # devices whose cooperative grid a launcher caches
 _ALIGN = SLOT_ALIGN
+#: the largest index a kernel forms in ``int``; past it, in ``long long``
+INT_MAX = 2 ** 31 - 1
 
 
 def _prod(xs: Sequence[int]) -> int:
@@ -203,6 +218,14 @@ def _emit_instr(instr: Instruction, sched: Sched, ovals: List, b, device):
             base = base + _starts(instr.shape, sched, b)[a["dim"]]
         return base.to(torch_dtype(instr.dtype))
 
+    if op == "dot" and sched.kind == "chunked":
+        # a row split's rhs is read whole: this block's output batch of it
+        nb = len(out_chunk) - 2
+        lhs, rhs = ovals
+        if tuple(rhs.shape[:nb]) != tuple(out_chunk[:nb]):
+            rhs = rhs[_window(instr.shape, sched, b)[:nb]]
+        return apply_op(instr, lhs, rhs, device=device)
+
     return apply_op(instr, *ovals, device=device)
 
 
@@ -240,7 +263,7 @@ def _plain_fusion(fusion: FusedComputation, solution: ScheduleSolution) -> Calla
                 else:
                     ovals = [
                         _adapt(vals[o.id], o, stored[o.id], ns, b)
-                        for o, ns in zip(m.operands, propagate(m, sched), strict=False)
+                        for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)
                     ]
                     vals[m.id] = _emit_instr(m, sched, ovals, b, device)
                     stored[m.id] = sched
@@ -285,7 +308,7 @@ def _plain_stitched(fusion: FusedComputation, stitched: StitchedSolution,
                         sched = REPLICATED
                     else:
                         ovals = []
-                        for o, ns in zip(m.operands, propagate(m, sched), strict=False):
+                        for o, ns in zip(m.operands, propagate(m, sched, True), strict=False):
                             if o.id in vals:
                                 ovals.append(_adapt(vals[o.id], o, stored[o.id], ns, b))
                             else:  # kernel input or staged interface: whole
@@ -469,6 +492,7 @@ class _View:
     offs: Tuple = ()
     literal: str = ""
     dtype: object = np.float32
+    wide: bool = False      # offsets past INT_MAX: each product formed in 64 bits
 
     def at(self, idx) -> str:
         return self.literal or _c_load(self.dtype, self.ref(idx))
@@ -477,7 +501,9 @@ class _View:
         """The element itself, as stored: what a write assigns to."""
         ints, parts = 0, []
         for o, j, s in zip(self.offs, idx, self.strides, strict=True):
-            t = _cmul(_cadd(o, j), s)
+            t = _cadd(o, j)
+            t = _cmul(f"static_cast<long long>({t})" if self.wide and s != 1 and not isinstance(t, int)
+                      else t, s)
             if isinstance(t, int):
                 ints += t
             else:
@@ -487,20 +513,21 @@ class _View:
         return f"{self.ptr}[{' + '.join(parts)}]"
 
 
-def _unravel(lines: List[str], var: str, shape, prefix: str, ind: str) -> List:
-    """Emit statements splitting linear index ``var`` over ``shape``."""
+def _unravel(lines: List[str], var: str, shape, prefix: str, ind: str, itype: str = "int") -> List:
+    """Emit statements splitting linear index ``var`` over ``shape``, in
+    integers of C type ``itype``."""
     idx: List = [0] * len(shape)
     dims = [k for k, s in enumerate(shape) if s != 1]
     if not dims:
         return idx
     rem = f"{prefix}_rem"
-    lines.append(f"{ind}int {rem} = {var};")
+    lines.append(f"{ind}{itype} {rem} = {var};")
     for k in reversed(dims):
         name = f"{prefix}{k}"
         if k == dims[0]:
-            lines.append(f"{ind}const int {name} = {rem};")
+            lines.append(f"{ind}const {itype} {name} = {rem};")
         else:
-            lines.append(f"{ind}const int {name} = {rem} % {shape[k]}; {rem} /= {shape[k]};")
+            lines.append(f"{ind}const {itype} {name} = {rem} % {shape[k]}; {rem} /= {shape[k]};")
         idx[k] = name
     return idx
 
@@ -634,18 +661,19 @@ def _value(m: Instruction, sched: Sched, ovs: List[_View], idx: List, b,
 
 
 def _tile_view(name: str, shape, stored: Sched, needed: Sched, opnd: Instruction, b,
-               full: bool) -> _View:
+               full: bool, wide: bool = False) -> _View:
     """The reference's ``_adapt`` as a view: ``full`` arrays (kernel inputs,
     staged interfaces) hold the whole tensor; tiles hold the stored chunk."""
     dt = opnd.dtype
     if stored == needed:
         if full and stored.kind == "chunked":
             return _View(chunk_shape(opnd.shape, stored), name, _dense_strides(opnd.shape),
-                         _c_starts(opnd.shape, stored, b), dtype=dt)
-        return _View(tuple(shape), name, _dense_strides(shape), (0,) * len(shape), dtype=dt)
+                         _c_starts(opnd.shape, stored, b), dtype=dt, wide=wide)
+        return _View(tuple(shape), name, _dense_strides(shape), (0,) * len(shape), dtype=dt,
+                     wide=wide)
     if stored.kind == "replicated" and needed.kind == "chunked":
         return _View(chunk_shape(opnd.shape, needed), name, _dense_strides(opnd.shape),
-                     _c_starts(opnd.shape, needed, b), dtype=dt)
+                     _c_starts(opnd.shape, needed, b), dtype=dt, wide=wide)
     raise ValueError(f"cannot adapt {opnd.name}: stored {stored}, needed {needed}")
 
 
@@ -696,6 +724,10 @@ def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
     launcher: one launch of ``grid`` blocks with ``smem`` bytes of dynamic
     shared memory (where they and the ``static_smem`` bytes pass 48 KB,
     the attribute is set once per device)."""
+    if grid > INT_MAX:
+        raise NotImplementedError(
+            f"a launch of {grid} blocks: gridDim.x is at most 2^31 - 1 ({INT_MAX}) blocks"
+        )
     params, lparams, casts = _signature_c(inputs, roots)
     launcher = ['extern "C" int @K@_launch(']
     launcher += [f"    {p}," for p in lparams] + ["    void* stream) {"]
@@ -723,6 +755,28 @@ def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
     return name, text.replace("@K@", name)
 
 
+def _wide(fusion: FusedComputation, phases: Sequence["_Phase"]) -> bool:
+    """Whether a kernel must index in 64 bits: a tensor it addresses passes
+    ``INT_MAX`` elements, or a loop variable of one of its phases would.  A
+    grid-stride loop's variable reaches its count plus the grid's stride
+    less one, and the grid is at most the phases' useful blocks."""
+    elems = max((_prod(i.shape) for i in list(fusion.inputs) + list(fusion.members)), default=0)
+    grid = max([1] + [ph.useful_blocks for ph in phases])
+    reach = [ph.extent for ph in phases]
+    reach += [n + grid * step - 1 for ph in phases for n, step in ph.strided]
+    return max([elems] + reach) > INT_MAX
+
+
+def _index_header(phases: Sequence["_Phase"]) -> str:
+    return ", 64-bit indices and offsets" if any(ph.wide for ph in phases) else ""
+
+
+def _dot_header(phases: Sequence["_Phase"]) -> str:
+    """Which loop each fused dot of a kernel took (``_Phase.dot_loop``)."""
+    loops = [d for ph in phases for d in ph.dot_loops]
+    return f"; dots: {'; '.join(loops)}" if loops else ""
+
+
 def _independent_groups(fusion: FusedComputation) -> List[List[int]]:
     """The member ids of a fusion split into groups that share no value
     (constants, read as literals, join none), each in topological order,
@@ -748,7 +802,8 @@ def _independent_groups(fusion: FusedComputation) -> List[List[int]]:
     return list(groups.values())
 
 
-def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: MemoryPlan):
+def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: MemoryPlan,
+                 stage_dots: bool):
     inputs, roots = fusion.inputs, fusion.roots
     in_name = {i.id: f"in{k}" for k, i in enumerate(inputs)}
     label = {**in_name, **{m.id: f"m{k}" for k, m in enumerate(fusion.members)}}
@@ -762,19 +817,25 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
         # shared memory holds the slots and the block reduces' partials
         base = "sx_smem" if size + reduce_part_bytes(threads) <= SMEM_LIMIT else "pr0"
         groups = _independent_groups(fusion)
-    ph = _Phase(0, PhaseSolution(fusion.members, roots, solution), plan, threads,
-                in_name, {}, out_of, label, base, groups, held)
-    phase = ph.emit()
+    def emit(wide: bool):
+        ph = _Phase(0, PhaseSolution(fusion.members, roots, solution), plan, threads,
+                    in_name, {}, out_of, label, base, groups, held, wide=wide,
+                    stage_dots=stage_dots)
+        return ph, ph.emit()
+
+    ph, phase = emit(False)
+    if _wide(fusion, [ph]):
+        ph, phase = emit(True)
     grid = max(1, ph.useful_blocks)
+    smem = max(size if base == "sx_smem" else 0, ph.dot_off + ph.dot_bytes if ph.dot_bytes else 0)
     body = []
-    if base == "sx_smem":
+    if smem:
         body.append("  extern __shared__ __align__(16) unsigned char sx_smem[];")
-    elif base is not None:
+    if base is not None and base != "sx_smem":
         body.append(f"  unsigned char* const pr0 = ws + static_cast<size_t>(blockIdx.x) * {size};")
     if ph.part_bytes:
         body.append(f"  __shared__ __align__(16) unsigned char sx_part[{ph.part_bytes}];")
     body += phase
-    smem = size if base == "sx_smem" else 0
     ws = size * grid if base == "pr0" else 0
     ws += _stage_region(body, ws, ph.stage_bytes, grid)
     header = (
@@ -782,6 +843,7 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
         f"one launch of {grid} blocks of {threads} threads, {smem} bytes of shared memory "
         f"a block, {ws} workspace bytes"
         + (f", {len(held)} of the plan's slot members held in registers" if held else "")
+        + _index_header([ph]) + _dot_header([ph])
     )
     name, text = _finish_source(header, body, inputs, roots, grid, threads, smem, ph.part_bytes)
     return name, text, ws, smem + ph.part_bytes
@@ -842,7 +904,7 @@ def held_in_registers(members: Sequence[Instruction], assign, pplan: MemoryPlan,
                 continue                   # it reads x where x is written
             if u.id not in ids or u.opcode not in _PER_ELEMENT or tuple(u.shape) != tuple(x.shape):
                 return None
-            for o, ns in zip(u.operands, propagate(u, assign[u.id]), strict=False):
+            for o, ns in zip(u.operands, propagate(u, assign[u.id], True), strict=False):
                 if o.id == x.id and ns != assign[x.id]:
                     return None
             if u.id in tiles and u.id not in held:
@@ -860,7 +922,7 @@ def held_in_registers(members: Sequence[Instruction], assign, pplan: MemoryPlan,
         """The slots ``m``'s value reads, each True where every read is at
         ``m``'s own element."""
         out: Dict[int, bool] = {}
-        for o, ns in zip(m.operands, propagate(m, assign[m.id]), strict=False):
+        for o, ns in zip(m.operands, propagate(m, assign[m.id], True), strict=False):
             if o.id not in ids or o.opcode == "constant":
                 continue
             same = (m.opcode in _PER_ELEMENT and ns == assign[o.id]
@@ -922,19 +984,193 @@ def fusion_threads(fusion: FusedComputation, solution: ScheduleSolution, plan: M
     return fusion_launch(fusion.members, fusion.roots, solution, plan)[1]
 
 
-def _map_loop_grid(m: Instruction, sched: Sched, blocks: int, threads: int) -> int:
+#: k steps a staged dot stages at once, at most (``dot_tiling``)
+DOT_MAX_BK = 32
+#: threads a staged dot's tile keeps busy before a larger register tile wins
+DOT_BUSY = 256
+#: rows of a thread's register tile, tried largest first: f32 tiles of 8
+#: rows read their lhs in two 16-byte words
+DOT_ROWS = (8, 4, 2, 1)
+#: registers a thread may hold the next k step's staged values in, at most
+DOT_PREFETCH = 16
+#: words of padding at the end of each staged row, against bank conflicts;
+#: rows read in 16-byte words (``DotTiling.vec``) keep their alignment
+DOT_PAD, DOT_VEC_PAD = 1, 4
+
+
+def _reg_tile(rows: int, cols: int) -> Tuple[int, int]:
+    """A thread's register tile of a dot's outputs in the register-tile
+    loop: up to 4 x 4."""
+    return (next(r for r in (4, 2, 1) if rows % r == 0),
+            next(r for r in (4, 2, 1) if cols % r == 0))
+
+
+def _divisors_of(n: int, cap: int = 0) -> List[int]:
+    """The divisors of ``n``, ascending; up to ``cap`` where it is given."""
+    small = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
+    out = sorted(set(small + [n // d for d in small]))
+    return [d for d in out if d <= cap] if cap else out
+
+
+@dataclass(frozen=True)
+class DotTiling:
+    """How a staged dot walks one plan block's output chunk: tiles of BG
+    batch elements of BM x BN outputs, each thread an rm x rn register tile
+    of one, k in steps of BK, ``lhs[BG x BM x BK]`` and ``rhs[BG x BK x
+    BN]`` staged in shared memory at each step as ``[BG][BK][BM + pad]``
+    and ``[BG][BK][BN + pad]``.  ``vec``: each thread's rows (and columns)
+    are neighbours, read from shared memory in 16-byte words; else they are
+    strided by the tile's count of threads along them."""
+
+    bm: int
+    bn: int
+    bk: int
+    rm: int
+    rn: int
+    bg: int = 1
+    vec: bool = False
+
+    @property
+    def pad(self) -> int:
+        return DOT_VEC_PAD if self.vec else DOT_PAD
+
+    def a_bytes(self, itemsize: int) -> int:
+        return -(-self.bg * self.bk * (self.bm + self.pad) * itemsize // _ALIGN) * _ALIGN
+
+    def stage_bytes(self, itemsize: int) -> int:
+        b = -(-self.bg * self.bk * (self.bn + self.pad) * itemsize // _ALIGN) * _ALIGN
+        return self.a_bytes(itemsize) + b
+
+
+def dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
+               lhs_ops: int = 0, rhs_ops: int = 0) -> Optional[DotTiling]:
+    """The staged loop's tiling of dot ``m`` under ``sched`` in blocks of
+    ``threads`` threads, its staging within ``budget`` bytes of shared
+    memory, or None where no staging fits (the register-tile loop serves
+    it).  A tile keeps as many threads busy as the chunk allows, up to
+    ``DOT_BUSY``; then the largest register tile (f32 up to 8 x 4, other
+    types 4 x 4: shared memory's bandwidth bounds the loop, and a larger
+    tile reads less of it for each FMA); then the tile that stages the
+    fewest values, each weighted by one plus the operations composed into
+    its operand (``lhs_ops``, ``rhs_ops``): the lhs is staged once per
+    column tile, the rhs once per row tile.  f32 register tiles read
+    shared memory in 16-byte words (8-byte for two)."""
+    out_chunk = chunk_shape(m.shape, sched)
+    rows, cols = out_chunk[-2], out_chunk[-1]
+    batch = _prod(out_chunk[:-2])
+    depth = m.operands[0].shape[-1]
+    itemsize = np.dtype(_NP_COMPUTE[_c_compute(m.dtype)]).itemsize
+    vec = _c_compute(m.dtype) == "float"
+    keyed = []
+    for rm in (r for r in DOT_ROWS if rows % r == 0 and (vec or r <= 4)):
+        for rn in (r for r in (4, 2, 1) if cols % r == 0):
+            for bg in _divisors_of(batch, threads):
+                for tx in _divisors_of(cols // rn, threads // bg):
+                    for ty in _divisors_of(rows // rm, threads // (bg * tx)):
+                        bm, bn = ty * rm, tx * rn
+                        staged = ((1 + lhs_ops) * rows * depth * (cols // bn)
+                                  + (1 + rhs_ops) * depth * cols * (rows // bm))
+                        busy = bg * tx * ty
+                        keyed.append(((min(busy, DOT_BUSY), rm * rn, -staged, bn, busy, rn, -bg),
+                                      (bm, bn, rm, rn, bg)))
+    for _, (bm, bn, rm, rn, bg) in sorted(keyed, reverse=True):
+        for bk in reversed([d for d in _divisors_of(depth) if d <= DOT_MAX_BK]):
+            t = DotTiling(bm, bn, bk, rm, rn, bg, vec)
+            if t.stage_bytes(itemsize) <= budget:
+                return t
+    return None
+
+
+def _vec_load(addr: str, n: int, name: str, ind: str) -> List[str]:
+    """``name``0 .. ``name``{n-1}: ``n`` neighbouring f32 values of shared
+    memory at ``addr``, in 16-byte loads (one 8-byte load for 2, one word
+    for 1)."""
+    if n == 1:
+        return [f"{ind}  const float {name}0 = *({addr});"]
+    width = min(n, 4)
+    out = []
+    for q in range(n // width):
+        at = f"{addr} + {q * width}" if q else addr
+        out += [f"{ind}  const float{width} {name}v{q} = "
+                f"*reinterpret_cast<const float{width}*>({at});",
+                f"{ind}  const float " + ", ".join(
+                    f"{name}{q * width + k} = {name}v{q}.{f}" for k, f in enumerate("xyzw"[:width]))
+                + ";"]
+    return out
+
+
+# the type each C compute type is, for its size
+_NP_COMPUTE = {"float": np.float32, "double": np.float64, "int": np.int32,
+               "long long": np.int64, "bool": np.bool_}
+
+
+def _composed_ops(o: Instruction, composed) -> int:
+    """The operations (elementwise, select) composed into a read of ``o``:
+    ``o`` and what it is computed from, through the members in
+    ``composed`` (INLINE or held in a register)."""
+    stack, seen, n = [o], set(), 0
+    while stack:
+        x = stack.pop()
+        if x.id in seen or x.id not in composed:
+            continue
+        seen.add(x.id)
+        if x.opcode in ("elementwise", "select"):
+            n += 1
+        stack.extend(x.operands)
+    return n
+
+
+def minor_moved(o: Instruction, composed) -> bool:
+    """Whether a composed read of ``o`` goes through a transpose that moves
+    its minor dimension: the source is then contiguous along another
+    dimension of ``o`` than its last."""
+    stack, seen = [o], set()
+    while stack:
+        x = stack.pop()
+        if x.id in seen or x.id not in composed:
+            continue
+        seen.add(x.id)
+        if x.opcode == "transpose":
+            perm = tuple(x.attrs["perm"])
+            if perm[-1] != len(perm) - 1:
+                return True
+        if x.opcode in ("elementwise", "select", "reshape", "bitcast", "broadcast", "transpose"):
+            stack.extend(x.operands)
+    return False
+
+
+def staged_dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
+                      composed) -> Optional[DotTiling]:
+    """``dot_tiling`` of ``m`` with its operands' composed operations
+    counted over ``composed``, the member ids read through composition."""
+    lhs, rhs = m.operands
+    return dot_tiling(m, sched, threads, budget, _composed_ops(lhs, composed),
+                      _composed_ops(rhs, composed))
+
+
+def _dot_tiles(m: Instruction, sched: Sched, t: DotTiling) -> int:
+    """Tiles of one plan block's chunk of dot ``m``."""
+    out_chunk = chunk_shape(m.shape, sched)
+    return _prod(out_chunk[:-2]) // t.bg * (out_chunk[-2] // t.bm) * (out_chunk[-1] // t.bn)
+
+
+def _map_loop_grid(m: Instruction, sched: Sched, blocks: int, threads: int,
+                   composed=frozenset()) -> int:
     """Blocks a pure map's loop over ``m`` keeps busy (``_Phase._loop_head``,
     ``reduce_loop``, ``dot_loop`` with no slot base): its elements, a
-    warp per reduce output, or a thread per dot register tile, over every
-    plan block, ``threads`` a block."""
+    warp per reduce output, a block per tile of a staged dot (``composed``:
+    the member ids read through composition, ``staged_dot_tiling``), or a
+    thread per register tile of an unstaged one, over every plan block,
+    ``threads`` a block."""
     reps = blocks if sched.kind == "chunked" else 1
     out_chunk = chunk_shape(m.shape, sched)
     if m.opcode == "reduce":
         return -(-_prod(out_chunk) * reps * 32 // threads)
     if m.opcode == "dot":
-        rows, cols = out_chunk[-2], out_chunk[-1]
-        rm = next(r for r in (4, 2, 1) if rows % r == 0)
-        rn = next(r for r in (4, 2, 1) if cols % r == 0)
+        t = staged_dot_tiling(m, sched, threads, SMEM_LIMIT - reduce_part_bytes(threads), composed)
+        if t is not None:
+            return _dot_tiles(m, sched, t) * reps
+        rm, rn = _reg_tile(out_chunk[-2], out_chunk[-1])
         return -(-_prod(out_chunk) // (rm * rn) * reps // threads)
     return -(-_prod(out_chunk) * reps // threads)
 
@@ -967,7 +1203,7 @@ def fusion_launch(members: Sequence[Instruction], roots: Sequence[Instruction],
         sched = solution.assignment[m.id]
         n = _prod(chunk_shape(m.shape, sched))
         if m.opcode == "reduce":
-            (ns,) = propagate(m, sched)
+            (ns,) = propagate(m, sched, True)
             terms = _prod(chunk_shape(m.operands[0].shape, ns))
             want = max(want, 32 * n, -(-terms // STITCHED_ELEMS_PER_THREAD))
         else:
@@ -979,9 +1215,54 @@ def fusion_launch(members: Sequence[Instruction], roots: Sequence[Instruction],
     if tiles:
         groups = [g for g in _independent_groups(fusion) if stored & set(g)]
         return blocks * max(1, len(groups)), threads
-    grid = max((_map_loop_grid(m, solution.assignment[m.id], blocks, threads)
+    composed = {m.id for m in fusion.members}
+    grid = max((_map_loop_grid(m, solution.assignment[m.id], blocks, threads, composed)
                 for m in fusion.members if m.id in stored), default=1)
     return max(1, grid), threads
+
+
+def _phase_dot_tilings(members: Sequence[Instruction], solution: ScheduleSolution, plan,
+                       written, threads: int, part: int) -> Dict[int, Optional[DotTiling]]:
+    """Each dot of one phase and the tiling its staged loop takes (None:
+    the register-tile loop): what ``_Phase.dot_loop`` decides, the staging
+    after the slots where those sit in shared memory (``part``: the bytes
+    the emitter keeps beside them)."""
+    tiles = _stored_tiles(members, solution, plan, written)
+    off = 0
+    if tiles and plan is not None:
+        _, size = _slot_layout(plan, set(tiles.values()))
+        if size + part <= SMEM_LIMIT:
+            off = -(-size // _ALIGN) * _ALIGN
+    composed = {m.id for m in members} - set(tiles)
+    budget = SMEM_LIMIT - off - reduce_part_bytes(threads)
+    return {m.id: staged_dot_tiling(m, solution.assignment[m.id], threads, budget, composed)
+            for m in members if m.opcode == "dot"}
+
+
+def dot_tilings(members: Sequence[Instruction], roots: Sequence[Instruction],
+                solution: ScheduleSolution, plan: Optional[MemoryPlan] = None
+                ) -> Dict[int, Optional[DotTiling]]:
+    """Each fused dot of an ``emit_fusion`` kernel and its staged loop's
+    tiling (None: the register-tile loop).  The planner's GPU model reads
+    it (``latency.fusion_time``)."""
+    threads = fusion_launch(members, roots, solution, plan)[1]
+    return _phase_dot_tilings(members, solution, plan, {r.id for r in roots}, threads,
+                              reduce_part_bytes(threads))
+
+
+def stitched_dot_tilings(stitched: StitchedSolution, plan: Optional[StitchedMemoryPlan] = None
+                         ) -> List[Dict[int, Optional[DotTiling]]]:
+    """``dot_tilings`` of each phase of an ``emit_stitched_fusion`` kernel."""
+    group_ids = {m.id for p in stitched.phases for m in p.members}
+    staged = {i.id for i in stitched.interfaces}
+    threads = stitched_threads(plan) if plan is not None else STITCHED_MAX_THREADS
+    out = []
+    for k, p in enumerate(stitched.phases):
+        written = {m.id for m in p.members
+                   if m.id in staged or not m.users or any(u.id not in group_ids for u in m.users)}
+        pplan = plan.phase_plans[k] if plan is not None else None
+        out.append(_phase_dot_tilings(p.members, p.solution, pplan, written, threads, 0))
+    return out
 
 
 def stitched_launch(stitched: StitchedSolution,
@@ -1003,7 +1284,9 @@ def stitched_launch(stitched: StitchedSolution,
         if tiles:
             out.append(blocks)
             continue
-        out.append(max(1, max((_map_loop_grid(m, p.solution.assignment[m.id], blocks, threads)
+        composed = {m.id for m in p.members}
+        out.append(max(1, max((_map_loop_grid(m, p.solution.assignment[m.id], blocks, threads,
+                                              composed)
                                for m in p.members if m.id in written and m.opcode != "constant"),
                               default=1)))
     return tuple(out), threads
@@ -1036,14 +1319,16 @@ def _indices(text: str, ptr: str) -> List[str]:
         start = j
 
 
-def _counted_loop(var: str, first: str, step: int, n: int, ind: str) -> List[str]:
+def _counted_loop(var: str, first: str, step: int, n: int, ind: str,
+                  itype: str = "int") -> List[str]:
     """The head of a loop of ``var`` over ``first, first + step, ...`` below
     ``n`` as a loop of a fixed count, unrolled, so a thread issues all its
-    iterations' loads before it waits for the first."""
+    iterations' loads before it waits for the first; its integers are of C
+    type ``itype``."""
     count = -(-n // step)
     lines = [f"{ind}#pragma unroll" + ("" if count <= 32 else " 8"),
-             f"{ind}for (int {var}k = 0; {var}k < {count}; ++{var}k) {{",
-             f"{ind}  const int {var} = {first} + {var}k * {step};"]
+             f"{ind}for ({itype} {var}k = 0; {var}k < {count}; ++{var}k) {{",
+             f"{ind}  const {itype} {var} = {first} + {var}k * {step};"]
     if n % step:
         lines.append(f"{ind}  if ({var} >= {n}) break;")
     return lines
@@ -1101,8 +1386,15 @@ class _Phase:
 
     def __init__(self, pk: int, phase, pplan: MemoryPlan, threads: int, in_name, staged, out_of,
                  label, slot_base: Optional[str], groups: Optional[List[List[int]]] = None,
-                 held=frozenset()):
+                 held=frozenset(), wide: bool = False, stage_dots: bool = True):
         self.pk, self.phase, self.pplan, self.threads = pk, phase, pplan, threads
+        self.stage_dots = stage_dots  # False: every dot on the register-tile loop
+        # indices, offsets and loop variables in 64 bits where a loop or a
+        # tensor passes INT_MAX (``_index_type``), else in ``int``
+        self.wide = wide
+        self.itype = "long long" if wide else "int"
+        self.extent = 0         # the largest value a loop variable or index reaches
+        self.strided: List[Tuple[int, int]] = []  # grid-stride loops: (count, step a grid block)
         self.assign = phase.solution.assignment
         self.blocks = phase.solution.blocks
         self.b = _Sym("b") if self.blocks > 1 else 0
@@ -1126,6 +1418,11 @@ class _Phase:
         self.part_bytes = 0     # static shared memory of the block-wide reduces
         self.restaged: set = set()   # SHARE members that write through sx_stage
         self.stage_bytes = 0    # the largest tile written through sx_stage
+        # a staged dot's operand tiles follow the slots in dynamic shared memory
+        self.dot_off = -(-self.slot_bytes // _ALIGN) * _ALIGN if slot_base == "sx_smem" else 0
+        self.dot_bytes = 0      # the largest staging of a dot's operand tiles
+        self.dot_loops: List[str] = []   # which loop each dot took, for the header
+        self.composed = {m.id for m in phase.members} - set(self.tiles)
 
     def fresh(self) -> str:
         self.n += 1
@@ -1139,18 +1436,19 @@ class _Phase:
             return _literal_view(o, ns)
         if o.id in self.tiles:
             st = self.assign[o.id]
-            return _tile_view(self.tiles[o.id], chunk_shape(o.shape, st), st, ns, o, self.b, full=False)
+            return _tile_view(self.tiles[o.id], chunk_shape(o.shape, st), st, ns, o, self.b, full=False,
+                              wide=self.wide)
         if o.id in self.held:
             return _Held(self, o, self.assign[o.id], ns, self.b)
         if o.id in self.ids:
             return _Lazy(self, o, self.assign[o.id], ns, self.b)
         # kernel input or staged interface: stored whole
         src = self.in_name[o.id] if o.id in self.in_name else self.staged[o.id]
-        return _tile_view(src, o.shape, REPLICATED, ns, o, self.b, full=True)
+        return _tile_view(src, o.shape, REPLICATED, ns, o, self.b, full=True, wide=self.wide)
 
     def value(self, m: Instruction, sched: Sched, idx, lin: str, sfx: str) -> str:
         """Element ``idx`` of ``m``, rounded to its dtype where it ends."""
-        ovs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
+        ovs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
         expr = _value(m, sched, ovs, idx, self.b, self.lines, self.ind, lin=lin, sfx=sfx)
         return _c_round(m.dtype, expr)
 
@@ -1162,8 +1460,8 @@ class _Phase:
             dests.append((self.staged[m.id], tuple(m.shape)))
         offs = _c_starts(m.shape, sched, self.b)
         out_chunk = chunk_shape(m.shape, sched)
-        return [f"{_View(out_chunk, p, _dense_strides(full), offs).ref(idx)} = {_c_store(m.dtype, v)};"
-                for p, full in dests]
+        return [f"{_View(out_chunk, p, _dense_strides(full), offs, wide=self.wide).ref(idx)} = "
+                f"{_c_store(m.dtype, v)};" for p, full in dests]
 
     def _tile_write(self, m: Instruction, out_chunk, idx) -> Optional[str]:
         if m.id not in self.tiles:
@@ -1171,7 +1469,8 @@ class _Phase:
         ptr = self.tiles[m.id]
         if m.id in self.restaged:
             ptr = f"reinterpret_cast<{_c_type(m.dtype)}*>(sx_stage)"
-        return _View(out_chunk, ptr, _dense_strides(out_chunk), (0,) * len(out_chunk)).ref(idx)
+        return _View(out_chunk, ptr, _dense_strides(out_chunk), (0,) * len(out_chunk),
+                     wide=self.wide).ref(idx)
 
     def _check_own_slot(self, m: Instruction, write: Optional[str], text: str) -> None:
         """A SHARE member may write its slot in place only where it reads
@@ -1189,6 +1488,13 @@ class _Phase:
         if any(i != mine[0] for i in _indices(text, ptr)):
             self.restaged.add(m.id)
 
+    def _refs(self, m: Instruction, sched: Sched, out_chunk, idx) -> List[str]:
+        """Every element ``idx`` of ``m`` is written to: its slot tile, its
+        outputs and its staged interface."""
+        write = self._tile_write(m, out_chunk, idx)
+        return ([] if write is None else [write]) + [
+            s.split(" = ")[0] for s in self._stores(m, sched, idx, "v")]
+
     def _writes(self, m: Instruction, sched: Sched, out_chunk, idx, v: str, ind: str) -> List[str]:
         """The slot tile and the outputs that computed value ``v`` of
         element ``idx`` goes to."""
@@ -1200,21 +1506,39 @@ class _Phase:
         """The head of the loop over ``n`` elements of a member's tile: in
         a phase with slots, the block's threads over one plan block's tile;
         in a pure map, every plan block's elements over the whole grid."""
-        th = self.threads
+        th, it = self.threads, self.itype
         if self.slot_base is not None:
-            return _counted_loop(var, "threadIdx.x", th, n, ind)
+            self.extent = max(self.extent, n)
+            return self._counted(var, "threadIdx.x", th, n, ind)
         reps = self.blocks if sched.kind == "chunked" else 1
         total = n * reps
+        self.extent = max(self.extent, total)
+        self.strided.append((total, th))
         body = ind + "  "
-        lines = [f"{ind}for (int t = blockIdx.x * {th} + threadIdx.x; t < {total}; "
-                 f"t += gridDim.x * {th}) {{"]
+        lines = [f"{ind}for ({it} t = {self._thread()}; t < {total}; t += {self._stride()}) {{"]
         if reps > 1:
-            lines.append(f"{body}const int b = t / {n};")
-            lines.append(f"{body}const int {var} = t % {n};")
+            lines.append(f"{body}const {it} b = t / {n};")
+            lines.append(f"{body}const {it} {var} = t % {n};")
         else:
-            lines.append(f"{body}const int {var} = t;")
+            lines.append(f"{body}const {it} {var} = t;")
         self.useful_blocks = max(self.useful_blocks, -(-total // th))
         return lines
+
+    def _counted(self, var: str, first: str, step: int, n: int, ind: str) -> List[str]:
+        """``_counted_loop`` in ``itype``: its variable reaches the last
+        multiple of ``step`` at or past ``n``, less one."""
+        self.extent = max(self.extent, -(-n // step) * step - 1)
+        return _counted_loop(var, first, step, n, ind, self.itype)
+
+    def _thread(self) -> str:
+        """The thread's index in the grid, formed in ``itype``."""
+        first = "static_cast<long long>(blockIdx.x)" if self.wide else "blockIdx.x"
+        return f"{first} * {self.threads} + threadIdx.x"
+
+    def _stride(self) -> str:
+        """The grid's threads, formed in ``itype``."""
+        first = "static_cast<long long>(gridDim.x)" if self.wide else "gridDim.x"
+        return f"{first} * {self.threads}"
 
     def element_loop(self, m: Instruction, ind: str) -> List[str]:
         sched = self.sched(m)
@@ -1222,7 +1546,7 @@ class _Phase:
         body = ind + "  "
         lines = self._loop_head("i", _prod(out_chunk), sched, ind)
         self.lines, self.ind, self.regs = [], body, {}
-        idx = _unravel(self.lines, "i", out_chunk, "o", body)
+        idx = _unravel(self.lines, "i", out_chunk, "o", body, self.itype)
         expr = self.value(m, sched, idx, "i", "")
         stmts = self.lines
         self._check_own_slot(m, self._tile_write(m, out_chunk, idx), "\n".join(stmts) + expr)
@@ -1232,35 +1556,55 @@ class _Phase:
         lines.append(f"{ind}}}")
         return lines
 
+    def _dot_batch(self, m: Instruction, sched: Sched, g) -> Tuple[List, List]:
+        """The batch indices each operand of dot ``m`` is read at, for the
+        chunk's batch indices ``g``: the chunk's own, or, for an operand
+        read whole under a chunked dot (a row split's rhs), the output's."""
+        ns = propagate(m, sched, True)
+        ost = _c_starts(m.shape, sched, self.b)
+        own = list(g)
+        whole = [_cadd(s, i) for s, i in zip(ost, g)]
+        return tuple(whole if s.kind == "replicated" and sched.kind == "chunked" else own
+                     for s in ns)
+
     def dot_loop(self, m: Instruction, ind: str) -> List[str]:
-        """A fused dot: each thread a register tile of up to 4 x 4 outputs
-        (rows and columns strided by the tile's count of them, so the
-        lanes of a warp read neighbouring columns and rows), so each k
+        """A fused dot, staged (``staged_dot_loop``) where its operand tiles
+        fit in the shared memory its slots leave, else each thread a
+        register tile of up to 4 x 4 outputs (rows and columns strided by
+        the tile's count of them, so the lanes of a warp read neighbouring
+        columns and rows) reading its operands where they are, so each k
         loads 4 + 4 operands for 16 FMAs.  f32 FMAs in the reference's order
         of k, no tensor cores (the 2e-5 tolerance forbids TF32)."""
         sched = self.sched(m)
+        budget = SMEM_LIMIT - self.dot_off - reduce_part_bytes(self.threads)
+        tiling = (staged_dot_tiling(m, sched, self.threads, budget, self.composed)
+                  if self.stage_dots else None)
+        if tiling is not None:
+            return self.staged_dot_loop(m, ind, tiling)
+        self.dot_loops.append(f"{self.label[m.id]} the register-tile loop")
         out_chunk = chunk_shape(m.shape, sched)
         rows, cols = out_chunk[-2], out_chunk[-1]
-        rm = next(r for r in (4, 2, 1) if rows % r == 0)
-        rn = next(r for r in (4, 2, 1) if cols % r == 0)
+        rm, rn = _reg_tile(rows, cols)
         gshape = tuple(out_chunk[:-2]) + (rows // rm, cols // rn)
         T = _c_compute(m.dtype)
         body = ind + "  "
         lines = self._loop_head("i", _prod(gshape), sched, ind)
         self.lines, self.ind = [], body
-        g = _unravel(self.lines, "i", gshape, "o", body)
+        g = _unravel(self.lines, "i", gshape, "o", body, self.itype)
         ms = [_cadd(g[-2], r * (rows // rm)) for r in range(rm)]
         ns = [_cadd(g[-1], c * (cols // rn)) for c in range(rn)]
-        lhs, rhs = [self.view(o, ns_) for o, ns_ in zip(m.operands, propagate(m, sched), strict=False)]
+        lhs, rhs = [self.view(o, ns_) for o, ns_ in zip(m.operands, propagate(m, sched, True), strict=False)]
+        lb, rb = self._dot_batch(m, sched, g[:-2])
         depth = lhs.shape[-1]
         self.lines.append(f"{body}{T} acc[{rm * rn}] = {{}};")
         self.lines.append(f"{body}#pragma unroll" + ("" if depth <= 32 else " 8"))
-        self.lines.append(f"{body}for (int k = 0; k < {depth}; ++k) {{")
+        self.extent = max(self.extent, depth)
+        self.lines.append(f"{body}for ({self.itype} k = 0; k < {depth}; ++k) {{")
         self.ind = body + "  "
         for r, row in enumerate(ms):
-            self.lines.append(f"{body}  const {T} a{r} = {lhs.at(list(g[:-2]) + [row, 'k'])};")
+            self.lines.append(f"{body}  const {T} a{r} = {lhs.at(lb + [row, 'k'])};")
         for c, col in enumerate(ns):
-            self.lines.append(f"{body}  const {T} c{c} = {rhs.at(list(g[:-2]) + ['k', col])};")
+            self.lines.append(f"{body}  const {T} c{c} = {rhs.at(rb + ['k', col])};")
         for r in range(rm):
             for c in range(rn):
                 self.lines.append(f"{body}  acc[{r * rn + c}] = sx_fma(a{r}, c{c}, acc[{r * rn + c}]);")
@@ -1279,6 +1623,213 @@ class _Phase:
         lines.append(f"{ind}}}")
         return lines
 
+    def staged_dot_loop(self, m: Instruction, ind: str, t: DotTiling) -> List[str]:
+        """A fused dot whose block computes a tile of BG batch elements of
+        BM x BN outputs of its chunk at a time, each thread an rm x rn
+        register tile of it.  The block walks k in steps of BK: its threads
+        stage ``lhs[BG x BM x BK]`` and ``rhs[BG x BK x BN]`` in shared
+        memory, each value read (a composed operand computed) once, along
+        the dimension its source is contiguous in, and written transposed
+        where needed into padded rows; after a barrier each thread
+        accumulates from shared memory, in 16-byte words where its rows and
+        columns are neighbours (``DotTiling.vec``).  The FMAs run in the
+        reference's order of k, so each output is the register-tile loop's
+        to the bit.  In a phase with slots the block walks its plan block's
+        tiles; in a pure map the blocks of the grid share every plan block's
+        tiles."""
+        sched = self.sched(m)
+        out_chunk = chunk_shape(m.shape, sched)
+        rows, cols = out_chunk[-2], out_chunk[-1]
+        T, it, th = _c_compute(m.dtype), self.itype, self.threads
+        bshape = tuple(out_chunk[:-2])
+        depth = m.operands[0].shape[-1]
+        tx, ty = t.bn // t.rn, t.bm // t.rm
+        busy = t.bg * tx * ty
+        la, lb_ = t.bm + t.pad, t.bn + t.pad
+        sa_g, sb_g = t.bk * la, t.bk * lb_          # one batch element's staging
+        itemsize = np.dtype(_NP_COMPUTE[T]).itemsize
+        self.dot_bytes = max(self.dot_bytes, t.stage_bytes(itemsize))
+        lbl = self.label[m.id]
+        batched = f"{t.bg} x " if t.bg > 1 else ""
+        self.dot_loops.append(f"{lbl} staged in {batched}{t.bm} x {t.bn} tiles, k steps of {t.bk}")
+        tshape = (_prod(bshape) // t.bg, rows // t.bm, cols // t.bn)
+        per_chunk = _prod(tshape)
+        body, inner = ind + "  ", ind + "    "
+        lines = [f"{ind}{{  // {lbl}: {batched}{t.bm} x {t.bn} output tiles of {t.rm} x {t.rn} "
+                 f"a thread, k steps of {t.bk} staged in shared memory",
+                 f"{body}{T}* const sa = reinterpret_cast<{T}*>(sx_smem + {self.dot_off});",
+                 f"{body}{T}* const sb = reinterpret_cast<{T}*>(sx_smem + "
+                 f"{self.dot_off + t.a_bytes(itemsize)});"]
+        if self.slot_base is not None:
+            self.extent = max(self.extent, per_chunk)
+            lines.append(f"{body}for ({it} tile = 0; tile < {per_chunk}; ++tile) {{")
+        else:
+            reps = self.blocks if sched.kind == "chunked" else 1
+            total = per_chunk * reps
+            self.extent = max(self.extent, total)
+            self.strided.append((total, 1))
+            self.useful_blocks = max(self.useful_blocks, total)
+            lines.append(f"{body}for ({it} u = blockIdx.x; u < {total}; u += gridDim.x) {{")
+            if reps > 1:
+                lines.append(f"{inner}const {it} b = u / {per_chunk};")
+            lines.append(f"{inner}const {it} tile = u % {per_chunk};" if reps > 1
+                         else f"{inner}const {it} tile = u;")
+        self.lines, self.ind = [], inner
+        tg, tm, tn = _unravel(self.lines, "tile", tshape, "d", inner, it)
+        lines += self.lines
+        row0, col0 = _cmul(tm, t.bm), _cmul(tn, t.bn)
+        if t.bg > 1:
+            lines += [f"{inner}const int gi = threadIdx.x / {tx * ty};",
+                      f"{inner}const int ty = threadIdx.x / {tx} % {ty};"]
+        else:
+            lines.append(f"{inner}const int ty = threadIdx.x / {tx};")
+        lines += [f"{inner}const int tx = threadIdx.x % {tx};",
+                  f"{inner}{T} acc[{t.rm * t.rn}] = {{}};"]
+        lhs, rhs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
+        text = []
+        stage = inner + "  "
+
+        def batch_of(gexpr, prefix):
+            """The chunk's batch indices of tile batch element ``gexpr``."""
+            first = _cmul(tg, t.bg)
+            return _unravel(self.lines, _cadd(first, gexpr) if t.bg > 1 else str(first),
+                            bshape, prefix, self.ind, it) if bshape else []
+
+        operands = [
+            ("sa", "pa", lhs, t.bm, la, sa_g, not minor_moved(m.operands[0], self.composed), 0,
+             lambda w, kk, kb: [_cadd(row0, w), f"({kb} + {kk})"]),
+            ("sb", "pb", rhs, t.bn, lb_, sb_g, minor_moved(m.operands[1], self.composed), 1,
+             lambda w, kk, kb: [f"({kb} + {kk})", _cadd(col0, w)])]
+        counts = [-(-n_w * t.bk * t.bg // th) for _, _, _, n_w, *_ in operands]
+        # each thread holds the next k step's values in registers while it
+        # accumulates the current one, where they are few
+        prefetch = depth > t.bk and sum(counts) <= DOT_PREFETCH
+
+        def element(n_w, along_k, ind):
+            """A staged element ``e``'s coordinates: ``w`` (row or column),
+            ``kk`` and, for a batched tile, ``ge``."""
+            if along_k and t.vec and t.bk % 8 == 0 and n_w % 4 == 0:
+                # the source is contiguous along k and the padded rows are
+                # 16-byte words: a warp takes 8 k by 4 rows, one sector of
+                # each row, and its 32 stores fall in 32 banks
+                out = [f"{ind}const int kk = e % 8 + e / 32 % {t.bk // 8} * 8;",
+                       f"{ind}const int w = e / 8 % 4 + e / {4 * t.bk} % {n_w // 4} * 4;"]
+            elif along_k:   # the source is contiguous along k
+                out = [f"{ind}const int kk = e % {t.bk};", f"{ind}const int w = e / {t.bk} % {n_w};"]
+            else:
+                out = [f"{ind}const int w = e % {n_w};", f"{ind}const int kk = e / {n_w} % {t.bk};"]
+            return out + ([f"{ind}const int ge = e / {n_w * t.bk};"] if t.bg > 1 else [])
+
+        def walk(count, n, ind):
+            """A thread's elements of a staging of ``n`` elements, unrolled."""
+            head = [f"{ind}#pragma unroll", f"{ind}for (int ek = 0; ek < {count}; ++ek) {{",
+                    f"{ind}  const int e = threadIdx.x + ek * {th};"]
+            if n % th:
+                head += [f"{ind}  if (e < {n}) {{"]
+            return head, ind + ("    " if n % th else "  "), ([f"{ind}  }}"] if n % th else []) + [f"{ind}}}"]
+
+        def stage_values(kb, ind, into_regs):
+            """Each thread's staged values at k step ``kb``: into its
+            prefetch registers, or straight into shared memory."""
+            out = []
+            for (name, reg, view, n_w, width, per_g, along_k, which, where), count in zip(operands, counts):
+                n = n_w * t.bk * t.bg
+                head, body_ind, tail = walk(count, n, ind)
+                out += head + element(n_w, along_k, body_ind)
+                self.lines, self.ind, self.regs = [], body_ind, {}
+                batch = list(self._dot_batch(m, sched, batch_of("ge", f"g{name}"))[which])
+                expr = view.at(batch + where("w", "kk", kb))
+                out += self.lines
+                text.extend(self.lines + [expr])
+                at = f"ge * {per_g} + " if t.bg > 1 else ""
+                dest = f"{reg}[ek]" if into_regs else f"{name}[{at}kk * {width} + w]"
+                out.append(f"{body_ind}{dest} = {expr};")
+                out += tail
+            return out
+
+        def store_regs(ind):
+            out = []
+            for (name, reg, view, n_w, width, per_g, along_k, which, where), count in zip(operands, counts):
+                n = n_w * t.bk * t.bg
+                head, body_ind, tail = walk(count, n, ind)
+                at = f"ge * {per_g} + " if t.bg > 1 else ""
+                out += head + element(n_w, along_k, body_ind)
+                out.append(f"{body_ind}{name}[{at}kk * {width} + w] = {reg}[ek];")
+                out += tail
+            return out
+
+        if prefetch:
+            lines += [f"{inner}{T} pa[{counts[0]}], pb[{counts[1]}];  // the next k step's values"]
+            lines += stage_values("0", inner, True)
+        self.extent = max(self.extent, depth + t.bk - 1)
+        lines.append(f"{inner}for ({it} k0 = 0; k0 < {depth}; k0 += {t.bk}) {{")
+        if prefetch:
+            lines += store_regs(stage)
+            lines.append(f"{stage}__syncthreads();")
+            lines.append(f"{stage}if (k0 + {t.bk} < {depth}) {{")
+            lines += stage_values(f"k0 + {t.bk}", stage + "  ", True)
+            lines.append(f"{stage}}}")
+        else:
+            lines += stage_values("k0", stage, False)
+            lines.append(f"{stage}__syncthreads();")
+        comp = stage + ("  " if busy < th else "")
+        if busy < th:
+            lines.append(f"{stage}if (threadIdx.x < {busy}) {{")
+        ga, gb = (f"gi * {sa_g} + ", f"gi * {sb_g} + ") if t.bg > 1 else ("", "")
+        lines += [f"{comp}#pragma unroll", f"{comp}for (int kk = 0; kk < {t.bk}; ++kk) {{"]
+        if t.vec:
+            lines += _vec_load(f"sa + {ga}kk * {la} + ty{f' * {t.rm}' if t.rm > 1 else ''}",
+                               t.rm, "a", comp)
+            lines += _vec_load(f"sb + {gb}kk * {lb_} + tx{f' * {t.rn}' if t.rn > 1 else ''}",
+                               t.rn, "c", comp)
+        else:
+            lines += [f"{comp}  const {T} a{r} = sa[{ga}kk * {la} + ty{f' + {r * ty}' if r else ''}];"
+                      for r in range(t.rm)]
+            lines += [f"{comp}  const {T} c{c} = sb[{gb}kk * {lb_} + tx{f' + {c * tx}' if c else ''}];"
+                      for c in range(t.rn)]
+        lines += [f"{comp}  acc[{r * t.rn + c}] = sx_fma(a{r}, c{c}, acc[{r * t.rn + c}]);"
+                  for r in range(t.rm) for c in range(t.rn)]
+        lines.append(f"{comp}}}")
+        if busy < th:
+            lines.append(f"{stage}}}")
+        lines += [f"{stage}__syncthreads();", f"{inner}}}"]
+        out = inner + ("  " if busy < th else "")
+        if busy < th:
+            lines.append(f"{inner}if (threadIdx.x < {busy}) {{")
+        self.lines, self.ind = [], out
+        obatch = batch_of("gi", "go")
+        lines += self.lines
+
+        def at(base, var, k, n, width):
+            """Register ``k``'s row (or column) ``var`` holds, past ``base``."""
+            if t.vec and width > 1:
+                return _cadd(base, f"({var} * {width} + {k})" if k else f"({var} * {width})")
+            return _cadd(base, f"({var} + {k * n})" if k else var)
+
+        outs = [(r * t.rn + c, list(obatch) + [at(row0, "ty", r, ty, t.rm),
+                                               at(col0, "tx", c, tx, t.rn)])
+                for r in range(t.rm) for c in range(t.rn)]
+        for _, j in outs:
+            self._check_own_slot(m, self._tile_write(m, out_chunk, j), "\n".join(text))
+        if t.vec and t.rn > 1 and _c_type(m.dtype) == "float" and m.id not in self.restaged:
+            # each register row's neighbouring columns in one 16- or 8-byte store
+            for r in range(t.rm):
+                j = outs[r * t.rn][1]
+                vals = ", ".join(f"acc[{r * t.rn + c}]" for c in range(t.rn))
+                for ref in self._refs(m, sched, out_chunk, j):
+                    lines.append(f"{out}*reinterpret_cast<float{t.rn}*>(&{ref}) = "
+                                 f"make_float{t.rn}({vals});")
+        else:
+            for a, j in outs:
+                lines.append(f"{out}{{")
+                lines.append(f"{out}  const {T} v = {_c_round(m.dtype, f'acc[{a}]')};")
+                lines += self._writes(m, sched, out_chunk, j, "v", out + "  ")
+                lines.append(f"{out}}}")
+        if busy < th:
+            lines.append(f"{inner}}}")
+        lines += [f"{body}}}", f"{ind}}}"]
+        return lines
+
     def reduce_loop(self, m: Instruction, ind: str) -> List[str]:
         """A cooperative reduce: a warp per output element, its lanes
         striding over the reduced elements, then a butterfly of shuffles.
@@ -1291,7 +1842,7 @@ class _Phase:
         pure = self.slot_base is None
         if not pure and 2 * r_out <= warps:
             return self._block_reduce(m, ind)
-        (src,) = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
+        (src,) = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
         rdims = tuple(m.attrs["dims"])
         kind = m.attrs["kind"]
         kept = [k for k in range(len(src.shape)) if k not in rdims]
@@ -1299,25 +1850,29 @@ class _Phase:
         reps = self.blocks if pure and sched.kind == "chunked" else 1
         body = ind + "  "
         lines = []
+        it = self.itype
+        self.extent = max(self.extent, r_out, _prod(extent))
         if pure:
             total = r_out * reps
-            lines.append(f"{ind}for (int ow = (blockIdx.x * {th} + threadIdx.x) >> 5; ow < {total}; "
-                         f"ow += (gridDim.x * {th}) >> 5) {{")
+            self.extent = max(self.extent, total * 32)
+            self.strided.append((total, th))
+            lines.append(f"{ind}for ({it} ow = ({self._thread()}) >> 5; ow < {total}; "
+                         f"ow += ({self._stride()}) >> 5) {{")
             if reps > 1:
-                lines.append(f"{body}const int b = ow / {r_out};")
-                lines.append(f"{body}const int o = ow % {r_out};")
+                lines.append(f"{body}const {it} b = ow / {r_out};")
+                lines.append(f"{body}const {it} o = ow % {r_out};")
             else:
-                lines.append(f"{body}const int o = ow;")
+                lines.append(f"{body}const {it} o = ow;")
             self.useful_blocks = max(self.useful_blocks, -(-total * 32 // th))
         self.lines, self.ind = [], body
-        idx = _unravel(self.lines, "o", out_chunk, "o", body)
+        idx = _unravel(self.lines, "o", out_chunk, "o", body, it)
         j: List = [0] * len(src.shape)
         for kk, k in enumerate(kept):
             j[k] = idx[kk]
         self.lines.append(f"{body}{T} acc = {_REDUCE_INIT[kind].format(T=T)};")
-        self.lines += _counted_loop("r", "(threadIdx.x & 31)", 32, _prod(extent), body)
+        self.lines += self._counted("r", "(threadIdx.x & 31)", 32, _prod(extent), body)
         self.ind = body + "  "
-        for k, q in zip(rdims, _unravel(self.lines, "r", extent, "q", body + "  "), strict=True):
+        for k, q in zip(rdims, _unravel(self.lines, "r", extent, "q", body + "  ", it), strict=True):
             j[k] = q
         self.lines.append(f"{body}  {_REDUCE_STEP[kind].format(x=src.at(j))}")
         self.lines.append(f"{body}}}")
@@ -1327,7 +1882,8 @@ class _Phase:
         stmts = self.lines
         self._check_own_slot(m, self._tile_write(m, out_chunk, idx), "\n".join(stmts))
         if not pure:
-            lines.append(f"{ind}for (int o = threadIdx.x >> 5; o < {r_out}; o += {warps}) {{")
+            self.extent = max(self.extent, r_out + warps - 1)
+            lines.append(f"{ind}for ({it} o = threadIdx.x >> 5; o < {r_out}; o += {warps}) {{")
         lines += stmts
         lines.append(f"{body}if ((threadIdx.x & 31) == 0) {{")
         lines.append(f"{body}  const {T} v = {_c_round(m.dtype, v)};")
@@ -1349,7 +1905,7 @@ class _Phase:
         r_out, T, th = _prod(out_chunk), _c_compute(m.dtype), self.threads
         warps = th // 32
         parts = warps // r_out
-        (src,) = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched), strict=False)]
+        (src,) = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
         rdims = tuple(m.attrs["dims"])
         kind = m.attrs["kind"]
         comb = _REDUCE_COMBINE[kind]
@@ -1364,14 +1920,17 @@ class _Phase:
                  f"{body}if (w < {r_out * parts}) {{",
                  f"{inner}const int o = w % {r_out};",
                  f"{inner}const int p = w / {r_out};"]
+        it = self.itype
+        self.extent = max(self.extent, _prod(extent))
         self.lines, self.ind = [], inner
-        idx = _unravel(self.lines, "o", out_chunk, "o", inner)
+        idx = _unravel(self.lines, "o", out_chunk, "o", inner, it)
         j: List = [0] * len(src.shape)
         for kk, k in enumerate(kept):
             j[k] = idx[kk]
-        self.lines += _counted_loop("r", "((threadIdx.x & 31) + 32 * p)", 32 * parts, _prod(extent), inner)
+        self.lines += self._counted("r", "((threadIdx.x & 31) + 32 * p)", 32 * parts, _prod(extent),
+                                    inner)
         self.ind = inner + "  "
-        for k, q in zip(rdims, _unravel(self.lines, "r", extent, "q", inner + "  "), strict=True):
+        for k, q in zip(rdims, _unravel(self.lines, "r", extent, "q", inner + "  ", it), strict=True):
             j[k] = q
         self.lines.append(f"{inner}  {_REDUCE_STEP[kind].format(x=src.at(j))}")
         self.lines.append(f"{inner}}}")
@@ -1385,7 +1944,7 @@ class _Phase:
                   f"{inner}{T} tot = part[o];",
                   f"{inner}for (int p = 1; p < {parts}; ++p) tot = {comb}()(tot, part[o + p * {r_out}]);"]
         self.ind = inner
-        idx = _unravel(lines, "o", out_chunk, "o", inner)
+        idx = _unravel(lines, "o", out_chunk, "o", inner, it)
         v = f"(tot / static_cast<{T}>({_prod(extent)}))" if kind == "mean" else "tot"
         lines.append(f"{inner}const {T} v = {_c_round(m.dtype, v)};")
         lines += self._writes(m, sched, out_chunk, idx, "v", inner)
@@ -1405,8 +1964,9 @@ class _Phase:
             n = _prod(chunk_shape(m.shape, self.sched(m)))
             T, ptr = _c_type(m.dtype), self.tiles[m.id]
             self.stage_bytes = max(self.stage_bytes, n * np.dtype(m.dtype).itemsize)
+            self.extent = max(self.extent, n + self.threads - 1)
             lines += [f"{ind}__syncthreads();  // the slot's previous owner is read: write {ptr}",
-                      f"{ind}for (int i = threadIdx.x; i < {n}; i += {self.threads}) "
+                      f"{ind}for ({self.itype} i = threadIdx.x; i < {n}; i += {self.threads}) "
                       f"{ptr}[i] = reinterpret_cast<const {T}*>(sx_stage)[i];"]
         return lines
 
@@ -1434,8 +1994,10 @@ class _Phase:
         for slot, ptr in sorted(self.slot_ptr.items()):
             T = _c_type(self.pplan.slots[slot][1])
             out.append(f"    {T}* const {ptr} = reinterpret_cast<{T}*>({self.slot_base} + {self.offs[slot]});")
+        it = self.itype
         if len(groups) == 1:
-            out.append(f"    for (int b = blockIdx.x; b < {self.blocks}; b += gridDim.x) {{")
+            self.strided.append((self.blocks, 1))
+            out.append(f"    for ({it} b = blockIdx.x; b < {self.blocks}; b += gridDim.x) {{")
             for m in groups[0]:
                 out.append(self._comment(m, "      "))
                 out += self.member_loop(m, "      ")
@@ -1443,9 +2005,11 @@ class _Phase:
         else:
             # each (plan block, group) pair a unit of work, dealt over the grid
             units = self.blocks * len(groups)
-            out.append(f"    for (int u = blockIdx.x; u < {units}; u += gridDim.x) {{")
+            self.extent = max(self.extent, units)
+            self.strided.append((units, 1))
+            out.append(f"    for ({it} u = blockIdx.x; u < {units}; u += gridDim.x) {{")
             if self.blocks > 1:
-                out.append(f"      const int b = u / {len(groups)};")
+                out.append(f"      const {it} b = u / {len(groups)};")
             for g, members in enumerate(groups):
                 cond = f"u % {len(groups)} == {g}"
                 out.append(f"      {'if' if g == 0 else '} else if'} ({cond}) {{")
@@ -1470,7 +2034,7 @@ class _Phase:
 
 
 def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
-                   plan: StitchedMemoryPlan):
+                   plan: StitchedMemoryPlan, stage_dots: bool):
     inputs, roots = fusion.inputs, fusion.roots
     members = {m.id: m for m in fusion.members}
     in_name = {i.id: f"in{k}" for k, i in enumerate(inputs)}
@@ -1497,22 +2061,37 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
             region = max(region, size * phase.solution.blocks)
     if smem:
         body.append("  extern __shared__ __align__(16) unsigned char sx_smem[];")
-    grid, static_smem, stage = 1, 0, 0
-    for pk, (phase, pplan) in enumerate(zip(stitched.phases, plan.phase_plans, strict=True)):
-        if pk:
-            body.append("  sx_grid_sync();")
-        size = sizes[pk]
-        base = None
-        if size:
-            base = "sx_smem" if size <= SMEM_LIMIT else f"pr{pk}"
-            if base != "sx_smem":
-                body.append(f"  unsigned char* const {base} = ws + {ws.size} + "
-                            f"static_cast<size_t>(blockIdx.x) * {size};")
-        ph = _Phase(pk, phase, pplan, threads, in_name, staged, out_of, label, base, held=held[pk])
-        body += ph.emit()
-        grid = max(grid, ph.useful_blocks)
-        static_smem = max(static_smem, ph.part_bytes)
-        stage = max(stage, ph.stage_bytes)
+    head = list(body)
+
+    def emit(wide: bool):
+        body, phases = list(head), []
+        for pk, (phase, pplan) in enumerate(zip(stitched.phases, plan.phase_plans, strict=True)):
+            if pk:
+                body.append("  sx_grid_sync();")
+            size = sizes[pk]
+            base = None
+            if size:
+                base = "sx_smem" if size <= SMEM_LIMIT else f"pr{pk}"
+                if base != "sx_smem":
+                    body.append(f"  unsigned char* const {base} = ws + {ws.size} + "
+                                f"static_cast<size_t>(blockIdx.x) * {size};")
+            ph = _Phase(pk, phase, pplan, threads, in_name, staged, out_of, label, base,
+                        held=held[pk], wide=wide, stage_dots=stage_dots)
+            body += ph.emit()
+            phases.append(ph)
+        return body, phases
+
+    body, phases = emit(False)
+    if _wide(fusion, phases):
+        body, phases = emit(True)
+    grid = max([1] + [ph.useful_blocks for ph in phases])
+    static_smem = max([0] + [ph.part_bytes for ph in phases])
+    stage = max([0] + [ph.stage_bytes for ph in phases])
+    dots = max([0] + [ph.dot_off + ph.dot_bytes for ph in phases if ph.dot_bytes])
+    if dots > smem:
+        if not smem:
+            body.insert(len(ws.decls), "  extern __shared__ __align__(16) unsigned char sx_smem[];")
+        smem = dots
     if static_smem:
         body.insert(0, f"  __shared__ __align__(16) unsigned char sx_part[{static_smem}];")
     total = ws.size + region + _stage_region(body, ws.size + region, stage, grid)
@@ -1520,6 +2099,7 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
         f"// emit_stitched_fusion: {stitched.num_phases} phases, {stitched.blocks} plan blocks "
         f"in all, one cooperative launch of up to {grid} blocks of {threads} threads, "
         f"{smem} bytes of shared memory a block, {total} workspace bytes"
+        + _index_header(phases) + _dot_header(phases)
     )
     name, text = _finish_cooperative(header, body, inputs, roots, grid, threads, smem, static_smem)
     return name, text, total, smem + static_smem
@@ -1735,14 +2315,17 @@ def emit_fusion(
     fusion: FusedComputation,
     solution: ScheduleSolution,
     plan: MemoryPlan,
+    stage_dots: bool = True,
 ) -> StitchedKernel:
     """One schedule-consistent fusion as one CUDA launch that follows
     ``plan``: ALLOC/SHARE members in its slots in shared memory (or a
     per-block workspace region past ``SMEM_LIMIT``), INLINE members composed
     into their consumers, a CUDA block per plan block and independent member
-    group, cooperative reduces (module docstring)."""
+    group, cooperative reduces (module docstring).  ``stage_dots`` False
+    puts every fused dot on the register-tile loop, the reference the
+    staged loop equals bit for bit."""
     _check_no_collectives(fusion)
-    name, source, ws, shared = _cuda_fusion(fusion, solution, plan)
+    name, source, ws, shared = _cuda_fusion(fusion, solution, plan, stage_dots)
     program = KernelProgram(
         name, source, "emit_fusion", _plain_fusion(fusion, solution),
         fusion.inputs, fusion.roots, ws, shared,
@@ -1754,11 +2337,13 @@ def emit_stitched_fusion(
     fusion: FusedComputation,
     stitched: StitchedSolution,
     plan: StitchedMemoryPlan,
+    stage_dots: bool = True,
 ) -> StitchedKernel:
     """Every phase of a stitched group in ONE cooperative CUDA launch over
-    the grid, with the plan's slots in shared memory (module docstring)."""
+    the grid, with the plan's slots in shared memory (module docstring);
+    ``stage_dots`` as in ``emit_fusion``."""
     _check_no_collectives(fusion)
-    name, source, ws, shared = _cuda_stitched(fusion, stitched, plan)
+    name, source, ws, shared = _cuda_stitched(fusion, stitched, plan, stage_dots)
     program = KernelProgram(
         name, source, "emit_stitched_fusion", _plain_stitched(fusion, stitched, plan),
         fusion.inputs, fusion.roots, ws, shared,

@@ -328,6 +328,7 @@ class FusionScorer:
                 stitch_replicate_limit=self.stitch_replicate_limit,
                 stitch_max_blocks=self.stitch_max_blocks,
                 allow_stitch=self.allow_stitch,
+                spec=self.spec,
             )
         return self._verdicts[key]
 

@@ -29,8 +29,12 @@ What the model charges (see README "LatencyModel conventions"):
   * on a GPU (``sm_count > 1``), the share of the card a kernel's grid
     fills: its HBM time at the bandwidth a grid of that many CUDA blocks
     reaches (``block_curve``, measured), its compute and shared-memory
-    time at ``grid / sm_count`` of the peaks; and a member the memory plan
-    shrank to INLINE once for every read of it (``recompute_flops``).
+    time at ``grid / sm_count`` of the peaks; a member the memory plan
+    shrank to INLINE once for every read of it, a staged dot's operand
+    once per tile it is staged for, at the measured rate of that op
+    composed into a staged dot (``recompute_s``, ``staged_op_rates``);
+    and a row-split dot's rhs, which every block reads whole, at the L2's
+    measured rate (``l2_read_bytes``, ``l2_bw``).
 
 What it approximates:
   * perfect overlap of compute and HBM DMA inside one kernel
@@ -60,6 +64,7 @@ from .schedule import (
     StitchedSolution,
     blocks_of,
     chunk_shape,
+    is_row_split_dot,
 )
 
 
@@ -92,6 +97,14 @@ class DeviceSpec:
     block_curve: Tuple[Tuple[int, float], ...] = ()
     l2_bytes: int = 0                        # cache re-reads hit; 0: none
     threads_per_sm: int = 0                  # resident threads an SM holds; 0: one program
+    l2_bw: float = 0.0                       # the L2's read rate, bytes/s; 0: no L2
+    # the largest whole rhs a row-split dot was measured to read at l2_bw,
+    # bytes: the most a row split may replicate (``schedule.resolve_schedules``)
+    l2_read_limit: int = 0
+    # (op, elements a second) the card computes an op at where it is composed
+    # into a staged dot's operand (``codegen.staged_dot_loop``), measured;
+    # an op not listed is priced at vpu_flops over its weight
+    staged_op_rates: Tuple[Tuple[str, float], ...] = ()
 
     @property
     def is_gpu(self) -> bool:
@@ -116,7 +129,8 @@ class DeviceSpec:
         return hashlib.sha256(repr(feats).encode()).hexdigest()[:16]
 
 
-_GPU_FIELDS = ("sm_count", "block_curve", "l2_bytes", "threads_per_sm")
+_GPU_FIELDS = ("sm_count", "block_curve", "l2_bytes", "threads_per_sm", "l2_bw",
+               "l2_read_limit", "staged_op_rates")
 
 
 TPU_V5E = DeviceSpec()
@@ -162,6 +176,20 @@ H100 = DeviceSpec(
                  (32, 0.13824), (64, 0.37575), (128, 0.72692), (132, 0.69094),
                  (256, 0.77300), (264, 0.86975)),
     l2_bytes=50 * 1024 * 1024,       # L2 cache (data sheet)
+    # phase 17 (c), the same card: a row-split dot of (1, 2048, 512) by
+    # (1, 512, 64) f32, one row a plan block, every block staging the whole
+    # 131,072-byte rhs: 268,435,456 bytes from the L2 in 44.96 device µs.
+    # The same dot of 24, 96 and 384 batches of 512 rows (whole rhs 3, 12
+    # and 48 MiB, blocks dealt in batch order) read 6.43 .. 6.71e12 bytes/s:
+    # the limit is the largest of them
+    l2_bw=5.970e12,
+    l2_read_limit=384 * 512 * 64 * 4,
+    # phase 17 (c): a staged dot of (8, 512, 512) by (8, 512, 256) f32 whose
+    # lhs composes 8 applications of the op, against the same dot on a
+    # stored lhs (41.42 device µs): 16,777,216 elements over the added time.
+    # A multiply's added time stayed within the run's noise: it falls back
+    # to vpu_flops
+    staged_op_rates=(("div", 1.416e12), ("exp", 2.791e12)),
     threads_per_sm=2048,             # resident threads an SM holds (data sheet)
 )
 
@@ -287,31 +315,42 @@ def _spec_name(spec: DeviceSpec) -> str:
     return "DeviceSpec"
 
 
-def _dot_reads(dot: Instruction, operand: Instruction) -> int:
+def _dot_reads(dot: Instruction, operand: Instruction, tiling=None, sched=None) -> int:
     """How many times the generated dot loop reads each element of one of
-    its operands: a thread keeps a 4 x 4 register tile of outputs, so an
-    lhs element is read once for every 4 output columns, an rhs element
-    once for every 4 output rows."""
+    its operands.  The register-tile loop (``tiling`` None): a thread keeps
+    a 4 x 4 register tile of outputs, so an lhs element is read once for
+    every 4 output columns, an rhs element once for every 4 output rows.
+    The staged loop (a ``codegen.DotTiling`` under ``sched``): an lhs
+    element once per column tile (BN columns), an rhs element once per row
+    tile (BM rows), whichever plan block holds those rows."""
     lhs, rhs = dot.operands[0], dot.operands[1]
+    rows = int(lhs.shape[-2] if len(lhs.shape) >= 2 else 1)
     reads = 0
+    if tiling is not None:
+        cols = chunk_shape(dot.shape, sched)[-1]
+        if operand.id == lhs.id:
+            reads += cols // tiling.bn
+        if operand.id == rhs.id:
+            reads += rows // tiling.bm
+        return max(1, reads)
     if operand.id == lhs.id:
         reads += -(-int(rhs.shape[-1]) // 4)
     if operand.id == rhs.id:
-        reads += -(-int(lhs.shape[-2] if len(lhs.shape) >= 2 else 1) // 4)
+        reads += -(-rows // 4)
     return max(1, reads)
 
 
-def recompute_flops(members: Sequence[Instruction], memory) -> float:
-    """Flops a kernel spends recomputing the members its memory plan shrank
-    to INLINE (``MemoryPlan.shrunk``): a shrunk member is composed into
-    every read of it, so it runs once for each read past the first — once
-    per reader element, and for a dot reader once per register tile that
-    reads it (``_dot_reads``)."""
+def _recompute_reads(members: Sequence[Instruction], memory, tilings=None, assignment=None):
+    """(shrunk member, its reads past the first): a member the memory plan
+    shrank to INLINE (``MemoryPlan.shrunk``) is composed into every read of
+    it, so it runs once for each read past the first — once per reader
+    element, and for a dot reader as ``_dot_reads`` counts (``tilings``:
+    each dot's ``codegen.DotTiling`` or None, under ``assignment``)."""
     if memory is None or not memory.shrunk:
-        return 0.0
+        return []
     shrunk = set(memory.shrunk)
     member_ids = {m.id for m in members}
-    extra = 0.0
+    out = []
     for m in members:
         if m.name not in shrunk:
             continue
@@ -320,11 +359,19 @@ def recompute_flops(members: Sequence[Instruction], memory) -> float:
             if u.id not in member_ids:
                 continue
             if u.opcode == "dot":
-                reads += _dot_reads(u, m)
+                t = (tilings or {}).get(u.id)
+                reads += _dot_reads(u, m, t, assignment[u.id] if t is not None else None)
             else:
                 reads += max(1.0, u.num_elements / max(1, m.num_elements))
-        extra += max(0.0, reads - 1.0) * instr_flops(m)
-    return extra
+        out.append((m, max(0.0, reads - 1.0)))
+    return out
+
+
+def recompute_flops(members: Sequence[Instruction], memory, tilings=None, assignment=None) -> float:
+    """Flops a kernel spends recomputing the members its memory plan shrank
+    to INLINE (``_recompute_reads``)."""
+    return sum(extra * instr_flops(m)
+               for m, extra in _recompute_reads(members, memory, tilings, assignment))
 
 
 class LatencyModel:
@@ -385,6 +432,41 @@ class LatencyModel:
     def prices_collectives(self) -> bool:
         """Whether the spec holds the link numbers a collective is charged by."""
         return not any(math.isnan(getattr(self.spec, f)) for f in ("ici_bw", "ici_latency_s"))
+
+    def composed_rate(self, m: Instruction) -> float:
+        """Elements a second the card computes ``m`` at where it is
+        composed into a staged dot's operand: the measured
+        ``staged_op_rates``, else ``vpu_flops`` over its flops an element."""
+        r = self.rates
+        fn = m.attrs.get("fn") if m.opcode == "elementwise" else None
+        rate = dict(r.staged_op_rates).get(fn)
+        if rate:
+            return rate
+        per = instr_flops(m) / max(1, m.num_elements)
+        return r.vpu_flops / per if per else math.inf
+
+    def recompute_s(self, members, memory, tilings=None, assignment=None) -> float:
+        """Seconds a GPU kernel spends recomputing its shrunk members
+        (``_recompute_reads``), each at ``composed_rate``."""
+        return sum(extra * m.num_elements / self.composed_rate(m)
+                   for m, extra in _recompute_reads(members, memory, tilings, assignment))
+
+    def l2_read_bytes(self, members, solution: ScheduleSolution, tilings) -> float:
+        """Bytes a GPU kernel's blocks read from the L2: every plan block
+        of a row-split dot reads its batch of the rhs whole, once for each
+        row tile it stages (``codegen.DotTiling``)."""
+        out = 0.0
+        blocks = max(1, solution.blocks)
+        for m in members:
+            sched = solution.assignment.get(m.id, REPLICATED)
+            if not is_row_split_dot(m, sched):
+                continue
+            rhs = m.operands[1]
+            batch = max(1, int(np.prod(rhs.shape[:-2], dtype=np.int64)))
+            t = tilings.get(m.id)
+            rows = chunk_shape(m.shape, sched)[-2]
+            out += blocks * (rows // t.bm if t is not None else -(-rows // 4)) * rhs.bytesize / batch
+        return out
 
     # ---- per-op (the PerfLibrary miss handler, paper §4.4) ---------------
     def peak_for(self, instr: Instruction) -> float:
@@ -477,6 +559,11 @@ class LatencyModel:
         blocks = max(1, solution.blocks)
         member_ids = {m.id for m in members}
         root_ids = {r.id for r in roots}
+        tilings = {}
+        if gpu:
+            from .codegen import dot_tilings  # codegen imports this module's users
+
+            tilings = dot_tilings(members, roots, solution, memory)
         compute_s = 0.0
         hbm_bytes = 0.0
         vmem_bytes = 0.0
@@ -486,7 +573,8 @@ class LatencyModel:
             dup = blocks if (blocks > 1 and sched.kind == "replicated") else 1
             if not is_trivial(m):
                 eff = _lane_efficiency(chunk_shape(m.shape, sched), spec)
-                if gpu and m.opcode == "dot" and rhs_read_across_lanes(m, member_ids, memory):
+                if (gpu and m.opcode == "dot" and tilings.get(m.id) is None
+                        and rhs_read_across_lanes(m, member_ids, memory)):
                     eff *= np.dtype(m.operands[1].dtype).itemsize / SECTOR_BYTES
                 compute_s += dup * instr_flops(m) / (self.peak_for(m) * eff)
             for o in m.operands:
@@ -515,9 +603,11 @@ class LatencyModel:
             )
         grid, threads = launch_grid(members, roots, solution, memory)
         cs = self.compute_share(grid)
-        compute_s += recompute_flops(members, memory) / spec.vpu_flops
+        compute_s += self.recompute_s(members, memory, tilings, solution.assignment)
+        l2 = self.l2_read_bytes(members, solution, tilings)
         body = (
-            max(compute_s / cs, hbm_bytes / (spec.hbm_bw * self.hbm_share(grid)))
+            max(compute_s / cs, hbm_bytes / (spec.hbm_bw * self.hbm_share(grid)),
+                l2 / (spec.l2_bw * cs) if l2 else 0.0)
             + vmem_bytes / (spec.vmem_bw * cs)
         )
         return (spec.launch_overhead_s + self.waves(grid, threads) * spec.grid_step_overhead_s
@@ -542,6 +632,11 @@ class LatencyModel:
         total = spec.launch_overhead_s
         seen_inputs = set()
         grids, threads = stitched_grids(stitched, memory) if gpu else (None, 0)
+        phase_tilings = None
+        if gpu:
+            from .codegen import stitched_dot_tilings  # codegen imports this module's users
+
+            phase_tilings = stitched_dot_tilings(stitched, memory)
         for k, p in enumerate(stitched.phases):
             blocks = max(1, p.solution.blocks)
             phase_ids = {m.id for m in p.members}
@@ -554,7 +649,8 @@ class LatencyModel:
                 dup = blocks if (blocks > 1 and sched.kind == "replicated") else 1
                 if not is_trivial(m):
                     eff = _lane_efficiency(chunk_shape(m.shape, sched), spec)
-                    if gpu and m.opcode == "dot" and rhs_read_across_lanes(m, phase_ids, pplan):
+                    if (gpu and m.opcode == "dot" and phase_tilings[k].get(m.id) is None
+                            and rhs_read_across_lanes(m, phase_ids, pplan)):
                         eff *= np.dtype(m.operands[1].dtype).itemsize / SECTOR_BYTES
                     compute_s += dup * instr_flops(m) / (self.peak_for(m) * eff)
                 for o in m.operands:
@@ -584,9 +680,12 @@ class LatencyModel:
                 continue
             grid = grids[k]
             cs = self.compute_share(grid)
-            compute_s += recompute_flops(p.members, pplan) / spec.vpu_flops
+            compute_s += self.recompute_s(p.members, pplan, phase_tilings[k],
+                                          p.solution.assignment)
+            l2 = self.l2_read_bytes(p.members, p.solution, phase_tilings[k])
             total += (
-                max(compute_s / cs, hbm_bytes / (spec.hbm_bw * self.hbm_share(grid)))
+                max(compute_s / cs, hbm_bytes / (spec.hbm_bw * self.hbm_share(grid)),
+                    l2 / (spec.l2_bw * cs) if l2 else 0.0)
                 + vmem_bytes / (spec.vmem_bw * cs)
                 + self.waves(grid, threads) * spec.grid_step_overhead_s
                 + (spec.phase_loop_overhead_s if k else 0.0)

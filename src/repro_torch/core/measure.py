@@ -276,7 +276,7 @@ def emit_group(
                if stitch_replicate_limit is None else stitch_replicate_limit)
         st = resolve_stitched(
             members, roots, replicate_limit=replicate_limit, max_blocks=max_blocks,
-            stitch_replicate_limit=srl, stitch_max_blocks=stitch_max_blocks,
+            stitch_replicate_limit=srl, stitch_max_blocks=stitch_max_blocks, spec=spec,
         )
         if st is None:
             return None

@@ -309,6 +309,7 @@ class FusionPass(Pass):
                     replicate_limit=opts.replicate_limit,
                     max_blocks=opts.max_blocks,
                     allow_stitch=False,
+                    spec=opts.device_spec,
                 )
                 if v.verdict != CONSISTENT:
                     return False
@@ -466,6 +467,7 @@ class SchedulePass(Pass):
                         roots,
                         {r.id: s for r, s in zip(roots, hint, strict=False)},
                         opts.replicate_limit,
+                        opts.device_spec,
                     )
                     return TunedPlan(sol, score(members, sol, state.library,
                                                 vmem_limit=opts.vmem_limit)), True
@@ -493,6 +495,7 @@ class SchedulePass(Pass):
             max_blocks=opts.max_blocks,
             stitch_replicate_limit=_stitch_replicate_limit(opts),
             stitch_max_blocks=opts.stitch_max_blocks,
+            spec=opts.device_spec,
         )
         if st is None:
             return None
@@ -614,9 +617,11 @@ class CodegenPass(Pass):
             entry = p.entry
             if p.is_representative:
                 if entry.stitched is not None:
-                    kernel = emit_stitched_fusion(p.fusion, entry.stitched, entry.memory)
+                    kernel = emit_stitched_fusion(p.fusion, entry.stitched, entry.memory,
+                                                  state.options.stage_dots)
                 else:
-                    kernel = emit_fusion(p.fusion, entry.solution, entry.memory)
+                    kernel = emit_fusion(p.fusion, entry.solution, entry.memory,
+                                         state.options.stage_dots)
                 entry.kernel = kernel
                 p.kernel = kernel
                 emitted.append(kernel.fn)

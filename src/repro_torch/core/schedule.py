@@ -160,11 +160,29 @@ def _map_reduce_out_to_in(split_out: int, reduce_dims: Tuple[int, ...]) -> int:
     return kept[split_out]
 
 
-def propagate(instr: Instruction, sched: Sched) -> List[Sched]:
+def dot_row_split(spec) -> bool:
+    """Whether a plan for ``spec`` (a ``latency.DeviceSpec``, or None: the
+    reference's) may split a dot's output at its row dimension: only on a
+    GPU, where a block reads the rhs whole from the L2."""
+    return spec is not None and spec.is_gpu
+
+
+def is_row_split_dot(instr: Instruction, sched: Sched) -> bool:
+    """A batched dot split at its output's row dimension (``dot_row_split``)."""
+    return (instr.opcode == "dot" and instr.ndim > 2 and sched.kind == "chunked"
+            and sched.sched_type == ROW and sched.split_dim == instr.ndim - 2)
+
+
+def propagate(instr: Instruction, sched: Sched, row_split: bool = False) -> List[Sched]:
     """Given ``sched`` on ``instr``'s output, derive operand schedules.
 
     Returns one Sched per operand.  Raises Unsatisfiable when Table 1 has no
-    rule that passes.
+    rule that passes.  ``row_split`` adds a rule Table 1 has not: a batched
+    dot split at its output's row dimension, its lhs split so and its rhs
+    read whole (``dot_row_split``; the planner offers it under a GPU spec,
+    and what reads a plan takes it wherever the plan has it).  A 2-D dot
+    keeps the reference's rule, so it stays the matmul library's: each of
+    its blocks would read the whole weight.
     """
     if sched.kind == "replicated":
         return [REPLICATED] * len(instr.operands)
@@ -206,6 +224,8 @@ def propagate(instr: Instruction, sched: Sched) -> List[Sched]:
         if t == ROW and s < n - 2:
             lhs, rhs = instr.operands
             return [Sched("chunked", s, w, ROW), Sched("chunked", s, w, ROW)]
+        if row_split and t == ROW and s == n - 2 and n > 2:
+            return [Sched("chunked", s, w, ROW), REPLICATED]
         raise Unsatisfiable(f"dot split={s} {t}")
 
     if op in ("reshape", "bitcast"):
@@ -299,13 +319,21 @@ def resolve_schedules(
     roots: List[Instruction],
     root_scheds: Dict[int, Sched],
     replicate_limit: int = 512 * 1024,
+    spec=None,
 ) -> ScheduleSolution:
     """Back-propagate root schedules through the fusion (paper §4.2).
 
     ``members`` must be topologically ordered.  All chunked instructions are
     checked to agree on the launch ``blocks``.  Conflicting requirements fall
-    back to Replicated when the tensor fits ``replicate_limit``.
+    back to Replicated when the tensor fits ``replicate_limit``.  Under a
+    GPU ``spec`` a dot may be split at its output's rows
+    (``dot_row_split``); its rhs, and what that is computed from, may then
+    be replicated up to the whole rhs the L2 was measured to serve
+    (``spec.l2_read_limit``), which every block reads it from.
     """
+    rows = dot_row_split(spec)
+    l2_limit = max(replicate_limit, spec.l2_read_limit) if rows else replicate_limit
+    read_from_l2: set = set()   # a row-split dot's rhs and its producers
     member_ids = {m.id for m in members}
     launch_blocks = None
     for r in roots:
@@ -329,7 +357,8 @@ def resolve_schedules(
         prev = assignment.get(instr.id)
         if prev is not None and prev != sched:
             sched = REPLICATED  # conflicting requirements -> whole tensor
-        if sched.kind == "replicated" and instr.bytesize > replicate_limit:
+        limit = l2_limit if instr.id in read_from_l2 else replicate_limit
+        if sched.kind == "replicated" and instr.bytesize > limit:
             raise Unsatisfiable(
                 f"{instr.name}: replicated {instr.bytesize}B > limit"
             )
@@ -350,7 +379,11 @@ def resolve_schedules(
                 # member never reached from a root yet — replicate
                 changed |= assign(instr, REPLICATED)
             sched = assignment[instr.id]
-            for o, osched in zip(instr.operands, propagate(instr, sched), strict=False):
+            if rows and is_row_split_dot(instr, sched):
+                read_from_l2.add(instr.operands[1].id)
+            elif instr.id in read_from_l2 and sched.kind == "replicated":
+                read_from_l2.update(o.id for o in instr.operands)
+            for o, osched in zip(instr.operands, propagate(instr, sched, rows), strict=False):
                 changed |= assign(o, osched)
         if not changed:
             break
@@ -359,7 +392,7 @@ def resolve_schedules(
     # the member's schedule (equal or replicated).
     for instr in members:
         sched = assignment[instr.id]
-        for o, osched in zip(instr.operands, propagate(instr, sched), strict=False):
+        for o, osched in zip(instr.operands, propagate(instr, sched, rows), strict=False):
             got = assignment[o.id]
             if got != osched and got.kind != "replicated":
                 raise Unsatisfiable(
@@ -375,6 +408,7 @@ def any_satisfiable(
     candidates: Optional[List[Sched]] = None,
     replicate_limit: int = 512 * 1024,
     max_blocks: int = 1 << 16,
+    spec=None,
 ) -> Optional[ScheduleSolution]:
     """Cheap existence check used by SchdConsistent during fusion."""
     cands = candidates or candidate_schedules(roots[0].shape, max_blocks)
@@ -399,7 +433,7 @@ def any_satisfiable(
                     rs[r.id] = alt[0]
             if not ok:
                 continue
-            return resolve_schedules(members, roots, rs, replicate_limit)
+            return resolve_schedules(members, roots, rs, replicate_limit, spec)
         except Unsatisfiable:
             continue
     return None
@@ -499,6 +533,7 @@ def _phase_solution(
     replicate_limit: int,
     max_blocks: int,
     stitch_replicate_limit: int,
+    spec=None,
 ) -> Tuple[Optional[ScheduleSolution], int]:
     """A schedule for one phase plus its quality *tier*.
 
@@ -518,20 +553,20 @@ def _phase_solution(
         return None, 99
     sol = any_satisfiable(
         phase_members, roots,
-        replicate_limit=replicate_limit, max_blocks=max_blocks,
+        replicate_limit=replicate_limit, max_blocks=max_blocks, spec=spec,
     )
     if sol is not None:
         return sol, 0
     lim = max(stitch_replicate_limit, replicate_limit)
     sol = any_satisfiable(
-        phase_members, roots, replicate_limit=lim, max_blocks=max_blocks
+        phase_members, roots, replicate_limit=lim, max_blocks=max_blocks, spec=spec
     )
     if sol is not None:
         return sol, 1
     try:
         return (
             resolve_schedules(
-                phase_members, roots, {r.id: REPLICATED for r in roots}, lim
+                phase_members, roots, {r.id: REPLICATED for r in roots}, lim, spec
             ),
             2,
         )
@@ -547,6 +582,7 @@ def resolve_stitched(
     stitch_replicate_limit: int = 4 * 1024 * 1024,
     stitch_max_blocks: int = 64,
     max_phases: int = 8,
+    spec=None,
 ) -> Optional[StitchedSolution]:
     """Partition ``members`` (topologically ordered) into schedule-consistent
     phases at schedule breaks, greedily: grow the current phase one member at
@@ -566,7 +602,7 @@ def resolve_stitched(
     for m in members:
         trial = cur + [m]
         sol, tier = _phase_solution(
-            trial, replicate_limit, blocks_cap, stitch_replicate_limit
+            trial, replicate_limit, blocks_cap, stitch_replicate_limit, spec
         )
         if sol is not None and (not cur or tier <= cur_tier):
             cur, cur_sol, cur_tier = trial, sol, tier
@@ -581,7 +617,7 @@ def resolve_stitched(
             return None
         cur = [m]
         cur_sol, cur_tier = _phase_solution(
-            cur, replicate_limit, blocks_cap, stitch_replicate_limit
+            cur, replicate_limit, blocks_cap, stitch_replicate_limit, spec
         )
         if cur_sol is None:
             return None
@@ -614,6 +650,7 @@ def stitchable(
     stitch_replicate_limit: int = 4 * 1024 * 1024,
     stitch_max_blocks: int = 64,
     allow_stitch: bool = True,
+    spec=None,
 ) -> StitchVerdict:
     """Three-way schedule-consistency verdict for a tentative fusion group.
 
@@ -628,7 +665,7 @@ def stitchable(
     ``FusionScorer.verdict`` does.
     """
     sol = any_satisfiable(
-        members, roots, replicate_limit=replicate_limit, max_blocks=max_blocks
+        members, roots, replicate_limit=replicate_limit, max_blocks=max_blocks, spec=spec
     )
     if sol is not None:
         return StitchVerdict(CONSISTENT, solution=sol)
@@ -640,6 +677,7 @@ def stitchable(
         max_blocks=max_blocks,
         stitch_replicate_limit=stitch_replicate_limit,
         stitch_max_blocks=stitch_max_blocks,
+        spec=spec,
     )
     if st is None:
         return StitchVerdict(INFEASIBLE)

@@ -120,26 +120,27 @@ def tune(
     """Find the cheapest satisfiable schedule for a fused computation
     (on a GPU, among those whose memory plan fits ``vmem_limit``)."""
     best = _Best(members, roots, lib, vmem_limit)
+    spec = lib.model.spec
     if len(roots) == 1:
-        _tune_single(members, roots, best, max_blocks, replicate_limit)
+        _tune_single(members, roots, best, max_blocks, replicate_limit, spec)
     else:
-        _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos)
+        _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos, spec)
     return best.plan
 
 
-def _tune_single(members, roots, best, max_blocks, replicate_limit):
+def _tune_single(members, roots, best, max_blocks, replicate_limit, spec=None):
     root = roots[0]
     for sched in candidate_schedules(root.shape, max_blocks):
         try:
             sol = resolve_schedules(
-                members, roots, {root.id: sched}, replicate_limit
+                members, roots, {root.id: sched}, replicate_limit, spec
             )
         except Unsatisfiable:
             continue
         best.offer(sol)
 
 
-def _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos):
+def _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos, spec=None):
     # ---- stage 1: intersect valid blocks sets across roots (paper §4.3) --
     per_root: List[Dict[int, List[Sched]]] = []
     for r in roots:
@@ -161,7 +162,7 @@ def _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos):
         for combo in combos:
             rs = {r.id: s for r, s in zip(roots, combo, strict=False)}
             try:
-                sol = resolve_schedules(members, roots, rs, replicate_limit)
+                sol = resolve_schedules(members, roots, rs, replicate_limit, spec)
             except Unsatisfiable:
                 continue
             best.offer(sol)

@@ -375,7 +375,7 @@ def _verify_solution(members, solution, blocks: int, subject: str, pass_name: st
                 f"launch grid is {blocks}")
             continue
         try:
-            needs = propagate(m, sched)
+            needs = propagate(m, sched, row_split=True)
         except Unsatisfiable as e:
             err(f"member {m.name}: no propagation under {sched!r}: {e}")
             continue

@@ -33,6 +33,24 @@ class CudaSource:
         return self.lib
 
 
+#: the largest size a launcher takes: its size arguments are C ints, and the
+#: kernels form their offsets in 64 bits from them
+INT_MAX = 2 ** 31 - 1
+#: the most blocks a launch's gridDim.y or gridDim.z holds
+GRID_YZ_MAX = 65535
+
+
+def check_sizes(kernel: str, limit: int = INT_MAX, **sizes: int) -> None:
+    """Raise ``ValueError`` naming each of ``sizes`` past ``limit``: what a
+    launcher's C int (or a grid's y or z dimension, ``GRID_YZ_MAX``) holds.
+    The entry points check before they dispatch, so a call the kernel could
+    not index is refused on every device."""
+    for what, n in sizes.items():
+        if n > limit:
+            held = "a C int, 2^31 - 1" if limit == INT_MAX else f"a grid dimension, {limit}"
+            raise ValueError(f"{kernel}: {what} is {n}, past {held}: the kernel cannot index it")
+
+
 def _ctype(arg):
     if isinstance(arg, torch.Tensor):
         return ctypes.c_void_p
@@ -59,7 +77,10 @@ class HandKernel:
     def launch(self, symbol: str, *args, device: torch.device) -> None:
         """Call the launcher ``symbol`` with ``args`` (tensors pass their
         data pointers, ints and floats their C values) and the current
-        stream of ``device``."""
+        stream of ``device``.  An int past a C int raises ``ValueError``."""
+        for k, a in enumerate(args):
+            if isinstance(a, int) and not -INT_MAX - 1 <= a <= INT_MAX:
+                raise ValueError(f"{self.name}: argument {k} of {symbol} is {a}, past a C int")
         lib = self.source.lib
         if lib is None:
             raise RuntimeError(

@@ -38,7 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.device import input_device
-from .cuda import ATTENTION, DTYPE_SUFFIX, HandKernel, check_tensor
+from .cuda import ATTENTION, DTYPE_SUFFIX, GRID_YZ_MAX, HandKernel, check_sizes, check_tensor
 from .ref import attention_ref, decode_attention_ref
 
 FLASH = HandKernel(
@@ -71,6 +71,10 @@ def _check_qkv(name: str, q, k, v, q_dims: int) -> None:
         raise ValueError(f"{name}: {Hq} query heads are not a multiple of {k.shape[1]} kv heads")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D}; the kernels take {HEAD_DIMS}")
+    # the grids are (tiles or splits, heads, batch): heads and batch are
+    # their y and z dimensions
+    check_sizes(name, GRID_YZ_MAX, batch=B, **{"query heads": Hq})
+    check_sizes(name, **{"cache positions" if q_dims == 3 else "positions": k.shape[2]})
 
 
 def _check_aligned(name: str, **tensors) -> None:

@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 
 from ..core.device import input_device
-from .cuda import DTYPE_SUFFIX, ROWWISE, HandKernel, check_tensor
+from .cuda import DTYPE_SUFFIX, ROWWISE, HandKernel, check_sizes, check_tensor
 from .ref import moe_gate_ref
 
 KERNEL = HandKernel(
@@ -57,6 +57,7 @@ def stitched_moe_gate(
         raise ValueError(f"{name}: top_k {top_k} not in [1, {min(E, MAX_TOP_K)}]")
     if block_tokens < 1:
         raise ValueError(f"{name}: block_tokens {block_tokens} < 1")
+    check_sizes(name, tokens=T)
     bt = min(block_tokens, T)
     while T % bt:
         bt -= 1

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from ..core.device import input_device
-from .cuda import DTYPE_SUFFIX, ROWWISE, HandKernel, check_tensor
+from .cuda import DTYPE_SUFFIX, ROWWISE, HandKernel, check_sizes, check_tensor
 from .ref import rmsnorm_ref
 from .stitched_softmax import flat_rows, row_threads, rows_per_block
 
@@ -64,6 +64,7 @@ def stitched_rmsnorm(
     rows, cols = flat_rows(KERNEL.name, x)
     if tuple(gamma.shape) != (cols,):
         raise ValueError(f"{KERNEL.name}: gamma {tuple(gamma.shape)}, expected ({cols},)")
+    check_sizes(KERNEL.name, rows=rows, cols=cols)
     br = rows_per_block(KERNEL.name, rows, cols, block_rows)
     dev = input_device(KERNEL.name, [x, gamma])
     if dev.type == "cpu":

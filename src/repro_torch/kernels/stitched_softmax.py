@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.device import input_device
-from .cuda import DTYPE_SUFFIX, ROWWISE, HandKernel, check_tensor
+from .cuda import DTYPE_SUFFIX, ROWWISE, HandKernel, check_sizes, check_tensor
 from .ref import softmax_ref
 
 KERNEL = HandKernel(
@@ -92,6 +92,9 @@ def stitched_softmax(x: torch.Tensor, block_rows: Optional[int] = None) -> torch
     """Softmax over the last dim; leading dims are flattened into rows."""
     check_tensor(KERNEL.name, "x", x)
     rows, cols = flat_rows(KERNEL.name, x)
+    check_sizes(KERNEL.name, rows=rows, cols=cols)
+    if cluster_slice(cols, block_rows) is not None:
+        check_sizes(KERNEL.name, **{"the cluster grid (rows x 8 blocks)": rows * CLUSTER_BLOCKS})
     br = rows_per_block(KERNEL.name, rows, cols, block_rows)
     dev = input_device(KERNEL.name, [x])
     if dev.type == "cpu":

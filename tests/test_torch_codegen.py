@@ -255,19 +255,24 @@ def test_fusion_source_reads_its_memory_plan(case):
         groups = [g for g in codegen._independent_groups(k.fusion)
                   if any(m.id in tiles or m.id in roots
                          for m in k.fusion.members if m.id in set(g) and m.opcode != "constant")]
+        # a staged dot's operand tiles follow the slots in shared memory
+        staged = [t.stage_bytes(4) for t in codegen.dot_tilings(
+            k.fusion.members, k.fusion.roots, k.solution, plan).values() if t is not None]
         if not tiles:
-            assert head.endswith("no slot: a pure map over the grid") and "sx_smem" not in src
+            assert head.endswith("no slot: a pure map over the grid")
+            assert ("sx_smem" in src) == bool(staged)
             grid = None
         elif size + codegen.reduce_part_bytes(threads) <= codegen.SMEM_LIMIT:
             assert head.endswith(f"slots {size} bytes in shared memory")
             assert "extern __shared__ __align__(16) unsigned char sx_smem[];" in src
-            assert f"<<<{k.blocks * len(groups)}, {threads}, {size}, " in src
+            smem = -(-size // 16) * 16 + max(staged) if staged else size
+            assert f"<<<{k.blocks * len(groups)}, {threads}, {smem}, " in src
             assert k.fn.workspace_bytes == 0
             grid = k.blocks * len(groups)
         else:
             assert head.endswith(f"slots {size} bytes in a per-block workspace region")
             assert f"unsigned char* const pr0 = ws + static_cast<size_t>(blockIdx.x) * {size};" in src
-            assert f"<<<{k.blocks * len(groups)}, {threads}, 0, " in src
+            assert f"<<<{k.blocks * len(groups)}, {threads}, {max(staged, default=0)}, " in src
             assert k.fn.workspace_bytes == size * k.blocks * len(groups)
             grid = k.blocks * len(groups)
         if grid is not None and len(groups) > 1:
