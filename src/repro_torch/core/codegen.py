@@ -95,6 +95,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import math
+import re
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -718,12 +719,48 @@ def _signature_c(inputs, roots, ws_restrict: bool = True) -> Tuple[List[str], Li
     return params, lparams, casts
 
 
+#: characters of a kernel symbol's fusion label (``fusion_label``)
+LABEL_CHARS = 32
+#: each kernel name's symbol, as first labelled: one text, one symbol
+_SYMBOLS: Dict[str, str] = {}
+
+
+def fusion_label(members: Sequence[Instruction]) -> str:
+    """What a generated kernel's symbol says of its fusion: the distinct ops
+    of its members in program order (an elementwise member's function, a
+    reduce's kind, else the opcode), joined by ``_`` in ``LABEL_CHARS``
+    characters of ``[a-z0-9_]``; an op that does not fit is left out and
+    the next tried."""
+    ops: List[str] = []
+    for m in members:
+        op = str(m.attrs.get("fn", m.attrs.get("kind", m.opcode))).lower()
+        op = re.sub(r"[^a-z0-9_]", "_", op)
+        if op not in ops:
+            ops.append(op)
+    label = ops[0][:LABEL_CHARS] if ops else "fusion"
+    for op in ops[1:]:
+        if len(label) + 1 + len(op) <= LABEL_CHARS:
+            label += "_" + op
+    return label
+
+
+def _name_text(text: str, label: str) -> Tuple[str, str, str]:
+    """A kernel's name, ``stitch_`` and the hash of its text (``@K@`` where
+    the symbol goes), its ``__global__`` symbol, the name and the fusion's
+    label, and its text: the launcher ``<name>_launch`` launches the
+    symbol."""
+    name = "stitch_" + hashlib.sha256(text.encode()).hexdigest()[:16]
+    symbol = _SYMBOLS.setdefault(name, f"{name}_{label}")
+    return name, symbol, text.replace("@K@_launch", f"{name}_launch").replace("@K@", symbol)
+
+
 def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
-                   threads: int, smem: int, static_smem: int) -> Tuple[str, str]:
-    """Name a single-phase kernel by the hash of its text and add its
-    launcher: one launch of ``grid`` blocks with ``smem`` bytes of dynamic
-    shared memory (where they and the ``static_smem`` bytes pass 48 KB,
-    the attribute is set once per device)."""
+                   threads: int, smem: int, static_smem: int,
+                   label: str) -> Tuple[str, str, str]:
+    """Name a single-phase kernel (``_name_text``) and add its launcher:
+    one launch of ``grid`` blocks with ``smem`` bytes of dynamic shared
+    memory (where they and the ``static_smem`` bytes pass 48 KB, the
+    attribute is set once per device)."""
     if grid > INT_MAX:
         raise NotImplementedError(
             f"a launch of {grid} blocks: gridDim.x is at most 2^31 - 1 ({INT_MAX}) blocks"
@@ -751,8 +788,7 @@ def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
         + [f"    {p}," for p in params[:-1]] + [f"    {params[-1]}) {{"]
         + body + ["}", ""] + launcher
     )
-    name = "stitch_" + hashlib.sha256(text.encode()).hexdigest()[:16]
-    return name, text.replace("@K@", name)
+    return _name_text(text, label)
 
 
 def _wide(fusion: FusedComputation, phases: Sequence["_Phase"]) -> bool:
@@ -845,8 +881,9 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
         + (f", {len(held)} of the plan's slot members held in registers" if held else "")
         + _index_header([ph]) + _dot_header([ph])
     )
-    name, text = _finish_source(header, body, inputs, roots, grid, threads, smem, ph.part_bytes)
-    return name, text, ws, smem + ph.part_bytes
+    name, symbol, text = _finish_source(header, body, inputs, roots, grid, threads, smem,
+                                        ph.part_bytes, fusion_label(fusion.members))
+    return name, symbol, text, ws, smem + ph.part_bytes
 
 
 def _slot_layout(pplan: MemoryPlan, used) -> Tuple[Dict[int, int], int]:
@@ -2101,8 +2138,9 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
         f"{smem} bytes of shared memory a block, {total} workspace bytes"
         + _index_header(phases) + _dot_header(phases)
     )
-    name, text = _finish_cooperative(header, body, inputs, roots, grid, threads, smem, static_smem)
-    return name, text, total, smem + static_smem
+    name, symbol, text = _finish_cooperative(header, body, inputs, roots, grid, threads, smem,
+                                             static_smem, fusion_label(fusion.members))
+    return name, symbol, text, total, smem + static_smem
 
 
 def _stage_region(body: List[str], offset: int, stage: int, grid: int) -> int:
@@ -2118,10 +2156,11 @@ def _stage_region(body: List[str], offset: int, stage: int, grid: int) -> int:
 
 
 def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int,
-                        threads: int, smem: int, static_smem: int) -> Tuple[str, str]:
-    """Name a stitched kernel by the hash of its text and add its launcher:
-    one cooperative launch of as many blocks as the card holds at once, at
-    most ``useful``, the count asked once per device and cached."""
+                        threads: int, smem: int, static_smem: int,
+                        label: str) -> Tuple[str, str, str]:
+    """Name a stitched kernel (``_name_text``) and add its launcher: one
+    cooperative launch of as many blocks as the card holds at once, at most
+    ``useful``, the count asked once per device and cached."""
     params, lparams, casts = _signature_c(inputs, roots, ws_restrict=False)
     n = len(casts)
     launcher = ['extern "C" int @K@_launch(']
@@ -2163,8 +2202,7 @@ def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int
         + [f"    {p}," for p in params[:-1]] + [f"    {params[-1]}) {{"]
         + body + ["}", ""] + launcher
     )
-    name = "stitch_" + hashlib.sha256(text.encode()).hexdigest()[:16]
-    return name, text.replace("@K@", name)
+    return _name_text(text, label)
 
 
 # --------------------------------------------------------------------------
@@ -2174,10 +2212,13 @@ def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int
 
 class KernelProgram:
     """One generated kernel: its CUDA source, its plain version, and the
-    launch counter.  Calling it dispatches on the inputs' device: CPU
-    tensors go to the plain version, CUDA tensors to the kernel, anything
-    else raises.  A call with no inputs runs on ``device``, which defaults
-    to the card.  ``launches`` counts kernel launches only.
+    launch counter.  ``name`` is ``stitch_`` and the hash of its text, and
+    binds its launcher ``<name>_launch``; ``symbol``, its ``__global__``
+    function as the profiler names it, adds the fusion's label.  Calling it
+    dispatches on the inputs' device: CPU tensors go to the plain version,
+    CUDA tensors to the kernel, anything else raises.  A call with no inputs
+    runs on ``device``, which defaults to the card.  ``launches`` counts
+    kernel launches only.
 
     ``KernelProgram.launches_by_emitter`` tallies every program's
     ``launches`` by emitter: each change to one moves it by as much.  Set
@@ -2186,10 +2227,11 @@ class KernelProgram:
 
     launches_by_emitter: Dict[str, int] = {"emit_fusion": 0, "emit_stitched_fusion": 0}
 
-    def __init__(self, name: str, source: str, emitter: str, plain: Callable,
+    def __init__(self, name: str, symbol: str, source: str, emitter: str, plain: Callable,
                  inputs: Sequence[Instruction], outputs: Sequence[Instruction],
                  workspace_bytes: int, shared_bytes: int = 0):
         self.name = name
+        self.symbol = symbol
         self.source = source
         self.emitter = emitter
         self.plain = plain
@@ -2325,9 +2367,9 @@ def emit_fusion(
     puts every fused dot on the register-tile loop, the reference the
     staged loop equals bit for bit."""
     _check_no_collectives(fusion)
-    name, source, ws, shared = _cuda_fusion(fusion, solution, plan, stage_dots)
+    name, symbol, source, ws, shared = _cuda_fusion(fusion, solution, plan, stage_dots)
     program = KernelProgram(
-        name, source, "emit_fusion", _plain_fusion(fusion, solution),
+        name, symbol, source, "emit_fusion", _plain_fusion(fusion, solution),
         fusion.inputs, fusion.roots, ws, shared,
     )
     return StitchedKernel(fusion, solution, plan, program, fusion.inputs, fusion.roots)
@@ -2343,9 +2385,9 @@ def emit_stitched_fusion(
     the grid, with the plan's slots in shared memory (module docstring);
     ``stage_dots`` as in ``emit_fusion``."""
     _check_no_collectives(fusion)
-    name, source, ws, shared = _cuda_stitched(fusion, stitched, plan, stage_dots)
+    name, symbol, source, ws, shared = _cuda_stitched(fusion, stitched, plan, stage_dots)
     program = KernelProgram(
-        name, source, "emit_stitched_fusion", _plain_stitched(fusion, stitched, plan),
+        name, symbol, source, "emit_stitched_fusion", _plain_stitched(fusion, stitched, plan),
         fusion.inputs, fusion.roots, ws, shared,
     )
     return StitchedKernel(

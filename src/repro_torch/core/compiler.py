@@ -18,13 +18,13 @@ reference's ``TPU_V5E`` and 4 MiB, so the CPU's plans are the reference's.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import tracing
 from .codegen import StitchedKernel
 from .device import resolve_device
 from .executor import StitchedExecutable
@@ -174,7 +174,7 @@ class CompileStats:
     unique_kernels: int = 0                  # distinct kernels backing the fusions
     kernels_emitted: int = 0                 # CUDA kernels emitted THIS compile
     compile_time_s: float = 0.0
-    build_time_s: float = 0.0                # nvcc time inside this compile
+    build_time_s: float = 0.0                # the build span: nvcc, or the library found, loaded
     pass_times: Dict[str, float] = field(default_factory=dict)
     planner_mode: str = "greedy"
     plans_explored: int = 0
@@ -535,31 +535,31 @@ def compile_module(
         raise ValueError("param_layouts/out_layouts need mesh= or options.mesh_axes")
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    library = PerfLibrary(opts.perf_library_path, model=LatencyModel(opts.device_spec))
-    store = measured_store
-    if store is None and (opts.autotune or opts.tuning_store_path):
-        store = MeasuredCostStore(
-            opts.tuning_store_path, device_fp=device_fingerprint(library.model.spec, dev)
+    with tracing.span("compile_module") as sp:
+        library = PerfLibrary(opts.perf_library_path, model=LatencyModel(opts.device_spec))
+        store = measured_store
+        if store is None and (opts.autotune or opts.tuning_store_path):
+            store = MeasuredCostStore(
+                opts.tuning_store_path, device_fp=device_fingerprint(library.model.spec, dev)
+            )
+        state = CompilationState(
+            module=module,
+            options=opts,
+            library=library,
+            kernel_cache=(
+                kernel_cache if kernel_cache is not None else KernelCache(opts.kernel_cache_path)
+            ),
+            device=dev,
+            measured_store=store,
+            measured_base_hits=store.hits if store else 0,
+            measured_base_misses=store.misses if store else 0,
+            donate_params=donate,
+            mesh=mesh,
+            param_layouts=dict(param_layouts) if param_layouts else None,
+            out_layouts=list(out_layouts) if out_layouts else None,
         )
-    state = CompilationState(
-        module=module,
-        options=opts,
-        library=library,
-        kernel_cache=(
-            kernel_cache if kernel_cache is not None else KernelCache(opts.kernel_cache_path)
-        ),
-        device=dev,
-        measured_store=store,
-        measured_base_hits=store.hits if store else 0,
-        measured_base_misses=store.misses if store else 0,
-        donate_params=donate,
-        mesh=mesh,
-        param_layouts=dict(param_layouts) if param_layouts else None,
-        out_layouts=list(out_layouts) if out_layouts else None,
-    )
-    default_pipeline().run(state)
-    state.stats.compile_time_s = time.perf_counter() - t0
+        default_pipeline().run(state)
+    state.stats.compile_time_s = sp.seconds
     state.stats.pass_times = dict(state.pass_times)
     if opts.perf_library_path:
         state.library.save()

@@ -23,9 +23,10 @@ import re
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -94,9 +95,12 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
     try:
         for src in sources:
             so = library_path(src)
-            if so.exists() or so in seen:
+            if so in seen:
                 continue
             seen.add(so)
+            if so.exists():
+                tracing.count("build.found", 1)
+                continue
             nvcc = nvcc or nvcc_path()
             cu = so.with_suffix(".cu")
             # written whole under a name of its own, then renamed into
@@ -113,6 +117,7 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
                 stderr=subprocess.STDOUT, text=True,
             )
             running.append((so, Path(tmp), proc))
+            tracing.count("build.nvcc", 1)
         logs: Dict[str, str] = {}
         failed = []
         for so, tmp, proc in running:
@@ -136,8 +141,9 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
 
 def load(source: str) -> Tuple[ctypes.CDLL, float]:
     """The loaded library of ``source`` and the seconds this call spent
-    building it (about 0 when it was built before)."""
-    t0 = time.perf_counter()
-    build_all([source])
-    built_s = time.perf_counter() - t0
-    return ctypes.CDLL(str(library_path(source))), built_s
+    building and loading it (well under a second when it was built
+    before): the span ``build``."""
+    with tracing.span("build", source_bytes=len(source.encode())) as sp:
+        sp.attrs["nvcc"] = bool(build_all([source]))
+        lib = ctypes.CDLL(str(library_path(source)))
+    return lib, sp.seconds

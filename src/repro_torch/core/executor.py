@@ -66,6 +66,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import comm
 from .codegen import KernelProgram, StitchedKernel
 from .device import resolve_device
@@ -357,10 +358,11 @@ class _Graph:
     their release inside the capture, for later steps to reuse: the ones
     the steps produced.  A parameter's static input and a template tensor
     are held outside the pool and never go back to it.  ``in_groups`` and
-    ``out_groups`` are the ``_copy_groups`` of the feeds and the roots."""
+    ``out_groups`` are the ``_copy_groups`` of the feeds and the roots;
+    ``copy_bytes`` the bytes of both, which every replay copies."""
 
     __slots__ = ("steps", "feed_slots", "out_slots", "pool_released", "in_groups",
-                 "out_groups", "graph", "static_in", "static_out", "ticks")
+                 "out_groups", "copy_bytes", "graph", "static_in", "static_out", "ticks")
 
     def __init__(self, steps: List[object], roots: set, template_slots: set):
         self.steps = list(steps)
@@ -378,6 +380,7 @@ class _Graph:
         self.pool_released = released & produced
         self.in_groups: List[List[int]] = []
         self.out_groups: List[List[int]] = []
+        self.copy_bytes = 0
         self.graph = None
         self.static_in: List[torch.Tensor] = []
         self.static_out: List[torch.Tensor] = []
@@ -549,6 +552,8 @@ class ExecutionPlan:
         instr_of = {slot_of[i.id]: i for i in list(module.parameters) + module.roots}
         g.in_groups = _copy_groups([instr_of[s] for s in g.feed_slots])
         g.out_groups = _copy_groups([instr_of[s] for s in g.out_slots])
+        g.copy_bytes = sum(instr_of[s].num_elements * np.dtype(instr_of[s].dtype).itemsize
+                           for s in g.feed_slots + g.out_slots)
         self.stats = LaunchStats(
             eager_dispatches_per_call=sum(_step_dispatches(st) for st in self.steps),
             traced_dispatches_per_call=1 + len(g.in_groups) + len(g.out_groups),
@@ -634,12 +639,13 @@ class ExecutionPlan:
         A donated parameter's buffer takes the output planned for it
         (``donations``); the replay leaves feeds as they are, since it
         reads its own copies."""
-        buf = self._fed_buffer(feeds)
-        donated = self._writable_donations(buf) if self.donations else frozenset()
-        for step in self.steps:
-            self._run_step(step, buf, donated)
-        self.stats.eager_calls += 1
-        return {name: buf[s] for name, s in self._root_binds}
+        with tracing.span("execute", mode="eager"):
+            buf = self._fed_buffer(feeds)
+            donated = self._writable_donations(buf) if self.donations else frozenset()
+            for step in self.steps:
+                self._run_step(step, buf, donated)
+            self.stats.eager_calls += 1
+            return {name: buf[s] for name, s in self._root_binds}
 
     # ------------------------------------------------------------ replay
     def _capture(self, seg: _Graph, buf: List[Optional[torch.Tensor]]) -> None:
@@ -680,22 +686,26 @@ class ExecutionPlan:
         """CUDA-graph replay (module docstring): the first call captures
         the plan, every call replays it.  Equal, bit for bit, to
         ``execute`` wherever the kernels and torch ops are deterministic."""
-        buf = self._fed_buffer(feeds)
-        g = self._graph
-        if g.graph is None:
-            self._capture(g, buf)
-        _copy_all(g.static_in, [buf[s] for s in g.feed_slots], g.in_groups)
-        g.graph.replay()
-        for p, n in g.ticks:
-            p.launches += n
-        self.stats.traced_calls += 1
-        # the graph's outputs are overwritten by its next replay: the roots
-        # it made are copied out of its pool
-        copies = [torch.empty_like(t) for t in g.static_out]
-        _copy_all(copies, g.static_out, g.out_groups)
-        for s, t in zip(g.out_slots, copies, strict=True):
-            buf[s] = t
-        return {name: buf[s] for name, s in self._root_binds}
+        with tracing.span("execute", mode="graph"):
+            buf = self._fed_buffer(feeds)
+            g = self._graph
+            if g.graph is None:
+                with tracing.span("graph_capture"):
+                    self._capture(g, buf)
+            _copy_all(g.static_in, [buf[s] for s in g.feed_slots], g.in_groups)
+            g.graph.replay()
+            for p, n in g.ticks:
+                p.launches += n
+            self.stats.traced_calls += 1
+            # the graph's outputs are overwritten by its next replay: the
+            # roots it made are copied out of its pool
+            copies = [torch.empty_like(t) for t in g.static_out]
+            _copy_all(copies, g.static_out, g.out_groups)
+            for s, t in zip(g.out_slots, copies, strict=True):
+                buf[s] = t
+            tracing.count("replay.calls", 1)
+            tracing.count("replay.copy_bytes", g.copy_bytes)
+            return {name: buf[s] for name, s in self._root_binds}
 
 
 class StitchedExecutable:

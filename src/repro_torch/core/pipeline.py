@@ -23,12 +23,12 @@ the reference's, under ``H100`` for the card (``tuning``, ``FusionScorer``).
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
 
+from .. import tracing
 from . import cuda_build
 from .codegen import (
     SMEM_LIMIT,
@@ -126,7 +126,7 @@ class CompilationState:
     demoted: List[Instruction] = field(default_factory=list)
     pass_times: Dict[str, float] = field(default_factory=dict)
     # filled by CodegenPass: the compile's one CUDA translation unit, and
-    # (on the card) the seconds spent building it
+    # (on the card) the seconds of its ``build`` span
     cuda_source: str = ""
     build_s: float = 0.0
     # autotuning: the MeasuredCostStore of this compile (None: analytic
@@ -179,17 +179,17 @@ class PassPipeline:
         boundaries = 0
         warnings = 0
         for p in self.passes:
-            t0 = time.perf_counter()
-            p.run(state)
-            state.pass_times[p.name] = time.perf_counter() - t0
+            with tracing.span("pass." + p.name) as sp:
+                p.run(state)
+            state.pass_times[p.name] = sp.seconds
             # "off" does no verification work; "checkpoint" verifies the
             # finished artifact once; "strict" checks every boundary, so a
             # violation names the pass that introduced it
             if mode == "off" or (mode == "checkpoint" and p is not self.passes[-1]):
                 continue
-            v0 = time.perf_counter()
-            diags = verify_state(state, pass_name=p.name)
-            verify_time += time.perf_counter() - v0
+            with tracing.span("verify") as sp:
+                diags = verify_state(state, pass_name=p.name)
+            verify_time += sp.seconds
             boundaries += 1
             errors = [d for d in diags if d.severity == ERROR]
             warnings += len(diags) - len(errors)

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 import traceback
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -55,6 +54,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from .. import tracing
 from ..core.compiler import CompiledModule, CompileStats, StitchOptions, compile_module
 from ..core.device import resolve_device
 from ..core.ir import Module
@@ -483,12 +483,12 @@ class StitchedFunction:
     def _lower(self, args, kwargs, static_pos, leaves, spec) -> Tuple[LoweredGraph, Any, Tuple[int, ...]]:
         if self.mesh is not None:
             return self._lower_sharded(args, kwargs, leaves, spec)
-        t0 = time.perf_counter()
-        gm, out_spec = capture(self._bind_statics(args, kwargs, static_pos), leaves, spec)
-        t1 = time.perf_counter()
+        with tracing.span("capture") as cap:
+            gm, out_spec = capture(self._bind_statics(args, kwargs, static_pos), leaves, spec)
         tensor_leaves = tuple(i for i, leaf in enumerate(leaves) if _is_tensor_leaf(leaf))
-        lowered = lower_graph(gm, name=self.name, fuse_dot=self.options.fuse_dot)
-        self.capture_s, self.lower_s = t1 - t0, time.perf_counter() - t1
+        with tracing.span("lower") as low:
+            lowered = lower_graph(gm, name=self.name, fuse_dot=self.options.fuse_dot)
+        self.capture_s, self.lower_s = cap.seconds, low.seconds
         return lowered, out_spec, tensor_leaves
 
     def _lower_sharded(self, args, kwargs, leaves, spec):
@@ -518,19 +518,19 @@ class StitchedFunction:
                 shape[d] //= n
             in_layouts.append(lay)
             local.append(torch.empty(shape, dtype=t.dtype, device="meta"))
-        t0 = time.perf_counter()
-        gm, out_spec = capture(self._fn, local, spec)
-        t1 = time.perf_counter()
-        outs = [n for n in gm.graph.nodes if n.op == "output"][0].args[0]
-        ranks = [len(o.meta["val"].shape) for o in outs]
-        specs = [self.out_specs] if out_spec.is_leaf() else list(self.out_specs)
-        if len(specs) != len(ranks):
-            raise ValueError(f"{len(specs)} out_specs for {len(ranks)} outputs")
-        lowered = lower_sharded_graph(
-            gm, self.mesh, in_layouts, [spec_to_layout(sp, r) for sp, r in zip(specs, ranks)],
-            name=self.name, fuse_dot=self.options.fuse_dot,
-        )
-        self.capture_s, self.lower_s = t1 - t0, time.perf_counter() - t1
+        with tracing.span("capture") as cap:
+            gm, out_spec = capture(self._fn, local, spec)
+        with tracing.span("lower") as low:
+            outs = [n for n in gm.graph.nodes if n.op == "output"][0].args[0]
+            ranks = [len(o.meta["val"].shape) for o in outs]
+            specs = [self.out_specs] if out_spec.is_leaf() else list(self.out_specs)
+            if len(specs) != len(ranks):
+                raise ValueError(f"{len(specs)} out_specs for {len(ranks)} outputs")
+            lowered = lower_sharded_graph(
+                gm, self.mesh, in_layouts, [spec_to_layout(sp, r) for sp, r in zip(specs, ranks)],
+                name=self.name, fuse_dot=self.options.fuse_dot,
+            )
+        self.capture_s, self.lower_s = cap.seconds, low.seconds
         return lowered, out_spec, tuple(range(len(leaves)))
 
     def _compile_lowered(self, lowered: LoweredGraph,
@@ -580,19 +580,22 @@ class StitchedFunction:
 
     # -- the jit-shaped surface -------------------------------------------
     def __call__(self, *args, **kwargs):
-        key, leaves, spec, static_pos, dyn_args, n_args = self._signature(args, kwargs)
-        entry = self._plans.get(key)
-        if entry is None:
-            entry = self._compile(key, args, kwargs, static_pos, leaves, spec, dyn_args, n_args)
-        if entry.is_fallback:
-            return self._run_eager(args, kwargs)
-        feeds = {
-            name: leaves[i]
-            for name, i in zip(entry.lowered.param_names, entry.tensor_leaves, strict=True)
-        }
-        out = entry.compiled(feeds)
-        flat = [out[n] for n in entry.lowered.output_names]
-        return pytree.tree_unflatten(flat, entry.out_spec)
+        with tracing.span("call"):
+            key, leaves, spec, static_pos, dyn_args, n_args = self._signature(args, kwargs)
+            entry = self._plans.get(key)
+            if entry is None:
+                with tracing.span("compile", function=self.name):
+                    entry = self._compile(key, args, kwargs, static_pos, leaves, spec,
+                                          dyn_args, n_args)
+            if entry.is_fallback:
+                return self._run_eager(args, kwargs)
+            feeds = {
+                name: leaves[i]
+                for name, i in zip(entry.lowered.param_names, entry.tensor_leaves, strict=True)
+            }
+            out = entry.compiled(feeds)
+            flat = [out[n] for n in entry.lowered.output_names]
+            return pytree.tree_unflatten(flat, entry.out_spec)
 
     def lower(self, *args, **kwargs) -> Lowered:
         """A ``Lowered`` introspection handle (``jax.jit(...).lower()``

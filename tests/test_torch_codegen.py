@@ -121,7 +121,7 @@ def test_generated_source_has_one_kernel_per_unique_signature():
     # threads per block follow the plan (``fusion_threads``), not a constant
     for k in port.kernels:
         threads = codegen.fusion_threads(k.fusion, k.solution, k.plan)
-        assert f"__launch_bounds__({threads}) {k.fn.name}(" in src
+        assert f"__launch_bounds__({threads}) {k.fn.symbol}(" in src
     cmd = cuda_build._command("nvcc", cuda_build.BUILD_DIR / "x.cu", cuda_build.BUILD_DIR / "x.so")
     joined = " ".join(cmd[1:])
     assert "fast_math" not in joined and "fast-math" not in joined
@@ -174,7 +174,7 @@ def test_stitched_source_loops_over_its_phases(case, rng):
     assert src.count("cudaLaunchCooperativeKernel(") == 1 and "<<<" not in src
     assert src.count("sx_grid_sync();") == kernel.num_phases - 1
     threads = codegen.stitched_threads(kernel.plan)
-    assert f"__launch_bounds__({threads}) {kernel.fn.name}(" in src
+    assert f"__launch_bounds__({threads}) {kernel.fn.symbol}(" in src
     # the members of each phase that write a tile: its ALLOC/SHARE members
     # but those held in a register (``held_in_registers``)
     written = {r.id for r in kernel.fusion.roots} | set(kernel.plan.interfaces)
@@ -245,7 +245,7 @@ def test_fusion_source_reads_its_memory_plan(case):
         src, plan = k.fn.source, k.plan
         assert src.count("__global__") == 1 and "cudaLaunchCooperativeKernel" not in src
         threads = codegen.fusion_threads(k.fusion, k.solution, plan)
-        assert f"__launch_bounds__({threads}) {k.fn.name}(" in src
+        assert f"__launch_bounds__({threads}) {k.fn.symbol}(" in src
         roots = {r.id for r in k.fusion.roots}
         held = codegen.held_in_registers(k.fusion.members, k.solution.assignment, plan, roots)
         tiles = codegen._tile_slots(k.fusion.members, plan, held)
