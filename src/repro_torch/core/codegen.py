@@ -26,7 +26,8 @@ version beside it:
     are composed into their consumers' expressions per thread and write no
     tile.  A phase with slots deals its plan blocks over the grid, one
     plan block to a CUDA block at a time; a phase with no slot is a pure
-    map whose elements stride over the whole grid.  Reduces are
+    map whose elements stride over the whole grid (in the order of each
+    member's output: see "Thread order" below).  Reduces are
     cooperative: a warp per output element, shuffles to combine (the
     whole block where a plan block has fewer outputs than warps).
     Interface tensors are staged whole in the global workspace —
@@ -57,6 +58,21 @@ the slots, the dot keeps that loop: each thread reads its operands where
 they are.  The header names the loop each dot took.  A fusion with no slot
 is a pure map over the grid.  Threads per block follow the plan
 (``fusion_threads``: 128 to 512).
+
+Thread order of a pure map: its loop over a member's elements gives
+consecutive threads consecutive ``t``.  Where the member's chunk is one
+contiguous span of its output, ``t`` runs over the plan blocks' chunks in
+turn (``b = t / n``, ``i = t % n``), which is the output's own order.  Where
+it is not (a dimension chunked and a later one not whole, as the causal
+mask broadcast to (4, 24, 4096, 4096) on a ``[4, 24, 4096, 1]`` tile), that
+order put a warp's stores 4096 elements apart, one 32-byte sector each, so
+the loop walks the output in its row-major order instead
+(``_Phase._ordered_head``): ``t`` is unravelled over the output, each
+dimension's chunk index and index in the chunk come from it, and ``b`` is
+formed from the chunk indices as ``schedule.block_index`` numbers plan
+blocks.  Every element is the same expression of the same plan block's
+values, so the outputs do not change.  The tracer counts both kinds of loop
+(``codegen.map_loops``, ``codegen.map_loops_reordered``).
 
 Indices are ``int`` unless a tensor a kernel addresses, or a loop it runs,
 passes 2^31 - 1 elements: then every loop variable, block index and
@@ -102,6 +118,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .device import input_device, resolve_device
 from .fusion import FusedComputation
 from .ir import (
@@ -117,6 +134,7 @@ from .ir import (
 from .memory import ALLOC, SHARE, SLOT_ALIGN, MemoryPlan, StitchedMemoryPlan
 from .schedule import (
     REPLICATED,
+    ROW,
     Sched,
     PhaseSolution,
     ScheduleSolution,
@@ -455,6 +473,22 @@ def _c_starts(shape, sched: Sched, b) -> Tuple:
     if sched.kind == "replicated":
         return (0,) * len(shape)
     return tuple(s.expr if isinstance(s, _Sym) else s for s in _starts(shape, sched, b))
+
+
+def _contiguous(shape, chunk) -> bool:
+    """Whether a chunk of ``shape`` is one contiguous span of it: every
+    dimension past its first longer than one is whole."""
+    longer = [d for d, c in enumerate(chunk) if c != 1]
+    return not longer or tuple(chunk[longer[0] + 1:]) == tuple(shape[longer[0] + 1:])
+
+
+def _block_of(shape, sched: Sched, q) -> str:
+    """The plan block whose chunk holds block-unit index ``q`` (ints or C
+    expressions): ``schedule.block_index`` inverted."""
+    s, w = sched.split_dim, sched.sword
+    if sched.sched_type == ROW:
+        return _lin(q[:s + 1], tuple(shape[:s]) + (w,))
+    return _lin(q[s:], (w,) + tuple(shape[s + 1:]))
 
 
 def _cadd(a, b):
@@ -803,6 +837,13 @@ def _wide(fusion: FusedComputation, phases: Sequence["_Phase"]) -> bool:
     return max([elems] + reach) > INT_MAX
 
 
+def _count_map_loops(phases: Sequence["_Phase"]) -> None:
+    """Count a kernel's pure-map element loops on the tracer, and those
+    that walk their output in its own order (``_Phase._ordered_head``)."""
+    tracing.count("codegen.map_loops", sum(ph.map_loops for ph in phases))
+    tracing.count("codegen.map_loops_reordered", sum(ph.map_loops_reordered for ph in phases))
+
+
 def _index_header(phases: Sequence["_Phase"]) -> str:
     return ", 64-bit indices and offsets" if any(ph.wide for ph in phases) else ""
 
@@ -862,6 +903,7 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
     ph, phase = emit(False)
     if _wide(fusion, [ph]):
         ph, phase = emit(True)
+    _count_map_loops([ph])
     grid = max(1, ph.useful_blocks)
     smem = max(size if base == "sx_smem" else 0, ph.dot_off + ph.dot_bytes if ph.dot_bytes else 0)
     body = []
@@ -1459,6 +1501,8 @@ class _Phase:
         self.dot_off = -(-self.slot_bytes // _ALIGN) * _ALIGN if slot_base == "sx_smem" else 0
         self.dot_bytes = 0      # the largest staging of a dot's operand tiles
         self.dot_loops: List[str] = []   # which loop each dot took, for the header
+        self.map_loops = 0      # element loops of a pure map (``element_loop``)
+        self.map_loops_reordered = 0   # those that walk their output in its order
         self.composed = {m.id for m in phase.members} - set(self.tiles)
 
     def fresh(self) -> str:
@@ -1548,18 +1592,23 @@ class _Phase:
             self.extent = max(self.extent, n)
             return self._counted(var, "threadIdx.x", th, n, ind)
         reps = self.blocks if sched.kind == "chunked" else 1
-        total = n * reps
-        self.extent = max(self.extent, total)
-        self.strided.append((total, th))
         body = ind + "  "
-        lines = [f"{ind}for ({it} t = {self._thread()}; t < {total}; t += {self._stride()}) {{"]
+        lines = [self._grid_loop(n * reps, ind)]
         if reps > 1:
             lines.append(f"{body}const {it} b = t / {n};")
             lines.append(f"{body}const {it} {var} = t % {n};")
         else:
             lines.append(f"{body}const {it} {var} = t;")
-        self.useful_blocks = max(self.useful_blocks, -(-total // th))
         return lines
+
+    def _grid_loop(self, total: int, ind: str) -> str:
+        """The head of a loop of ``t`` over ``total`` elements strided over
+        the whole grid, its reach and its blocks recorded."""
+        th = self.threads
+        self.extent = max(self.extent, total)
+        self.strided.append((total, th))
+        self.useful_blocks = max(self.useful_blocks, -(-total // th))
+        return f"{ind}for ({self.itype} t = {self._thread()}; t < {total}; t += {self._stride()}) {{"
 
     def _counted(self, var: str, first: str, step: int, n: int, ind: str) -> List[str]:
         """``_counted_loop`` in ``itype``: its variable reaches the last
@@ -1577,14 +1626,47 @@ class _Phase:
         first = "static_cast<long long>(gridDim.x)" if self.wide else "gridDim.x"
         return f"{first} * {self.threads}"
 
+    def _ordered_head(self, m: Instruction, sched: Sched, ind: str) -> Tuple[List[str], List]:
+        """The head of a pure map's loop over ``m`` whose chunk is not one
+        contiguous span of it: ``t`` is the element's row-major position in
+        ``m``, so a warp's threads write neighbouring elements, and each
+        recovers its plan block ``b`` and its index in the chunk (returned)
+        from it.  Its count and stride are ``_loop_head``'s (``_grid_loop``)."""
+        it = self.itype
+        shape = tuple(m.shape)
+        chunk = chunk_shape(shape, sched)
+        body = ind + "  "
+        lines = [self._grid_loop(_prod(shape), ind)]
+        g = _unravel(lines, "t", shape, "g", body, it)
+        q: List = [0] * len(shape)
+        idx: List = [0] * len(shape)
+        for d, (n, c) in enumerate(zip(shape, chunk, strict=True)):
+            if c == n:
+                idx[d] = g[d]
+            elif c == 1:
+                q[d] = g[d]
+            else:
+                q[d], idx[d] = f"q{d}", f"o{d}"
+                lines.append(f"{body}const {it} q{d} = {g[d]} / {c}; const {it} o{d} = {g[d]} % {c};")
+        lines.append(f"{body}const {it} b = {_block_of(shape, sched, q)};")
+        return lines, idx
+
     def element_loop(self, m: Instruction, ind: str) -> List[str]:
         sched = self.sched(m)
         out_chunk = chunk_shape(m.shape, sched)
         body = ind + "  "
-        lines = self._loop_head("i", _prod(out_chunk), sched, ind)
         self.lines, self.ind, self.regs = [], body, {}
-        idx = _unravel(self.lines, "i", out_chunk, "o", body, self.itype)
-        expr = self.value(m, sched, idx, "i", "")
+        ordered = self.slot_base is None and not _contiguous(m.shape, out_chunk)
+        if self.slot_base is None:
+            self.map_loops += 1
+            self.map_loops_reordered += ordered
+        if ordered:
+            lines, idx = self._ordered_head(m, sched, ind)
+            lin = _lin(idx, out_chunk)
+        else:
+            lines = self._loop_head("i", _prod(out_chunk), sched, ind)
+            idx, lin = _unravel(self.lines, "i", out_chunk, "o", body, self.itype), "i"
+        expr = self.value(m, sched, idx, lin, "")
         stmts = self.lines
         self._check_own_slot(m, self._tile_write(m, out_chunk, idx), "\n".join(stmts) + expr)
         lines += stmts
@@ -2121,6 +2203,7 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
     body, phases = emit(False)
     if _wide(fusion, phases):
         body, phases = emit(True)
+    _count_map_loops(phases)
     grid = max([1] + [ph.useful_blocks for ph in phases])
     static_smem = max([0] + [ph.part_bytes for ph in phases])
     stage = max([0] + [ph.stage_bytes for ph in phases])

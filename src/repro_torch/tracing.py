@@ -32,7 +32,10 @@ function), ``compile`` (a plan-cache miss, attribute ``function``) with
 plan, attribute ``mode``: ``graph`` or ``eager``) and ``graph_capture``.
 Counters: ``replay.calls``, ``replay.copy_bytes`` (the bytes a replay copies
 into the graph's inputs and out of its pool), ``build.nvcc`` and
-``build.found`` (translation units compiled, and found built).
+``build.found`` (translation units compiled, and found built),
+``codegen.map_loops`` and ``codegen.map_loops_reordered`` (the element loops
+of pure maps emitted, and those of them that walk their output in its own
+order because their chunk is not one span of it).
 
 Not to be confused with ``core/span.py``, the paper's work/span analysis.
 """
