@@ -129,6 +129,7 @@ from .ir import (
     broadcast_in_dim,
     dtype_name,
     iota,
+    sliced_dims,
     torch_dtype,
 )
 from .memory import ALLOC, SHARE, SLOT_ALIGN, MemoryPlan, StitchedMemoryPlan
@@ -548,7 +549,7 @@ class _View:
         return f"{self.ptr}[{' + '.join(parts)}]"
 
 
-def _unravel(lines: List[str], var: str, shape, prefix: str, ind: str, itype: str = "int") -> List:
+def _unravel(lines: List[str], var: str, shape, prefix: str, ind: str, itype: str) -> List:
     """Emit statements splitting linear index ``var`` over ``shape``, in
     integers of C type ``itype``."""
     idx: List = [0] * len(shape)
@@ -567,6 +568,28 @@ def _unravel(lines: List[str], var: str, shape, prefix: str, ind: str, itype: st
     return idx
 
 
+def _unravel_wide(lines: List[str], var: str, shape, prefix: str, ind: str) -> List:
+    """``_unravel`` of a linear index that passes INT_MAX: its remainder is
+    a ``long long`` while the quotient left may pass INT_MAX, then an
+    ``int`` (a 64-bit division costs several 32-bit ones); each index is
+    an ``int``, under its dimension's extent."""
+    idx: List = [0] * len(shape)
+    dims = [k for k, s in enumerate(shape) if s != 1]
+    rem = f"{prefix}_rem"
+    lines.append(f"{ind}long long {rem} = {var};")
+    for k in reversed(dims):
+        if rem == f"{prefix}_rem" and _prod(shape[:k + 1]) - 1 <= INT_MAX:
+            lines.append(f"{ind}int {prefix}_rem32 = static_cast<int>({rem});")
+            rem = f"{prefix}_rem32"
+        name = f"{prefix}{k}"
+        if k == dims[0]:
+            lines.append(f"{ind}const int {name} = {rem};")
+        else:
+            lines.append(f"{ind}const int {name} = {rem} % {shape[k]}; {rem} /= {shape[k]};")
+        idx[k] = name
+    return idx
+
+
 # a reduce's accumulator: its start, each step, and the warp shuffle's
 # combine of two partial results (stitch_runtime.cuh), in the type the
 # reduce computes in ({T})
@@ -580,11 +603,12 @@ _REDUCE_COMBINE = {"sum": "SxRedSum", "mean": "SxRedSum", "prod": "SxRedProd",
 
 
 def _value(m: Instruction, sched: Sched, ovs: List[_View], idx: List, b,
-           lines: List[str], ind: str, lin: str = "i", sfx: str = "") -> str:
+           lines: List[str], ind: str, itype: str, lin: str = "i", sfx: str = "") -> str:
     """Emit the statements computing element ``idx`` of ``m``'s tile and
     return the C expression of its value, in the type ``m`` computes in and
     not yet rounded to ``m.dtype`` (the reference's ``_emit_instr`` and
-    ``apply_op``, per element; reduces and dots have loops of their own).
+    ``apply_op``, per element; reduces, dots and running sums have loops
+    of their own).  ``itype`` is the C type of the phase's indices.
     ``lin`` is the linear index of ``idx`` in the tile, and ``sfx`` keeps
     the names of the statements' variables apart where several values are
     composed into one expression."""
@@ -612,7 +636,18 @@ def _value(m: Instruction, sched: Sched, ovs: List[_View], idx: List, b,
     if op == "select":
         return f"({ovs[0].at(idx)} ? {ovs[1].at(idx)} : {ovs[2].at(idx)})"
     if op in ("reshape", "bitcast"):
-        j = _unravel(lines, lin, ovs[0].shape, f"p{sfx}", ind)
+        # ``lin`` runs over the operand's tile: past INT_MAX it is split in
+        # 64 bits until the quotient left fits an ``int`` (``_unravel_wide``)
+        if itype != "int" and _prod(ovs[0].shape) - 1 > INT_MAX:
+            j = _unravel_wide(lines, lin, ovs[0].shape, f"p{sfx}", ind)
+        else:
+            j = _unravel(lines, lin, ovs[0].shape, f"p{sfx}", ind, "int")
+        return ovs[0].at(j)
+    if op == "slice":
+        # an offset index: the operand's tile holds each sliced dim whole
+        j = list(idx)
+        for d in sliced_dims(m):
+            j[d] = _cadd(a["starts"][d], _cmul(idx[d], a["strides"][d]))
         return ovs[0].at(j)
     if op == "transpose":
         j: List = [0] * len(idx)
@@ -842,6 +877,7 @@ def _count_map_loops(phases: Sequence["_Phase"]) -> None:
     that walk their output in its own order (``_Phase._ordered_head``)."""
     tracing.count("codegen.map_loops", sum(ph.map_loops for ph in phases))
     tracing.count("codegen.map_loops_reordered", sum(ph.map_loops_reordered for ph in phases))
+    tracing.count("codegen.cumsums", sum(ph.cumsums for ph in phases))
 
 
 def _index_header(phases: Sequence["_Phase"]) -> str:
@@ -1245,6 +1281,8 @@ def _map_loop_grid(m: Instruction, sched: Sched, blocks: int, threads: int,
     out_chunk = chunk_shape(m.shape, sched)
     if m.opcode == "reduce":
         return -(-_prod(out_chunk) * reps * 32 // threads)
+    if m.opcode == "cumsum":
+        return -(-_prod(out_chunk) // out_chunk[m.attrs["dim"]] * reps // threads)
     if m.opcode == "dot":
         t = staged_dot_tiling(m, sched, threads, SMEM_LIMIT - reduce_part_bytes(threads), composed)
         if t is not None:
@@ -1263,7 +1301,7 @@ def _stored_tiles(members: Sequence[Instruction], solution: ScheduleSolution, pl
                            held_in_registers(members, solution.assignment, plan, written))
     ids = {m.id for m in members}
     return {m.id: 0 for m in members
-            if m.opcode in ("reduce", "dot") and any(u.id in ids for u in m.users)}
+            if m.opcode in ("reduce", "dot", "cumsum") and any(u.id in ids for u in m.users)}
 
 
 def fusion_launch(members: Sequence[Instruction], roots: Sequence[Instruction],
@@ -1285,6 +1323,8 @@ def fusion_launch(members: Sequence[Instruction], roots: Sequence[Instruction],
             (ns,) = propagate(m, sched, True)
             terms = _prod(chunk_shape(m.operands[0].shape, ns))
             want = max(want, 32 * n, -(-terms // STITCHED_ELEMS_PER_THREAD))
+        elif m.opcode == "cumsum":
+            want = max(want, n // chunk_shape(m.shape, sched)[m.attrs["dim"]])
         else:
             want = max(want, -(-n // STITCHED_ELEMS_PER_THREAD))
     threads = _threads_for(want)
@@ -1432,7 +1472,7 @@ class _Lazy:
             j = [_cadd(s, i) for s, i in zip(_c_starts(m.shape, self.needed, b), idx, strict=True)]
         else:
             raise ValueError(f"cannot adapt {m.name}: stored {self.stored}, needed {self.needed}")
-        if m.opcode in ("reduce", "dot"):
+        if m.opcode in ("reduce", "dot", "cumsum"):
             raise ValueError(f"{m.name}: an INLINE {m.opcode} with a user has no buffer to read")
         return self.phase.value(m, sched, j, _lin(j, chunk_shape(m.shape, sched)), self.phase.fresh())
 
@@ -1503,6 +1543,7 @@ class _Phase:
         self.dot_loops: List[str] = []   # which loop each dot took, for the header
         self.map_loops = 0      # element loops of a pure map (``element_loop``)
         self.map_loops_reordered = 0   # those that walk their output in its order
+        self.cumsums = 0        # running sums (``cumsum_loop``)
         self.composed = {m.id for m in phase.members} - set(self.tiles)
 
     def fresh(self) -> str:
@@ -1530,7 +1571,8 @@ class _Phase:
     def value(self, m: Instruction, sched: Sched, idx, lin: str, sfx: str) -> str:
         """Element ``idx`` of ``m``, rounded to its dtype where it ends."""
         ovs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
-        expr = _value(m, sched, ovs, idx, self.b, self.lines, self.ind, lin=lin, sfx=sfx)
+        expr = _value(m, sched, ovs, idx, self.b, self.lines, self.ind, self.itype, lin=lin,
+                      sfx=sfx)
         return _c_round(m.dtype, expr)
 
     # ---- the loops ---------------------------------------------------------
@@ -2070,9 +2112,44 @@ class _Phase:
         lines += [f"{body}}}", f"{ind}}}"]
         return lines
 
+    def cumsum_loop(self, m: Instruction, ind: str) -> List[str]:
+        """A running sum: one thread walks each row of the tile along the
+        summed dim, which the tile holds whole (``schedule.propagate``),
+        adding each term to its accumulator and writing it, O(n) a row.
+        Threads take rows as an element loop takes elements: a block's
+        threads over one plan block's rows where the phase has slots, the
+        whole grid's over every plan block's rows in a pure map."""
+        sched = self.sched(m)
+        out_chunk = chunk_shape(m.shape, sched)
+        d = m.attrs["dim"]
+        rows = tuple(1 if k == d else n for k, n in enumerate(out_chunk))
+        T, it = _c_compute(m.dtype), self.itype
+        (src,) = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
+        body, inner = ind + "  ", ind + "    "
+        self.cumsums += 1
+        self.extent = max(self.extent, out_chunk[d])
+        lines = self._loop_head("o", _prod(rows), sched, ind)
+        self.lines, self.ind, self.regs = [], body, {}
+        idx = _unravel(self.lines, "o", rows, "o", body, it)
+        idx[d] = "r"
+        lines += self.lines
+        lines.append(f"{body}{T} acc = static_cast<{T}>(0);")
+        lines.append(f"{body}for ({it} r = 0; r < {out_chunk[d]}; ++r) {{")
+        self.lines, self.ind = [], inner
+        x = src.at(idx)
+        self._check_own_slot(m, self._tile_write(m, out_chunk, idx), "\n".join(self.lines) + x)
+        lines += self.lines
+        lines.append(f"{inner}acc += {x};")
+        lines.append(f"{inner}const {T} v = {_c_round(m.dtype, 'acc')};")
+        lines += self._writes(m, sched, out_chunk, idx, "v", inner)
+        lines += [f"{body}}}", f"{ind}}}"]
+        return lines
+
     def member_loop(self, m: Instruction, ind: str) -> List[str]:
         if m.opcode == "reduce":
             lines = self.reduce_loop(m, ind)
+        elif m.opcode == "cumsum":
+            lines = self.cumsum_loop(m, ind)
         elif m.opcode == "dot":
             lines = self.dot_loop(m, ind)
         else:

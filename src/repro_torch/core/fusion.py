@@ -63,6 +63,7 @@ FUSABLE_OPCODES = frozenset(
     {
         "elementwise", "select", "reshape", "bitcast", "transpose",
         "broadcast", "reduce", "concat", "gather", "iota", "constant",
+        "slice", "cumsum",
     }
 )
 
@@ -97,7 +98,7 @@ def constant_like(instr: Instruction) -> bool:
         return cached
     if instr.opcode in ("constant", "iota"):
         result = True
-    elif instr.opcode in ("broadcast", "reshape", "bitcast", "transpose"):
+    elif instr.opcode in ("broadcast", "reshape", "bitcast", "transpose", "slice"):
         result = all(constant_like(o) for o in instr.operands)
     else:
         result = False
@@ -535,14 +536,14 @@ def _candidate_partitions(
     if len(members) == 1:
         return cands
 
-    # split AFTER each reduce: the reduce ends its group, so its consumers
-    # (typically a broadcast back to the wide shape) start a fresh kernel —
-    # the anti-over-fusion cut from the follow-up papers.
+    # split AFTER each reduce (or running sum): the reduce ends its group,
+    # so its consumers (typically a broadcast back to the wide shape) start
+    # a fresh kernel — the anti-over-fusion cut from the follow-up papers.
     groups: List[List[Instruction]] = []
     cur: List[Instruction] = []
     for m in members:
         cur.append(m)
-        if m.opcode == "reduce":
+        if m.opcode in ("reduce", "cumsum"):
             groups.append(cur)
             cur = []
     if cur:

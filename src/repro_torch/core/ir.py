@@ -40,6 +40,7 @@ def _softplus(x):
 ELEMENTWISE_UNARY: Dict[str, Callable] = {
     "exp": torch.exp,
     "log": torch.log,
+    "log1p": torch.log1p,
     "neg": torch.neg,
     "abs": torch.abs,
     "tanh": torch.tanh,
@@ -79,7 +80,7 @@ ELEMENTWISE_BINARY: Dict[str, Callable] = {
 
 EXPENSIVE_ELEMENTWISE = frozenset(
     {
-        "exp", "log", "div", "tanh", "sqrt", "rsqrt", "sigmoid", "softplus",
+        "exp", "log", "log1p", "div", "tanh", "sqrt", "rsqrt", "sigmoid", "softplus",
         "pow", "silu", "gelu", "reciprocal", "cos", "sin",
     }
 )
@@ -296,6 +297,11 @@ def infer_shape(opcode, operand_shapes, attrs) -> Optional[Tuple[int, ...]]:
         perm = attrs["perm"]
         s = operand_shapes[0]
         return tuple(s[p] for p in perm)
+    if opcode == "slice":
+        return tuple(slice_extent(s, lim, st) for s, lim, st in
+                     zip(attrs["starts"], attrs["limits"], attrs["strides"], strict=True))
+    if opcode == "cumsum":
+        return tuple(operand_shapes[0])
     if opcode == "broadcast":
         return tuple(attrs["out_shape"])
     if opcode == "reduce":
@@ -354,6 +360,20 @@ def infer_dtype(opcode, operand_dtypes, attrs) -> Optional[Any]:
 # --------------------------------------------------------------------------
 # The single-op torch interpreter (shared oracle <-> plain kernels)
 # --------------------------------------------------------------------------
+
+
+def slice_extent(start: int, limit: int, stride: int) -> int:
+    """Elements of ``range(start, limit, stride)``."""
+    return max(0, -(-(int(limit) - int(start)) // int(stride)))
+
+
+def sliced_dims(instr: Instruction) -> Tuple[int, ...]:
+    """The dims a ``slice`` does not keep whole: each a view of its operand
+    at ``start + i * stride``; every other dim reads index ``i`` itself."""
+    a, shape = instr.attrs, instr.operands[0].shape
+    return tuple(d for d, (s, lim, st) in enumerate(zip(a["starts"], a["limits"], a["strides"],
+                                                        strict=True))
+                 if (s, lim, st) != (0, shape[d], 1))
 
 
 def broadcast_in_dim(v: torch.Tensor, out_shape, dims) -> torch.Tensor:
@@ -461,6 +481,14 @@ def _apply(instr, op, a, vals, device):
         return torch.reshape(vals[0], tuple(a["new_shape"]))
     if op == "transpose":
         return vals[0].permute(tuple(a["perm"]))
+    if op == "slice":
+        # a tile holds every sliced dim whole (``schedule.propagate``): the
+        # other dims are read as they come
+        cut = set(sliced_dims(instr))
+        return vals[0][tuple(slice(a["starts"][d], a["limits"][d], a["strides"][d]) if d in cut
+                             else slice(None) for d in range(instr.ndim))]
+    if op == "cumsum":
+        return torch.cumsum(vals[0], dim=a["dim"])
     if op == "broadcast":
         return broadcast_in_dim(vals[0], a["out_shape"], a["dims"])
     if op == "reduce":
@@ -672,6 +700,18 @@ class GraphBuilder:
         perm = tuple(perm)
         shape = tuple(x.shape[p] for p in perm)
         return self._emit("transpose", shape, x.dtype, [x], {"perm": perm})
+
+    def slice(self, x: Tensor, starts, limits, strides) -> Tensor:
+        """Elements ``starts[d] + i * strides[d]`` below ``limits[d]`` of
+        each dim ``d``: a view of ``x``, read at an offset index."""
+        attrs = {"starts": tuple(int(v) for v in starts), "limits": tuple(int(v) for v in limits),
+                 "strides": tuple(int(v) for v in strides)}
+        assert len(attrs["starts"]) == x.ndim and min(attrs["strides"], default=1) >= 1
+        return self._emit("slice", infer_shape("slice", [x.shape], attrs), x.dtype, [x], attrs)
+
+    def cumsum(self, x: Tensor, dim: int) -> Tensor:
+        """The running sum of ``x`` along ``dim``."""
+        return self._emit("cumsum", x.shape, x.dtype, [x], {"dim": int(dim) % x.ndim})
 
     def broadcast(self, x: Tensor, out_shape, dims) -> Tensor:
         out_shape, dims = tuple(out_shape), tuple(dims)

@@ -226,13 +226,13 @@ _EW_WEIGHT = {"add": 1, "sub": 1, "mul": 1, "max": 1, "min": 1, "neg": 1,
               "abs": 1, "sign": 1, "floor": 1, "not": 1, "and": 1, "or": 1,
               "lt": 1, "le": 1, "gt": 1, "ge": 1, "eq": 1, "ne": 1,
               "square": 1, "reciprocal": 4, "div": 4, "sqrt": 4, "rsqrt": 4,
-              "exp": 8, "log": 8, "tanh": 12, "sigmoid": 10, "softplus": 12,
+              "exp": 8, "log": 8, "log1p": 8, "tanh": 12, "sigmoid": 10, "softplus": 12,
               "silu": 12, "gelu": 14, "pow": 16}
 
 # Computationally trivial ops: inlined via thread composition during both
 # schedule scoring (tuning.py) and planner scoring — charging them would
 # veto good schedules (paper §4.3 optimization).
-TRIVIAL_OPCODES = frozenset({"reshape", "bitcast", "broadcast", "constant", "iota"})
+TRIVIAL_OPCODES = frozenset({"reshape", "bitcast", "broadcast", "constant", "iota", "slice"})
 _SMALL_TRANSPOSE_ELEMS = 4096
 
 
@@ -252,7 +252,7 @@ def instr_flops(instr: Instruction) -> float:
         return instr.num_elements * w
     if op == "select":
         return instr.num_elements
-    if op == "reduce":
+    if op in ("reduce", "cumsum"):
         return instr.operands[0].num_elements
     if op == "dot":
         lhs = instr.operands[0]
@@ -588,7 +588,7 @@ class LatencyModel:
             elif gpu and memory is not None:
                 if memory.action(m) != "INLINE" and m.opcode != "constant":
                     vmem_bytes += 2 * dup * m.bytesize   # a slot's write and read
-            elif m.opcode in ("reduce", "dot") and any(
+            elif m.opcode in ("reduce", "dot", "cumsum") and any(
                 u.id in member_ids for u in m.users
             ):
                 # interior values memory.plan_memory marks as required
@@ -666,7 +666,7 @@ class LatencyModel:
                 elif pplan is not None:
                     if pplan.action(m) != "INLINE" and m.opcode != "constant":
                         vmem_bytes += 2 * dup * m.bytesize
-                elif m.opcode in ("reduce", "dot") and any(
+                elif m.opcode in ("reduce", "dot", "cumsum") and any(
                     u.id in phase_ids for u in m.users
                 ):
                     vmem_bytes += dup * m.bytesize   # phase-interior buffer

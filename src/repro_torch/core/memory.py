@@ -212,7 +212,7 @@ def plan_memory(
         in_users = [u for u in m.users if u.id in member_ids]
         if m.id in root_ids and not in_users:
             continue  # pure output: written straight to the output ref
-        if m.opcode in ("reduce", "dot"):
+        if m.opcode in ("reduce", "dot", "cumsum"):
             candidates[m.id] = 0
         elif m.opcode == "elementwise":
             feeds_dot = _feeds_dot_through_shape_ops(m, member_ids)

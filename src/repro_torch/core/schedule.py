@@ -29,7 +29,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 
-from .ir import COLLECTIVE_OPCODES, Instruction
+from .ir import COLLECTIVE_OPCODES, Instruction, sliced_dims
 
 ROW = "Row"
 COLUMN = "Column"
@@ -208,6 +208,15 @@ def propagate(instr: Instruction, sched: Sched, row_split: bool = False) -> List
         if t == COLUMN and s > max(moved):
             return [sched]
         raise Unsatisfiable(f"transpose {perm} split={s} {t}")
+
+    if op in ("slice", "cumsum"):
+        # each holds the dims it reads across whole in a block, as a reduce
+        # holds its reduced dims: a slice its sliced dims, a running sum
+        # its summed dim; every other dim maps one to one
+        cut = sliced_dims(instr) if op == "slice" else (a["dim"],)
+        if not cut or (t == ROW and s < min(cut)) or (t == COLUMN and s > max(cut)):
+            return [sched]
+        raise Unsatisfiable(f"{op} across dims {cut} split={s} {t}")
 
     if op == "reduce":
         rdims = tuple(a["dims"])

@@ -62,7 +62,7 @@ RULES: Dict[str, str] = {
     "IR004": "duplicate instruction id in one module",
     "IR005": "recorded shape disagrees with shape re-inference",
     "IR006": "recorded dtype disagrees with dtype re-inference",
-    "IR007": "attr-declared shape/dtype contract broken (call/get/constant)",
+    "IR007": "attr-declared shape/dtype contract broken (call/get/constant/slice/cumsum)",
     "IR008": "duplicate parameter name",
     "PLAN001": "fusion group is cyclic through outside instructions",
     "PLAN002": "fusion component spans an LC layer roof",
@@ -200,7 +200,14 @@ def _check_instr_types(instr: Instruction) -> List[Tuple[str, str]]:
         out.append(("IR006", f"recorded dtype {dtype_name(instr.dtype)} != inferred {dtype_name(dtype)}"))
 
     a = instr.attrs
-    if instr.opcode == "constant":
+    if instr.opcode == "slice":
+        for d, (lo, hi, st) in enumerate(zip(a["starts"], a["limits"], a["strides"])):
+            if not (0 <= lo <= hi <= instr.operands[0].shape[d] and st >= 1):
+                out.append(("IR007", f"slice window {lo}:{hi}:{st} of dim {d} is not inside "
+                                     f"its operand's {instr.operands[0].shape[d]}"))
+    elif instr.opcode == "cumsum" and not 0 <= a.get("dim", -1) < instr.ndim:
+        out.append(("IR007", f"cumsum along dim {a.get('dim')} of a rank-{instr.ndim} value"))
+    elif instr.opcode == "constant":
         value = a.get("value")
         if value is None:
             out.append(("IR007", "constant without a value attr"))

@@ -33,6 +33,7 @@
 
 SX_FLOAT_UNARY(exp, expf(x), exp(x))
 SX_FLOAT_UNARY(log, logf(x), log(x))
+SX_FLOAT_UNARY(log1p, log1pf(x), log1p(x))
 SX_FLOAT_UNARY(tanh, tanhf(x), tanh(x))
 SX_FLOAT_UNARY(sqrt, sqrtf(x), sqrt(x))
 SX_FLOAT_UNARY(rsqrt, 1.0f / sqrtf(x), 1.0 / sqrt(x))

@@ -584,9 +584,11 @@ class StitchedFunction:
             key, leaves, spec, static_pos, dyn_args, n_args = self._signature(args, kwargs)
             entry = self._plans.get(key)
             if entry is None:
-                with tracing.span("compile", function=self.name):
+                with tracing.span("compile", function=self.name, arguments=len(args)) as sp:
                     entry = self._compile(key, args, kwargs, static_pos, leaves, spec,
                                           dyn_args, n_args)
+                    if entry.compiled is not None:
+                        sp.attrs["kernels"] = [k.fn.symbol for k in entry.compiled.kernels]
             if entry.is_fallback:
                 return self._run_eager(args, kwargs)
             feeds = {

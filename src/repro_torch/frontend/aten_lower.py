@@ -26,6 +26,12 @@ Lowering rules worth knowing (each the reference's, by name):
   * a nondeterministic or side-effecting op (``rand_like``, ``bernoulli``,
     ``_print``, an in-place op left after functionalization) is kept by
     the liveness pass and raises: it is never dropped.
+  * a slice (``slice``, ``select``, each part of ``split_with_sizes``) is
+    StitchIR's ``slice``, a view read at an offset index; a constant pad a
+    ``concat`` with a broadcast constant; a depthwise 1-D convolution its
+    taps, each a slice of the padded input times a broadcast column of the
+    weight (``_depthwise_conv1d``); ``cumsum`` StitchIR's ``cumsum``, a
+    running sum along one dim.  Each counts ``lower.<op>`` on the tracer.
   * control flow: ``higher_order.scan`` becomes a ``call`` loop (its
     ``additional_inputs`` the loop's constants; a ``flip``-wrapped scan,
     torch's ``reverse=True``, a reversed loop); ``higher_order.while_loop``
@@ -58,6 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.ir import BFLOAT16, GraphBuilder, Module, Tensor, _prod
 
 # --------------------------------------------------------------------------
@@ -68,6 +75,7 @@ from ..core.ir import BFLOAT16, GraphBuilder, Module, Tensor, _prod
 UNARY_OPS: Dict[str, str] = {
     "aten.exp.default": "exp",
     "aten.log.default": "log",
+    "aten.log1p.default": "log1p",
     "aten.tanh.default": "tanh",
     "aten.sqrt.default": "sqrt",
     "aten.rsqrt.default": "rsqrt",
@@ -133,6 +141,16 @@ STRUCTURAL_OPS = frozenset(
      "aten.arange.start_step", "prims.iota.default"}
 )
 
+#: ops a sequence mixer (a state-space layer, a causal convolution) reads
+#: its inputs through, with bespoke lowerings below (``_Lowerer._seq_op``):
+#: slices and what is made of them, the depthwise 1-D convolution, the
+#: running sum, and the not of a bool mask
+SEQUENCE_OPS = frozenset(
+    {"aten.slice.Tensor", "aten.select.int", "aten.split_with_sizes.default",
+     "aten.constant_pad_nd.default", "aten.convolution.default", "aten.cumsum.default",
+     "aten.bitwise_not.default"}
+)
+
 #: control-flow higher-order ops: ``scan`` lowers to a sub-module ``call``
 #: loop; ``while_loop`` the same way when a static trip count is provable
 #: from the canonical counter pattern; ``cond`` inlines both branches
@@ -150,9 +168,12 @@ COLLECTIVE_OPS = frozenset(
      "_c10d_functional.wait_tensor.default"}
 )
 
+#: the lowerings the tracer counts, each as ``lower.<op>``
+COUNTED_OPS = SEQUENCE_OPS | {"aten.log1p.default"}
+
 SUPPORTED_OPS = frozenset(
     set(UNARY_OPS) | set(BINARY_OPS) | set(REDUCE_OPS)
-    | IDENTITY_OPS | STRUCTURAL_OPS | CONTROL_FLOW_OPS | COLLECTIVE_OPS
+    | IDENTITY_OPS | STRUCTURAL_OPS | SEQUENCE_OPS | CONTROL_FLOW_OPS | COLLECTIVE_OPS
 )
 
 _COMPARE = frozenset({"lt", "le", "gt", "ge", "eq", "ne", "and", "or"})
@@ -460,6 +481,10 @@ class _Lowerer:
             return self._collective(env, node, name)
         if node.kwargs.get("alpha", 1) != 1:
             raise UnsupportedPrimitiveError(name, node, "alpha != 1")
+        if name in COUNTED_OPS:
+            tracing.count(f"lower.{name.split('.')[1]}", 1)
+        if name == "aten.split_with_sizes.default":
+            return self._split(env, node)
         out_shape, out_dtype = _shape(node), _dtype(node)
         b = self.b
         args = node.args
@@ -561,9 +586,101 @@ class _Lowerer:
                     "prims.iota.default"):
             return self._arange(node, out_shape, out_dtype)
 
+        if name in SEQUENCE_OPS:
+            return self._seq_op(env, node, name, out_shape, out_dtype)
+
         raise UnsupportedPrimitiveError(name, node)
 
     # -- bespoke lowerings ------------------------------------------------
+    def slice(self, x: Tensor, dim: int, start: int, stop: int, step: int = 1) -> Tensor:
+        """``x[..., start:stop:step, ...]`` along ``dim``, by Python's rules
+        for a positive step; the whole dim is ``x`` itself."""
+        start, stop, step = slice(start, stop, step).indices(int(x.shape[dim]))
+        if (start, stop, step) == (0, x.shape[dim], 1):
+            return x
+        starts, limits, strides = [0] * x.ndim, list(x.shape), [1] * x.ndim
+        starts[dim], limits[dim], strides[dim] = start, max(start, stop), step
+        return self.b.slice(x, starts, limits, strides)
+
+    def _seq_op(self, env: Dict, node, name: str, out_shape, out_dtype):
+        b, args = self.b, node.args
+        if name == "aten.bitwise_not.default":
+            if out_dtype != np.bool_:
+                raise UnsupportedPrimitiveError(name, node, "a bitwise not lowers on bool only")
+            return b.unary("not", self.read(env, args[0]))
+        if name == "aten.cumsum.default":
+            if node.kwargs.get("dtype") is not None:
+                raise UnsupportedPrimitiveError(name, node, "a dtype argument")
+            x = b.convert(self.read(env, args[0]), out_dtype)
+            return b.cumsum(x, int(args[1]) % max(x.ndim, 1)) if x.ndim else x
+        if name == "aten.convolution.default":
+            return self._depthwise_conv1d(env, node, name, out_dtype)
+        x = self.read(env, args[0])
+        if name == "aten.constant_pad_nd.default":
+            value = args[2] if len(args) > 2 else node.kwargs.get("value", 0)
+            return self._pad(x, list(args[1]), value, out_dtype)
+        dim = int(args[1] if len(args) > 1 else node.kwargs.get("dim", 0)) % x.ndim
+        if name == "aten.select.int":
+            i = int(args[2]) % int(x.shape[dim])
+            return self.reshape(self.slice(x, dim, i, i + 1), out_shape)
+        # aten.slice.Tensor(x, dim, start, end, step): None for a bound is the edge
+        start, stop = (args[2] if len(args) > 2 else None), (args[3] if len(args) > 3 else None)
+        step = int(args[4] if len(args) > 4 else node.kwargs.get("step", 1))
+        return self.slice(x, dim, start, stop, step)
+
+    def _split(self, env: Dict, node) -> List[Tensor]:
+        """``split_with_sizes``: one slice a part, in order."""
+        x = self.read(env, node.args[0])
+        dim = int(node.args[2] if len(node.args) > 2 else node.kwargs.get("dim", 0)) % x.ndim
+        edges = np.cumsum([0] + [int(n) for n in node.args[1]])
+        return [self.slice(x, dim, int(lo), int(hi)) for lo, hi in zip(edges[:-1], edges[1:])]
+
+    def _pad(self, x: Tensor, pad: List[int], value, dtype) -> Tensor:
+        """``F.pad``'s constant padding: ``pad`` holds (before, after) pairs
+        from the last dim back; a positive count concatenates a broadcast
+        constant, a negative one slices."""
+        for k in range(len(pad) // 2):
+            dim = x.ndim - 1 - k
+            lo, hi = int(pad[2 * k]), int(pad[2 * k + 1])
+            x = self.slice(x, dim, max(0, -lo), int(x.shape[dim]) - max(0, -hi))
+            parts = []
+            for n in (lo, hi):
+                shape = list(x.shape)
+                shape[dim] = n
+                parts.append(self.to_shape(self.scalar(value, dtype), shape) if n > 0 else None)
+            pieces = [p for p in (parts[0], x, parts[1]) if p is not None]
+            x = self.b.concat(pieces, dim) if len(pieces) > 1 else x
+        return x
+
+    def _depthwise_conv1d(self, env: Dict, node, name: str, out_dtype) -> Tensor:
+        """A depthwise 1-D convolution (``groups`` equal to the channels,
+        stride and dilation 1, no transposition), as a user's causal
+        conv1d writes it: ``out[n, c, t] = bias[c] + sum_k w[c, 0, k] *
+        xpad[n, c, t + k]``, with ``xpad`` the input padded with zeros.
+        Each tap is a slice of the padded input times a broadcast column of
+        the weight, so the planner fuses the taps with what reads them."""
+        b = self.b
+        x_n, w_n, bias_n, stride, padding, dilation, transposed, _, groups = node.args[:9]
+        x, w = (b.convert(self.read(env, a), out_dtype) for a in (x_n, w_n))
+        if x.ndim != 3 or transposed or list(stride) != [1] or list(dilation) != [1] \
+                or int(groups) != x.shape[1] or tuple(w.shape[:2]) != (x.shape[1], 1):
+            raise UnsupportedPrimitiveError(
+                name, node, "only a depthwise 1-D convolution lowers: groups equal to the "
+                "channels, stride 1, dilation 1, not transposed")
+        n, c, _ = (int(s) for s in x.shape)
+        taps, p = int(w.shape[2]), int(padding[0])
+        x = self._pad(x, [p, p], 0, out_dtype)
+        length = int(x.shape[2]) - taps + 1
+        out = None
+        for k in range(taps):
+            col = b.broadcast(self.reshape(self.slice(w, 2, k, k + 1), (c,)), (n, c, length), (1,))
+            term = b.binary("mul", self.slice(x, 2, k, k + length), col)
+            out = term if out is None else b.binary("add", out, term)
+        if bias_n is not None:
+            bias = b.convert(self.read(env, bias_n), out_dtype)
+            out = b.binary("add", out, b.broadcast(bias, (n, c, length), (1,)))
+        return out
+
     def _axes(self, node, name: str, group: str) -> Tuple[str, ...]:
         if group not in self.group_axes:
             raise UnsupportedPrimitiveError(

@@ -25,17 +25,23 @@ kernel.  With no session recording, a span costs its two clock reads and
 an append.
 
 The spans the port opens, outermost first: ``call`` (a call of a stitched
-function), ``compile`` (a plan-cache miss, attribute ``function``) with
-``capture``, ``lower`` and ``compile_module`` inside, the pipeline's
-``pass.<name>`` and ``verify``, ``build`` (``cuda_build.load``: attributes
-``nvcc``, whether nvcc ran, and ``source_bytes``), ``execute`` (a run of a
+function), ``compile`` (a plan-cache miss, attributes ``function``,
+``arguments``, the call's positional arguments, and, once the plan is
+built, ``kernels``, the ``__global__`` symbols of its generated kernels,
+``stitch_<hash>_<label>``) with ``capture``, ``lower`` and
+``compile_module`` inside, the pipeline's ``pass.<name>`` and ``verify``,
+``build`` (``cuda_build.load``: attributes ``nvcc``, whether nvcc ran, and
+``source_bytes``), ``execute`` (a run of a
 plan, attribute ``mode``: ``graph`` or ``eager``) and ``graph_capture``.
 Counters: ``replay.calls``, ``replay.copy_bytes`` (the bytes a replay copies
 into the graph's inputs and out of its pool), ``build.nvcc`` and
 ``build.found`` (translation units compiled, and found built),
 ``codegen.map_loops`` and ``codegen.map_loops_reordered`` (the element loops
 of pure maps emitted, and those of them that walk their output in its own
-order because their chunk is not one span of it).
+order because their chunk is not one span of it), ``codegen.cumsums`` (the
+running sums emitted, each one thread a row), and ``lower.<op>`` for each
+op of ``frontend/aten_lower.py`` ``COUNTED_OPS`` lowered (``lower.slice``,
+``lower.convolution``, ``lower.cumsum``, ...).
 
 Not to be confused with ``core/span.py``, the paper's work/span analysis.
 """

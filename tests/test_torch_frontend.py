@@ -443,7 +443,7 @@ def test_checkpoint_inlines():
 
 
 def test_stats_error_names_fallback_cause():
-    fb = cpu_stitch(lambda x: torch.cumsum(x, 0), on_unsupported="fallback")
+    fb = cpu_stitch(lambda x: torch.cumprod(x, 0), on_unsupported="fallback")
     fb(torch.ones(4, 4))
     with pytest.raises(ValueError, match="fell back to plain"):
         fb.stats
@@ -451,23 +451,23 @@ def test_stats_error_names_fallback_cause():
 
 def test_unsupported_op_error_names_the_op_and_node():
     def fn(x):
-        return torch.cumsum(x, 0) * 2.0
+        return torch.cumprod(x, 0) * 2.0
 
     with pytest.raises(UnsupportedPrimitiveError) as err:
         cpu_stitch(fn)(torch.ones(4, 4))
     e = err.value
-    assert e.primitive == "aten.cumsum.default"
-    assert e.node is not None and "cumsum" in e.node.format_node()
+    assert e.primitive == "aten.cumprod.default"
+    assert e.node is not None and "cumprod" in e.node.format_node()
     assert "fallback" in str(e)                         # points at the escape hatch
-    assert "%cumsum" in str(e)                          # the node, by name
-    assert "aten.cumsum.default" not in SUPPORTED_OPS
+    assert "%cumprod" in str(e)                         # the node, by name
+    assert "aten.cumprod.default" not in SUPPORTED_OPS
 
 
 def test_fallback_mode_runs_eagerly():
-    fn = lambda x: torch.cumsum(x, 0) + 1.0  # noqa: E731
+    fn = lambda x: torch.cumprod(x, 0) + 1.0  # noqa: E731
     st = cpu_stitch(fn, on_unsupported="fallback")
     x = np.random.RandomState(14).randn(4, 4).astype("f4")
-    assert_tree_close(st(x), jax.jit(lambda x: jnp.cumsum(x, axis=0) + 1.0)(x))
+    assert_tree_close(st(x), jax.jit(lambda x: jnp.cumprod(x, axis=0) + 1.0)(x))
     assert st.num_fallbacks == 1 and st.num_compiles == 0
     st(x)                                   # the fallback entry is cached too
     assert st.num_fallbacks == 1

@@ -187,6 +187,40 @@ def test_a_launch_past_the_grid_limit_raises_naming_it():
         _kernel(_map, (1 << 20, 1 << 20))
 
 
+def _reshape_map(b, x):
+    return b.reshape(x, (WIDE[1], WIDE[0])) * 1.5
+
+
+def _reshape_dot(b, x, v):
+    return b.dot(b.reshape(b.exp(x), (64, 32768, 1025)), v, fusable=True)
+
+
+RESHAPES = {
+    # a reshape composed into a pure map over 2^31 + 65536 elements
+    "map": (_reshape_map, [("x", WIDE, np.float32)]),
+    # a reshape a staged dot reads its lhs through: the granite attention's
+    # p @ v at 6 x 4096 tokens, whose unravel wrapped past sequence 5
+    "staged dot": (_reshape_dot, [("x", (64 * 32768, 1025), np.float32),
+                                  ("v", (64, 1025, 64), np.float32)]),
+}
+
+
+@pytest.mark.parametrize("case", list(RESHAPES))
+def test_a_reshape_in_a_wide_kernel_unravels_in_64_bits(case):
+    fn, specs = RESHAPES[case]
+    cm = compile_module(trace(fn, *specs), StitchOptions(device_spec=H100, jit_replay=False),
+                        device="cpu")
+    (k,) = cm.kernels
+    src = k.fn.source
+    assert src.splitlines()[0].split(";")[0].endswith("64-bit indices and offsets")
+    assert ("staged in" in src.splitlines()[0]) == (case == "staged dot")
+    # the reshape's linear index is split in 64 bits, then in int once the
+    # quotient left fits one (``codegen._unravel_wide``)
+    assert re.findall(r"\bint \w+_rem\b", src) == []
+    assert re.search(r"long long p\w*_rem = ", src)
+    assert re.search(r"int p\w*_rem32 = static_cast<int>\(p\w*_rem\);", src)
+
+
 def test_plain_version_of_a_wide_plan_is_the_plans():
     """The plain version does not depend on the index width: the same plan
     at a small size (a wide tensor cannot be allocated here) still equals
@@ -304,6 +338,54 @@ def test_kernels_below_the_limit_are_the_parents_text(name):
     else:
         assert not dots
         assert sorted(names) == PARENT[name]
+
+
+#: each benchmark cell's layer under ``H100`` (its kernel names, the parent's: commit 29c7aeb),
+#: compiled here on meta tensors; only kernels past the limit may change, and none does
+CELLS = {
+    "granite-moe-3b-a800m.attn.prefill-4k": [
+        "stitch_0e79b6d427418eff", "stitch_2102654533b25a0c", "stitch_241768555cc2b28b",
+        "stitch_38b9ade6b8addda9", "stitch_3af65cc33612cb5e", "stitch_3d05f192870ac617",
+        "stitch_42e0e59b6bb78df9", "stitch_5925b09171581e8b", "stitch_61b4b2ca5ba879cc",
+        "stitch_62d45a2cc9aa5b4f", "stitch_894a4015bb3641e2", "stitch_a6c0d19528540821",
+        "stitch_d32eec9339096f95", "stitch_ea47f9d5b6f8bd86",
+    ],
+    "mistral-large-123b.tp8.prefill-2k": [
+        "stitch_13fe6744dfd509da", "stitch_1ca2b4f6a47d9619", "stitch_34f4f93ced561d94",
+        "stitch_49140b8e35785d6b", "stitch_4aacf7ff5a6d7a87", "stitch_4b8f4dac34cfce6b",
+        "stitch_4e8060a5c468a1c7", "stitch_50ba1d43ba061d68", "stitch_676152e924b22914",
+        "stitch_67c2e3827f564166", "stitch_6cfa48449ced570a", "stitch_973c3a1654db2ae6",
+        "stitch_a2c69fd15acb4a14", "stitch_acf293835c462385", "stitch_b3cf76736eed888e",
+        "stitch_c78a6b0848f00f10", "stitch_d729300e824ab4e4", "stitch_ec4e40e588d142b2",
+        "stitch_fe38e1b9b3e57226",
+    ],
+    "granite-moe-3b-a800m.attn-bf16.prefill-4k": [
+        "stitch_2eb634aba017ed34", "stitch_3af65cc33612cb5e", "stitch_42695837065d508c",
+        "stitch_44d76f7fa7aac0af", "stitch_581eb96b6eb2c977", "stitch_58656b94c0e447c3",
+        "stitch_5925b09171581e8b", "stitch_59dbdfee3e12182f", "stitch_648ed5af961ac63f",
+        "stitch_932155df81038699", "stitch_9a910a3e838ca3cc", "stitch_c5e0bbfebd47b9f3",
+        "stitch_f677bdf3f3c4a959",
+    ],
+}
+
+
+@pytest.mark.parametrize("workload", list(CELLS))
+def test_the_benchmarks_cells_keep_their_kernels(workload):
+    from stitchbench import harness
+
+    cell = harness.load_cell(workload)
+    s = cell.shape
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[s["dtype"]]
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    args = [meta(cell.batch * cell.seq, s["d"])]
+    args += [meta(*shape) for shape in cell.program.weight_shapes(s).values()]
+    args += [meta(cell.seq, s["head_dim"])] * 2
+    fn = cell.program.build(cell.config, cell.batch, cell.seq)
+    cm = stitch(fn, options=StitchOptions(device_spec=H100), device="cpu").lower(*args).compile()
+    assert sorted(k.fn.name for k in cm.kernels) == CELLS[workload]
 
 
 # ---------------------------------------------------------------------------

@@ -135,7 +135,9 @@ def test_a_cpu_compile_records_its_phases_and_fills_its_fields_from_them():
     spans = tracing.snapshot().spans
     (comp,) = _by_name(spans, "compile")
     calls = _by_name(spans, "call")
-    assert len(calls) == 2 and comp.parent == calls[0].id and comp.attrs == {"function": "_layer"}
+    kernels = [k.fn.symbol for k in sf._last.compiled.kernels]
+    assert len(calls) == 2 and comp.parent == calls[0].id
+    assert comp.attrs == {"function": "_layer", "arguments": len(_args()), "kernels": kernels}
     (cap,), (low,), (cm,) = (_by_name(spans, n) for n in ("capture", "lower", "compile_module"))
     assert cap.parent == low.parent == cm.parent == comp.id
     passes = [s for s in spans if s.name.startswith("pass.")]
