@@ -212,6 +212,8 @@ def plan_memory(
         in_users = [u for u in m.users if u.id in member_ids]
         if m.id in root_ids and not in_users:
             continue  # pure output: written straight to the output ref
+        if m.id in solution.index_values:
+            continue  # recomputed from its index where it is read
         if m.opcode in ("reduce", "dot", "cumsum"):
             candidates[m.id] = 0
         elif m.opcode == "elementwise":

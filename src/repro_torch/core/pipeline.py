@@ -634,11 +634,19 @@ class CodegenPass(Pass):
                     p.shrunk = True
                     p.fusion = FusedComputation(p.fusion.members[:kept_n], name=p.fusion.name)
                 p.kernel = entry.kernel.bind(p.fusion)
+        tracing.count("schedule.index_values", sum(_index_values(p.entry) for p in state.planned))
         state.cuda_source = assemble_source(emitted)
         if emitted and state.device.type == "cuda":
             lib, state.build_s = cuda_build.load(state.cuda_source)
             for program in emitted:
                 program.load(lib)
+
+
+def _index_values(entry: CacheEntry) -> int:
+    """Members of a committed fusion that its schedule let past the replicate
+    limit as values computed from indices alone (``resolve_schedules``)."""
+    sols = [ph.solution for ph in entry.stitched.phases] if entry.stitched else [entry.solution]
+    return sum(len(s.index_values) for s in sols)
 
 
 class AutotunePass(Pass):

