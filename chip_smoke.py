@@ -47,7 +47,7 @@ Phases, each fatal on failure:
    torch chunk by chunk.  Then the fused dots (``staged_dots_check``): NMT and the
    Figure-3 attention at granite width (``STAGED_CASES``) under
    ``TPU_V5E``, whose plan staging leaves unchanged, with their dots
-   staged and on the register-tile loop (``StitchOptions.stage_dots``), bit for
+   staged and on the register-tile loop (``register_tile_loops``), bit for
    bit, and under the card's default plan (``H100``, row-split dots)
    against their plain kernels and ``reference_execute`` at ``TOL``; with
    each dot kernel's device µs, loop, CUDA blocks and share of its bound
@@ -389,6 +389,7 @@ shared-memory and spill lines.  Exits non-zero with no result when no card
 is present.
 """
 import argparse
+import contextlib
 import faulthandler
 import itertools
 import json
@@ -2085,7 +2086,7 @@ INDEX64_SHAPES = ((65536, 32769), (40000, 32769))
 #: rows of it compared with torch at a time (no third full-size copy)
 INDEX64_CHUNK = 4096
 #: the functions whose fused dots phase 4 holds against the register-tile
-#: loop (``StitchOptions(stage_dots=False)``) bit for bit under ``TPU_V5E``
+#: loop (``register_tile_loops``) bit for bit under ``TPU_V5E``
 STAGED_CASES = ("NMT", "fig3_attention")
 
 
@@ -2139,11 +2140,26 @@ def index64_check(dev, shape):
     return row
 
 
+@contextlib.contextmanager
+def register_tile_loops():
+    """A context in which the emitters put every fused dot on the
+    register-tile loop: the launch geometry offers no dot a staging
+    (``geometry.staged_dot_tiling`` gives None), so each launch record's
+    dot tilings are None and a pure map's grid is that loop's.  Under
+    ``TPU_V5E`` the planner reads no launch record: the plan is the same."""
+    from unittest import mock
+
+    from repro_torch.core import geometry
+
+    with mock.patch.object(geometry, "staged_dot_tiling", lambda *a: None):
+        yield
+
+
 def staged_case(name, dev, spec_name, stage=True):
     """(compiled, feeds) of one of ``STAGED_CASES`` on ``dev`` under
     ``spec_name``'s plan, its dots staged or (``stage`` False) on the
-    register-tile loop: NMT at its graph's size, the Figure-3 attention at
-    granite width."""
+    register-tile loop (``register_tile_loops``): NMT at its graph's size,
+    the Figure-3 attention at granite width."""
     import dataclasses
 
     import numpy as np
@@ -2154,19 +2170,21 @@ def staged_case(name, dev, spec_name, stage=True):
     from repro_torch.core.latency import H100, TPU_V5E
     from repro_torch.graphs import ALL_GRAPHS, random_feeds
 
-    opts = StitchOptions(device_spec=TPU_V5E if spec_name == "TPU_V5E" else H100, jit_replay=False,
-                         stage_dots=stage)
+    opts = StitchOptions(device_spec=TPU_V5E if spec_name == "TPU_V5E" else H100, jit_replay=False)
+    loops = contextlib.nullcontext() if stage else register_tile_loops()
     if name == "NMT":
         module = ALL_GRAPHS["NMT"]()
         feeds = random_feeds(module, np.random.RandomState(0))
-        return module, compile_module(module, opts, device=dev), {
-            k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
+        with loops:
+            compiled = compile_module(module, opts, device=dev)
+        return module, compiled, {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
     (fn, args) = next((fn, args) for n, fn, args, _, _ in model_width_cases() if n == name)
     lowered = stitch(fn, options=dataclasses.replace(opts, max_blocks=FRONTEND_MAX_BLOCKS)
                      if spec_name == "TPU_V5E" else opts, device=dev).lower(*args)
     feeds = dict(zip(lowered.param_names, args, strict=True))
-    return lowered.module, lowered.compile(), {
-        k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
+    with loops:
+        compiled = lowered.compile()
+    return lowered.module, compiled, {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
 
 
 def staged_sources():

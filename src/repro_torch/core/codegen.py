@@ -37,12 +37,12 @@ version beside it:
 Design of ``emit_fusion``: one launch of the same phase emitter
 (``_Phase``) the stitched kernel runs each phase through, over the
 fusion's ``MemoryPlan``.  ALLOC/SHARE members live in the plan's slots, in
-dynamic shared memory at the slots' offsets (past ``SMEM_LIMIT``, in a
+dynamic shared memory at the slots' offsets (past ``geometry.SMEM_LIMIT``, in a
 per-block region of the workspace); INLINE members are composed into their
 consumers and write nothing; outputs are written straight to ``out*``.  A
 plan block's members run in order, each a fixed-count unrolled loop over
 its tile with a barrier after it.  Members that share no value form groups
-(``_independent_groups``), and each (plan block, group) pair runs on a
+(``geometry._independent_groups``), and each (plan block, group) pair runs on a
 CUDA block of its own: ReduceTowers' six towers on six SMs.  A reduce
 takes a warp per output, or, where a plan block has fewer outputs than
 warps, the whole block, partial results combined through shared memory.
@@ -57,7 +57,7 @@ register-tile loop's bit for bit.  Where the staging does not fit beside
 the slots, the dot keeps that loop: each thread reads its operands where
 they are.  The header names the loop each dot took.  A fusion with no slot
 is a pure map over the grid.  Threads per block follow the plan
-(``fusion_threads``: 128 to 512).
+(``geometry.fusion_launch``: 128 to 512).
 
 Thread order of a pure map: its loop over a member's elements gives
 consecutive threads consecutive ``t``.  Where the member's chunk is one
@@ -74,6 +74,19 @@ blocks.  Every element is the same expression of the same plan block's
 values, so the outputs do not change.  The tracer counts both kinds of loop
 (``codegen.map_loops``, ``codegen.map_loops_reordered``).
 
+Who decides what: the launch of each kernel, and of each phase of a
+stitched one, is ``core/geometry.py``'s ``PhaseLaunch`` (grid, threads, the
+members that write a slot and the slots' offsets, where the slots live, the
+members held in a register, the independent member groups, where a staged
+dot's operand tiles start, each dot's loop).  The planner's cost model
+(``core/latency.py``) charges a plan by the same record, so what it prices
+is what runs.  ``emit_fusion`` and ``emit_stitched_fusion`` take it from
+``geometry.fusion_launch`` and ``geometry.stitched_launch`` and hand it to
+``_cuda_fusion`` and ``_cuda_stitched``, whose ``_Phase`` writes it out; the
+text decides only the index width (``_wide``).  This module
+imports ``geometry``, ``memory``, ``schedule``, ``fusion`` and ``ir``; no
+planner module imports it.
+
 Indices are ``int`` unless a tensor a kernel addresses, or a loop it runs,
 passes 2^31 - 1 elements: then every loop variable, block index and
 offset of the kernel is ``long long`` (``_wide``; the header says so), and
@@ -89,7 +102,7 @@ then ran one CUDA block per plan block (16 of 512 threads) and sent every
 element through the workspace and back: 153-158 device µs on an H100
 against a bound of 3.2.  So a member that every reader reads at the element it would
 write, and that reads every slot it reads at that element too, is held in
-a register (``held_in_registers``): each loop that reads it computes it
+a register (``geometry.held_in_registers``): each loop that reads it computes it
 once per element into a ``const`` of its compute type, with the same
 operations and roundings, and a phase that keeps no slot is the pure map
 over the grid (3456 blocks of 512 threads there, no workspace).  The plan
@@ -121,18 +134,34 @@ import torch
 from .. import tracing
 from .device import input_device, resolve_device
 from .fusion import FusedComputation
+from .geometry import (
+    _NP_COMPUTE,
+    DOT_PREFETCH,
+    SHARED,
+    STATIC_SMEM_LIMIT,
+    WORKSPACE,
+    DotTiling,
+    PhaseLaunch,
+    _c_compute,
+    _c_types,
+    _reg_tile,
+    fusion_launch,
+    minor_moved,
+    reduce_part_bytes,
+    stitched_launch,
+)
 from .ir import (
     BFLOAT16,
     Instruction,
+    _prod,
     apply_op,
     as_array,
     broadcast_in_dim,
-    dtype_name,
     iota,
     sliced_dims,
     torch_dtype,
 )
-from .memory import ALLOC, SHARE, SLOT_ALIGN, MemoryPlan, StitchedMemoryPlan
+from .memory import SLOT_ALIGN, MemoryPlan, StitchedMemoryPlan
 from .schedule import (
     REPLICATED,
     ROW,
@@ -151,24 +180,9 @@ REPLACES = {
     "emit_stitched_fusion": "src/repro/core/codegen.py:376",
 }
 
-#: threads per block of a kernel (``stitched_threads``, ``fusion_threads``)
-STITCHED_MIN_THREADS, STITCHED_MAX_THREADS = 128, 512
-STITCHED_ELEMS_PER_THREAD = 16
-#: shared memory one H100 block may use (dynamic, past 48 KB only after
-#: cudaFuncSetAttribute); slots of a phase that need more live in the workspace
-SMEM_LIMIT = 232_448
-STATIC_SMEM_LIMIT = 48 * 1024
 GRID_CACHE_DEVICES = 16   # devices whose cooperative grid a launcher caches
-_ALIGN = SLOT_ALIGN
 #: the largest index a kernel forms in ``int``; past it, in ``long long``
 INT_MAX = 2 ** 31 - 1
-
-
-def _prod(xs: Sequence[int]) -> int:
-    out = 1
-    for x in xs:
-        out *= int(x)
-    return out
 
 
 def _starts(shape, sched: Sched, b):
@@ -349,22 +363,6 @@ def _plain_stitched(fusion: FusedComputation, stitched: StitchedSolution,
 # CUDA C++ generation
 # --------------------------------------------------------------------------
 
-# each dtype's C type in memory, and the type its values are computed in:
-# bf16 and f16 compute in float, int8, uint8 and int16 in int, and every member's
-# value is rounded (or wrapped) back to its dtype where the member ends, as
-# the reference's per-instruction ``apply_op`` does
-_C_TYPES = {
-    np.dtype(np.float32): ("float", "float"),
-    np.dtype(np.float64): ("double", "double"),
-    np.dtype(np.int32): ("int", "int"),
-    np.dtype(np.int64): ("long long", "long long"),
-    np.dtype(np.bool_): ("bool", "bool"),
-    np.dtype(np.float16): ("__half", "float"),
-    BFLOAT16: ("__nv_bfloat16", "float"),
-    np.dtype(np.int8): ("signed char", "int"),
-    np.dtype(np.uint8): ("unsigned char", "int"),
-    np.dtype(np.int16): ("short", "int"),
-}
 # storage -> compute, and compute -> storage (rounding to nearest even)
 _C_LOAD = {"__half": "__half2float({})", "__nv_bfloat16": "__bfloat162float({})",
            "signed char": "static_cast<int>({})", "unsigned char": "static_cast<int>({})",
@@ -381,24 +379,9 @@ _INFIX = {
 }
 
 
-def _c_types(dtype) -> Tuple[str, str]:
-    try:
-        return _C_TYPES[np.dtype(dtype)]
-    except KeyError:
-        raise NotImplementedError(
-            f"the CUDA emitters take {sorted(dtype_name(d) for d in _C_TYPES)}, "
-            f"not {dtype_name(dtype)}"
-        ) from None
-
-
 def _c_type(dtype) -> str:
     """The C type of a ``dtype`` value in memory."""
     return _c_types(dtype)[0]
-
-
-def _c_compute(dtype) -> str:
-    """The C type a ``dtype`` value is computed in."""
-    return _c_types(dtype)[1]
 
 
 def _c_load(dtype, x: str) -> str:
@@ -761,7 +744,7 @@ class _Workspace:
 
     def alloc(self, name: str, instr: Instruction, shape, base: str, ind: str) -> str:
         off = self.size
-        self.size += -(-_prod(shape) * np.dtype(instr.dtype).itemsize // _ALIGN) * _ALIGN
+        self.size += -(-_prod(shape) * np.dtype(instr.dtype).itemsize // SLOT_ALIGN) * SLOT_ALIGN
         self.decls.append(
             f"{ind}{_c_type(instr.dtype)}* const {name} = "
             f"reinterpret_cast<{_c_type(instr.dtype)}*>({base} + {off});"
@@ -860,13 +843,12 @@ def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
     return _name_text(text, label)
 
 
-def _wide(fusion: FusedComputation, phases: Sequence["_Phase"]) -> bool:
+def _wide(fusion: FusedComputation, phases: Sequence["_Phase"], grid: int) -> bool:
     """Whether a kernel must index in 64 bits: a tensor it addresses passes
     ``INT_MAX`` elements, or a loop variable of one of its phases would.  A
     grid-stride loop's variable reaches its count plus the grid's stride
-    less one, and the grid is at most the phases' useful blocks."""
+    less one, and the grid is at most ``grid`` blocks (its launch's)."""
     elems = max((_prod(i.shape) for i in list(fusion.inputs) + list(fusion.members)), default=0)
-    grid = max([1] + [ph.useful_blocks for ph in phases])
     reach = [ph.extent for ph in phases]
     reach += [n + grid * step - 1 for ph in phases for n, step in ph.strided]
     return max([elems] + reach) > INT_MAX
@@ -890,310 +872,48 @@ def _dot_header(phases: Sequence["_Phase"]) -> str:
     return f"; dots: {'; '.join(loops)}" if loops else ""
 
 
-def _independent_groups(fusion: FusedComputation) -> List[List[int]]:
-    """The member ids of a fusion split into groups that share no value
-    (constants, read as literals, join none), each in topological order,
-    the groups in the order of their first member.  No group reads what
-    another writes, so each may run on a CUDA block of its own."""
-    parent = {m.id: m.id for m in fusion.members}
-
-    def find(x: int) -> int:
-        while parent[x] != x:
-            parent[x] = parent[parent[x]]
-            x = parent[x]
-        return x
-
-    for m in fusion.members:
-        if m.opcode == "constant":
-            continue
-        for o in m.operands:
-            if o.id in parent and o.opcode != "constant":
-                parent[find(o.id)] = find(m.id)
-    groups: Dict[int, List[int]] = {}
-    for m in fusion.members:
-        groups.setdefault(find(m.id), []).append(m.id)
-    return list(groups.values())
-
-
 def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: MemoryPlan,
-                 stage_dots: bool):
+                 launch: PhaseLaunch):
+    """The text of ``emit_fusion``'s kernel over ``plan``, launched as
+    ``launch`` (``geometry.fusion_launch``) says."""
     inputs, roots = fusion.inputs, fusion.roots
     in_name = {i.id: f"in{k}" for k, i in enumerate(inputs)}
     label = {**in_name, **{m.id: f"m{k}" for k, m in enumerate(fusion.members)}}
     out_of = {r.id: (f"out{k}", tuple(r.shape)) for k, r in enumerate(roots)}
-    threads = fusion_threads(fusion, solution, plan)
-    held = held_in_registers(fusion.members, solution.assignment, plan, out_of)
-    tiles = _tile_slots(fusion.members, plan, held)
-    _, size = _slot_layout(plan, set(tiles.values()))
-    base, groups = None, None
-    if tiles:
-        # shared memory holds the slots and the block reduces' partials
-        base = "sx_smem" if size + reduce_part_bytes(threads) <= SMEM_LIMIT else "pr0"
-        groups = _independent_groups(fusion)
+    grid, threads, size = launch.grid, launch.threads, launch.slot_bytes
+
     def emit(wide: bool):
-        ph = _Phase(0, PhaseSolution(fusion.members, roots, solution), plan, threads,
-                    in_name, {}, out_of, label, base, groups, held, wide=wide,
-                    stage_dots=stage_dots)
+        ph = _Phase(0, PhaseSolution(fusion.members, roots, solution), plan, launch,
+                    in_name, {}, out_of, label, wide=wide)
         return ph, ph.emit()
 
     ph, phase = emit(False)
-    if _wide(fusion, [ph]):
+    if _wide(fusion, [ph], grid):
         ph, phase = emit(True)
     _count_map_loops([ph])
-    grid = max(1, ph.useful_blocks)
-    smem = max(size if base == "sx_smem" else 0, ph.dot_off + ph.dot_bytes if ph.dot_bytes else 0)
+    smem = max(size if launch.slots_in == SHARED else 0,
+               launch.dot_offset + ph.dot_bytes if ph.dot_bytes else 0)
     body = []
     if smem:
         body.append("  extern __shared__ __align__(16) unsigned char sx_smem[];")
-    if base is not None and base != "sx_smem":
+    if launch.slots_in == WORKSPACE:
         body.append(f"  unsigned char* const pr0 = ws + static_cast<size_t>(blockIdx.x) * {size};")
     if ph.part_bytes:
         body.append(f"  __shared__ __align__(16) unsigned char sx_part[{ph.part_bytes}];")
     body += phase
-    ws = size * grid if base == "pr0" else 0
+    ws = size * grid if launch.slots_in == WORKSPACE else 0
     ws += _stage_region(body, ws, ph.stage_bytes, grid)
     header = (
         f"// emit_fusion: {len(fusion.members)} members, {solution.blocks} plan blocks, "
         f"one launch of {grid} blocks of {threads} threads, {smem} bytes of shared memory "
         f"a block, {ws} workspace bytes"
-        + (f", {len(held)} of the plan's slot members held in registers" if held else "")
+        + (f", {len(launch.held)} of the plan's slot members held in registers"
+           if launch.held else "")
         + _index_header([ph]) + _dot_header([ph])
     )
     name, symbol, text = _finish_source(header, body, inputs, roots, grid, threads, smem,
                                         ph.part_bytes, fusion_label(fusion.members))
     return name, symbol, text, ws, smem + ph.part_bytes
-
-
-def _slot_layout(pplan: MemoryPlan, used) -> Tuple[Dict[int, int], int]:
-    """Byte offsets of the slots of a phase plan that members still write
-    (``used``), each 16-byte aligned, in slot order, and their total: the
-    shared memory (or per-block workspace region) the phase's tiled
-    ALLOC/SHARE members live in."""
-    offs, size = {}, 0
-    for slot, (shape, dtype) in enumerate(pplan.slots):
-        if slot in used:
-            offs[slot] = size
-            size += -(-_prod(shape) * np.dtype(dtype).itemsize // _ALIGN) * _ALIGN
-    return offs, size
-
-
-#: members whose element ``i`` is computed from element ``i`` of each operand
-_PER_ELEMENT = ("elementwise", "select")
-
-
-def _tile_slots(members: Sequence[Instruction], pplan: MemoryPlan, held=frozenset()) -> Dict[int, int]:
-    """Each member of a phase that writes a tile, and its slot: the plan's
-    ALLOC/SHARE members but constants (read as literals) and ``held``."""
-    out = {}
-    for m in members:
-        e = pplan.entries.get(m.id)
-        if e is not None and e.action in (ALLOC, SHARE) and m.opcode != "constant" and m.id not in held:
-            out[m.id] = e.slot
-    return out
-
-
-def held_in_registers(members: Sequence[Instruction], assign, pplan: MemoryPlan, written) -> set:
-    """The ALLOC/SHARE members of one phase that are held in a register in
-    place of their slot.  Such a member is per-element (``_PER_ELEMENT``),
-    the phase need not write it (``written``: its outputs and staged
-    interfaces), every reader reads it at the very element it would have
-    written (the same ``Sched`` and tile, no re-tiling through ``_adapt``,
-    and only per-element members between it and the loop that reads it),
-    it reads every slot it reads at that element too (a member that reads
-    a slot across threads, as a transposed SHARE member does, keeps its
-    tile), and no member overwrites a slot it reads before that loop.  Each
-    loop that reads it computes it once per element, from the same operands
-    in the same order with the same roundings: its slot bought nothing but
-    a round trip through memory and a barrier."""
-    ids = {m.id: m for m in members}
-    pos = {m.id: k for k, m in enumerate(members)}
-    tiles = _tile_slots(members, pplan)
-    held = {i for i in tiles if ids[i].opcode in _PER_ELEMENT and i not in written}
-
-    def loops(x: Instruction) -> Optional[set]:
-        """The loops that compute ``x`` where it is held, or None where a
-        reader reads it at another element (or outside the phase)."""
-        out = set()
-        for u in x.users:
-            if u.id not in ids and x.id in written:
-                continue                   # it reads x where x is written
-            if u.id not in ids or u.opcode not in _PER_ELEMENT or tuple(u.shape) != tuple(x.shape):
-                return None
-            for o, ns in zip(u.operands, propagate(u, assign[u.id], True), strict=False):
-                if o.id == x.id and ns != assign[x.id]:
-                    return None
-            if u.id in tiles and u.id not in held:
-                out.add(u.id)              # it reads x in its own loop
-                continue
-            if u.id in written:
-                out.add(u.id)
-            inner = loops(u)               # u is composed into its readers
-            if inner is None:
-                return None
-            out |= inner
-        return out
-
-    def slots_read(m: Instruction) -> Dict[int, bool]:
-        """The slots ``m``'s value reads, each True where every read is at
-        ``m``'s own element."""
-        out: Dict[int, bool] = {}
-        for o, ns in zip(m.operands, propagate(m, assign[m.id], True), strict=False):
-            if o.id not in ids or o.opcode == "constant":
-                continue
-            same = (m.opcode in _PER_ELEMENT and ns == assign[o.id]
-                    and tuple(o.shape) == tuple(m.shape))
-            reads = {tiles[o.id]: True} if o.id in tiles and o.id not in held else slots_read(o)
-            for slot, own in reads.items():
-                out[slot] = out.get(slot, True) and own and same
-        return out
-
-    def keeps(x: Instruction) -> bool:
-        where = loops(x)
-        read = slots_read(x)
-        if where is None or not all(read.values()):
-            return False
-        return not any(pos[x.id] < pos[w] < pos[u] and tiles[w] in read
-                       for u in where for w in tiles if w not in held)
-
-    changed = True
-    while changed:
-        dropped = {i for i in held if not keeps(ids[i])}
-        held -= dropped
-        changed = bool(dropped)
-    return held
-
-
-def reduce_part_bytes(threads: int) -> int:
-    """Static shared memory of a block reduce's partial results: one
-    8-byte value per warp."""
-    return threads // 32 * 8
-
-
-def _threads_for(work: int) -> int:
-    """The fewest threads, from 128 up to 512 in powers of two, that
-    ``work`` threads' worth of parallelism asks for."""
-    t = STITCHED_MIN_THREADS
-    while t < STITCHED_MAX_THREADS and t < work:
-        t *= 2
-    return t
-
-
-def stitched_threads(plan: StitchedMemoryPlan) -> int:
-    """Threads of each block of a stitched kernel.  A plan block with slots
-    runs on one CUDA block, so its threads are all the parallelism that
-    plan block gets: the fewest, from 128 up to 512, that leave its
-    largest slot at most ``STITCHED_ELEMS_PER_THREAD`` elements a thread.
-    512 is the cap because ``__launch_bounds__(512)`` still leaves 128
-    registers a thread for the composed expressions."""
-    largest = max((_prod(shape) for pp in plan.phase_plans for shape, _ in pp.slots), default=0)
-    return _threads_for(-(-largest // STITCHED_ELEMS_PER_THREAD))
-
-
-def fusion_threads(fusion: FusedComputation, solution: ScheduleSolution, plan: MemoryPlan) -> int:
-    """Threads of each block of a single-phase kernel, from its plan: the
-    fewest, from 128 up to 512, that leave every loop of a plan block (each
-    member that writes a slot or an output; a member held in a register
-    writes neither) at most
-    ``STITCHED_ELEMS_PER_THREAD`` elements, or a reduce's terms, a thread,
-    and give every reduce output a warp (``fusion_launch``)."""
-    return fusion_launch(fusion.members, fusion.roots, solution, plan)[1]
-
-
-#: k steps a staged dot stages at once, at most (``dot_tiling``)
-DOT_MAX_BK = 32
-#: threads a staged dot's tile keeps busy before a larger register tile wins
-DOT_BUSY = 256
-#: rows of a thread's register tile, tried largest first: f32 tiles of 8
-#: rows read their lhs in two 16-byte words
-DOT_ROWS = (8, 4, 2, 1)
-#: registers a thread may hold the next k step's staged values in, at most
-DOT_PREFETCH = 16
-#: words of padding at the end of each staged row, against bank conflicts;
-#: rows read in 16-byte words (``DotTiling.vec``) keep their alignment
-DOT_PAD, DOT_VEC_PAD = 1, 4
-
-
-def _reg_tile(rows: int, cols: int) -> Tuple[int, int]:
-    """A thread's register tile of a dot's outputs in the register-tile
-    loop: up to 4 x 4."""
-    return (next(r for r in (4, 2, 1) if rows % r == 0),
-            next(r for r in (4, 2, 1) if cols % r == 0))
-
-
-def _divisors_of(n: int, cap: int = 0) -> List[int]:
-    """The divisors of ``n``, ascending; up to ``cap`` where it is given."""
-    small = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
-    out = sorted(set(small + [n // d for d in small]))
-    return [d for d in out if d <= cap] if cap else out
-
-
-@dataclass(frozen=True)
-class DotTiling:
-    """How a staged dot walks one plan block's output chunk: tiles of BG
-    batch elements of BM x BN outputs, each thread an rm x rn register tile
-    of one, k in steps of BK, ``lhs[BG x BM x BK]`` and ``rhs[BG x BK x
-    BN]`` staged in shared memory at each step as ``[BG][BK][BM + pad]``
-    and ``[BG][BK][BN + pad]``.  ``vec``: each thread's rows (and columns)
-    are neighbours, read from shared memory in 16-byte words; else they are
-    strided by the tile's count of threads along them."""
-
-    bm: int
-    bn: int
-    bk: int
-    rm: int
-    rn: int
-    bg: int = 1
-    vec: bool = False
-
-    @property
-    def pad(self) -> int:
-        return DOT_VEC_PAD if self.vec else DOT_PAD
-
-    def a_bytes(self, itemsize: int) -> int:
-        return -(-self.bg * self.bk * (self.bm + self.pad) * itemsize // _ALIGN) * _ALIGN
-
-    def stage_bytes(self, itemsize: int) -> int:
-        b = -(-self.bg * self.bk * (self.bn + self.pad) * itemsize // _ALIGN) * _ALIGN
-        return self.a_bytes(itemsize) + b
-
-
-def dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
-               lhs_ops: int = 0, rhs_ops: int = 0) -> Optional[DotTiling]:
-    """The staged loop's tiling of dot ``m`` under ``sched`` in blocks of
-    ``threads`` threads, its staging within ``budget`` bytes of shared
-    memory, or None where no staging fits (the register-tile loop serves
-    it).  A tile keeps as many threads busy as the chunk allows, up to
-    ``DOT_BUSY``; then the largest register tile (f32 up to 8 x 4, other
-    types 4 x 4: shared memory's bandwidth bounds the loop, and a larger
-    tile reads less of it for each FMA); then the tile that stages the
-    fewest values, each weighted by one plus the operations composed into
-    its operand (``lhs_ops``, ``rhs_ops``): the lhs is staged once per
-    column tile, the rhs once per row tile.  f32 register tiles read
-    shared memory in 16-byte words (8-byte for two)."""
-    out_chunk = chunk_shape(m.shape, sched)
-    rows, cols = out_chunk[-2], out_chunk[-1]
-    batch = _prod(out_chunk[:-2])
-    depth = m.operands[0].shape[-1]
-    itemsize = np.dtype(_NP_COMPUTE[_c_compute(m.dtype)]).itemsize
-    vec = _c_compute(m.dtype) == "float"
-    keyed = []
-    for rm in (r for r in DOT_ROWS if rows % r == 0 and (vec or r <= 4)):
-        for rn in (r for r in (4, 2, 1) if cols % r == 0):
-            for bg in _divisors_of(batch, threads):
-                for tx in _divisors_of(cols // rn, threads // bg):
-                    for ty in _divisors_of(rows // rm, threads // (bg * tx)):
-                        bm, bn = ty * rm, tx * rn
-                        staged = ((1 + lhs_ops) * rows * depth * (cols // bn)
-                                  + (1 + rhs_ops) * depth * cols * (rows // bm))
-                        busy = bg * tx * ty
-                        keyed.append(((min(busy, DOT_BUSY), rm * rn, -staged, bn, busy, rn, -bg),
-                                      (bm, bn, rm, rn, bg)))
-    for _, (bm, bn, rm, rn, bg) in sorted(keyed, reverse=True):
-        for bk in reversed([d for d in _divisors_of(depth) if d <= DOT_MAX_BK]):
-            t = DotTiling(bm, bn, bk, rm, rn, bg, vec)
-            if t.stage_bytes(itemsize) <= budget:
-                return t
-    return None
 
 
 def _vec_load(addr: str, n: int, name: str, ind: str) -> List[str]:
@@ -1212,203 +932,6 @@ def _vec_load(addr: str, n: int, name: str, ind: str) -> List[str]:
                     f"{name}{q * width + k} = {name}v{q}.{f}" for k, f in enumerate("xyzw"[:width]))
                 + ";"]
     return out
-
-
-# the type each C compute type is, for its size
-_NP_COMPUTE = {"float": np.float32, "double": np.float64, "int": np.int32,
-               "long long": np.int64, "bool": np.bool_}
-
-
-def _composed_ops(o: Instruction, composed) -> int:
-    """The operations (elementwise, select) composed into a read of ``o``:
-    ``o`` and what it is computed from, through the members in
-    ``composed`` (INLINE or held in a register)."""
-    stack, seen, n = [o], set(), 0
-    while stack:
-        x = stack.pop()
-        if x.id in seen or x.id not in composed:
-            continue
-        seen.add(x.id)
-        if x.opcode in ("elementwise", "select"):
-            n += 1
-        stack.extend(x.operands)
-    return n
-
-
-def minor_moved(o: Instruction, composed) -> bool:
-    """Whether a composed read of ``o`` goes through a transpose that moves
-    its minor dimension: the source is then contiguous along another
-    dimension of ``o`` than its last."""
-    stack, seen = [o], set()
-    while stack:
-        x = stack.pop()
-        if x.id in seen or x.id not in composed:
-            continue
-        seen.add(x.id)
-        if x.opcode == "transpose":
-            perm = tuple(x.attrs["perm"])
-            if perm[-1] != len(perm) - 1:
-                return True
-        if x.opcode in ("elementwise", "select", "reshape", "bitcast", "broadcast", "transpose"):
-            stack.extend(x.operands)
-    return False
-
-
-def staged_dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
-                      composed) -> Optional[DotTiling]:
-    """``dot_tiling`` of ``m`` with its operands' composed operations
-    counted over ``composed``, the member ids read through composition."""
-    lhs, rhs = m.operands
-    return dot_tiling(m, sched, threads, budget, _composed_ops(lhs, composed),
-                      _composed_ops(rhs, composed))
-
-
-def _dot_tiles(m: Instruction, sched: Sched, t: DotTiling) -> int:
-    """Tiles of one plan block's chunk of dot ``m``."""
-    out_chunk = chunk_shape(m.shape, sched)
-    return _prod(out_chunk[:-2]) // t.bg * (out_chunk[-2] // t.bm) * (out_chunk[-1] // t.bn)
-
-
-def _map_loop_grid(m: Instruction, sched: Sched, blocks: int, threads: int,
-                   composed=frozenset()) -> int:
-    """Blocks a pure map's loop over ``m`` keeps busy (``_Phase._loop_head``,
-    ``reduce_loop``, ``dot_loop`` with no slot base): its elements, a
-    warp per reduce output, a block per tile of a staged dot (``composed``:
-    the member ids read through composition, ``staged_dot_tiling``), or a
-    thread per register tile of an unstaged one, over every plan block,
-    ``threads`` a block."""
-    reps = blocks if sched.kind == "chunked" else 1
-    out_chunk = chunk_shape(m.shape, sched)
-    if m.opcode == "reduce":
-        return -(-_prod(out_chunk) * reps * 32 // threads)
-    if m.opcode == "cumsum":
-        return -(-_prod(out_chunk) // out_chunk[m.attrs["dim"]] * reps // threads)
-    if m.opcode == "dot":
-        t = staged_dot_tiling(m, sched, threads, SMEM_LIMIT - reduce_part_bytes(threads), composed)
-        if t is not None:
-            return _dot_tiles(m, sched, t) * reps
-        rm, rn = _reg_tile(out_chunk[-2], out_chunk[-1])
-        return -(-_prod(out_chunk) // (rm * rn) * reps // threads)
-    return -(-_prod(out_chunk) * reps // threads)
-
-
-def _stored_tiles(members: Sequence[Instruction], solution: ScheduleSolution, plan, written):
-    """The members of a phase that write a slot (``_tile_slots`` after
-    ``held_in_registers``); without a memory plan, each reduce or dot read
-    inside the phase, the buffers ``memory.plan_memory`` always requires."""
-    if plan is not None:
-        return _tile_slots(members, plan,
-                           held_in_registers(members, solution.assignment, plan, written))
-    ids = {m.id for m in members}
-    return {m.id: 0 for m in members
-            if m.opcode in ("reduce", "dot", "cumsum") and any(u.id in ids for u in m.users)}
-
-
-def fusion_launch(members: Sequence[Instruction], roots: Sequence[Instruction],
-                  solution: ScheduleSolution, plan: Optional[MemoryPlan] = None) -> Tuple[int, int]:
-    """(CUDA blocks, threads a block) of the launch ``emit_fusion`` makes for
-    this plan: plan blocks x independent member groups where a member keeps
-    a slot, else the pure map's grid.  The planner's GPU model reads it
-    (``latency.launch_grid``)."""
-    fusion = FusedComputation(list(members), name="launch")
-    root_ids = {r.id for r in roots}
-    tiles = _stored_tiles(fusion.members, solution, plan, root_ids)
-    want = 1
-    for m in fusion.members:
-        if m.opcode == "constant" or not (m.id in root_ids or m.id in tiles):
-            continue
-        sched = solution.assignment[m.id]
-        n = _prod(chunk_shape(m.shape, sched))
-        if m.opcode == "reduce":
-            (ns,) = propagate(m, sched, True)
-            terms = _prod(chunk_shape(m.operands[0].shape, ns))
-            want = max(want, 32 * n, -(-terms // STITCHED_ELEMS_PER_THREAD))
-        elif m.opcode == "cumsum":
-            want = max(want, n // chunk_shape(m.shape, sched)[m.attrs["dim"]])
-        else:
-            want = max(want, -(-n // STITCHED_ELEMS_PER_THREAD))
-    threads = _threads_for(want)
-    blocks = max(1, solution.blocks)
-    stored = {m.id for m in fusion.members
-              if m.opcode != "constant" and (m.id in root_ids or m.id in tiles)}
-    if tiles:
-        groups = [g for g in _independent_groups(fusion) if stored & set(g)]
-        return blocks * max(1, len(groups)), threads
-    composed = {m.id for m in fusion.members}
-    grid = max((_map_loop_grid(m, solution.assignment[m.id], blocks, threads, composed)
-                for m in fusion.members if m.id in stored), default=1)
-    return max(1, grid), threads
-
-
-def _phase_dot_tilings(members: Sequence[Instruction], solution: ScheduleSolution, plan,
-                       written, threads: int, part: int) -> Dict[int, Optional[DotTiling]]:
-    """Each dot of one phase and the tiling its staged loop takes (None:
-    the register-tile loop): what ``_Phase.dot_loop`` decides, the staging
-    after the slots where those sit in shared memory (``part``: the bytes
-    the emitter keeps beside them)."""
-    tiles = _stored_tiles(members, solution, plan, written)
-    off = 0
-    if tiles and plan is not None:
-        _, size = _slot_layout(plan, set(tiles.values()))
-        if size + part <= SMEM_LIMIT:
-            off = -(-size // _ALIGN) * _ALIGN
-    composed = {m.id for m in members} - set(tiles)
-    budget = SMEM_LIMIT - off - reduce_part_bytes(threads)
-    return {m.id: staged_dot_tiling(m, solution.assignment[m.id], threads, budget, composed)
-            for m in members if m.opcode == "dot"}
-
-
-def dot_tilings(members: Sequence[Instruction], roots: Sequence[Instruction],
-                solution: ScheduleSolution, plan: Optional[MemoryPlan] = None
-                ) -> Dict[int, Optional[DotTiling]]:
-    """Each fused dot of an ``emit_fusion`` kernel and its staged loop's
-    tiling (None: the register-tile loop).  The planner's GPU model reads
-    it (``latency.fusion_time``)."""
-    threads = fusion_launch(members, roots, solution, plan)[1]
-    return _phase_dot_tilings(members, solution, plan, {r.id for r in roots}, threads,
-                              reduce_part_bytes(threads))
-
-
-def stitched_dot_tilings(stitched: StitchedSolution, plan: Optional[StitchedMemoryPlan] = None
-                         ) -> List[Dict[int, Optional[DotTiling]]]:
-    """``dot_tilings`` of each phase of an ``emit_stitched_fusion`` kernel."""
-    group_ids = {m.id for p in stitched.phases for m in p.members}
-    staged = {i.id for i in stitched.interfaces}
-    threads = stitched_threads(plan) if plan is not None else STITCHED_MAX_THREADS
-    out = []
-    for k, p in enumerate(stitched.phases):
-        written = {m.id for m in p.members
-                   if m.id in staged or not m.users or any(u.id not in group_ids for u in m.users)}
-        pplan = plan.phase_plans[k] if plan is not None else None
-        out.append(_phase_dot_tilings(p.members, p.solution, pplan, written, threads, 0))
-    return out
-
-
-def stitched_launch(stitched: StitchedSolution,
-                    plan: Optional[StitchedMemoryPlan] = None) -> Tuple[Tuple[int, ...], int]:
-    """(each phase's CUDA blocks, threads a block) in
-    ``emit_stitched_fusion``'s cooperative launch: a phase's plan blocks
-    where a member keeps a slot, else its pure map's grid, at
-    ``stitched_threads`` a block (512 without a plan)."""
-    group_ids = {m.id for p in stitched.phases for m in p.members}
-    staged = {i.id for i in stitched.interfaces}
-    threads = stitched_threads(plan) if plan is not None else STITCHED_MAX_THREADS
-    out = []
-    for k, p in enumerate(stitched.phases):
-        written = {m.id for m in p.members
-                   if m.id in staged or not m.users or any(u.id not in group_ids for u in m.users)}
-        pplan = plan.phase_plans[k] if plan is not None else None
-        tiles = _stored_tiles(p.members, p.solution, pplan, written)
-        blocks = max(1, p.solution.blocks)
-        if tiles:
-            out.append(blocks)
-            continue
-        composed = {m.id for m in p.members}
-        out.append(max(1, max((_map_loop_grid(m, p.solution.assignment[m.id], blocks, threads,
-                                              composed)
-                               for m in p.members if m.id in written and m.opcode != "constant"),
-                              default=1)))
-    return tuple(out), threads
 
 
 def _lin(idx, shape) -> str:
@@ -1495,19 +1018,20 @@ class _Held(_Lazy):
 
 class _Phase:
     """The CUDA text of one phase: a phase of a stitched kernel, or the
-    single phase of an ``emit_fusion`` kernel.  ``slot_base`` names where
-    the slots that members still write live (None: no member writes one,
-    and the phase is a pure map over the grid).  ``groups``, for a
-    single-phase kernel with slots, splits the members into independent
-    groups (``_independent_groups``), each run by a CUDA block of its own
-    for each plan block.  ``held`` are the ALLOC/SHARE members held in a
-    register in place of their slot (``held_in_registers``)."""
+    single phase of an ``emit_fusion`` kernel, as ``launch`` (its
+    ``geometry.PhaseLaunch``) lays it out: its threads, the members that
+    write a slot and the slots' offsets, where the slots live
+    (``slot_base`` names them: ``sx_smem``, or ``pr<k>`` for a per-block
+    workspace region; None: no member writes one, and the phase is a pure
+    map over the grid), the members held in a register in place of their
+    slot, a single-phase kernel's independent member groups, each run by a
+    CUDA block of its own for each plan block, and the loop each dot
+    takes.  ``wide``: every index in 64 bits (``_wide``)."""
 
-    def __init__(self, pk: int, phase, pplan: MemoryPlan, threads: int, in_name, staged, out_of,
-                 label, slot_base: Optional[str], groups: Optional[List[List[int]]] = None,
-                 held=frozenset(), wide: bool = False, stage_dots: bool = True):
-        self.pk, self.phase, self.pplan, self.threads = pk, phase, pplan, threads
-        self.stage_dots = stage_dots  # False: every dot on the register-tile loop
+    def __init__(self, pk: int, phase, pplan: MemoryPlan, launch: PhaseLaunch, in_name, staged,
+                 out_of, label, wide: bool):
+        self.pk, self.phase, self.pplan, self.launch = pk, phase, pplan, launch
+        self.threads = launch.threads
         # indices, offsets and loop variables in 64 bits where a loop or a
         # tensor passes INT_MAX (``_index_type``), else in ``int``
         self.wide = wide
@@ -1520,25 +1044,20 @@ class _Phase:
         self.in_name, self.staged, self.out_of, self.label = in_name, staged, out_of, label
         self.ids = {m.id for m in phase.members}
         self.const_ids = {m.id for m in phase.members if m.opcode == "constant"}
-        self.slot_base = slot_base            # None: a pure map, no slot
-        self.groups = groups
-        self.held = set(held)                 # members held in a register
+        self.slot_base = {SHARED: "sx_smem", WORKSPACE: f"pr{pk}"}.get(launch.slots_in)
+        self.held = launch.held               # members held in a register
         self.slot_ptr: Dict[int, str] = {}    # slot index -> pointer name
         self.tiles: Dict[int, str] = {}       # ALLOC/SHARE member -> its slot
-        for mid, slot in _tile_slots(phase.members, pplan, self.held).items():
+        for mid, slot in launch.tiles.items():
             self.slot_ptr.setdefault(slot, f"p{pk}s{slot}")
             self.tiles[mid] = self.slot_ptr[slot]
-        self.offs, self.slot_bytes = _slot_layout(pplan, set(self.slot_ptr))
         self.regs: Dict[Tuple[int, Tuple[str, ...]], str] = {}  # this loop's held values
         self.lines: List[str] = []
         self.ind = ""
         self.n = 0
-        self.useful_blocks = 0  # the most blocks this phase's loops keep busy
         self.part_bytes = 0     # static shared memory of the block-wide reduces
         self.restaged: set = set()   # SHARE members that write through sx_stage
         self.stage_bytes = 0    # the largest tile written through sx_stage
-        # a staged dot's operand tiles follow the slots in dynamic shared memory
-        self.dot_off = -(-self.slot_bytes // _ALIGN) * _ALIGN if slot_base == "sx_smem" else 0
         self.dot_bytes = 0      # the largest staging of a dot's operand tiles
         self.dot_loops: List[str] = []   # which loop each dot took, for the header
         self.map_loops = 0      # element loops of a pure map (``element_loop``)
@@ -1645,11 +1164,9 @@ class _Phase:
 
     def _grid_loop(self, total: int, ind: str) -> str:
         """The head of a loop of ``t`` over ``total`` elements strided over
-        the whole grid, its reach and its blocks recorded."""
-        th = self.threads
+        the whole grid, its reach recorded."""
         self.extent = max(self.extent, total)
-        self.strided.append((total, th))
-        self.useful_blocks = max(self.useful_blocks, -(-total // th))
+        self.strided.append((total, self.threads))
         return f"{ind}for ({self.itype} t = {self._thread()}; t < {total}; t += {self._stride()}) {{"
 
     def _counted(self, var: str, first: str, step: int, n: int, ind: str) -> List[str]:
@@ -1729,17 +1246,16 @@ class _Phase:
                      for s in ns)
 
     def dot_loop(self, m: Instruction, ind: str) -> List[str]:
-        """A fused dot, staged (``staged_dot_loop``) where its operand tiles
-        fit in the shared memory its slots leave, else each thread a
-        register tile of up to 4 x 4 outputs (rows and columns strided by
-        the tile's count of them, so the lanes of a warp read neighbouring
-        columns and rows) reading its operands where they are, so each k
-        loads 4 + 4 operands for 16 FMAs.  f32 FMAs in the reference's order
-        of k, no tensor cores (the 2e-5 tolerance forbids TF32)."""
+        """A fused dot, staged (``staged_dot_loop``) where the launch gives
+        it a tiling (its operand tiles fit in the shared memory its slots
+        leave), else each thread a register tile of up to 4 x 4 outputs
+        (rows and columns strided by the tile's count of them, so the lanes
+        of a warp read neighbouring columns and rows) reading its operands
+        where they are, so each k loads 4 + 4 operands for 16 FMAs.  f32
+        FMAs in the reference's order of k, no tensor cores (the 2e-5
+        tolerance forbids TF32)."""
         sched = self.sched(m)
-        budget = SMEM_LIMIT - self.dot_off - reduce_part_bytes(self.threads)
-        tiling = (staged_dot_tiling(m, sched, self.threads, budget, self.composed)
-                  if self.stage_dots else None)
+        tiling = self.launch.tilings[m.id]
         if tiling is not None:
             return self.staged_dot_loop(m, ind, tiling)
         self.dot_loops.append(f"{self.label[m.id]} the register-tile loop")
@@ -1818,9 +1334,9 @@ class _Phase:
         body, inner = ind + "  ", ind + "    "
         lines = [f"{ind}{{  // {lbl}: {batched}{t.bm} x {t.bn} output tiles of {t.rm} x {t.rn} "
                  f"a thread, k steps of {t.bk} staged in shared memory",
-                 f"{body}{T}* const sa = reinterpret_cast<{T}*>(sx_smem + {self.dot_off});",
+                 f"{body}{T}* const sa = reinterpret_cast<{T}*>(sx_smem + {self.launch.dot_offset});",
                  f"{body}{T}* const sb = reinterpret_cast<{T}*>(sx_smem + "
-                 f"{self.dot_off + t.a_bytes(itemsize)});"]
+                 f"{self.launch.dot_offset + t.a_bytes(itemsize)});"]
         if self.slot_base is not None:
             self.extent = max(self.extent, per_chunk)
             lines.append(f"{body}for ({it} tile = 0; tile < {per_chunk}; ++tile) {{")
@@ -1829,7 +1345,6 @@ class _Phase:
             total = per_chunk * reps
             self.extent = max(self.extent, total)
             self.strided.append((total, 1))
-            self.useful_blocks = max(self.useful_blocks, total)
             lines.append(f"{body}for ({it} u = blockIdx.x; u < {total}; u += gridDim.x) {{")
             if reps > 1:
                 lines.append(f"{inner}const {it} b = u / {per_chunk};")
@@ -2024,7 +1539,6 @@ class _Phase:
                 lines.append(f"{body}const {it} o = ow % {r_out};")
             else:
                 lines.append(f"{body}const {it} o = ow;")
-            self.useful_blocks = max(self.useful_blocks, -(-total * 32 // th))
         self.lines, self.ind = [], body
         idx = _unravel(self.lines, "o", out_chunk, "o", body, it)
         j: List = [0] * len(src.shape)
@@ -2180,16 +1694,16 @@ class _Phase:
                 out += self.member_loop(m, "  ")
             return out
         groups = [[m for m in stored if m.id in ids]
-                  for ids in map(set, self.groups or [[m.id for m in stored]])]
+                  for ids in map(set, self.launch.groups or [[m.id for m in stored]])]
         groups = [g for g in groups if g]   # a group of constants read as literals
-        where = "shared memory" if self.slot_base == "sx_smem" else "a per-block workspace region"
         head = f"  // phase {pk}: {len(ph.members)} members, {self.blocks} plan blocks over the grid, "
         if len(groups) > 1:
             head += f"{len(groups)} independent member groups a plan block, "
-        out = [head + f"slots {self.slot_bytes} bytes in {where}"] + held + ["  {"]
+        out = [head + f"slots {self.launch.slot_bytes} bytes in {self.launch.slots_in}"] + held + ["  {"]
         for slot, ptr in sorted(self.slot_ptr.items()):
             T = _c_type(self.pplan.slots[slot][1])
-            out.append(f"    {T}* const {ptr} = reinterpret_cast<{T}*>({self.slot_base} + {self.offs[slot]});")
+            out.append(f"    {T}* const {ptr} = reinterpret_cast<{T}*>({self.slot_base} + "
+                       f"{self.launch.slot_offsets[slot]});")
         it = self.itype
         if len(groups) == 1:
             self.strided.append((self.blocks, 1))
@@ -2215,7 +1729,6 @@ class _Phase:
                     out.append("        __syncthreads();")
             out.append("      }")
         out += ["    }", "  }"]
-        self.useful_blocks = max(self.useful_blocks, self.blocks * len(groups))
         return out
 
     def _comment(self, m: Instruction, ind: str) -> str:
@@ -2230,13 +1743,15 @@ class _Phase:
 
 
 def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
-                   plan: StitchedMemoryPlan, stage_dots: bool):
+                   plan: StitchedMemoryPlan, launches: Sequence[PhaseLaunch]):
+    """The text of ``emit_stitched_fusion``'s kernel over ``plan``, each
+    phase launched as ``launches`` (``geometry.stitched_launch``) says."""
     inputs, roots = fusion.inputs, fusion.roots
     members = {m.id: m for m in fusion.members}
     in_name = {i.id: f"in{k}" for k, i in enumerate(inputs)}
     label = {**in_name, **{m.id: f"m{k}" for k, m in enumerate(fusion.members)}}
     out_of = {r.id: (f"out{k}", tuple(r.shape)) for k, r in enumerate(roots)}
-    threads = stitched_threads(plan)
+    threads = launches[0].threads
     ws = _Workspace()
     staged: Dict[int, str] = {}
     for k, iid in enumerate(plan.interfaces):
@@ -2245,46 +1760,39 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
     body = list(ws.decls)
     # slots: in shared memory where a phase's fit, else in a region of the
     # workspace for each CUDA block that runs one of the phase's plan blocks
-    held = [held_in_registers(phase.members, phase.solution.assignment, pplan, {**out_of, **staged})
-            for pplan, phase in zip(plan.phase_plans, stitched.phases, strict=True)]
-    sizes = [_slot_layout(pplan, set(_tile_slots(phase.members, pplan, h).values()))[1]
-             for pplan, phase, h in zip(plan.phase_plans, stitched.phases, held, strict=True)]
     smem, region = 0, 0
-    for phase, size in zip(stitched.phases, sizes, strict=True):
-        if size <= SMEM_LIMIT:
-            smem = max(smem, size)
+    for phase, launch in zip(stitched.phases, launches, strict=True):
+        if launch.slots_in == WORKSPACE:
+            region = max(region, launch.slot_bytes * phase.solution.blocks)
         else:
-            region = max(region, size * phase.solution.blocks)
+            smem = max(smem, launch.slot_bytes)
     if smem:
         body.append("  extern __shared__ __align__(16) unsigned char sx_smem[];")
     head = list(body)
 
     def emit(wide: bool):
         body, phases = list(head), []
-        for pk, (phase, pplan) in enumerate(zip(stitched.phases, plan.phase_plans, strict=True)):
+        for pk, (phase, pplan, launch) in enumerate(zip(stitched.phases, plan.phase_plans,
+                                                        launches, strict=True)):
             if pk:
                 body.append("  sx_grid_sync();")
-            size = sizes[pk]
-            base = None
-            if size:
-                base = "sx_smem" if size <= SMEM_LIMIT else f"pr{pk}"
-                if base != "sx_smem":
-                    body.append(f"  unsigned char* const {base} = ws + {ws.size} + "
-                                f"static_cast<size_t>(blockIdx.x) * {size};")
-            ph = _Phase(pk, phase, pplan, threads, in_name, staged, out_of, label, base,
-                        held=held[pk], wide=wide, stage_dots=stage_dots)
+            if launch.slots_in == WORKSPACE:
+                body.append(f"  unsigned char* const pr{pk} = ws + {ws.size} + "
+                            f"static_cast<size_t>(blockIdx.x) * {launch.slot_bytes};")
+            ph = _Phase(pk, phase, pplan, launch, in_name, staged, out_of, label, wide=wide)
             body += ph.emit()
             phases.append(ph)
         return body, phases
 
+    grid = max(launch.grid for launch in launches)
     body, phases = emit(False)
-    if _wide(fusion, phases):
+    if _wide(fusion, phases, grid):
         body, phases = emit(True)
     _count_map_loops(phases)
-    grid = max([1] + [ph.useful_blocks for ph in phases])
     static_smem = max([0] + [ph.part_bytes for ph in phases])
     stage = max([0] + [ph.stage_bytes for ph in phases])
-    dots = max([0] + [ph.dot_off + ph.dot_bytes for ph in phases if ph.dot_bytes])
+    dots = max([0] + [launch.dot_offset + ph.dot_bytes
+                      for ph, launch in zip(phases, launches, strict=True) if ph.dot_bytes])
     if dots > smem:
         if not smem:
             body.insert(len(ws.decls), "  extern __shared__ __align__(16) unsigned char sx_smem[];")
@@ -2309,7 +1817,7 @@ def _stage_region(body: List[str], offset: int, stage: int, grid: int) -> int:
     one region of ``stage`` bytes a CUDA block; returns its bytes."""
     if not stage:
         return 0
-    stage = -(-stage // _ALIGN) * _ALIGN
+    stage = -(-stage // SLOT_ALIGN) * SLOT_ALIGN
     body.insert(0, f"  unsigned char* const sx_stage = ws + {offset} + "
                    f"static_cast<size_t>(blockIdx.x) * {stage};")
     return stage * grid
@@ -2517,17 +2025,16 @@ def emit_fusion(
     fusion: FusedComputation,
     solution: ScheduleSolution,
     plan: MemoryPlan,
-    stage_dots: bool = True,
 ) -> StitchedKernel:
     """One schedule-consistent fusion as one CUDA launch that follows
     ``plan``: ALLOC/SHARE members in its slots in shared memory (or a
-    per-block workspace region past ``SMEM_LIMIT``), INLINE members composed
+    per-block workspace region past ``geometry.SMEM_LIMIT``), INLINE members composed
     into their consumers, a CUDA block per plan block and independent member
-    group, cooperative reduces (module docstring).  ``stage_dots`` False
-    puts every fused dot on the register-tile loop, the reference the
-    staged loop equals bit for bit."""
+    group, cooperative reduces (module docstring), launched as
+    ``geometry.fusion_launch`` decides."""
     _check_no_collectives(fusion)
-    name, symbol, source, ws, shared = _cuda_fusion(fusion, solution, plan, stage_dots)
+    name, symbol, source, ws, shared = _cuda_fusion(
+        fusion, solution, plan, fusion_launch(fusion.members, fusion.roots, solution, plan))
     program = KernelProgram(
         name, symbol, source, "emit_fusion", _plain_fusion(fusion, solution),
         fusion.inputs, fusion.roots, ws, shared,
@@ -2539,13 +2046,13 @@ def emit_stitched_fusion(
     fusion: FusedComputation,
     stitched: StitchedSolution,
     plan: StitchedMemoryPlan,
-    stage_dots: bool = True,
 ) -> StitchedKernel:
     """Every phase of a stitched group in ONE cooperative CUDA launch over
-    the grid, with the plan's slots in shared memory (module docstring);
-    ``stage_dots`` as in ``emit_fusion``."""
+    the grid, with the plan's slots in shared memory (module docstring),
+    each phase launched as ``geometry.stitched_launch`` decides."""
     _check_no_collectives(fusion)
-    name, symbol, source, ws, shared = _cuda_stitched(fusion, stitched, plan, stage_dots)
+    name, symbol, source, ws, shared = _cuda_stitched(fusion, stitched, plan,
+                                                      stitched_launch(stitched, plan))
     program = KernelProgram(
         name, symbol, source, "emit_stitched_fusion", _plain_stitched(fusion, stitched, plan),
         fusion.inputs, fusion.roots, ws, shared,

@@ -88,10 +88,6 @@ class StitchOptions:
     # The REPRO_VERIFY environment variable overrides it.  Not part of the
     # kernel-cache options fingerprint.
     verify: str = "checkpoint"
-    # False: every fused dot is emitted on the register-tile loop, the
-    # reference the staged loop equals bit for bit.  Emission only: the
-    # plan is the same, so it is not part of the options fingerprint.
-    stage_dots: bool = True
 
     VALID_PLANNERS = ("cost", "greedy")
     VALID_VERIFY = ("off", "checkpoint", "strict")

@@ -36,6 +36,13 @@ What the model charges (see README "LatencyModel conventions"):
     and a row-split dot's rhs, which every block reads whole, at the L2's
     measured rate (``l2_read_bytes``, ``l2_bw``).
 
+Who decides what: this module prices a plan; the launch it prices on a GPU
+(grid, threads, slots, each dot's loop) is ``core/geometry.py``'s
+``PhaseLaunch``, the record the emitter (``core/codegen.py``) writes into
+the kernel's text.  ``fusion_time`` and ``stitched_fusion_time`` share one
+body a phase (``_phase_time``).  Imports run downward only: ``geometry``,
+``schedule`` and ``ir``, never the emitter or the pipeline.
+
 What it approximates:
   * perfect overlap of compute and HBM DMA inside one kernel
     (``max(compute, memory)``, not the sum);
@@ -52,10 +59,11 @@ from __future__ import annotations
 import hashlib
 import math
 from dataclasses import dataclass, fields
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from .geometry import SMEM_LIMIT, PhaseLaunch, fusion_launch, stitched_launch
 from .ir import Instruction
 from .schedule import (
     REPLICATED,
@@ -152,7 +160,7 @@ H100 = DeviceSpec(
     # memory (a slot read, a slot written, a reduce's read, with two
     # barriers) in 0.5308 µs, the least-squares slope
     vmem_bw=12.22e12,
-    vmem_bytes=232448,               # shared memory a block (codegen.SMEM_LIMIT)
+    vmem_bytes=SMEM_LIMIT,           # shared memory a block
     ici_bw=900e9,                    # NVLink 4, both directions summed (450 GB/s each way)
     ici_latency_s=_NOT_MEASURED,     # one card: no collective between cards measured
     # chip_smoke.py phase 17 (c) on an H100 (700 W): the generated exp
@@ -320,7 +328,7 @@ def _dot_reads(dot: Instruction, operand: Instruction, tiling=None, sched=None) 
     its operands.  The register-tile loop (``tiling`` None): a thread keeps
     a 4 x 4 register tile of outputs, so an lhs element is read once for
     every 4 output columns, an rhs element once for every 4 output rows.
-    The staged loop (a ``codegen.DotTiling`` under ``sched``): an lhs
+    The staged loop (a ``geometry.DotTiling`` under ``sched``): an lhs
     element once per column tile (BN columns), an rhs element once per row
     tile (BM rows), whichever plan block holds those rows."""
     lhs, rhs = dot.operands[0], dot.operands[1]
@@ -345,7 +353,7 @@ def _recompute_reads(members: Sequence[Instruction], memory, tilings=None, assig
     shrank to INLINE (``MemoryPlan.shrunk``) is composed into every read of
     it, so it runs once for each read past the first — once per reader
     element, and for a dot reader as ``_dot_reads`` counts (``tilings``:
-    each dot's ``codegen.DotTiling`` or None, under ``assignment``)."""
+    each dot's ``geometry.DotTiling`` or None, under ``assignment``)."""
     if memory is None or not memory.shrunk:
         return []
     shrunk = set(memory.shrunk)
@@ -454,7 +462,7 @@ class LatencyModel:
     def l2_read_bytes(self, members, solution: ScheduleSolution, tilings) -> float:
         """Bytes a GPU kernel's blocks read from the L2: every plan block
         of a row-split dot reads its batch of the rhs whole, once for each
-        row tile it stages (``codegen.DotTiling``)."""
+        row tile it stages (``geometry.DotTiling``)."""
         out = 0.0
         blocks = max(1, solution.blocks)
         for m in members:
@@ -538,6 +546,66 @@ class LatencyModel:
             return 1
         return blocks
 
+    def _phase_time(self, members: Sequence[Instruction], solution: ScheduleSolution, memory,
+                    launch: Optional[PhaseLaunch], kernel_ids, outputs, seen_inputs: set,
+                    read) -> Tuple[float, float]:
+        """(body, grid steps) of one phase of a kernel running ``members``
+        under ``solution``: max(compute, HBM) plus the VMEM traffic of
+        buffered interior values, and the grid's steps.  ``kernel_ids`` are
+        the kernel's members, whose values are no input; ``outputs`` the
+        members it writes to HBM; ``seen_inputs`` the inputs already
+        charged; ``read(o)`` the bytes a kernel input costs.  On a GPU,
+        ``memory`` (the phase's ``MemoryPlan``) decides which slots
+        round-trip through shared memory and what the shrunk members
+        recompute, and ``launch`` (``geometry``) the grid and each dot's
+        loop."""
+        spec = self.rates
+        gpu = spec.sm_count > 1
+        blocks = max(1, solution.blocks)
+        phase_ids = {m.id for m in members}
+        tilings = launch.tilings if gpu else {}
+        compute_s = 0.0
+        hbm_bytes = 0.0
+        vmem_bytes = 0.0
+        for m in members:
+            sched = solution.assignment.get(m.id, REPLICATED)
+            dup = blocks if (blocks > 1 and sched.kind == "replicated") else 1
+            if not is_trivial(m):
+                eff = _lane_efficiency(chunk_shape(m.shape, sched), spec)
+                if (gpu and m.opcode == "dot" and tilings.get(m.id) is None
+                        and rhs_read_across_lanes(m, phase_ids, memory)):
+                    eff *= np.dtype(m.operands[1].dtype).itemsize / SECTOR_BYTES
+                compute_s += dup * instr_flops(m) / (self.peak_for(m) * eff)
+            for o in m.operands:
+                if o.id in kernel_ids or o.id in seen_inputs:
+                    continue
+                seen_inputs.add(o.id)
+                hbm_bytes += read(o)
+            if m.id in outputs:
+                hbm_bytes += m.bytesize
+            elif gpu and memory is not None:
+                if memory.action(m) != "INLINE" and m.opcode != "constant":
+                    vmem_bytes += 2 * dup * m.bytesize   # a slot's write and read
+            elif m.opcode in ("reduce", "dot", "cumsum") and any(
+                u.id in phase_ids for u in m.users
+            ):
+                # interior values memory.plan_memory marks as required
+                # buffers: they round-trip through VMEM scratch
+                vmem_bytes += dup * m.bytesize
+        if not gpu:
+            body = max(compute_s, hbm_bytes / spec.hbm_bw) + vmem_bytes / spec.vmem_bw
+            return body, blocks * spec.grid_step_overhead_s
+        grid = launch.grid
+        cs = self.compute_share(grid)
+        compute_s += self.recompute_s(members, memory, tilings, solution.assignment)
+        l2 = self.l2_read_bytes(members, solution, tilings)
+        body = (
+            max(compute_s / cs, hbm_bytes / (spec.hbm_bw * self.hbm_share(grid)),
+                l2 / (spec.l2_bw * cs) if l2 else 0.0)
+            + vmem_bytes / (spec.vmem_bw * cs)
+        )
+        return body, self.waves(grid, launch.threads) * spec.grid_step_overhead_s
+
     def fusion_time(
         self,
         members: Sequence[Instruction],
@@ -549,147 +617,52 @@ class LatencyModel:
 
         Charges launch + grid steps, max(compute, HBM) for the body, VMEM
         traffic for buffered interior values, and replication duplication
-        (see module docstring for the full convention list).  On a GPU,
-        ``memory`` (the fusion's ``MemoryPlan``) decides the grid the
-        codegen launches (``launch_grid``), which slots round-trip through
-        shared memory, and what the shrunk members recompute.
+        (see module docstring for the full convention list).  A kernel
+        input replicated across the grid is read once per block
+        (``_copies``).  On a GPU, ``memory`` (the fusion's ``MemoryPlan``)
+        decides the launch (``geometry.fusion_launch``), which slots
+        round-trip through shared memory, and what the shrunk members
+        recompute.
         """
         spec = self.rates
-        gpu = spec.sm_count > 1
         blocks = max(1, solution.blocks)
         member_ids = {m.id for m in members}
-        root_ids = {r.id for r in roots}
-        tilings = {}
-        if gpu:
-            from .codegen import dot_tilings  # codegen imports this module's users
-
-            tilings = dot_tilings(members, roots, solution, memory)
-        compute_s = 0.0
-        hbm_bytes = 0.0
-        vmem_bytes = 0.0
-        seen_inputs = set()
-        for m in members:
-            sched = solution.assignment.get(m.id, REPLICATED)
-            dup = blocks if (blocks > 1 and sched.kind == "replicated") else 1
-            if not is_trivial(m):
-                eff = _lane_efficiency(chunk_shape(m.shape, sched), spec)
-                if (gpu and m.opcode == "dot" and tilings.get(m.id) is None
-                        and rhs_read_across_lanes(m, member_ids, memory)):
-                    eff *= np.dtype(m.operands[1].dtype).itemsize / SECTOR_BYTES
-                compute_s += dup * instr_flops(m) / (self.peak_for(m) * eff)
-            for o in m.operands:
-                if o.id in member_ids or o.id in seen_inputs:
-                    continue
-                seen_inputs.add(o.id)
-                osched = solution.assignment.get(o.id, REPLICATED)
-                hbm_bytes += self._copies(o, blocks, osched) * o.bytesize
-            if m.id in root_ids:
-                hbm_bytes += m.bytesize
-            elif gpu and memory is not None:
-                if memory.action(m) != "INLINE" and m.opcode != "constant":
-                    vmem_bytes += 2 * dup * m.bytesize   # a slot's write and read
-            elif m.opcode in ("reduce", "dot", "cumsum") and any(
-                u.id in member_ids for u in m.users
-            ):
-                # interior values memory.plan_memory marks as required
-                # buffers: they round-trip through VMEM scratch
-                vmem_bytes += dup * m.bytesize
-        if not gpu:
-            body = max(compute_s, hbm_bytes / spec.hbm_bw) + vmem_bytes / spec.vmem_bw
-            return (
-                spec.launch_overhead_s
-                + blocks * spec.grid_step_overhead_s
-                + body
-            )
-        grid, threads = launch_grid(members, roots, solution, memory)
-        cs = self.compute_share(grid)
-        compute_s += self.recompute_s(members, memory, tilings, solution.assignment)
-        l2 = self.l2_read_bytes(members, solution, tilings)
-        body = (
-            max(compute_s / cs, hbm_bytes / (spec.hbm_bw * self.hbm_share(grid)),
-                l2 / (spec.l2_bw * cs) if l2 else 0.0)
-            + vmem_bytes / (spec.vmem_bw * cs)
-        )
-        return (spec.launch_overhead_s + self.waves(grid, threads) * spec.grid_step_overhead_s
-                + body)
+        launch = fusion_launch(members, roots, solution, memory) if spec.sm_count > 1 else None
+        body, steps = self._phase_time(
+            members, solution, memory, launch, member_ids, {r.id for r in roots}, set(),
+            lambda o: self._copies(o, blocks, solution.assignment.get(o.id, REPLICATED)) * o.bytesize)
+        return spec.launch_overhead_s + steps + body
 
     def stitched_fusion_time(self, stitched: StitchedSolution, memory=None) -> float:
         """ONE multi-phase stitched kernel (schedule.resolve_stitched).
 
         Charges a single launch, then per phase: the phase body (same terms
-        as ``fusion_time``), the phase's sequential grid-loop steps, and a
+        as ``fusion_time``, but every input read exactly once as a whole
+        tensor), the phase's sequential grid-loop steps, and a
         ``phase_loop_overhead_s`` transition.  Interface tensors are charged
         a full write + read round trip through VMEM — the staging traffic
         that replaces an HBM round trip plus a kernel launch under a split
         (on a GPU through the global workspace, at ``hbm_bw``, and a grid
         barrier between phases).  Phases are sequential: no overlap is
         assumed across them.  On a GPU, ``memory`` (the
-        ``StitchedMemoryPlan``) decides each phase's grid and slots.
+        ``StitchedMemoryPlan``) decides each phase's launch
+        (``geometry.stitched_launch``) and slots.
         """
         spec = self.rates
         gpu = spec.sm_count > 1
         group_ids = {m.id for p in stitched.phases for m in p.members}
+        outputs = {m.id for p in stitched.phases for m in p.members
+                   if not m.users or any(u.id not in group_ids for u in m.users)}
         total = spec.launch_overhead_s
         seen_inputs = set()
-        grids, threads = stitched_grids(stitched, memory) if gpu else (None, 0)
-        phase_tilings = None
-        if gpu:
-            from .codegen import stitched_dot_tilings  # codegen imports this module's users
-
-            phase_tilings = stitched_dot_tilings(stitched, memory)
+        launches = stitched_launch(stitched, memory) if gpu else None
         for k, p in enumerate(stitched.phases):
-            blocks = max(1, p.solution.blocks)
-            phase_ids = {m.id for m in p.members}
             pplan = memory.phase_plans[k] if (gpu and memory is not None) else None
-            compute_s = 0.0
-            hbm_bytes = 0.0
-            vmem_bytes = 0.0
-            for m in p.members:
-                sched = p.solution.assignment.get(m.id, REPLICATED)
-                dup = blocks if (blocks > 1 and sched.kind == "replicated") else 1
-                if not is_trivial(m):
-                    eff = _lane_efficiency(chunk_shape(m.shape, sched), spec)
-                    if (gpu and m.opcode == "dot" and phase_tilings[k].get(m.id) is None
-                            and rhs_read_across_lanes(m, phase_ids, pplan)):
-                        eff *= np.dtype(m.operands[1].dtype).itemsize / SECTOR_BYTES
-                    compute_s += dup * instr_flops(m) / (self.peak_for(m) * eff)
-                for o in m.operands:
-                    if o.id in group_ids or o.id in seen_inputs:
-                        continue   # phase-local, staged, or already-read input
-                    seen_inputs.add(o.id)
-                    # stitched kernels read every input exactly ONCE as a
-                    # whole-tensor block (grid is trivial); unlike
-                    # fusion_time there is no per-block re-read to charge
-                    hbm_bytes += o.bytesize
-                if not m.users or any(u.id not in group_ids for u in m.users):
-                    hbm_bytes += m.bytesize          # kernel output
-                elif pplan is not None:
-                    if pplan.action(m) != "INLINE" and m.opcode != "constant":
-                        vmem_bytes += 2 * dup * m.bytesize
-                elif m.opcode in ("reduce", "dot", "cumsum") and any(
-                    u.id in phase_ids for u in m.users
-                ):
-                    vmem_bytes += dup * m.bytesize   # phase-interior buffer
-            if not gpu:
-                total += (
-                    max(compute_s, hbm_bytes / spec.hbm_bw)
-                    + vmem_bytes / spec.vmem_bw
-                    + blocks * spec.grid_step_overhead_s
-                    + spec.phase_loop_overhead_s
-                )
-                continue
-            grid = grids[k]
-            cs = self.compute_share(grid)
-            compute_s += self.recompute_s(p.members, pplan, phase_tilings[k],
-                                          p.solution.assignment)
-            l2 = self.l2_read_bytes(p.members, p.solution, phase_tilings[k])
-            total += (
-                max(compute_s / cs, hbm_bytes / (spec.hbm_bw * self.hbm_share(grid)),
-                    l2 / (spec.l2_bw * cs) if l2 else 0.0)
-                + vmem_bytes / (spec.vmem_bw * cs)
-                + self.waves(grid, threads) * spec.grid_step_overhead_s
-                + (spec.phase_loop_overhead_s if k else 0.0)
-            )
+            body, steps = self._phase_time(p.members, p.solution, pplan,
+                                           launches[k] if gpu else None, group_ids, outputs,
+                                           seen_inputs, lambda o: o.bytesize)
+            # on a GPU the first phase starts with the launch, no transition
+            total += body + steps + (spec.phase_loop_overhead_s if k or not gpu else 0.0)
         if gpu:
             # interface staging: written whole to the global workspace by
             # the producer phase, read back re-tiled by the consumer
@@ -727,26 +700,3 @@ class LatencyModel:
             wire = (n - 1) / n * big
         return self.rates.ici_latency_s + wire / self.rates.ici_bw
 
-
-# ---- the grid the codegen launches (GPU scoring) ---------------------------
-
-
-def launch_grid(members: Sequence[Instruction], roots: Sequence[Instruction],
-                solution: ScheduleSolution, memory=None) -> Tuple[int, int]:
-    """(CUDA blocks, threads a block) ``emit_fusion`` launches for this
-    plan: plan blocks x independent member groups where a member keeps a
-    slot, else the pure map's grid (``codegen.fusion_launch``).  Without a
-    memory plan, a reduce or dot read inside the fusion is taken to keep
-    its slot."""
-    from .codegen import fusion_launch  # codegen imports this module's users
-
-    return fusion_launch(members, roots, solution, memory)
-
-
-def stitched_grids(stitched: StitchedSolution, memory=None) -> Tuple[Tuple[int, ...], int]:
-    """(each phase's CUDA blocks, threads a block) of
-    ``emit_stitched_fusion``'s cooperative launch
-    (``codegen.stitched_launch``)."""
-    from .codegen import stitched_launch
-
-    return stitched_launch(stitched, memory)

@@ -26,7 +26,7 @@ Three phases, faithfully ported from GPU shared memory to TPU VMEM scratch:
 
 On a GPU (``spec.is_gpu``) a slot lives in one CUDA block's shared memory:
 each slot's bytes count rounded up to ``SLOT_ALIGN`` (the offsets
-``codegen._slot_layout`` gives them), and a stitched kernel's staged
+``geometry._slot_layout`` gives them), and a stitched kernel's staged
 interfaces and whole-tensor I/O live in the global workspace, so each of its
 phases plans against the whole budget (phases run in turn and share a
 block's shared memory).  The TPU's plans are the reference's.
@@ -34,15 +34,17 @@ block's shared memory).  The TPU's plans are the reference's.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
 from .ir import Instruction
-from .latency import DeviceSpec
 from .schedule import ScheduleSolution, StitchedSolution, chunk_shape
 
-#: bytes each slot of a generated CUDA kernel starts on (``codegen``)
+if TYPE_CHECKING:    # latency imports geometry, which imports this module
+    from .latency import DeviceSpec
+
+#: bytes each slot of a generated CUDA kernel starts on (``geometry._slot_layout``)
 SLOT_ALIGN = 16
 
 ALLOC = "ALLOC"

@@ -30,15 +30,7 @@ import torch
 
 from .. import tracing
 from . import cuda_build
-from .codegen import (
-    SMEM_LIMIT,
-    STITCHED_MAX_THREADS,
-    StitchedKernel,
-    assemble_source,
-    emit_fusion,
-    emit_stitched_fusion,
-    reduce_part_bytes,
-)
+from .codegen import StitchedKernel, assemble_source, emit_fusion, emit_stitched_fusion
 from .fusion import (
     FusedComputation,
     FusionConfig,
@@ -46,6 +38,7 @@ from .fusion import (
     FusionScorer,
     deep_fuse,
 )
+from .geometry import SMEM_LIMIT, STITCHED_MAX_THREADS, reduce_part_bytes
 from .ir import Instruction, Module
 from .latency import H100, TPU_V5E, DeviceSpec, LatencyModel
 from .measure import measure_kernel
@@ -69,7 +62,7 @@ TPU_VMEM_LIMIT = 4 * 1024 * 1024
 
 def default_vmem_limit(spec: DeviceSpec) -> int:
     """The slot budget a spec plans with when the options name none: on a
-    GPU one block's shared memory (``codegen.SMEM_LIMIT``) less the reduce
+    GPU one block's shared memory (``geometry.SMEM_LIMIT``) less the reduce
     partials of the largest block, else the TPU's 4 MiB."""
     if spec.is_gpu:
         return SMEM_LIMIT - reduce_part_bytes(STITCHED_MAX_THREADS)
@@ -617,11 +610,9 @@ class CodegenPass(Pass):
             entry = p.entry
             if p.is_representative:
                 if entry.stitched is not None:
-                    kernel = emit_stitched_fusion(p.fusion, entry.stitched, entry.memory,
-                                                  state.options.stage_dots)
+                    kernel = emit_stitched_fusion(p.fusion, entry.stitched, entry.memory)
                 else:
-                    kernel = emit_fusion(p.fusion, entry.solution, entry.memory,
-                                         state.options.stage_dots)
+                    kernel = emit_fusion(p.fusion, entry.solution, entry.memory)
                 entry.kernel = kernel
                 p.kernel = kernel
                 emitted.append(kernel.fn)

@@ -29,17 +29,10 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 
-from .ir import COLLECTIVE_OPCODES, Instruction, sliced_dims
+from .ir import COLLECTIVE_OPCODES, Instruction, _prod, sliced_dims
 
 ROW = "Row"
 COLUMN = "Column"
-
-
-def _prod(xs: Sequence[int]) -> int:
-    out = 1
-    for x in xs:
-        out *= int(x)
-    return out
 
 
 @dataclass(frozen=True)

@@ -21,7 +21,7 @@ number later.  Three families, as in the reference:
   its memory plan fits the port's budgets (PLAN006): the plan's bytes
   within ``options.vmem_limit``, the budget the planner planned against,
   and each emitted kernel's shared memory a block within what a Hopper
-  block may use (``codegen.SMEM_LIMIT``).
+  block may use (``geometry.SMEM_LIMIT``).
 * **ExecutionPlan lint** (``EXEC0xx``, ``verify_execution_plan``): a
   dataflow walk over the slot table (every slot written before it is read,
   never read after its release point, releases sane), the CUDA-graph audit
@@ -45,6 +45,7 @@ import numpy as np
 
 from . import span as span_lib
 from .fusion import constant_like
+from .geometry import SMEM_LIMIT
 from .ir import Instruction, Module, as_dtype, dtype_name, infer_dtype, infer_shape
 from .schedule import Unsatisfiable, blocks_of, propagate
 
@@ -399,7 +400,6 @@ def verify_planned_entries(state, pass_name: str = "") -> List[Diagnostic]:
     """Per-entry lint: schedule-solution soundness (per phase for stitched
     plans), the memory budgets (PLAN006) and the kernel-cache signature
     audit (EXEC005)."""
-    from .codegen import SMEM_LIMIT
     from .pipeline import _options_fingerprint
     from .signature import fusion_signature
 

@@ -18,7 +18,7 @@ from repro.core import StitchOptions as RefOptions
 from repro.core import compile_module as ref_compile
 from repro.core import reference_execute as ref_execute
 from repro.core import trace as ref_trace
-from repro_torch.core import StitchOptions, codegen, compile_module, cuda_build
+from repro_torch.core import StitchOptions, codegen, compile_module, cuda_build, geometry
 from repro_torch.core.interop import module_from_reference
 from repro_torch.core.schedule import chunk_shape
 
@@ -118,9 +118,10 @@ def test_generated_source_has_one_kernel_per_unique_signature():
     assert len(re.findall(r"__global__ void", src)) == port.stats.unique_kernels
     assert len(re.findall(r'extern "C" int \w+_launch\(', src)) == port.stats.unique_kernels
     assert src.startswith('#include "stitch_runtime.cuh"')
-    # threads per block follow the plan (``fusion_threads``), not a constant
+    # threads per block follow the plan (``geometry.fusion_launch``), not a constant
     for k in port.kernels:
-        threads = codegen.fusion_threads(k.fusion, k.solution, k.plan)
+        threads = geometry.fusion_launch(k.fusion.members, k.fusion.roots, k.solution,
+                                         k.plan).threads
         assert f"__launch_bounds__({threads}) {k.fn.symbol}(" in src
     cmd = cuda_build._command("nvcc", cuda_build.BUILD_DIR / "x.cu", cuda_build.BUILD_DIR / "x.so")
     joined = " ".join(cmd[1:])
@@ -173,22 +174,22 @@ def test_stitched_source_loops_over_its_phases(case, rng):
     assert src.count("__global__") == 1
     assert src.count("cudaLaunchCooperativeKernel(") == 1 and "<<<" not in src
     assert src.count("sx_grid_sync();") == kernel.num_phases - 1
-    threads = codegen.stitched_threads(kernel.plan)
+    threads = geometry.stitched_threads(kernel.plan)
     assert f"__launch_bounds__({threads}) {kernel.fn.symbol}(" in src
     # the members of each phase that write a tile: its ALLOC/SHARE members
     # but those held in a register (``held_in_registers``)
     written = {r.id for r in kernel.fusion.roots} | set(kernel.plan.interfaces)
-    tiles = [codegen._tile_slots(ph.members, pp, codegen.held_in_registers(
+    tiles = [geometry._tile_slots(ph.members, pp, geometry.held_in_registers(
                  ph.members, ph.solution.assignment, pp, written))
              for ph, pp in zip(kernel.stitched.phases, kernel.plan.phase_plans, strict=True)]
     smem = 0
     for pk, pplan in enumerate(kernel.plan.phase_plans):
         head = next(line for line in src.splitlines() if line.startswith(f"  // phase {pk}:"))
-        _, size = codegen._slot_layout(pplan, set(tiles[pk].values()))
+        _, size = geometry._slot_layout(pplan, set(tiles[pk].values()))
         assert size <= pplan.total_bytes
         if not tiles[pk]:
             assert head.endswith("no slot: a pure map over the grid")
-        elif size <= codegen.SMEM_LIMIT:
+        elif size <= geometry.SMEM_LIMIT:
             assert head.endswith(f"slots {size} bytes in shared memory")
             smem = max(smem, size)
         else:
@@ -244,25 +245,25 @@ def test_fusion_source_reads_its_memory_plan(case):
     for k in kernels:
         src, plan = k.fn.source, k.plan
         assert src.count("__global__") == 1 and "cudaLaunchCooperativeKernel" not in src
-        threads = codegen.fusion_threads(k.fusion, k.solution, plan)
+        launch = geometry.fusion_launch(k.fusion.members, k.fusion.roots, k.solution, plan)
+        threads = launch.threads
         assert f"__launch_bounds__({threads}) {k.fn.symbol}(" in src
         roots = {r.id for r in k.fusion.roots}
-        held = codegen.held_in_registers(k.fusion.members, k.solution.assignment, plan, roots)
-        tiles = codegen._tile_slots(k.fusion.members, plan, held)
-        offs, size = codegen._slot_layout(plan, set(tiles.values()))
+        held = geometry.held_in_registers(k.fusion.members, k.solution.assignment, plan, roots)
+        tiles = geometry._tile_slots(k.fusion.members, plan, held)
+        offs, size = geometry._slot_layout(plan, set(tiles.values()))
         assert size <= plan.total_bytes and (held or size == plan.total_bytes)
         head = next(line for line in src.splitlines() if line.startswith("  // phase 0:"))
-        groups = [g for g in codegen._independent_groups(k.fusion)
+        groups = [g for g in geometry._independent_groups(k.fusion.members)
                   if any(m.id in tiles or m.id in roots
                          for m in k.fusion.members if m.id in set(g) and m.opcode != "constant")]
         # a staged dot's operand tiles follow the slots in shared memory
-        staged = [t.stage_bytes(4) for t in codegen.dot_tilings(
-            k.fusion.members, k.fusion.roots, k.solution, plan).values() if t is not None]
+        staged = [t.stage_bytes(4) for t in launch.tilings.values() if t is not None]
         if not tiles:
             assert head.endswith("no slot: a pure map over the grid")
             assert ("sx_smem" in src) == bool(staged)
             grid = None
-        elif size + codegen.reduce_part_bytes(threads) <= codegen.SMEM_LIMIT:
+        elif size + geometry.reduce_part_bytes(threads) <= geometry.SMEM_LIMIT:
             assert head.endswith(f"slots {size} bytes in shared memory")
             assert "extern __shared__ __align__(16) unsigned char sx_smem[];" in src
             smem = -(-size // 16) * 16 + max(staged) if staged else size
@@ -337,13 +338,13 @@ def test_bf16_silu_mul_is_a_pure_map_over_the_grid(shape):
     (slot,) = [e for e in plan.entries.values() if e.action in ("ALLOC", "SHARE")]
     assert plan.total_bytes == slot.nbytes > 0              # the plan is unchanged
     assert fn._last.compiled.stats.reports[0].scratch_bytes == plan.total_bytes
-    held = codegen.held_in_registers(k.fusion.members, k.solution.assignment, plan,
+    held = geometry.held_in_registers(k.fusion.members, k.solution.assignment, plan,
                                      {r.id for r in k.fusion.roots})
     assert len(held) == 1
     assert "-> slot" not in src and "-> held in a register" in src
     assert "no slot: a pure map over the grid" in src and "__syncthreads" not in src
     assert k.fn.workspace_bytes == 0 and "sx_smem" not in src
-    threads = codegen.fusion_threads(k.fusion, k.solution, plan)
+    threads = geometry.fusion_launch(k.fusion.members, k.fusion.roots, k.solution, plan).threads
     grid = -(-int(np.prod(shape)) // threads)
     assert f"<<<{grid}, {threads}, 0, " in src
     # the register is computed once per element and read at both uses
@@ -447,7 +448,7 @@ def test_member_read_at_other_elements_keeps_its_slot(case):
         assert "-> held in a register" not in k.fn.source
         label = {m.id: f"m{j}" for j, m in enumerate(k.fusion.members)}
         for pk, (members, solution, plan) in enumerate(phases):
-            assert not codegen.held_in_registers(members, solution.assignment, plan, written)
+            assert not geometry.held_in_registers(members, solution.assignment, plan, written)
             for m in members:
                 if plan.action(m) in ("ALLOC", "SHARE") and m.opcode == "elementwise":
                     fn = m.attrs["fn"]

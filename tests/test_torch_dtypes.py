@@ -28,7 +28,7 @@ from repro.core import compile_module as ref_compile
 from repro.core import ir as rir
 from repro.core import reference_execute as ref_execute
 from repro.core import trace as ref_trace
-from repro_torch.core import StitchOptions, codegen, compile_module
+from repro_torch.core import StitchOptions, codegen, compile_module, geometry
 from repro_torch.core import ir as tir
 from repro_torch.core.interop import module_from_reference
 
@@ -136,7 +136,7 @@ def test_c_types_and_literals_carry_every_bit(name):
     storage = {"bfloat16": "__nv_bfloat16", "float16": "__half",
                "int8": "signed char", "uint8": "unsigned char", "int16": "short"}[name]
     assert codegen._c_type(port_dtype) == storage
-    assert codegen._c_compute(port_dtype) == ("int" if dtype.kind in "iu" else "float")
+    assert geometry._c_compute(port_dtype) == ("int" if dtype.kind in "iu" else "float")
     values = [0, 1, -1, 100, -128, 127, 255] if dtype.kind in "iu" else \
         [0.0, -0.0, 1.0, 0.1, -3.140625, 65504.0, 1e-3, np.inf, -np.inf, np.nan]
     for v in values:

@@ -24,7 +24,7 @@ from graphs import ALL_GRAPHS, random_feeds
 from repro.core import GraphBuilder
 from repro.core import reference_execute as ref_execute
 from repro_torch import stitch
-from repro_torch.core import StitchOptions, codegen, compile_module
+from repro_torch.core import StitchOptions, codegen, compile_module, geometry
 from repro_torch.core.fusion import FusedComputation
 from repro_torch.core.interop import module_from_reference
 from repro_torch.core.latency import H100, TPU_V5E, LatencyModel, _dot_reads
@@ -114,7 +114,8 @@ def test_dot_kernels_stage_k_blocks_in_shared_memory(name, spec):
     assert kernels
     for k in kernels:
         src = k.fn.source
-        tilings = codegen.dot_tilings(k.fusion.members, k.fusion.roots, k.solution, k.plan)
+        tilings = geometry.fusion_launch(k.fusion.members, k.fusion.roots, k.solution,
+                                         k.plan).tilings
         label = {m.id: f"m{j}" for j, m in enumerate(k.fusion.members)}
         for mid, t in tilings.items():
             assert t is not None
@@ -151,7 +152,7 @@ def test_a_composed_transpose_is_staged_along_its_contiguous_dimension():
                               StitchOptions(device_spec=H100), device="cpu")
     (k,) = compiled.kernels
     first = next(m for m in k.fusion.members if m.opcode == "dot")
-    t = codegen.dot_tilings(k.fusion.members, k.fusion.roots, k.solution, k.plan)[first.id]
+    t = geometry.fusion_launch(k.fusion.members, k.fusion.roots, k.solution, k.plan).tilings[first.id]
     block = _dot_block(k.fn.source, f"m{k.fusion.members.index(first)}")
     rhs = block.split("sb[kk *")[0].rsplit("#pragma unroll", 1)[1]
     # neighbouring threads take neighbouring k: kk follows e % ..., w e / ...
@@ -173,7 +174,8 @@ def test_a_composed_divide_runs_once_per_staged_element():
     div = pv.operands[0]
     assert div.opcode == "elementwise" and div.attrs["fn"] == "div"
     assert k.plan.action(div) == "INLINE"
-    t = codegen.dot_tilings(k.fusion.members, k.fusion.roots, k.solution, k.plan)[pv.id]
+    launch = geometry.fusion_launch(k.fusion.members, k.fusion.roots, k.solution, k.plan)
+    t = launch.tilings[pv.id]
     assert t.bn == pv.shape[-1] == 64
     assert _dot_reads(pv, div, t, k.solution.assignment[pv.id]) == 1
     block = _dot_block(k.fn.source, f"m{k.fusion.members.index(pv)}")
@@ -183,10 +185,12 @@ def test_a_composed_divide_runs_once_per_staged_element():
     assert len(divides) == 2 and all(d.strip().startswith("pa[ek] = ") for d in divides)
     assert "(k0 + 32 + kk)" in divides[1]
     assert not re.search(r" / p0s\d+\[", block.split("for (int kk = 0;")[1])
-    # the same plan on the register-tile loop
-    loop = codegen.emit_fusion(k.fusion, k.solution, k.plan, stage_dots=False)
-    block2 = _dot_block(loop.fn.source, f"m{k.fusion.members.index(pv)}")
-    assert "the register-tile loop" in loop.fn.source.splitlines()[0]
+    # the same plan on the register-tile loop: ``_cuda_fusion`` given the
+    # launch with no dot staged
+    register_tiles = dataclasses.replace(launch, tilings=dict.fromkeys(launch.tilings))
+    _, _, loop, _, _ = codegen._cuda_fusion(k.fusion, k.solution, k.plan, register_tiles)
+    block2 = _dot_block(loop, f"m{k.fusion.members.index(pv)}")
+    assert "the register-tile loop" in loop.splitlines()[0]
     assert len([line for line in block2.splitlines() if re.search(r" / p0s\d+\[", line)]) == 4
 
 
@@ -231,7 +235,7 @@ def test_granite_attention_plans_one_kernel_under_h100_only(spec):
     if spec == "H100":
         assert len(cm.kernels) == 1 and len(split) == 2
         (k,) = cm.kernels
-        assert k.plan.total_bytes + codegen.reduce_part_bytes(512) <= codegen.SMEM_LIMIT
+        assert k.plan.total_bytes + geometry.reduce_part_bytes(512) <= geometry.SMEM_LIMIT
         assert k.fn.workspace_bytes == 0
     else:
         assert not split and len(cm.kernels) == 2
@@ -306,7 +310,7 @@ def test_the_gpu_model_prices_the_staged_dot():
     (k,) = cm.kernels
     model = LatencyModel(H100)
     members, roots, sol, plan = k.fusion.members, k.fusion.roots, k.solution, k.plan
-    tilings = codegen.dot_tilings(members, roots, sol, plan)
+    tilings = geometry.fusion_launch(members, roots, sol, plan).tilings
     staged = model.fusion_time(members, roots, sol, plan)
     assert model.recompute_s(members, plan, tilings, sol.assignment) < model.recompute_s(
         members, plan, {}, sol.assignment)
@@ -317,6 +321,6 @@ def test_the_gpu_model_prices_the_staged_dot():
                      for d, chunk_rows in ((qk, 512 // 8), (pv, 512 // 8)))
     with pytest.MonkeyPatch.context() as mp:
         # every dot on the register-tile loop: no staging is offered
-        mp.setattr(codegen, "staged_dot_tiling", lambda *a, **k: None)
+        mp.setattr(geometry, "staged_dot_tiling", lambda *a, **k: None)
         loop = model.fusion_time(members, roots, sol, plan)
     assert staged < loop

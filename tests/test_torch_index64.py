@@ -346,7 +346,9 @@ def test_kernels_below_the_limit_are_the_parents_text(name):
 #: limit on the GPU (``schedule.index_values``), each cell's causal softmax
 #: (scale, mask, max, exp and sum) is one kernel: granite f32's
 #: ``stitch_d2f5eb97b18f7a31``; in bf16 and in Mistral the chain and v's
-#: relayout join p @ v (``stitch_74365f6a208c477b``, ``stitch_4153302b9a950c61``)
+#: relayout join p @ v (``stitch_74365f6a208c477b``, ``stitch_4153302b9a950c61``).
+#: The hybrid cell compiles two plans, its Mamba-2 layer's and its attention
+#: layer's: their kernels together (the MLP's and the norms' in both)
 CELLS = {
     "granite-moe-3b-a800m.attn.prefill-4k": [
         "stitch_0e79b6d427418eff", "stitch_2102654533b25a0c", "stitch_241768555cc2b28b",
@@ -363,6 +365,21 @@ CELLS = {
         "stitch_42695837065d508c", "stitch_44d76f7fa7aac0af", "stitch_74365f6a208c477b",
         "stitch_932155df81038699", "stitch_9a910a3e838ca3cc", "stitch_c5e0bbfebd47b9f3",
     ],
+    "granite-4.0-h-micro.prefill-8k": [
+        "stitch_06d4eb61e0f81380", "stitch_172eaed8df3e2f7c", "stitch_1bde63ac64bb1e8d",
+        "stitch_24c864095d839b6b", "stitch_24c864095d839b6b", "stitch_2c9dbf526f705cfb",
+        "stitch_325a099438b6a601", "stitch_37921a0cf672cbae", "stitch_404113360aa2d8d0",
+        "stitch_40fc87311e647e5a", "stitch_48d054ceb6fea1ee", "stitch_4ecfda0e7e08b598",
+        "stitch_5340e2ff5e11ac63", "stitch_5340e2ff5e11ac63", "stitch_6bb91ac94d93da80",
+        "stitch_70aa51d22f3f9891", "stitch_866b0d402f234a97", "stitch_8e02cdf1d08719f3",
+        "stitch_8e02cdf1d08719f3", "stitch_903d4ddf2cfe15ae", "stitch_92b18c01767cd6d4",
+        "stitch_9731aa77116c9ebc", "stitch_9c068aecb946cf22", "stitch_9d2f8414c2f7a37f",
+        "stitch_9e97bfd0a5969a3f", "stitch_a02a1e6f1dce8352", "stitch_a02a1e6f1dce8352",
+        "stitch_adce27b3d62ae2a0", "stitch_ae0c0678ec61b067", "stitch_af45c40eb6ce4a70",
+        "stitch_bb57e541d676baef", "stitch_bbfe014513e4193d", "stitch_d3b46c8ea020a5ff",
+        "stitch_e2d6a5617f552ecc", "stitch_e8d8980e3aa20641", "stitch_ee5e1eb212846119",
+        "stitch_f271482225ca93c1",
+    ],
 }
 
 
@@ -377,12 +394,19 @@ def test_the_benchmarks_cells_keep_their_kernels(workload):
     def meta(*shape):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    args = [meta(cell.batch * cell.seq, s["d"])]
-    args += [meta(*shape) for shape in cell.program.weight_shapes(s).values()]
-    args += [meta(cell.seq, s["head_dim"])] * 2
     fn = cell.program.build(cell.config, cell.batch, cell.seq)
-    cm = stitch(fn, options=StitchOptions(device_spec=H100), device="cpu").lower(*args).compile()
-    assert sorted(k.fn.name for k in cm.kernels) == CELLS[workload]
+    kinds = (sorted(set(cell.program.held_types(cell.config)))
+             if hasattr(cell.program, "held_types") else [None])
+    names = []
+    for kind in kinds:
+        weights = (cell.program.weight_shapes(s) if kind is None
+                   else cell.program.weight_shapes(s, kind))
+        args = [meta(cell.batch * cell.seq, s["d"])]
+        args += [meta(*shape) for shape in weights.values()]
+        args += [meta(cell.seq, s["head_dim"])] * 2
+        cm = stitch(fn, options=StitchOptions(device_spec=H100), device="cpu").lower(*args).compile()
+        names += [k.fn.name for k in cm.kernels]
+    assert sorted(names) == CELLS[workload]
 
 
 # ---------------------------------------------------------------------------

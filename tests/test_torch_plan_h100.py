@@ -25,7 +25,7 @@ from repro.core import latency as ref_latency
 from repro_torch import stitch
 from repro_torch.core import StitchOptions, compile_module, reference_execute
 from repro_torch.core import latency as port_latency
-from repro_torch.core.codegen import SMEM_LIMIT, fusion_launch, reduce_part_bytes
+from repro_torch.core.geometry import SMEM_LIMIT, fusion_launch, reduce_part_bytes, stitched_launch
 from repro_torch.core.interop import module_from_reference
 from repro_torch.core.latency import H100, TPU_V5E, LatencyModel, NotMeasured
 from repro_torch.core.measure import MeasuredCostStore, device_fingerprint
@@ -272,18 +272,55 @@ def test_a_shrunk_member_is_charged_at_every_read():
 @pytest.mark.parametrize("spec", [TPU_V5E, H100], ids=["tpu", "h100"])
 @pytest.mark.parametrize("name", list(ALL_GRAPHS))
 def test_the_models_grid_is_the_emitted_launch(name, spec):
-    """``codegen.fusion_launch`` (what the GPU model charges) is the grid
-    and threads ``emit_fusion`` writes into its launcher."""
+    """``geometry.fusion_launch`` (what the GPU model charges) is the grid
+    and threads ``emit_fusion`` writes into its launcher; for a stitched
+    kernel, ``geometry.stitched_launch``'s largest phase grid is the most
+    blocks its cooperative launcher asks for, and its threads the kernel's
+    launch bounds."""
     import re
 
     cm = compile_module(module_from_reference(ALL_GRAPHS[name]()),
                         StitchOptions(device_spec=spec, jit_replay=False), device="cpu")
     for k in cm.kernels:
-        if k.stitched is not None:
-            continue
-        m = re.search(r"one launch of (\d+) blocks of (\d+) threads", k.fn.source)
-        grid, threads = fusion_launch(k.fusion.members, k.fusion.roots, k.solution, k.plan)
-        assert (grid, threads) == (int(m.group(1)), int(m.group(2))), k.fusion.name
+        if k.stitched is None:
+            m = re.search(r"<<<(\d+), (\d+), ", k.fn.source)
+            launch = fusion_launch(k.fusion.members, k.fusion.roots, k.solution, k.plan)
+            grid, threads = launch.grid, launch.threads
+        else:
+            m = re.search(r"grid = sms \* per_sm < (\d+) \? sms \* per_sm : \1;", k.fn.source)
+            launches = stitched_launch(k.stitched, k.plan)
+            grid, threads = max(p.grid for p in launches), launches[0].threads
+            assert {p.threads for p in launches} == {threads}
+            assert f"dim3(grid), dim3({threads}), args, " in k.fn.source
+        assert f"__launch_bounds__({threads}) {k.fn.symbol}(" in k.fn.source
+        assert int(m.group(1)) == grid, k.fusion.name
+        if k.stitched is None:
+            assert int(m.group(2)) == threads, k.fusion.name
+
+
+#: what each planner module may not import, at its top or inside a function:
+#: the launch geometry sits below the cost model, so the planner never
+#: reaches up into the emitter or the pipeline above it
+LAYERS = {name: ("codegen", "pipeline")
+          for name in ("latency", "memory", "fusion", "tuning", "schedule", "geometry")}
+LAYERS["verify"] = ("codegen",)    # a whole-state checker above the planner
+
+
+@pytest.mark.parametrize("module", list(LAYERS))
+def test_the_planner_imports_downward_only(module):
+    import ast
+
+    import repro_torch.core as core
+
+    path = os.path.join(os.path.dirname(core.__file__), f"{module}.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    imported = set()    # every module path part and name an import names
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            imported.update((getattr(node, "module", None) or "").split("."))
+            imported.update(part for a in node.names for part in a.name.split("."))
+    assert not imported & set(LAYERS[module]), (module, sorted(imported & set(LAYERS[module])))
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +426,7 @@ def _widest_grid(kernel):
                                     512 * 1024)
         except (Unsatisfiable, KeyError):
             continue
-        best = max(best, fusion_launch(f.members, f.roots, sol, None)[0])
+        best = max(best, fusion_launch(f.members, f.roots, sol, None).grid)
     return best
 
 
@@ -405,7 +442,7 @@ def test_granite_width_plans_fill_the_card(name):
     for k in cm.kernels:
         if k.stitched is not None:
             continue
-        grid, _ = fusion_launch(k.fusion.members, k.fusion.roots, k.solution, k.plan)
+        grid = fusion_launch(k.fusion.members, k.fusion.roots, k.solution, k.plan).grid
         assert grid >= min(H100.sm_count, _widest_grid(k)), (k.fusion.name, grid)
     if name in ("rmsnorm", "layer_stats"):
         (k,) = cm.kernels

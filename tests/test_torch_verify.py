@@ -29,7 +29,7 @@ from repro_torch.core import (
     verify_execution_plan,
     verify_module,
 )
-from repro_torch.core.codegen import SMEM_LIMIT
+from repro_torch.core.geometry import SMEM_LIMIT
 from repro_torch.core.perf_library import PerfLibrary
 from repro_torch.core.verify import (
     RULES,
