@@ -49,9 +49,13 @@ Phases, each fatal on failure:
    ``TPU_V5E``, whose plan staging leaves unchanged, with their dots
    staged and on the register-tile loop (``register_tile_loops``), bit for
    bit, and under the card's default plan (``H100``, row-split dots)
-   against their plain kernels and ``reference_execute`` at ``TOL``; with
-   each dot kernel's device µs, loop, CUDA blocks and share of its bound
-   (``dot_lines``);
+   against their plain kernels and ``reference_execute`` at ``TOL``, the
+   attention also in bf16, its dots on the tensor cores, at ``BF16_STEP``;
+   then the benchmark's bf16 layer at its own 4 x 4096 tokens
+   (``staged_cell_check``), its two dot kernels on the tensor cores and
+   taking every rule of ``STAGING_RULES``, each generated kernel against
+   its plain version at ``BF16_STEP``; with each dot kernel's device µs,
+   loop, CUDA blocks and share of its bound (``dot_lines``);
 5. numbers — CUDA-event times: microseconds per call of each compiled graph
    and of ``reference_execute``, and per launch of each kernel and of its
    plain version, beside the kernel's bound (bytes in and out over 3.35
@@ -2087,7 +2091,23 @@ INDEX64_SHAPES = ((65536, 32769), (40000, 32769))
 INDEX64_CHUNK = 4096
 #: the functions whose fused dots phase 4 holds against the register-tile
 #: loop (``register_tile_loops``) bit for bit under ``TPU_V5E``
-STAGED_CASES = ("NMT", "fig3_attention")
+STAGED_CASES = ("NMT", "fig3_attention", "fig3_attention_bf16")
+#: one rounding step of bf16: a bf16 dot on the tensor cores sums its exact
+#: products in another order than the plain version, so an output may round
+#: to its neighbour (at most 2^-7 of it); outputs are held within one step of
+#: themselves plus one of the largest output
+BF16_STEP = 2.0 ** -7
+#: the benchmark cell whose bf16 layer phase 4 runs at its own shapes
+#: (``staged_cell_check``), and the seed of its weights and input
+STAGED_CELL, STAGED_CELL_SEED = "granite-moe-3b-a800m.attn-bf16.prefill-4k", 3400000301
+#: what marks each staging rule of a dot on the tensor cores in a kernel's
+#: text: its k-major operand staged 16 bytes at a time, its whole depth in
+#: one k step, the next k step held in registers, two blocks an SM
+STAGING_RULES = {"16-byte staging": "*reinterpret_cast<const uint4*>(&",
+                 "one k step": "for (int k0 = 0; k0 < 64; k0 += 64)",
+                 "prefetch": "pa[ek] = ", "two blocks an SM": "__launch_bounds__(512, 2)"}
+#: elements of an output compared at a time (``bf16_close``)
+CLOSE_CHUNK = 1 << 26
 
 
 def index64_module(shape):
@@ -2159,7 +2179,7 @@ def staged_case(name, dev, spec_name, stage=True):
     """(compiled, feeds) of one of ``STAGED_CASES`` on ``dev`` under
     ``spec_name``'s plan, its dots staged or (``stage`` False) on the
     register-tile loop (``register_tile_loops``): NMT at its graph's size,
-    the Figure-3 attention at granite width."""
+    the Figure-3 attention at granite width, in f32 or (``_bf16``) in bf16."""
     import dataclasses
 
     import numpy as np
@@ -2172,6 +2192,8 @@ def staged_case(name, dev, spec_name, stage=True):
 
     opts = StitchOptions(device_spec=TPU_V5E if spec_name == "TPU_V5E" else H100, jit_replay=False)
     loops = contextlib.nullcontext() if stage else register_tile_loops()
+    bf16 = name.endswith("_bf16")
+    name = name.removesuffix("_bf16")
     if name == "NMT":
         module = ALL_GRAPHS["NMT"]()
         feeds = random_feeds(module, np.random.RandomState(0))
@@ -2179,6 +2201,8 @@ def staged_case(name, dev, spec_name, stage=True):
             compiled = compile_module(module, opts, device=dev)
         return module, compiled, {k: torch.as_tensor(v, device=dev) for k, v in feeds.items()}
     (fn, args) = next((fn, args) for n, fn, args, _, _ in model_width_cases() if n == name)
+    if bf16:
+        args = tuple(torch.as_tensor(a).to(torch.bfloat16) for a in args)
     lowered = stitch(fn, options=dataclasses.replace(opts, max_blocks=FRONTEND_MAX_BLOCKS)
                      if spec_name == "TPU_V5E" else opts, device=dev).lower(*args)
     feeds = dict(zip(lowered.param_names, args, strict=True))
@@ -2192,7 +2216,8 @@ def staged_sources():
     loops, under ``H100`` staged) and the 64-bit cases, planned for the
     CPU: the text the card's compiles emit, built in phase 2."""
     out = [staged_case_cpu(name, spec, stage) for name in STAGED_CASES
-           for spec, stage in (("TPU_V5E", True), ("TPU_V5E", False), ("H100", True))]
+           for spec, stage in (("TPU_V5E", True), ("TPU_V5E", False), ("H100", True))
+           if spec == "H100" or not name.endswith("_bf16")]
     from repro_torch.core import StitchOptions, compile_module
     from repro_torch.core.latency import H100
 
@@ -2230,43 +2255,128 @@ def dot_lines(label, kernels, by_name):
     return out
 
 
+def bf16_close(g, w):
+    """(largest error, within ``BF16_STEP``): each element of ``g`` within
+    one step of ``w``'s element plus one step of ``w``'s largest, compared
+    ``CLOSE_CHUNK`` elements at a time (a layer's scores are 1.6e9)."""
+    g, w = g.reshape(-1), w.reshape(-1)
+    top = max([0.0] + [float(w[i:i + CLOSE_CHUNK].double().abs().max())
+                       for i in range(0, w.numel(), CLOSE_CHUNK)])
+    err, ok = 0.0, True
+    for i in range(0, w.numel(), CLOSE_CHUNK):
+        gi, wi = g[i:i + CLOSE_CHUNK].double(), w[i:i + CLOSE_CHUNK].double()
+        d = (gi - wi).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= BF16_STEP * wi.abs() + BF16_STEP * top).all())
+    return err, ok
+
+
+def staged_cell_check(dev):
+    """Phase 4's cell case: the benchmark's bf16 layer (``STAGED_CELL``)
+    at its own shapes under the card's default plan: both its dot kernels
+    on the tensor cores, between them taking every rule of
+    ``STAGING_RULES``, and every generated kernel against its plain
+    version on the inputs one call gave it, at ``BF16_STEP``."""
+    import torch
+
+    from repro_torch import stitch
+    from repro_torch.core import StitchOptions
+    from repro_torch.core.latency import H100
+    from stitchbench import harness
+
+    cell = harness.load_cell(STAGED_CELL)
+    prog = cell.program
+    fn = prog.build(cell.config, cell.batch, cell.seq)
+    layers, (cos, sin), (x,) = prog.make_inputs(cell.config, cell.batch, cell.seq,
+                                                STAGED_CELL_SEED, 1, dev)
+    args = (x, *layers[0].values(), cos, sin)
+    lowered = stitch(fn, options=StitchOptions(device_spec=H100, jit_replay=False),
+                     device=dev).lower(*args)
+    compiled = lowered.compile()
+    feeds = dict(zip(lowered.param_names, args, strict=True))
+    dots = [k for k in compiled.kernels if "; dots: " in k.fn.source.splitlines()[0]]
+    loops = [d for k in dots for d in k.fn.source.splitlines()[0].split("; dots: ")[1].split("; ")]
+    if len(loops) != 2 or not all("on the tensor cores" in d for d in loops):
+        raise SystemExit(f"staged {STAGED_CELL}: its dots are not both on the tensor cores: {loops}")
+    rules = {rule: [k.fn.name for k in dots if mark in k.fn.source]
+             for rule, mark in STAGING_RULES.items()}
+    if not all(rules.values()):
+        raise SystemExit(f"staged {STAGED_CELL}: no dot kernel takes "
+                         f"{[r for r, ks in rules.items() if not ks]}")
+    inputs = {}
+    for k in compiled.kernels:
+        def record(*a, device, out=None, _fn=k.fn, _launch=k.fn.launch):
+            inputs.setdefault(id(_fn), [t.clone() for t in a])
+            return _launch(*a, device=device) if out is None else _launch(*a, device=device, out=out)
+        k.fn.launch = record
+    try:
+        got = compiled(feeds)
+    finally:
+        for k in compiled.kernels:
+            k.fn.__dict__.pop("launch", None)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        raise SystemExit(f"staged {STAGED_CELL}: an output is not finite")
+    err = 0.0
+    for k in compiled.kernels:
+        a = inputs.pop(id(k.fn))
+        for g, w in zip(k.fn.launch(*a, device=dev), k.fn.plain(*a, device=dev), strict=True):
+            e, ok = bf16_close(g, w)
+            err = max(err, e)
+            if not ok:
+                raise SystemExit(f"staged {STAGED_CELL} [H100] {k.fn.name}: kernel vs plain {e:.3e}")
+        del a
+        torch.cuda.empty_cache()
+    _, by = profiled_launches(f"staged {STAGED_CELL} H100", lambda: compiled(feeds),
+                              planned_by_program(compiled))
+    row = {"case": STAGED_CELL, "tokens": cell.batch * cell.seq, "tpu_v5e_bitwise": "f32 cases only",
+           "staging_rules": rules,
+           "H100": {"device_us": sum(by.values()), "kernels": len(compiled.kernels),
+                    "max_abs_err": err,
+                    "dot_kernels": dot_lines(f"{STAGED_CELL} [H100]", compiled.kernels, by)}}
+    print(f"staged {STAGED_CELL}: {cell.batch} x {cell.seq} tokens, both dots on the tensor cores, "
+          f"rules {rules}; H100 {row['H100']['device_us']:.2f} in {len(compiled.kernels)} kernels, "
+          f"err {err:.2e} vs plain")
+    del compiled, got, feeds, layers, x
+    torch.cuda.empty_cache()
+    return row
+
+
 def staged_dots_check(dev):
-    """Phase 4: each of ``STAGED_CASES`` under ``TPU_V5E`` (the reference's
-    plan, which staging leaves unchanged) with its dots staged and on the
-    register-tile loop, bit for bit; and under the card's default plan
-    (``H100``) against its plain kernels and ``reference_execute`` at
-    ``TOL``; with each dot kernel's line (``dot_lines``)."""
+    """Phase 4: each f32 case of ``STAGED_CASES`` under ``TPU_V5E`` (the
+    reference's plan, which staging leaves unchanged) with its dots staged
+    and on the register-tile loop, bit for bit; and every case under the
+    card's default plan (``H100``) against its plain kernels and
+    ``reference_execute`` at ``TOL`` (a bf16 case, whose dots run on the
+    tensor cores and sum in another order than the register-tile loop, at
+    ``BF16_STEP``: no bitwise check); with each dot kernel's line
+    (``dot_lines``); then the benchmark's bf16 layer at its own shapes
+    (``staged_cell_check``)."""
     import torch
 
     from repro_torch.core import reference_execute
 
+    def close(g, w, bf16):
+        return bf16_close(g, w) if bf16 else max_err(g, w, None)
+
     out = []
     for name in STAGED_CASES:
-        module, staged, feeds = staged_case(name, dev, "TPU_V5E")
-        _, loop, _ = staged_case(name, dev, "TPU_V5E", stage=False)
-        if [k.solution.blocks if k.solution else k.blocks for k in staged.kernels] != \
-                [k.solution.blocks if k.solution else k.blocks for k in loop.kernels]:
-            raise SystemExit(f"staged {name}: the TPU_V5E plan changed with the dot loop")
-        # two compiles name their roots apart: outputs in the plan's order
-        got, want = list(staged(feeds).values()), list(loop(feeds).values())
-        torch.cuda.synchronize()
-        for i, (g, w) in enumerate(zip(got, want, strict=True)):
-            if not same(g, w):
-                e, _ = max_err(g, w, None)
-                raise SystemExit(f"staged {name} [TPU_V5E]: output {i} staged vs register-tile "
-                                 f"loop differs (max {e:.3e})")
-        row = {"case": name, "tpu_v5e_bitwise": True}
-        for label, compiled in (("TPU_V5E staged", staged), ("TPU_V5E register-tile", loop)):
-            _, by = profiled_launches(f"staged {name} {label}", lambda c=compiled: c(feeds),
-                                      planned_by_program(compiled))
-            row[label] = {"device_us": sum(by.values()),
-                          "dot_kernels": dot_lines(f"{name} [{label}]", compiled.kernels, by)}
-        module, h100, feeds = staged_case(name, dev, "H100")
+        bf16 = name.endswith("_bf16")
+        if bf16:
+            row = {"case": name, "tpu_v5e_bitwise": "f32 cases only"}
+            module, h100, feeds = staged_case(name, dev, "H100")
+            heads = [k.fn.source.splitlines()[0] for k in h100.kernels]
+            loops = [d for h in heads if "; dots: " in h for d in h.split("; dots: ")[1].split("; ")]
+            if not loops or not all("on the tensor cores" in d for d in loops):
+                raise SystemExit(f"staged {name}: a bf16 dot is not on the tensor cores: {loops}")
+        else:
+            row = staged_register_tile_check(name, dev)
+            module, h100, feeds = staged_case(name, dev, "H100")
         got = h100(feeds)
         ref = reference_execute(module, feeds, device=dev)
         err = 0.0
         for root, w in ref.items():
-            e, ok = max_err(got[root], w, None)
+            e, ok = close(got[root], w, bf16)
             err = max(err, e)
             if not ok or not bool(torch.isfinite(got[root]).all()):
                 raise SystemExit(f"staged {name} [H100]: {root} vs reference_execute {e:.3e}")
@@ -2281,7 +2391,7 @@ def staged_dots_check(dev):
             del k.fn.launch
             a = inputs[id(k.fn)]
             for g, w in zip(k.fn.launch(*a, device=dev), k.fn.plain(*a, device=dev), strict=True):
-                e, ok = max_err(g, w, None)
+                e, ok = close(g, w, bf16)
                 err = max(err, e)
                 if not ok:
                     raise SystemExit(f"staged {name} [H100] {k.fn.name}: kernel vs plain {e:.3e}")
@@ -2290,11 +2400,41 @@ def staged_dots_check(dev):
         row["H100"] = {"device_us": sum(by.values()), "kernels": len(h100.kernels),
                        "max_abs_err": err, "dot_kernels": dot_lines(f"{name} [H100]", h100.kernels, by)}
         out.append(row)
-        print(f"staged {name}: TPU_V5E staged {row['TPU_V5E staged']['device_us']:.2f} device us, "
-              f"register-tile loop {row['TPU_V5E register-tile']['device_us']:.2f}, bit for bit; "
-              f"H100 {row['H100']['device_us']:.2f} in {row['H100']['kernels']} kernels, err "
-              f"{err:.2e} vs plain and reference_execute")
-    return out
+        v5e = ("TPU_V5E bitwise: f32 cases only" if bf16 else
+               f"TPU_V5E staged {row['TPU_V5E staged']['device_us']:.2f} device us, register-tile "
+               f"loop {row['TPU_V5E register-tile']['device_us']:.2f}, bit for bit")
+        print(f"staged {name}: {v5e}; H100 {row['H100']['device_us']:.2f} in "
+              f"{row['H100']['kernels']} kernels, err {err:.2e} vs plain and reference_execute")
+    return out + [staged_cell_check(dev)]
+
+
+def staged_register_tile_check(name, dev):
+    """An f32 case of ``STAGED_CASES`` under ``TPU_V5E`` with its dots
+    staged and on the register-tile loop: the same plan, and the same
+    outputs bit for bit; the row of ``staged_dots_check`` with both
+    compiles' device µs and dot lines."""
+    import torch
+
+    _, staged, feeds = staged_case(name, dev, "TPU_V5E")
+    _, loop, _ = staged_case(name, dev, "TPU_V5E", stage=False)
+    if [k.solution.blocks if k.solution else k.blocks for k in staged.kernels] != \
+            [k.solution.blocks if k.solution else k.blocks for k in loop.kernels]:
+        raise SystemExit(f"staged {name}: the TPU_V5E plan changed with the dot loop")
+    # two compiles name their roots apart: outputs in the plan's order
+    got, want = list(staged(feeds).values()), list(loop(feeds).values())
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if not same(g, w):
+            e, _ = max_err(g, w, None)
+            raise SystemExit(f"staged {name} [TPU_V5E]: output {i} staged vs register-tile "
+                             f"loop differs (max {e:.3e})")
+    row = {"case": name, "tpu_v5e_bitwise": True}
+    for label, compiled in (("TPU_V5E staged", staged), ("TPU_V5E register-tile", loop)):
+        _, by = profiled_launches(f"staged {name} {label}", lambda c=compiled: c(feeds),
+                                  planned_by_program(compiled))
+        row[label] = {"device_us": sum(by.values()),
+                      "dot_kernels": dot_lines(f"{name} [{label}]", compiled.kernels, by)}
+    return row
 
 
 def launch_shapes(kernels):

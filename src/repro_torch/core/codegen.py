@@ -52,10 +52,17 @@ one, and walks k in steps of BK, its threads staging the two operands'
 k-blocks in shared memory after the slots (the next step's values held in
 registers meanwhile), each value (a composed operand computed) read once
 and along its source's contiguous dimension; f32 FMAs in the reference's
-order of k (no tensor cores, no TF32), so the outputs are the
-register-tile loop's bit for bit.  Where the staging does not fit beside
-the slots, the dot keeps that loop: each thread reads its operands where
-they are.  The header names the loop each dot took.  A fusion with no slot
+order of k (no TF32), so the outputs are the register-tile loop's bit for
+bit.  A dot whose operands are both bf16, or both f16, runs on the tensor
+cores instead (``_Phase.mma_dot_loop``: ``mma.sync`` m16n8k16, f32 sums;
+``DotTiling.warps``), the two loops sharing the staging (``_DotStaging``): its
+operands are staged in their own type, k-major where their source is
+contiguous along k, and read by ``ldmatrix``; its products are exact in
+f32, so only the order of its sums differs.  Where the staging does not
+fit beside the slots, the dot keeps the register-tile loop: each thread
+reads its operands where they are.  The header names the loop each dot
+took, and the tracer counts the dots on the tensor cores
+(``codegen.mma_dots``).  A fusion with no slot
 is a pure map over the grid.  Threads per block follow the plan
 (``geometry.fusion_launch``: 128 to 512).
 
@@ -135,8 +142,6 @@ from .. import tracing
 from .device import input_device, resolve_device
 from .fusion import FusedComputation
 from .geometry import (
-    _NP_COMPUTE,
-    DOT_PREFETCH,
     SHARED,
     STATIC_SMEM_LIMIT,
     WORKSPACE,
@@ -145,9 +150,11 @@ from .geometry import (
     _c_compute,
     _c_types,
     _reg_tile,
+    dot_prefetch,
     fusion_launch,
     minor_moved,
     reduce_part_bytes,
+    staged_itemsize,
     stitched_launch,
 )
 from .ir import (
@@ -502,8 +509,8 @@ def _dense_strides(shape) -> Tuple[int, ...]:
 @dataclass
 class _View:
     """How a consumer reads one operand: element ``idx`` of the tile it
-    needs is ``ptr[sum((offs[k] + idx[k]) * strides[k])]``, read as a
-    ``dtype`` value in the type it is computed in, or a literal."""
+    needs is ``ptr[sum((offs[k] + idx[k]) * strides[k])]``, or ``literal``
+    (as stored), a ``dtype`` value read in the type it is computed in."""
 
     shape: Tuple[int, ...]
     ptr: str = ""
@@ -514,7 +521,11 @@ class _View:
     wide: bool = False      # offsets past INT_MAX: each product formed in 64 bits
 
     def at(self, idx) -> str:
-        return self.literal or _c_load(self.dtype, self.ref(idx))
+        return _c_load(self.dtype, self.stored_at(idx))
+
+    def stored_at(self, idx) -> str:
+        """The element in the type it is stored in, not widened."""
+        return self.literal or self.ref(idx)
 
     def ref(self, idx) -> str:
         """The element itself, as stored: what a write assigns to."""
@@ -731,8 +742,8 @@ def _tile_view(name: str, shape, stored: Sched, needed: Sched, opnd: Instruction
 
 
 def _literal_view(m: Instruction, needed: Sched) -> _View:
-    return _View(chunk_shape(m.shape, needed),
-                 literal=_c_load(m.dtype, _c_literal(m.attrs["value"], m.dtype)))
+    return _View(chunk_shape(m.shape, needed), literal=_c_literal(m.attrs["value"], m.dtype),
+                 dtype=m.dtype)
 
 
 class _Workspace:
@@ -806,13 +817,19 @@ def _name_text(text: str, label: str) -> Tuple[str, str, str]:
     return name, symbol, text.replace("@K@_launch", f"{name}_launch").replace("@K@", symbol)
 
 
+def _bounds(threads: int, blocks: int) -> str:
+    """``__launch_bounds__`` of ``threads`` a block, ``blocks`` an SM."""
+    return f"__launch_bounds__({threads}{f', {blocks}' if blocks > 1 else ''})"
+
+
 def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
                    threads: int, smem: int, static_smem: int,
-                   label: str) -> Tuple[str, str, str]:
+                   label: str, blocks: int = 1) -> Tuple[str, str, str]:
     """Name a single-phase kernel (``_name_text``) and add its launcher:
     one launch of ``grid`` blocks with ``smem`` bytes of dynamic shared
     memory (where they and the ``static_smem`` bytes pass 48 KB, the
-    attribute is set once per device)."""
+    attribute is set once per device), ``blocks`` an SM
+    (``PhaseLaunch.blocks_per_sm``)."""
     if grid > INT_MAX:
         raise NotImplementedError(
             f"a launch of {grid} blocks: gridDim.x is at most 2^31 - 1 ({INT_MAX}) blocks"
@@ -836,7 +853,7 @@ def _finish_source(header: str, body: List[str], inputs, roots, grid: int,
     launcher += [f"      {c}," for c in casts[:-1]] + [f"      {casts[-1]});"]
     launcher += ["  return static_cast<int>(cudaGetLastError());", "}", ""]
     text = "\n".join(
-        [header, f"__global__ void __launch_bounds__({threads}) @K@("]
+        [header, f"__global__ void {_bounds(threads, blocks)} @K@("]
         + [f"    {p}," for p in params[:-1]] + [f"    {params[-1]}) {{"]
         + body + ["}", ""] + launcher
     )
@@ -855,11 +872,13 @@ def _wide(fusion: FusedComputation, phases: Sequence["_Phase"], grid: int) -> bo
 
 
 def _count_map_loops(phases: Sequence["_Phase"]) -> None:
-    """Count a kernel's pure-map element loops on the tracer, and those
-    that walk their output in its own order (``_Phase._ordered_head``)."""
+    """Count a kernel's pure-map element loops on the tracer, those that
+    walk their output in its own order (``_Phase._ordered_head``), its
+    running sums and its staged dots on the tensor cores."""
     tracing.count("codegen.map_loops", sum(ph.map_loops for ph in phases))
     tracing.count("codegen.map_loops_reordered", sum(ph.map_loops_reordered for ph in phases))
     tracing.count("codegen.cumsums", sum(ph.cumsums for ph in phases))
+    tracing.count("codegen.mma_dots", sum(ph.mma_dots for ph in phases))
 
 
 def _index_header(phases: Sequence["_Phase"]) -> str:
@@ -912,7 +931,8 @@ def _cuda_fusion(fusion: FusedComputation, solution: ScheduleSolution, plan: Mem
         + _index_header([ph]) + _dot_header([ph])
     )
     name, symbol, text = _finish_source(header, body, inputs, roots, grid, threads, smem,
-                                        ph.part_bytes, fusion_label(fusion.members))
+                                        ph.part_bytes, fusion_label(fusion.members),
+                                        launch.blocks_per_sm)
     return name, symbol, text, ws, smem + ph.part_bytes
 
 
@@ -976,6 +996,20 @@ def _counted_loop(var: str, first: str, step: int, n: int, ind: str,
     return lines
 
 
+#: the ops that move an element of their operand unchanged (``_value``)
+_MOVES = frozenset(("reshape", "bitcast", "slice", "transpose", "broadcast"))
+
+
+class _Stored:
+    """A view read in the type its elements are stored in (``stored_at``)."""
+
+    def __init__(self, view):
+        self.view, self.shape = view, view.shape
+
+    def at(self, idx) -> str:
+        return self.view.stored_at(idx)
+
+
 class _Lazy:
     """An INLINE member read where its consumer needs it: ``at(idx)``
     composes the member's value at ``idx`` into the consumer's expression,
@@ -987,6 +1021,13 @@ class _Lazy:
         self.shape = chunk_shape(m.shape, needed)
 
     def at(self, idx) -> str:
+        return self._element(idx, False)
+
+    def stored_at(self, idx) -> str:
+        """The value in the type it is stored in, rounded once."""
+        return self._element(idx, True)
+
+    def _element(self, idx, stored: bool) -> str:
         m, b = self.m, self.b
         if self.stored == self.needed:
             sched, j = self.stored, list(idx)
@@ -997,7 +1038,8 @@ class _Lazy:
             raise ValueError(f"cannot adapt {m.name}: stored {self.stored}, needed {self.needed}")
         if m.opcode in ("reduce", "dot", "cumsum"):
             raise ValueError(f"{m.name}: an INLINE {m.opcode} with a user has no buffer to read")
-        return self.phase.value(m, sched, j, _lin(j, chunk_shape(m.shape, sched)), self.phase.fresh())
+        return self.phase.value(m, sched, j, _lin(j, chunk_shape(m.shape, sched)), self.phase.fresh(),
+                                stored)
 
 
 class _Held(_Lazy):
@@ -1014,6 +1056,249 @@ class _Held(_Lazy):
             ph.lines.append(f"{ph.ind}const {_c_compute(self.m.dtype)} {var} = {expr};")
             ph.regs[key] = var
         return ph.regs[key]
+
+    def stored_at(self, idx) -> str:
+        return _c_store(self.m.dtype, self.at(idx))
+
+
+#: a 16-bit dot's output type taken two neighbouring columns at a time, and
+#: the intrinsic that rounds two f32 sums into it (``_Phase.mma_dot_loop``)
+_PAIRS = {BFLOAT16: ("__nv_bfloat162", "__floats2bfloat162_rn"),
+          np.dtype(np.float16): ("__half2", "__floats2half2_rn")}
+
+
+class _DotStaging:
+    """What a staged dot's two loops share (``_Phase.staged_dot_loop``,
+    ``_Phase.mma_dot_loop``): the block's walk over its output tiles, BG
+    batch elements of BM x BN outputs of its chunk at a time, and over k in
+    steps of BK, its threads staging ``lhs[BG x BM x BK]`` and
+    ``rhs[BG x BK x BN]`` in shared memory at each step, each value read (a
+    composed operand computed) once, along the dimension its source is
+    contiguous in, and written transposed where needed into padded rows;
+    the next step's values held in registers meanwhile where they are few
+    (``geometry.dot_prefetch``).  In a phase with slots the block walks its
+    plan block's tiles; in a pure map the blocks of the grid share every
+    plan block's tiles.  The loop that computes each step's products and
+    writes the outputs is the caller's."""
+
+    def __init__(self, ph: "_Phase", m: Instruction, t: DotTiling, ind: str):
+        self.ph, self.m, self.t, self.ind = ph, m, t, ind
+        self.sched = ph.sched(m)
+        self.out_chunk = chunk_shape(m.shape, self.sched)
+        self.bshape = tuple(self.out_chunk[:-2])
+        self.T = _c_compute(m.dtype)
+        # the staged type: on the tensor cores the operands' own 2-byte type
+        self.S = _c_type(m.operands[0].dtype) if t.warps else self.T
+        self.itemsize = staged_itemsize(m, t)
+        self.pitch = (t.pitch(0), t.pitch(1))
+        self.km = t.kmajor or (False, False)          # operands staged [rows][BK + pad]
+        self.body, self.inner = ind + "  ", ind + "    "
+        self.stage = self.inner + "  "
+        self.text: List[str] = []       # what the staging reads, for ``check_slots``
+        ph.dot_bytes = max(ph.dot_bytes, t.stage_bytes(self.itemsize))
+
+    def head(self, cores: str, each: str) -> List[str]:
+        """The header's line for the dot (``cores``: how the tensor cores
+        take it, or nothing), and the loop over the block's output tiles,
+        each thread's share of a tile as ``each`` says."""
+        ph, m, t, it = self.ph, self.m, self.t, self.ph.itype
+        rows, cols = self.out_chunk[-2], self.out_chunk[-1]
+        lbl = ph.label[m.id]
+        batched = f"{t.bg} x " if t.bg > 1 else ""
+        ph.dot_loops.append(f"{lbl} staged in {batched}{t.bm} x {t.bn} tiles{cores}, "
+                            f"k steps of {t.bk}")
+        tshape = (_prod(self.bshape) // t.bg, rows // t.bm, cols // t.bn)
+        per_chunk = _prod(tshape)
+        body, inner, S = self.body, self.inner, self.S
+        lines = [f"{self.ind}{{  // {lbl}: {batched}{t.bm} x {t.bn} output tiles {each}, "
+                 f"k steps of {t.bk} staged in shared memory",
+                 f"{body}{S}* const sa = reinterpret_cast<{S}*>(sx_smem + {ph.launch.dot_offset});",
+                 f"{body}{S}* const sb = reinterpret_cast<{S}*>(sx_smem + "
+                 f"{ph.launch.dot_offset + t.a_bytes(self.itemsize)});"]
+        if ph.slot_base is not None:
+            ph.extent = max(ph.extent, per_chunk)
+            lines.append(f"{body}for ({it} tile = 0; tile < {per_chunk}; ++tile) {{")
+        else:
+            reps = ph.blocks if self.sched.kind == "chunked" else 1
+            total = per_chunk * reps
+            ph.extent = max(ph.extent, total)
+            ph.strided.append((total, 1))
+            lines.append(f"{body}for ({it} u = blockIdx.x; u < {total}; u += gridDim.x) {{")
+            if reps > 1:
+                lines.append(f"{inner}const {it} b = u / {per_chunk};")
+            lines.append(f"{inner}const {it} tile = u % {per_chunk};" if reps > 1
+                         else f"{inner}const {it} tile = u;")
+        ph.lines, ph.ind = [], inner
+        self.tg, tm, tn = _unravel(ph.lines, "tile", tshape, "d", inner, it)
+        self.row0, self.col0 = _cmul(tm, t.bm), _cmul(tn, t.bn)
+        return lines + ph.lines
+
+    def batch_of(self, gexpr, prefix) -> List:
+        """The chunk's batch indices of tile batch element ``gexpr``."""
+        t, ph = self.t, self.ph
+        first = _cmul(self.tg, t.bg)
+        return _unravel(ph.lines, _cadd(first, gexpr) if t.bg > 1 else str(first),
+                        self.bshape, prefix, ph.ind, ph.itype) if self.bshape else []
+
+    def compute_ind(self, busy: int) -> str:
+        """The indentation of the products: inside ``if (threadIdx.x <
+        busy)`` where fewer than the block's threads compute."""
+        return self.stage + ("  " if busy < self.ph.threads else "")
+
+    def k_loop(self, busy: int, compute: List[str]) -> List[str]:
+        """The walk over k: each step's operand tiles staged (the next
+        step's prefetched into registers where they are few), a barrier,
+        ``compute`` (the products of one step, at ``compute_ind``) on the
+        first ``busy`` threads, a barrier."""
+        ph, m, t, sched, th = self.ph, self.m, self.t, self.sched, self.ph.threads
+        km, (la, lb_), S, inner, stage = self.km, self.pitch, self.S, self.inner, self.stage
+        depth = m.operands[0].shape[-1]
+        lhs, rhs = [ph.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
+        row0, col0 = self.row0, self.col0
+        operands = [
+            ("sa", "pa", lhs, t.bm, la, t.bk * la, not minor_moved(m.operands[0], ph.composed), 0,
+             lambda w, kk, kb: [_cadd(row0, w), f"({kb} + {kk})"]),
+            ("sb", "pb", rhs, t.bn, lb_, t.bk * lb_, minor_moved(m.operands[1], ph.composed), 1,
+             lambda w, kk, kb: [f"({kb} + {kk})", _cadd(col0, w)])]
+        # a k-major operand read plainly from a 16-byte aligned region (a
+        # staged interface or a slot) is staged 8 neighbouring k at a time
+        words = [8 if km[o[7]] and ph._eight_k(o[2], m.operands[o[7]]) else 1 for o in operands]
+        counts = [-(-n_w * t.bk * t.bg // wd // th)
+                  for (_, _, _, n_w, *_), wd in zip(operands, words, strict=True)]
+        # each thread holds the next k step's values in registers while it
+        # accumulates the current one, where they are few
+        regs = sum(c * (4 if wd == 8 else 1) for c, wd in zip(counts, words, strict=True))
+        prefetch = depth > t.bk and regs <= dot_prefetch(t, th)
+
+        def element(n_w, along_k, kmajor, ind, wd=1):
+            """A staged element ``e``'s coordinates: ``w`` (row or column),
+            ``kk`` and, for a batched tile, ``ge``; where the thread stages
+            ``wd`` = 8 neighbouring k at once, those of its 16 bytes ``e``."""
+            if wd == 8:
+                out = [f"{ind}const int kk = e % {t.bk // 8} * 8;",
+                       f"{ind}const int w = e / {t.bk // 8} % {n_w};"]
+            elif kmajor:
+                # staged k-major (``DotTiling.kmajor``): a warp takes 16 k by
+                # 2 rows, a whole sector of each row, and its 32 stores fall
+                # in distinct banks (a row's pitch is an odd count of 16 bytes)
+                out = [f"{ind}const int kk = e % 16 + e / 32 % {t.bk // 16} * 16;",
+                       f"{ind}const int w = e / 16 % 2 + e / {2 * t.bk} % {n_w // 2} * 2;"]
+            elif along_k and t.vec and t.bk % 8 == 0 and n_w % 4 == 0:
+                # the source is contiguous along k and the padded rows are
+                # 16-byte words: a warp takes 8 k by 4 rows, one sector of
+                # each row, and its 32 stores fall in 32 banks
+                out = [f"{ind}const int kk = e % 8 + e / 32 % {t.bk // 8} * 8;",
+                       f"{ind}const int w = e / 8 % 4 + e / {4 * t.bk} % {n_w // 4} * 4;"]
+            elif along_k:   # the source is contiguous along k
+                out = [f"{ind}const int kk = e % {t.bk};", f"{ind}const int w = e / {t.bk} % {n_w};"]
+            else:
+                out = [f"{ind}const int w = e % {n_w};", f"{ind}const int kk = e / {n_w} % {t.bk};"]
+            return out + ([f"{ind}const int ge = e / {n_w * t.bk};"] if t.bg > 1 else [])
+
+        def staged_at(name, width, per_g, which, wd=1):
+            """Element (w, kk) of an operand's staging, or its 16 bytes from
+            there (``wd`` = 8)."""
+            at = f"ge * {per_g} + " if t.bg > 1 else ""
+            if wd == 8:
+                return f"*reinterpret_cast<uint4*>(&{name}[w * {width} + kk])"
+            return f"{name}[{at}w * {width} + kk]" if km[which] else f"{name}[{at}kk * {width} + w]"
+
+        def walk(count, n, ind):
+            """A thread's elements of a staging of ``n`` elements, unrolled."""
+            head = [f"{ind}#pragma unroll", f"{ind}for (int ek = 0; ek < {count}; ++ek) {{",
+                    f"{ind}  const int e = threadIdx.x + ek * {th};"]
+            if n % th:
+                head += [f"{ind}  if (e < {n}) {{"]
+            return head, ind + ("    " if n % th else "  "), ([f"{ind}  }}"] if n % th else []) + [f"{ind}}}"]
+
+        def stage_values(kb, ind, into_regs):
+            """Each thread's staged values at k step ``kb``: into its
+            prefetch registers, or straight into shared memory; in the
+            staged type (on the tensor cores, as stored: not widened)."""
+            out = []
+            for (name, reg, view, n_w, width, per_g, along_k, which, where), count, wd in zip(
+                    operands, counts, words, strict=True):
+                n = n_w * t.bk * t.bg // wd
+                head, body_ind, tail = walk(count, n, ind)
+                out += head + element(n_w, along_k, km[which], body_ind, wd)
+                ph.lines, ph.ind, ph.regs = [], body_ind, {}
+                batch = list(ph._dot_batch(m, sched, self.batch_of("ge", f"g{name}"))[which])
+                if wd == 8:
+                    expr = view.ref(batch + where("w", "kk", kb))
+                    self.text.append(expr)
+                    expr = f"*reinterpret_cast<const uint4*>(&{expr})"
+                else:
+                    ph.exact_moves = bool(t.warps)
+                    read = view.stored_at if t.warps else view.at
+                    expr = read(batch + where("w", "kk", kb))
+                    ph.exact_moves = False
+                    self.text.extend(ph.lines + [expr])
+                out += ph.lines
+                dest = f"{reg}[ek]" if into_regs else staged_at(name, width, per_g, which, wd)
+                out.append(f"{body_ind}{dest} = {expr};")
+                out += tail
+            return out
+
+        def store_regs(ind):
+            out = []
+            for (name, reg, view, n_w, width, per_g, along_k, which, where), count, wd in zip(
+                    operands, counts, words, strict=True):
+                n = n_w * t.bk * t.bg // wd
+                head, body_ind, tail = walk(count, n, ind)
+                out += head + element(n_w, along_k, km[which], body_ind, wd)
+                out.append(f"{body_ind}{staged_at(name, width, per_g, which, wd)} = {reg}[ek];")
+                out += tail
+            return out
+
+        lines = []
+        if prefetch and words[0] == words[1]:
+            kind = "uint4" if words[0] == 8 else S
+            lines += [f"{inner}{kind} pa[{counts[0]}], pb[{counts[1]}];  // the next k step's values"]
+        elif prefetch:
+            lines += [f"{inner}{'uint4' if wd == 8 else S} {reg}[{c}];"
+                      + ("  // the next k step's values" if reg == "pa" else "")
+                      for (_, reg, *_), c, wd in zip(operands, counts, words, strict=True)]
+        if prefetch:
+            lines += stage_values("0", inner, True)
+        ph.extent = max(ph.extent, depth + t.bk - 1)
+        lines.append(f"{inner}for ({ph.itype} k0 = 0; k0 < {depth}; k0 += {t.bk}) {{")
+        if prefetch:
+            lines += store_regs(stage)
+            lines.append(f"{stage}__syncthreads();")
+            lines.append(f"{stage}if (k0 + {t.bk} < {depth}) {{")
+            lines += stage_values(f"k0 + {t.bk}", stage + "  ", True)
+            lines.append(f"{stage}}}")
+        else:
+            lines += stage_values("k0", stage, False)
+            lines.append(f"{stage}__syncthreads();")
+        if busy < th:
+            lines.append(f"{stage}if (threadIdx.x < {busy}) {{")
+        lines += compute
+        if busy < th:
+            lines.append(f"{stage}}}")
+        return lines + [f"{stage}__syncthreads();", f"{inner}}}"]
+
+    def outputs(self, busy: int) -> Tuple[List[str], List, str]:
+        """The head of the writes of a tile's outputs: its lines, the
+        chunk's batch indices of the thread's outputs, and the writes'
+        indentation."""
+        ph, inner = self.ph, self.inner
+        out = inner + ("  " if busy < ph.threads else "")
+        lines = [f"{inner}if (threadIdx.x < {busy}) {{"] if busy < ph.threads else []
+        ph.lines, ph.ind = [], out
+        obatch = self.batch_of("gi", "go")
+        return lines + ph.lines, list(obatch), out
+
+    def check_slots(self, outs) -> None:
+        """``_Phase._check_own_slot`` of each output ``outs`` names against
+        what the staging read."""
+        for _, j in outs:
+            self.ph._check_own_slot(self.m, self.ph._tile_write(self.m, self.out_chunk, j),
+                                    "\n".join(self.text))
+
+    def close(self, busy: int) -> List[str]:
+        """The ends of the writes' guard, the tile loop and the dot's block."""
+        return ([f"{self.inner}}}"] if busy < self.ph.threads else []) + [f"{self.body}}}", f"{self.ind}}}"]
 
 
 class _Phase:
@@ -1063,6 +1348,8 @@ class _Phase:
         self.map_loops = 0      # element loops of a pure map (``element_loop``)
         self.map_loops_reordered = 0   # those that walk their output in its order
         self.cumsums = 0        # running sums (``cumsum_loop``)
+        self.mma_dots = 0       # staged dots on the tensor cores (``mma_dot_loop``)
+        self.exact_moves = False   # moved elements not rounded again (``value``)
         self.composed = {m.id for m in phase.members} - set(self.tiles)
 
     def fresh(self) -> str:
@@ -1087,12 +1374,23 @@ class _Phase:
         src = self.in_name[o.id] if o.id in self.in_name else self.staged[o.id]
         return _tile_view(src, o.shape, REPLICATED, ns, o, self.b, full=True, wide=self.wide)
 
-    def value(self, m: Instruction, sched: Sched, idx, lin: str, sfx: str) -> str:
-        """Element ``idx`` of ``m``, rounded to its dtype where it ends."""
+    def value(self, m: Instruction, sched: Sched, idx, lin: str, sfx: str,
+              stored: bool = False) -> str:
+        """Element ``idx`` of ``m``, rounded to its dtype where it ends: in
+        the type it is computed in, or (``stored``) in the type it is
+        stored in.  While a dot on the tensor cores stages its operands
+        (``exact_moves``), a member that moves its operand's element
+        unchanged (``_MOVES``) is not rounded again: the element is of its
+        dtype already, read as it is stored or widened once."""
         ovs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
+        moved = self.exact_moves and m.opcode in _MOVES
+        if moved and stored:
+            ovs = [_Stored(v) for v in ovs]
         expr = _value(m, sched, ovs, idx, self.b, self.lines, self.ind, self.itype, lin=lin,
                       sfx=sfx)
-        return _c_round(m.dtype, expr)
+        if moved:
+            return expr
+        return _c_store(m.dtype, expr) if stored else _c_round(m.dtype, expr)
 
     # ---- the loops ---------------------------------------------------------
     def _stores(self, m: Instruction, sched: Sched, idx, v: str) -> List[str]:
@@ -1245,19 +1543,33 @@ class _Phase:
         return tuple(whole if s.kind == "replicated" and sched.kind == "chunked" else own
                      for s in ns)
 
+    def _eight_k(self, view, o: Instruction) -> bool:
+        """Whether a staged read ``view`` of dot operand ``o`` may load 8
+        neighbouring k, 16 bytes, at once: ``o`` itself, 2 bytes an element,
+        in a staged interface or a slot (16-byte aligned regions, where a
+        kernel input need not be), contiguous along k, every other stride
+        and the offset along k a multiple of 8 elements."""
+        return (isinstance(view, _View) and not view.literal and np.dtype(o.dtype).itemsize == 2
+                and np.dtype(view.dtype) == np.dtype(o.dtype)
+                and (view.ptr in self.staged.values() or view.ptr in self.tiles.values())
+                and view.strides[-1] == 1 and all(st % 8 == 0 for st in view.strides[:-1])
+                and isinstance(view.offs[-1], int) and view.offs[-1] % 8 == 0)
+
     def dot_loop(self, m: Instruction, ind: str) -> List[str]:
-        """A fused dot, staged (``staged_dot_loop``) where the launch gives
-        it a tiling (its operand tiles fit in the shared memory its slots
-        leave), else each thread a register tile of up to 4 x 4 outputs
+        """A fused dot, staged (``staged_dot_loop``, ``mma_dot_loop``) where
+        the launch gives it a tiling (its operand tiles fit in the shared
+        memory its slots leave), else each thread a register tile of up to 4 x 4 outputs
         (rows and columns strided by the tile's count of them, so the lanes
         of a warp read neighbouring columns and rows) reading its operands
         where they are, so each k loads 4 + 4 operands for 16 FMAs.  f32
-        FMAs in the reference's order of k, no tensor cores (the 2e-5
-        tolerance forbids TF32)."""
+        FMAs in the reference's order of k (the 2e-5 tolerance forbids
+        TF32); only a staged dot of 16-bit operands takes the tensor
+        cores."""
         sched = self.sched(m)
         tiling = self.launch.tilings[m.id]
         if tiling is not None:
-            return self.staged_dot_loop(m, ind, tiling)
+            loop = self.mma_dot_loop if tiling.warps else self.staged_dot_loop
+            return loop(m, ind, tiling)
         self.dot_loops.append(f"{self.label[m.id]} the register-tile loop")
         out_chunk = chunk_shape(m.shape, sched)
         rows, cols = out_chunk[-2], out_chunk[-1]
@@ -1302,58 +1614,18 @@ class _Phase:
 
     def staged_dot_loop(self, m: Instruction, ind: str, t: DotTiling) -> List[str]:
         """A fused dot whose block computes a tile of BG batch elements of
-        BM x BN outputs of its chunk at a time, each thread an rm x rn
-        register tile of it.  The block walks k in steps of BK: its threads
-        stage ``lhs[BG x BM x BK]`` and ``rhs[BG x BK x BN]`` in shared
-        memory, each value read (a composed operand computed) once, along
-        the dimension its source is contiguous in, and written transposed
-        where needed into padded rows; after a barrier each thread
-        accumulates from shared memory, in 16-byte words where its rows and
-        columns are neighbours (``DotTiling.vec``).  The FMAs run in the
-        reference's order of k, so each output is the register-tile loop's
-        to the bit.  In a phase with slots the block walks its plan block's
-        tiles; in a pure map the blocks of the grid share every plan block's
-        tiles."""
-        sched = self.sched(m)
-        out_chunk = chunk_shape(m.shape, sched)
-        rows, cols = out_chunk[-2], out_chunk[-1]
-        T, it, th = _c_compute(m.dtype), self.itype, self.threads
-        bshape = tuple(out_chunk[:-2])
-        depth = m.operands[0].shape[-1]
+        BM x BN outputs of its chunk at a time (``_DotStaging``), each
+        thread an rm x rn register tile of it, accumulated by f32 FMAs from
+        the shared memory each k step's operand tiles are staged in, in
+        16-byte words where its rows and columns are neighbours
+        (``DotTiling.vec``).  The FMAs run in the reference's order of k,
+        so each output is the register-tile loop's to the bit.  A tiling on
+        the tensor cores (``DotTiling.warps``) takes ``mma_dot_loop``."""
+        st = _DotStaging(self, m, t, ind)
+        T, th, inner = st.T, self.threads, st.inner
         tx, ty = t.bn // t.rn, t.bm // t.rm
         busy = t.bg * tx * ty
-        la, lb_ = t.bm + t.pad, t.bn + t.pad
-        sa_g, sb_g = t.bk * la, t.bk * lb_          # one batch element's staging
-        itemsize = np.dtype(_NP_COMPUTE[T]).itemsize
-        self.dot_bytes = max(self.dot_bytes, t.stage_bytes(itemsize))
-        lbl = self.label[m.id]
-        batched = f"{t.bg} x " if t.bg > 1 else ""
-        self.dot_loops.append(f"{lbl} staged in {batched}{t.bm} x {t.bn} tiles, k steps of {t.bk}")
-        tshape = (_prod(bshape) // t.bg, rows // t.bm, cols // t.bn)
-        per_chunk = _prod(tshape)
-        body, inner = ind + "  ", ind + "    "
-        lines = [f"{ind}{{  // {lbl}: {batched}{t.bm} x {t.bn} output tiles of {t.rm} x {t.rn} "
-                 f"a thread, k steps of {t.bk} staged in shared memory",
-                 f"{body}{T}* const sa = reinterpret_cast<{T}*>(sx_smem + {self.launch.dot_offset});",
-                 f"{body}{T}* const sb = reinterpret_cast<{T}*>(sx_smem + "
-                 f"{self.launch.dot_offset + t.a_bytes(itemsize)});"]
-        if self.slot_base is not None:
-            self.extent = max(self.extent, per_chunk)
-            lines.append(f"{body}for ({it} tile = 0; tile < {per_chunk}; ++tile) {{")
-        else:
-            reps = self.blocks if sched.kind == "chunked" else 1
-            total = per_chunk * reps
-            self.extent = max(self.extent, total)
-            self.strided.append((total, 1))
-            lines.append(f"{body}for ({it} u = blockIdx.x; u < {total}; u += gridDim.x) {{")
-            if reps > 1:
-                lines.append(f"{inner}const {it} b = u / {per_chunk};")
-            lines.append(f"{inner}const {it} tile = u % {per_chunk};" if reps > 1
-                         else f"{inner}const {it} tile = u;")
-        self.lines, self.ind = [], inner
-        tg, tm, tn = _unravel(self.lines, "tile", tshape, "d", inner, it)
-        lines += self.lines
-        row0, col0 = _cmul(tm, t.bm), _cmul(tn, t.bn)
+        lines = st.head("", f"of {t.rm} x {t.rn} a thread")
         if t.bg > 1:
             lines += [f"{inner}const int gi = threadIdx.x / {tx * ty};",
                       f"{inner}const int ty = threadIdx.x / {tx} % {ty};"]
@@ -1361,120 +1633,25 @@ class _Phase:
             lines.append(f"{inner}const int ty = threadIdx.x / {tx};")
         lines += [f"{inner}const int tx = threadIdx.x % {tx};",
                   f"{inner}{T} acc[{t.rm * t.rn}] = {{}};"]
-        lhs, rhs = [self.view(o, ns) for o, ns in zip(m.operands, propagate(m, sched, True), strict=False)]
-        text = []
-        stage = inner + "  "
-
-        def batch_of(gexpr, prefix):
-            """The chunk's batch indices of tile batch element ``gexpr``."""
-            first = _cmul(tg, t.bg)
-            return _unravel(self.lines, _cadd(first, gexpr) if t.bg > 1 else str(first),
-                            bshape, prefix, self.ind, it) if bshape else []
-
-        operands = [
-            ("sa", "pa", lhs, t.bm, la, sa_g, not minor_moved(m.operands[0], self.composed), 0,
-             lambda w, kk, kb: [_cadd(row0, w), f"({kb} + {kk})"]),
-            ("sb", "pb", rhs, t.bn, lb_, sb_g, minor_moved(m.operands[1], self.composed), 1,
-             lambda w, kk, kb: [f"({kb} + {kk})", _cadd(col0, w)])]
-        counts = [-(-n_w * t.bk * t.bg // th) for _, _, _, n_w, *_ in operands]
-        # each thread holds the next k step's values in registers while it
-        # accumulates the current one, where they are few
-        prefetch = depth > t.bk and sum(counts) <= DOT_PREFETCH
-
-        def element(n_w, along_k, ind):
-            """A staged element ``e``'s coordinates: ``w`` (row or column),
-            ``kk`` and, for a batched tile, ``ge``."""
-            if along_k and t.vec and t.bk % 8 == 0 and n_w % 4 == 0:
-                # the source is contiguous along k and the padded rows are
-                # 16-byte words: a warp takes 8 k by 4 rows, one sector of
-                # each row, and its 32 stores fall in 32 banks
-                out = [f"{ind}const int kk = e % 8 + e / 32 % {t.bk // 8} * 8;",
-                       f"{ind}const int w = e / 8 % 4 + e / {4 * t.bk} % {n_w // 4} * 4;"]
-            elif along_k:   # the source is contiguous along k
-                out = [f"{ind}const int kk = e % {t.bk};", f"{ind}const int w = e / {t.bk} % {n_w};"]
-            else:
-                out = [f"{ind}const int w = e % {n_w};", f"{ind}const int kk = e / {n_w} % {t.bk};"]
-            return out + ([f"{ind}const int ge = e / {n_w * t.bk};"] if t.bg > 1 else [])
-
-        def walk(count, n, ind):
-            """A thread's elements of a staging of ``n`` elements, unrolled."""
-            head = [f"{ind}#pragma unroll", f"{ind}for (int ek = 0; ek < {count}; ++ek) {{",
-                    f"{ind}  const int e = threadIdx.x + ek * {th};"]
-            if n % th:
-                head += [f"{ind}  if (e < {n}) {{"]
-            return head, ind + ("    " if n % th else "  "), ([f"{ind}  }}"] if n % th else []) + [f"{ind}}}"]
-
-        def stage_values(kb, ind, into_regs):
-            """Each thread's staged values at k step ``kb``: into its
-            prefetch registers, or straight into shared memory."""
-            out = []
-            for (name, reg, view, n_w, width, per_g, along_k, which, where), count in zip(operands, counts):
-                n = n_w * t.bk * t.bg
-                head, body_ind, tail = walk(count, n, ind)
-                out += head + element(n_w, along_k, body_ind)
-                self.lines, self.ind, self.regs = [], body_ind, {}
-                batch = list(self._dot_batch(m, sched, batch_of("ge", f"g{name}"))[which])
-                expr = view.at(batch + where("w", "kk", kb))
-                out += self.lines
-                text.extend(self.lines + [expr])
-                at = f"ge * {per_g} + " if t.bg > 1 else ""
-                dest = f"{reg}[ek]" if into_regs else f"{name}[{at}kk * {width} + w]"
-                out.append(f"{body_ind}{dest} = {expr};")
-                out += tail
-            return out
-
-        def store_regs(ind):
-            out = []
-            for (name, reg, view, n_w, width, per_g, along_k, which, where), count in zip(operands, counts):
-                n = n_w * t.bk * t.bg
-                head, body_ind, tail = walk(count, n, ind)
-                at = f"ge * {per_g} + " if t.bg > 1 else ""
-                out += head + element(n_w, along_k, body_ind)
-                out.append(f"{body_ind}{name}[{at}kk * {width} + w] = {reg}[ek];")
-                out += tail
-            return out
-
-        if prefetch:
-            lines += [f"{inner}{T} pa[{counts[0]}], pb[{counts[1]}];  // the next k step's values"]
-            lines += stage_values("0", inner, True)
-        self.extent = max(self.extent, depth + t.bk - 1)
-        lines.append(f"{inner}for ({it} k0 = 0; k0 < {depth}; k0 += {t.bk}) {{")
-        if prefetch:
-            lines += store_regs(stage)
-            lines.append(f"{stage}__syncthreads();")
-            lines.append(f"{stage}if (k0 + {t.bk} < {depth}) {{")
-            lines += stage_values(f"k0 + {t.bk}", stage + "  ", True)
-            lines.append(f"{stage}}}")
-        else:
-            lines += stage_values("k0", stage, False)
-            lines.append(f"{stage}__syncthreads();")
-        comp = stage + ("  " if busy < th else "")
-        if busy < th:
-            lines.append(f"{stage}if (threadIdx.x < {busy}) {{")
-        ga, gb = (f"gi * {sa_g} + ", f"gi * {sb_g} + ") if t.bg > 1 else ("", "")
-        lines += [f"{comp}#pragma unroll", f"{comp}for (int kk = 0; kk < {t.bk}; ++kk) {{"]
+        comp = st.compute_ind(busy)
+        la, lb_ = st.pitch
+        ga, gb = (f"gi * {t.bk * la} + ", f"gi * {t.bk * lb_} + ") if t.bg > 1 else ("", "")
+        compute = [f"{comp}#pragma unroll", f"{comp}for (int kk = 0; kk < {t.bk}; ++kk) {{"]
         if t.vec:
-            lines += _vec_load(f"sa + {ga}kk * {la} + ty{f' * {t.rm}' if t.rm > 1 else ''}",
-                               t.rm, "a", comp)
-            lines += _vec_load(f"sb + {gb}kk * {lb_} + tx{f' * {t.rn}' if t.rn > 1 else ''}",
-                               t.rn, "c", comp)
+            compute += _vec_load(f"sa + {ga}kk * {la} + ty{f' * {t.rm}' if t.rm > 1 else ''}",
+                                 t.rm, "a", comp)
+            compute += _vec_load(f"sb + {gb}kk * {lb_} + tx{f' * {t.rn}' if t.rn > 1 else ''}",
+                                 t.rn, "c", comp)
         else:
-            lines += [f"{comp}  const {T} a{r} = sa[{ga}kk * {la} + ty{f' + {r * ty}' if r else ''}];"
-                      for r in range(t.rm)]
-            lines += [f"{comp}  const {T} c{c} = sb[{gb}kk * {lb_} + tx{f' + {c * tx}' if c else ''}];"
-                      for c in range(t.rn)]
-        lines += [f"{comp}  acc[{r * t.rn + c}] = sx_fma(a{r}, c{c}, acc[{r * t.rn + c}]);"
-                  for r in range(t.rm) for c in range(t.rn)]
-        lines.append(f"{comp}}}")
-        if busy < th:
-            lines.append(f"{stage}}}")
-        lines += [f"{stage}__syncthreads();", f"{inner}}}"]
-        out = inner + ("  " if busy < th else "")
-        if busy < th:
-            lines.append(f"{inner}if (threadIdx.x < {busy}) {{")
-        self.lines, self.ind = [], out
-        obatch = batch_of("gi", "go")
-        lines += self.lines
+            compute += [f"{comp}  const {T} a{r} = sa[{ga}kk * {la} + ty{f' + {r * ty}' if r else ''}];"
+                        for r in range(t.rm)]
+            compute += [f"{comp}  const {T} c{c} = sb[{gb}kk * {lb_} + tx{f' + {c * tx}' if c else ''}];"
+                        for c in range(t.rn)]
+        compute += [f"{comp}  acc[{r * t.rn + c}] = sx_fma(a{r}, c{c}, acc[{r * t.rn + c}]);"
+                    for r in range(t.rm) for c in range(t.rn)]
+        lines += st.k_loop(busy, compute + [f"{comp}}}"])
+        out_lines, obatch, out = st.outputs(busy)
+        lines += out_lines
 
         def at(base, var, k, n, width):
             """Register ``k``'s row (or column) ``var`` holds, past ``base``."""
@@ -1482,11 +1659,10 @@ class _Phase:
                 return _cadd(base, f"({var} * {width} + {k})" if k else f"({var} * {width})")
             return _cadd(base, f"({var} + {k * n})" if k else var)
 
-        outs = [(r * t.rn + c, list(obatch) + [at(row0, "ty", r, ty, t.rm),
-                                               at(col0, "tx", c, tx, t.rn)])
+        outs = [(r * t.rn + c, obatch + [at(st.row0, "ty", r, ty, t.rm), at(st.col0, "tx", c, tx, t.rn)])
                 for r in range(t.rm) for c in range(t.rn)]
-        for _, j in outs:
-            self._check_own_slot(m, self._tile_write(m, out_chunk, j), "\n".join(text))
+        st.check_slots(outs)
+        sched, out_chunk = st.sched, st.out_chunk
         if t.vec and t.rn > 1 and _c_type(m.dtype) == "float" and m.id not in self.restaged:
             # each register row's neighbouring columns in one 16- or 8-byte store
             for r in range(t.rm):
@@ -1501,10 +1677,77 @@ class _Phase:
                 lines.append(f"{out}  const {T} v = {_c_round(m.dtype, f'acc[{a}]')};")
                 lines += self._writes(m, sched, out_chunk, j, "v", out + "  ")
                 lines.append(f"{out}}}")
-        if busy < th:
-            lines.append(f"{inner}}}")
-        lines += [f"{body}}}", f"{ind}}}"]
-        return lines
+        return lines + st.close(busy)
+
+    def mma_dot_loop(self, m: Instruction, ind: str, t: DotTiling) -> List[str]:
+        """A staged dot on the tensor cores (``DotTiling.warps``: both
+        operands bf16, or both f16): the block walks its tiles as the FMA
+        loop does (``_DotStaging``), its operands staged in their own
+        2-byte type, which is exact, since every staged value is already
+        rounded to it, in rows padded for ``ldmatrix``: an operand whose
+        source is contiguous along k k-major (``[BM][BK + pad]``,
+        ``[BN][BK + pad]``; ``DotTiling.kmajor``), read by ``ldmatrix.x4``,
+        and 16 bytes at a time where it is read plainly from an aligned
+        region (``_eight_k``); the others as ``[BK][BM + pad]`` and
+        ``[BK][BN + pad]``, read by ``ldmatrix.x4.trans``.  Each warp
+        computes its warp tile by ``mma.sync`` m16n8k16 in f32 sums.  The
+        product of two such values is exact in f32, so only the order of
+        the sums differs from the FMA loop's.  An output stored whole takes
+        each fragment's two neighbouring columns in one 4-byte store; a
+        slot tile (or its restaging) element by element."""
+        st = _DotStaging(self, m, t, ind)
+        (wm, wn), (nwm, nwn) = t.warp_tile, t.warps
+        busy, inner, S = nwm * nwn * 32, st.inner, st.S
+        self.mma_dots += 1
+        cores = f"on the tensor cores, {nwm} x {nwn} warps of {wm} x {wn}"
+        lines = st.head(f" {cores}", cores)
+        (la, lb_), km = st.pitch, st.km
+        # the warp's tile at rows wr, columns wc; ra and rb: the lane's
+        # ldmatrix row of the lhs and of the rhs in a k step's staging
+        ra = (f"(wr + lane % 8 + lane / 8 % 2 * 8) * {la} + lane / 16 * 8" if km[0]
+              else f"(lane / 16 * 8 + lane % 8) * {la} + wr + lane / 8 % 2 * 8")
+        rb = (f"(wc + lane % 8 + lane / 16 * 8) * {lb_} + lane / 8 % 2 * 8" if km[1]
+              else f"(lane / 8 % 2 * 8 + lane % 8) * {lb_} + wc + lane / 16 * 8")
+        lines += [f"{inner}const int lane = threadIdx.x % 32;",
+                  f"{inner}const int wr = " + (f"threadIdx.x / {32 * nwn} * {wm};" if nwm > 1 else "0;"),
+                  f"{inner}const int wc = " + (f"threadIdx.x / 32 % {nwn} * {wn};" if nwn > 1 else "0;"),
+                  f"{inner}const int ra = {ra};", f"{inner}const int rb = {rb};",
+                  f"{inner}float acc[{wm // 16 * (wn // 8)}][4] = {{}};"]
+        comp = st.compute_ind(busy)
+        # each 16 k: the warp tile's lhs fragments (m16 x k16) and rhs
+        # fragments (k16 x n8, two to an ldmatrix), then its products
+        mi, ni = wm // 16, wn // 8
+        compute = [f"{comp}#pragma unroll", f"{comp}for (int kk = 0; kk < {t.bk}; kk += 16) {{",
+                   f"{comp}  unsigned fa[{mi}][4], fb[{ni}][2];"]
+        # k-major rows by ldmatrix, the others transposed by ldmatrix .trans
+        step = [(("", "kk", 16 * la) if km[0] else ("_trans", f"kk * {la}", 16)),
+                (("", "kk", 16 * lb_) if km[1] else ("_trans", f"kk * {lb_}", 16))]
+        compute += [f"{comp}  sx_ldmatrix_x4{step[0][0]}(fa[{i}], sa + ra + {step[0][1]}"
+                    f"{f' + {step[0][2] * i}' if i else ''});" for i in range(mi)]
+        compute += [f"{comp}  sx_ldmatrix_x4{step[1][0]}(fb[{2 * j}], fb[{2 * j + 1}], sb + rb + "
+                    f"{step[1][1]}{f' + {step[1][2] * j}' if j else ''});" for j in range(ni // 2)]
+        compute += [f"{comp}  sx_mma_16816<{S}>(acc[{i * ni + j}], fa[{i}], fb[{j}]);"
+                    for i in range(mi) for j in range(ni)]
+        lines += st.k_loop(busy, compute + [f"{comp}}}"])
+        out_lines, obatch, out = st.outputs(busy)
+        lines += out_lines
+        # fragment (i, j)'s sums: row lane / 4 (+ 8 for h = 1) of its m16
+        # piece, columns lane % 4 * 2 + c of its n8 piece
+        outs = [(f"{i * ni + j}][{2 * h + c}", obatch + [
+            _cadd(st.row0, f"(wr + lane / 4{f' + {16 * i + 8 * h}' if i or h else ''})"),
+            _cadd(st.col0, f"(wc + lane % 4 * 2{f' + {8 * j + c}' if j or c else ''})")])
+            for i in range(mi) for j in range(ni) for h in range(2) for c in range(2)]
+        st.check_slots(outs)
+        pair, make = _PAIRS[np.dtype(m.dtype)]
+        for (a, j), (a1, j1) in zip(outs[::2], outs[1::2], strict=True):
+            for ak, jk in ((a, j), (a1, j1)):
+                write = self._tile_write(m, st.out_chunk, jk)
+                if write is not None:
+                    lines.append(f"{out}{write} = {_c_store(m.dtype, f'acc[{ak}]')};")
+            for ref in self._stores(m, st.sched, j, "v"):
+                lines.append(f"{out}*reinterpret_cast<{pair}*>(&{ref.split(' = ')[0]}) = "
+                             f"{make}(acc[{a}], acc[{a1}]);")
+        return lines + st.close(busy)
 
     def reduce_loop(self, m: Instruction, ind: str) -> List[str]:
         """A cooperative reduce: a warp per output element, its lanes
@@ -1807,7 +2050,8 @@ def _cuda_stitched(fusion: FusedComputation, stitched: StitchedSolution,
         + _index_header(phases) + _dot_header(phases)
     )
     name, symbol, text = _finish_cooperative(header, body, inputs, roots, grid, threads, smem,
-                                             static_smem, fusion_label(fusion.members))
+                                             static_smem, fusion_label(fusion.members),
+                                             launches[0].blocks_per_sm)
     return name, symbol, text, total, smem + static_smem
 
 
@@ -1825,10 +2069,11 @@ def _stage_region(body: List[str], offset: int, stage: int, grid: int) -> int:
 
 def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int,
                         threads: int, smem: int, static_smem: int,
-                        label: str) -> Tuple[str, str, str]:
+                        label: str, blocks: int = 1) -> Tuple[str, str, str]:
     """Name a stitched kernel (``_name_text``) and add its launcher: one
     cooperative launch of as many blocks as the card holds at once, at most
-    ``useful``, the count asked once per device and cached."""
+    ``useful``, the count asked once per device and cached; ``blocks`` an
+    SM asked of the compiler (``PhaseLaunch.blocks_per_sm``)."""
     params, lparams, casts = _signature_c(inputs, roots, ws_restrict=False)
     n = len(casts)
     launcher = ['extern "C" int @K@_launch(']
@@ -1866,7 +2111,7 @@ def _finish_cooperative(header: str, body: List[str], inputs, roots, useful: int
         "}", "",
     ]
     text = "\n".join(
-        [header, f"__global__ void __launch_bounds__({threads}) @K@("]
+        [header, f"__global__ void {_bounds(threads, blocks)} @K@("]
         + [f"    {p}," for p in params[:-1]] + [f"    {params[-1]}) {{"]
         + body + ["}", ""] + launcher
     )

@@ -8,12 +8,20 @@ per-block region of the workspace); the members held in a register in
 place of their slot; the independent member groups a single-phase kernel
 runs on CUDA blocks of their own; where a staged dot's operand tiles start;
 and the loop each fused dot takes (its ``DotTiling``, or None for the
-register-tile loop).  Two readers take it as it is: the planner's GPU cost
-model (``latency.LatencyModel.fusion_time``, ``stitched_fusion_time``)
-charges a plan by it, and the emitter (``codegen._cuda_fusion``,
+register-tile loop); and the blocks an SM the compiler is asked to fit
+(``PhaseLaunch.blocks_per_sm``).  Two readers take it as it is: the
+planner's GPU cost model (``latency.LatencyModel.fusion_time``,
+``stitched_fusion_time``) charges a plan by it, and the emitter (``codegen._cuda_fusion``,
 ``_cuda_stitched``, ``_Phase``) writes it into the kernel's text.  Neither
 works it out again.  The emitter keeps only what the text itself decides:
 the index width (``codegen._wide``), from the loops it forms.
+
+The cost model reads every field but ``blocks_per_sm``.  It counts the
+blocks an SM holds by their threads alone (``latency.LatencyModel.waves``),
+for every kernel alike: what registers allow is the compiler's count, which
+the planner does not have.  ``blocks_per_sm`` caps those registers, so that
+the compiler's count does not fall below it; it moves no count the model
+makes.
 
 This module sits below the cost model: it imports ``ir``, ``schedule`` and
 ``memory`` only, and ``latency`` imports it.  The arrows run one way:
@@ -24,7 +32,7 @@ read (``SMEM_LIMIT``, ``reduce_part_bytes``) live here too.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +48,8 @@ STITCHED_ELEMS_PER_THREAD = 16
 #: cudaFuncSetAttribute); slots of a phase that need more live in the workspace
 SMEM_LIMIT = 232_448
 STATIC_SMEM_LIMIT = 48 * 1024
+#: shared memory of one H100 SM, of which each resident block reserves 1 KB
+SM_SMEM, BLOCK_SMEM_RESERVED = 233_472, 1024
 #: where a phase's slots live (``PhaseLaunch.slots_in``)
 SHARED, WORKSPACE = "shared memory", "a per-block workspace region"
 
@@ -262,9 +272,27 @@ DOT_BUSY = 256
 DOT_ROWS = (8, 4, 2, 1)
 #: registers a thread may hold the next k step's staged values in, at most
 DOT_PREFETCH = 16
+#: the same on the tensor cores: a quarter of the registers a thread may use
+#: at its block's size (65,536 a block), since the next step's values in
+#: flight are what hides the loads' latency
+DOT_MMA_PREFETCH_SHARE = 4
 #: words of padding at the end of each staged row, against bank conflicts;
 #: rows read in 16-byte words (``DotTiling.vec``) keep their alignment
 DOT_PAD, DOT_VEC_PAD = 1, 4
+#: 2-byte elements of padding at the end of each row staged for the tensor
+#: cores: rows stay 16-byte aligned for ``ldmatrix``, and a row of a
+#: multiple of 16 elements plus 8 is an odd count of 16-byte words, so the
+#: eight rows one ``ldmatrix`` matrix reads fall in eight distinct banks
+DOT_MMA_PAD = 8
+#: f32 accumulators a thread may hold in the tensor-core form, at most (as
+#: the FMA loop's largest register tile, 8 x 4)
+DOT_MMA_ACC = 32
+#: the element types ``mma.sync`` m16n8k16 multiplies, with f32 sums
+_MMA_TYPES = {BFLOAT16: "bf16", np.dtype(np.float16): "f16"}
+#: on the tensor cores, a depth up to this is staged in one k step (no k
+#: loop, no barrier between steps); a deeper one in steps of 16, the fewest
+#: staged values a thread holds for the next step
+DOT_MMA_ONE_STEP = 64
 
 
 def _reg_tile(rows: int, cols: int) -> Tuple[int, int]:
@@ -289,7 +317,16 @@ class DotTiling:
     BN]`` staged in shared memory at each step as ``[BG][BK][BM + pad]``
     and ``[BG][BK][BN + pad]``.  ``vec``: each thread's rows (and columns)
     are neighbours, read from shared memory in 16-byte words; else they are
-    strided by the tile's count of threads along them."""
+    strided by the tile's count of threads along them.
+
+    ``warps`` (the tensor-core form, both operands bf16 or both f16): the
+    warps along BM and along BN that split the tile, each a ``warp_tile``
+    of m16 x n8 pieces, computed by ``mma.sync`` m16n8k16 with f32 sums
+    from operands staged in their own 2-byte type and read by ``ldmatrix``;
+    empty, the FMA loop of rm x rn register tiles.  ``kmajor`` (the
+    tensor-core form): for the lhs and the rhs, whether its source is
+    contiguous along k, and the operand is then staged as ``[BM][BK + pad]``
+    (``[BN][BK + pad]``), so its staging reads and writes whole rows of k."""
 
     bm: int
     bn: int
@@ -298,21 +335,42 @@ class DotTiling:
     rn: int
     bg: int = 1
     vec: bool = False
+    warps: Tuple[int, ...] = ()
+    kmajor: Tuple[bool, ...] = ()
 
     @property
     def pad(self) -> int:
+        if self.warps:
+            return DOT_MMA_PAD
         return DOT_VEC_PAD if self.vec else DOT_PAD
 
+    @property
+    def warp_tile(self) -> Tuple[int, int]:
+        """Each warp's rows and columns of the tile (the tensor-core form)."""
+        return self.bm // self.warps[0], self.bn // self.warps[1]
+
+    def pitch(self, which: int) -> int:
+        """Elements from one staged row of the lhs (``which`` 0) or the rhs
+        (1) to the next: BK + pad where it is staged k-major, else its
+        rows' or columns' count + pad."""
+        if self.kmajor and self.kmajor[which]:
+            return self.bk + self.pad
+        return (self.bm, self.bn)[which] + self.pad
+
+    def _bytes(self, which: int, itemsize: int) -> int:
+        rows = (self.bm, self.bn)[which] if self.kmajor and self.kmajor[which] else self.bk
+        return -(-self.bg * rows * self.pitch(which) * itemsize // SLOT_ALIGN) * SLOT_ALIGN
+
     def a_bytes(self, itemsize: int) -> int:
-        return -(-self.bg * self.bk * (self.bm + self.pad) * itemsize // SLOT_ALIGN) * SLOT_ALIGN
+        return self._bytes(0, itemsize)
 
     def stage_bytes(self, itemsize: int) -> int:
-        b = -(-self.bg * self.bk * (self.bn + self.pad) * itemsize // SLOT_ALIGN) * SLOT_ALIGN
-        return self.a_bytes(itemsize) + b
+        return self._bytes(0, itemsize) + self._bytes(1, itemsize)
 
 
 def dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
-               lhs_ops: int = 0, rhs_ops: int = 0) -> Optional[DotTiling]:
+               lhs_ops: int = 0, rhs_ops: int = 0,
+               along_k: Tuple[bool, bool] = (False, False)) -> Optional[DotTiling]:
     """The staged loop's tiling of dot ``m`` under ``sched`` in blocks of
     ``threads`` threads, its staging within ``budget`` bytes of shared
     memory, or None where no staging fits (the register-tile loop serves
@@ -323,7 +381,15 @@ def dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
     fewest values, each weighted by one plus the operations composed into
     its operand (``lhs_ops``, ``rhs_ops``): the lhs is staged once per
     column tile, the rhs once per row tile.  f32 register tiles read
-    shared memory in 16-byte words (8-byte for two)."""
+    shared memory in 16-byte words (8-byte for two).
+
+    A dot whose operands are both bf16 or both f16, and whose depth is a
+    multiple of 16, takes the tensor-core form in the first tile of that
+    ranking that ``mma_warps`` splits over the block's warps, its staging
+    in 2-byte elements within ``budget``, each operand whose source is
+    contiguous along k (``along_k``) staged k-major, k in one step up to
+    ``DOT_MMA_ONE_STEP`` and else in steps of 16; where none does, it keeps
+    the FMA loop."""
     out_chunk = chunk_shape(m.shape, sched)
     rows, cols = out_chunk[-2], out_chunk[-1]
     batch = _prod(out_chunk[:-2])
@@ -342,12 +408,83 @@ def dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
                         busy = bg * tx * ty
                         keyed.append(((min(busy, DOT_BUSY), rm * rn, -staged, bn, busy, rn, -bg),
                                       (bm, bn, rm, rn, bg)))
-    for _, (bm, bn, rm, rn, bg) in sorted(keyed, reverse=True):
+    ranked = [tile for _, tile in sorted(keyed, reverse=True)]
+    if mma_type(m) and vec and depth % 16 == 0:
+        steps = ([depth] if depth <= DOT_MMA_ONE_STEP else []) + [16]
+        for bm, bn, rm, rn, bg in ranked:
+            warps = mma_warps(bm, bn, threads) if bg == 1 else None
+            for bk in (steps if warps else []):
+                t = DotTiling(bm, bn, bk, rm, rn, bg, vec, warps, tuple(along_k))
+                if t.stage_bytes(2) <= budget:
+                    return t
+    for bm, bn, rm, rn, bg in ranked:
         for bk in reversed([d for d in _divisors_of(depth) if d <= DOT_MAX_BK]):
             t = DotTiling(bm, bn, bk, rm, rn, bg, vec)
             if t.stage_bytes(itemsize) <= budget:
                 return t
     return None
+
+
+def staged_itemsize(m: Instruction, t: DotTiling) -> int:
+    """Bytes of one staged element of dot ``m`` tiled as ``t``: on the
+    tensor cores the operands' own 2-byte type, else the type ``m``
+    computes in."""
+    return 2 if t.warps else np.dtype(_NP_COMPUTE[_c_compute(m.dtype)]).itemsize
+
+
+def _blocks_per_sm(launches: Sequence["PhaseLaunch"], members: Sequence[Instruction]
+                   ) -> Tuple["PhaseLaunch", ...]:
+    """``launches``, the phases of one kernel over ``members``, with the
+    blocks an SM it asks the compiler to fit (the second bound of
+    ``__launch_bounds__``): two where blocks of 512 threads hold a dot on
+    the tensor cores and two fit the SM's shared memory (the slots, the
+    staged operand tiles and a block-wide reduce's partials), since their
+    registers (up to 128 a thread) would otherwise leave one block an SM,
+    its 16 warps at one barrier at once and none to run while they wait for
+    a k step's loads; else one, the compiler's own choice."""
+    by_id = {m.id: m for m in members}
+    threads = launches[0].threads
+    dots = [(launch.dot_offset, by_id[i], t) for launch in launches
+            for i, t in launch.tilings.items() if t is not None]
+    if threads != STITCHED_MAX_THREADS or not any(t.warps for _, _, t in dots):
+        return tuple(launches)
+    smem = max([launch.slot_bytes for launch in launches if launch.slots_in == SHARED]
+               + [offset + t.stage_bytes(staged_itemsize(m, t)) for offset, m, t in dots])
+    if 2 * (smem + reduce_part_bytes(threads) + BLOCK_SMEM_RESERVED) > SM_SMEM:
+        return tuple(launches)
+    return tuple(replace(launch, blocks_per_sm=2) for launch in launches)
+
+
+def dot_prefetch(t: DotTiling, threads: int) -> int:
+    """The staged values a thread of ``threads`` may hold in registers for
+    the next k step of a dot tiled as ``t``, at most."""
+    return 65536 // threads // DOT_MMA_PREFETCH_SHARE if t.warps else DOT_PREFETCH
+
+
+def mma_type(m: Instruction) -> Optional[str]:
+    """``bf16`` or ``f16`` where both operands of dot ``m`` are of that
+    type (``mma.sync`` m16n8k16 takes them with f32 sums), else None."""
+    kinds = {_MMA_TYPES.get(np.dtype(o.dtype)) for o in m.operands}
+    return kinds.pop() if len(kinds) == 1 else None
+
+
+def mma_warps(bm: int, bn: int, threads: int) -> Optional[Tuple[int, int]]:
+    """The warps along BM and along BN that split a BM x BN tile for the
+    tensor cores, each warp's tile a whole number of m16 pieces by pairs of
+    n8 pieces (one ``ldmatrix.x4`` reads a pair's rhs): as many of the
+    block's warps as the tile takes, at most ``DOT_MMA_ACC`` f32 sums a
+    thread, then the squarest warp tile (the fewest shared-memory reads
+    for each product); None where no split fits."""
+    best = None
+    for wm in (d for d in _divisors_of(bm) if d % 16 == 0):
+        for wn in (d for d in _divisors_of(bn) if d % 16 == 0):
+            n = (bm // wm) * (bn // wn)
+            if n > threads // 32 or wm * wn > 32 * DOT_MMA_ACC:
+                continue
+            key = (n, -(wm + wn), wm)
+            if best is None or key > best[0]:
+                best = (key, (bm // wm, bn // wn))
+    return best[1] if best else None
 
 
 def _composed_ops(o: Instruction, composed) -> int:
@@ -388,10 +525,12 @@ def minor_moved(o: Instruction, composed) -> bool:
 def staged_dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
                       composed) -> Optional[DotTiling]:
     """``dot_tiling`` of ``m`` with its operands' composed operations
-    counted over ``composed``, the member ids read through composition."""
+    counted over ``composed``, the member ids read through composition,
+    and the dimension each operand's source is contiguous along."""
     lhs, rhs = m.operands
     return dot_tiling(m, sched, threads, budget, _composed_ops(lhs, composed),
-                      _composed_ops(rhs, composed))
+                      _composed_ops(rhs, composed),
+                      (not minor_moved(lhs, composed), minor_moved(rhs, composed)))
 
 
 def _dot_tiles(m: Instruction, sched: Sched, t: DotTiling) -> int:
@@ -424,6 +563,9 @@ class PhaseLaunch:
     # (``_independent_groups``) and write something, a CUDA block each for
     # each plan block; None: one group
     groups: Optional[Tuple[Tuple[int, ...], ...]]
+    # blocks an SM the compiler is asked to fit (``_blocks_per_sm``; a
+    # stitched kernel's every phase alike); 1: its own choice
+    blocks_per_sm: int = 1
 
 
 def _map_loop_grid(m: Instruction, sched: Sched, blocks: int, threads: int,
@@ -509,8 +651,9 @@ def fusion_launch(members: Sequence[Instruction], roots: Sequence[Instruction],
         else:
             want = max(want, -(-n // STITCHED_ELEMS_PER_THREAD))
     threads = _threads_for(want)
-    return _phase_launch(members, solution, plan, root_ids, held, tiles, threads,
-                         reduce_part_bytes(threads), True)
+    (launch,) = _blocks_per_sm([_phase_launch(members, solution, plan, root_ids, held, tiles,
+                                              threads, reduce_part_bytes(threads), True)], members)
+    return launch
 
 
 def stitched_launch(stitched: StitchedSolution, plan: Optional[StitchedMemoryPlan] = None
@@ -530,4 +673,4 @@ def stitched_launch(stitched: StitchedSolution, plan: Optional[StitchedMemoryPla
         held, tiles = _stored_tiles(p.members, p.solution, pplan, written)
         out.append(_phase_launch(p.members, p.solution, pplan, written, held, tiles, threads, 0,
                                  False))
-    return tuple(out)
+    return _blocks_per_sm(out, [m for p in stitched.phases for m in p.members])

@@ -13,7 +13,8 @@
 //
 // The stitched kernels (emit_stitched_fusion) also use the warp reduction
 // and the grid barrier below; their launchers cache each device's grid in
-// a std::atomic.
+// a std::atomic.  A staged dot whose operands are both bf16 or both f16
+// runs on the tensor cores through ldmatrix and mma.sync, at the end.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -24,6 +25,9 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
+
+#define SX_FULL_MASK 0xffffffffu
 
 #define SX_D __device__ __forceinline__
 
@@ -150,3 +154,156 @@ SX_D T sx_warp_allreduce(T v, Op op) {
 // cudaLaunchCooperativeKernel, which refuses a grid that cannot be resident
 // at once.
 SX_D void sx_grid_sync() { cooperative_groups::this_grid().sync(); }
+
+// ---------------------------------------------------------------------------
+// The tensor cores, one PTX instruction each: ldmatrix and the bf16 or f16
+// product mma.sync m16n8k16 with f32 sums, which the hand-written attention
+// kernels and the generated kernels' staged 16-bit dots use.  Where
+// __CUDA_ARCH__ is not defined (nvcc's host pass, or a rehearsal of a
+// source with a host compiler that runs one thread per CUDA thread) each
+// does the same work in scalar code, lane by lane, following the
+// instruction's fragment layout, with the warp's exchanges done by
+// shuffles.  Fragment layouts: PTX ISA, "Matrix fragments for
+// mma.m16n8k16" and "ldmatrix".  g = lane / 4 and t = lane % 4 below.
+
+// Two floats as one register of two bf16, rounded to nearest even; lo in
+// the low half, as the fragments order a row's neighbouring columns.
+SX_D unsigned sx_pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+SX_D float sx_bf16_lo(unsigned r) { return __uint_as_float(r << 16); }
+SX_D float sx_bf16_hi(unsigned r) { return __uint_as_float(r & 0xffff0000u); }
+
+// The same for f16: two floats as one register of two f16, rounded to
+// nearest even, and each half of such a register as a float.
+SX_D unsigned sx_pack_f16x2(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+SX_D float sx_f16_lo(unsigned r) { return __half2float(__ushort_as_half((unsigned short)(r & 0xffffu))); }
+SX_D float sx_f16_hi(unsigned r) { return __half2float(__ushort_as_half((unsigned short)(r >> 16))); }
+
+// The 2-byte element types by their type: pack two floats, unpack a half.
+template <typename T>
+struct SxPair;
+template <>
+struct SxPair<__nv_bfloat16> {
+  SX_D static unsigned pack(float lo, float hi) { return sx_pack_bf16x2(lo, hi); }
+  SX_D static float lo(unsigned r) { return sx_bf16_lo(r); }
+  SX_D static float hi(unsigned r) { return sx_bf16_hi(r); }
+};
+template <>
+struct SxPair<__half> {
+  SX_D static unsigned pack(float lo, float hi) { return sx_pack_f16x2(lo, hi); }
+  SX_D static float lo(unsigned r) { return sx_f16_lo(r); }
+  SX_D static float hi(unsigned r) { return sx_f16_hi(r); }
+};
+
+#ifndef __CUDA_ARCH__
+// The row address that lane `src` gave an emulated ldmatrix.
+SX_D const unsigned short* sx_shfl_row(const void* row, int src) {
+  return reinterpret_cast<const unsigned short*>(
+      __shfl_sync(SX_FULL_MASK, reinterpret_cast<unsigned long long>(row), src));
+}
+#endif
+
+// ldmatrix .x4: four 8x8 matrices of 2-byte elements (bf16 or f16) from
+// shared memory.  Lane i gives the address of row i % 8 of matrix i / 8 (16
+// contiguous bytes); register j receives row g, columns 2t and 2t + 1 of
+// matrix j.
+SX_D void sx_ldmatrix_x4(unsigned (&r)[4], const void* row) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+#else
+  const int lane = threadIdx.x & 31;
+  for (int j = 0; j < 4; ++j) {
+    const unsigned short* p = sx_shfl_row(row, 8 * j + lane / 4);
+    r[j] = (unsigned)p[2 * (lane % 4)] | ((unsigned)p[2 * (lane % 4) + 1] << 16);
+  }
+#endif
+}
+
+// ldmatrix .x4 .trans: the same addresses; register j receives rows 2t and
+// 2t + 1 of column g of matrix j, i.e. the matrix transposed.
+SX_D void sx_ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+#else
+  const int lane = threadIdx.x & 31;
+  for (int j = 0; j < 4; ++j) {
+    const unsigned short* p0 = sx_shfl_row(row, 8 * j + 2 * (lane % 4));
+    const unsigned short* p1 = sx_shfl_row(row, 8 * j + 2 * (lane % 4) + 1);
+    r[j] = (unsigned)p0[lane / 4] | ((unsigned)p1[lane / 4] << 16);
+  }
+#endif
+}
+
+// d += a * b on the tensor cores: mma.sync m16n8k16, bf16 or f16 in (T), f32
+// sums.  a is 16x16 row-major: a[0] row g, columns 2t..2t+1; a[1] row g + 8;
+// a[2] row g, columns 2t + 8..; a[3] row g + 8, columns 2t + 8...  b is
+// 16x8: b[0] rows 2t..2t+1 of column g, b[1] rows 2t + 8...  d is 16x8:
+// d[0..1] row g, columns 2t..2t+1; d[2..3] row g + 8.
+template <typename T>
+SX_D void sx_mma_16816(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+#ifdef __CUDA_ARCH__
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+#else
+  using P = SxPair<T>;
+  const int lane = threadIdx.x & 31, g = lane / 4, t = lane % 4;
+  for (int tp = 0; tp < 4; ++tp) {  // columns 2tp.. and 2tp + 8.. of a, rows of b
+    unsigned A[4], B[2][2];
+    for (int i = 0; i < 4; ++i) A[i] = __shfl_sync(SX_FULL_MASK, a[i], 4 * g + tp);
+    for (int c = 0; c < 2; ++c)
+      for (int i = 0; i < 2; ++i) B[c][i] = __shfl_sync(SX_FULL_MASK, b[i], 4 * (2 * t + c) + tp);
+    for (int c = 0; c < 2; ++c) {
+      for (int h = 0; h < 2; ++h) {  // row g, row g + 8
+        d[2 * h + c] += P::lo(A[h]) * P::lo(B[c][0]) + P::hi(A[h]) * P::hi(B[c][0]) +
+                        P::lo(A[2 + h]) * P::lo(B[c][1]) + P::hi(A[2 + h]) * P::hi(B[c][1]);
+      }
+    }
+  }
+#endif
+}
+
+// The rhs fragments of two neighbouring n8 tiles, each as sx_mma_16816's b:
+// lo of columns n0 .. n0 + 7, hi of n0 + 8 .. n0 + 15.  From rows stored
+// [n][k] by ldmatrix .x4 (lane i gives the address of row n0 + i % 8 +
+// (i / 16) * 8, k0 + (i / 8 % 2) * 8 ..), or from rows stored [k][n] by
+// ldmatrix .x4 .trans (row k0 + i % 8 + (i / 8 % 2) * 8, n0 + (i / 16) * 8 ..).
+SX_D void sx_ldmatrix_x4(unsigned (&lo)[2], unsigned (&hi)[2], const void* row) {
+  unsigned r[4];
+  sx_ldmatrix_x4(r, row);
+  lo[0] = r[0];
+  lo[1] = r[1];
+  hi[0] = r[2];
+  hi[1] = r[3];
+}
+
+SX_D void sx_ldmatrix_x4_trans(unsigned (&lo)[2], unsigned (&hi)[2], const void* row) {
+  unsigned r[4];
+  sx_ldmatrix_x4_trans(r, row);
+  lo[0] = r[0];
+  lo[1] = r[1];
+  hi[0] = r[2];
+  hi[1] = r[3];
+}

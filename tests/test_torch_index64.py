@@ -362,8 +362,8 @@ CELLS = {
         "stitch_a2c69fd15acb4a14", "stitch_d729300e824ab4e4",
     ],
     "granite-moe-3b-a800m.attn-bf16.prefill-4k": [
-        "stitch_42695837065d508c", "stitch_44d76f7fa7aac0af", "stitch_74365f6a208c477b",
-        "stitch_932155df81038699", "stitch_9a910a3e838ca3cc", "stitch_c5e0bbfebd47b9f3",
+        "stitch_1ae7df25bc715559", "stitch_42695837065d508c", "stitch_44d76f7fa7aac0af",
+        "stitch_8dff3853295e4e09", "stitch_932155df81038699", "stitch_c5e0bbfebd47b9f3",
     ],
     "granite-4.0-h-micro.prefill-8k": [
         "stitch_06d4eb61e0f81380", "stitch_172eaed8df3e2f7c", "stitch_1bde63ac64bb1e8d",
