@@ -1420,8 +1420,8 @@ class _Phase:
         thread could already have overwritten that one, so the member writes
         its tile to a staging region of the workspace instead (``sx_stage``),
         and after a block barrier the tile is copied into the slot
-        (``member_loop``)."""
-        if write is None:
+        (``member_loop``).  A member already restaged stays so."""
+        if write is None or m.id in self.restaged:
             return
         ptr = self.tiles[m.id]
         mine = _indices(write, ptr)

@@ -281,6 +281,21 @@ class CompiledModule:
                 out.append(k)
         return out
 
+    @property
+    def launched_kernels(self) -> List[StitchedKernel]:
+        """``kernels``, then each loop body's (``compiled_body`` of a
+        ``call``), recursively: every generated kernel a call launches, one
+        per unique signature."""
+        seen = {id(k.fn) for k in self.kernels}
+        out = list(self.kernels)
+        for s in self.executable.plan.standalone:
+            if s.opcode == "call":
+                for k in s.attrs["compiled_body"].launched_kernels:
+                    if id(k.fn) not in seen:
+                        seen.add(id(k.fn))
+                        out.append(k)
+        return out
+
     def __call__(self, feeds):
         return self.executable(feeds)
 

@@ -51,7 +51,7 @@ from .latency import LatencyModel
 from .memory import MemoryInfeasible, plan_memory, plan_stitched_memory
 from .perf_library import PerfLibrary
 from .schedule import CONSISTENT, STITCHABLE, StitchVerdict, stitchable
-from .tuning import tune_kernel, tune_phases
+from .tuning import kernel_fits, tune_kernel, tune_phases
 from . import span as span_lib
 
 # Opcodes that may live inside a fused computation.  Collectives
@@ -307,6 +307,7 @@ class FusionScorer:
         self._lib = PerfLibrary(model=self.model)   # the GPU scorer's tuner
         self._memo: Dict[frozenset, Optional[float]] = {}
         self._verdicts: Dict[frozenset, StitchVerdict] = {}
+        self._fits: Dict[frozenset, bool] = {}
 
     def standalone_cost(self, instr: Instruction) -> float:
         if instr.is_collective:
@@ -342,6 +343,24 @@ class FusionScorer:
         if v is not None and v.verdict == STITCHABLE and v.stitched is not None:
             return v.stitched.phase_sizes
         return None
+
+    def feasible(self, members: List[Instruction]) -> bool:
+        """Whether ``fused_cost`` is not None, without costing a single
+        schedule kernel on a GPU (``tuning.kernel_fits``): a fusion's growth
+        asks this of every enlargement, and the cost only of what it keeps."""
+        key = frozenset(m.id for m in members)
+        if key in self._memo:
+            return self._memo[key] is not None
+        if len(members) > 1 and self.spec.is_gpu:
+            v = self.verdict(members)
+            if v.verdict != CONSISTENT:
+                return self.fused_cost(members) is not None
+            if key not in self._fits:
+                roots = FusedComputation(list(members), name="candidate").roots
+                self._fits[key] = kernel_fits(members, roots, self._lib, self.max_blocks,
+                                              self.replicate_limit, self.vmem_limit)
+            return self._fits[key]
+        return self.fused_cost(members) is not None
 
     def fused_cost(self, members: List[Instruction]) -> Optional[float]:
         """Modeled seconds for ``members`` as ONE kernel; None = infeasible."""
@@ -457,23 +476,36 @@ def _elementwise_groups(
     return [g for g in groups if len(g) >= 2]
 
 
-def _would_cycle(hlo: Instruction, fused: Set[Instruction]) -> bool:
-    """True if fusing ``hlo`` creates a group-level dependence cycle: a path
-    from ``hlo`` through outside-the-fusion consumers back to an input of the
-    fusion.  (The paper collapses fusions into single HLO instructions after
-    each pass, which makes such cycles visible structurally; with virtual
-    groups we check reachability explicitly.)"""
-    stack = [u for u in hlo.users if u not in fused]
+def _reaches(stack: List[Instruction], fused: Set[Instruction],
+             group_of: Optional[Dict[int, Tuple[Instruction, ...]]]) -> bool:
+    """Whether a path from the outside instructions on ``stack`` reaches a
+    member of ``fused``.  A committed group (``group_of``: instruction id ->
+    its group's members) runs as one kernel, after every input of every
+    member: a path into one member goes on from the users of all of them."""
     seen: Set[int] = set()
     while stack:
         n = stack.pop()
         if n.id in seen:
             continue
-        seen.add(n.id)
-        if any(u in fused for u in n.users):
-            return True
-        stack.extend(u for u in n.users if u not in fused)
+        for g in (group_of or {}).get(n.id, (n,)):
+            seen.add(g.id)
+            for u in g.users:
+                if u in fused:
+                    return True
+                if u.id not in seen:
+                    stack.append(u)
     return False
+
+
+def _would_cycle(hlo: Instruction, fused: Set[Instruction]) -> bool:
+    """True if fusing ``hlo`` creates a dependence cycle: a path from
+    ``hlo`` through outside-the-fusion consumers back to an input of the
+    fusion.  (The paper collapses fusions into single HLO instructions after
+    each pass, which makes such cycles visible structurally; with virtual
+    groups we check reachability explicitly.)  The path is walked over
+    instructions, not over the other groups: ``_break_cycles`` repairs a
+    cycle that only the groups close."""
+    return _reaches([u for u in hlo.users if u not in fused], fused, None)
 
 
 def subgraph_fuse(
@@ -722,20 +754,96 @@ def _choose_pack(
     return groups, costs
 
 
-def _group_cycle(fused: Set[Instruction]) -> bool:
-    """Would the member union reach itself through outside instructions?"""
-    stack = [u for m in fused for u in m.users if u not in fused]
-    seen: Set[int] = set()
-    while stack:
-        n = stack.pop()
-        if n.id in seen:
+def _group_cycle(fused: Set[Instruction],
+                 group_of: Optional[Dict[int, Tuple[Instruction, ...]]] = None) -> bool:
+    """Would the member union reach itself through outside instructions
+    (whole committed groups, ``_reaches``)?"""
+    return _reaches([u for m in fused for u in m.users if u not in fused], fused, group_of)
+
+
+def _groups_of(fusions: List["FusedComputation"]) -> Dict[int, Tuple[Instruction, ...]]:
+    """Instruction id -> the members of its committed group."""
+    out: Dict[int, Tuple[Instruction, ...]] = {}
+    for f in fusions:
+        members = tuple(f.members)
+        out.update((m.id, members) for m in members)
+    return out
+
+
+def _cycle_through(fusions: List[FusedComputation],
+                   standalone: List[Instruction]) -> Optional[int]:
+    """The index of a fusion of more than one member on a cycle of the
+    plan's units (its fusions and standalone instructions, as
+    ``executor.order_units`` orders them; every such cycle has one, since
+    the instructions alone are acyclic), or None where they are acyclic."""
+    units: List[Tuple[Instruction, ...]] = [tuple(f.members) for f in fusions]
+    units += [(i,) for i in standalone]
+    unit_of = {m.id: u for u, members in enumerate(units) for m in members}
+    succ = [sorted({unit_of[x.id] for m in members for x in m.users
+                    if x.id in unit_of and unit_of[x.id] != u})
+            for u, members in enumerate(units)]
+    state = [0] * len(units)         # 0 unseen, 1 on the walk's path, 2 done
+    for start in range(len(units)):
+        if state[start]:
             continue
-        seen.add(n.id)
-        for u in n.users:
-            if u in fused:
-                return True
-            stack.append(u)
-    return False
+        path, stack = [start], [iter(succ[start])]
+        state[start] = 1
+        while stack:
+            v = next(stack[-1], None)
+            if v is None:
+                state[path.pop()] = 2
+                stack.pop()
+            elif state[v] == 1:
+                return next(u for u in path[path.index(v):] if len(units[u]) > 1)
+            elif state[v] == 0:
+                state[v] = 1
+                path.append(v)
+                stack.append(iter(succ[v]))
+    return None
+
+
+def _break_cycles(fusions: List[FusedComputation], standalone: List[Instruction],
+                  scorer: Optional[FusionScorer]) -> List[FusedComputation]:
+    """Split the fusions that close a cycle among the plan's units until
+    none does.  Growth and merging walk paths over instructions, so a group
+    can come to read, through another group, a value it writes itself: the
+    other group's members need not depend on each other, but its kernel
+    runs after every input of every member.  The fusion on a cycle splits
+    in two: the members a path from it reaches (through whole groups) and
+    those no such path reaches, the first part before the second; where
+    every member is reached, into its members.  A part that has no
+    schedule of its own splits into single members.  Each split adds a
+    fusion, so the repair ends."""
+    fusions = list(fusions)
+    while True:
+        k = _cycle_through(fusions, standalone)
+        if k is None:
+            return fusions
+        f = fusions[k]
+        members = set(f.members)
+        group_of = _groups_of([g for g in fusions if g is not f])
+        reached: Set[int] = set()
+        stack = [u for m in f.members for u in m.users if u not in members]
+        while stack:
+            n = stack.pop()
+            if n.id in reached:
+                continue
+            for g in group_of.get(n.id, (n,)):
+                reached.add(g.id)
+                stack.extend(u for u in g.users if u.id not in reached)
+        parts = [p for p in ([m for m in f.members if m.id not in reached],
+                             [m for m in f.members if m.id in reached]) if p]
+        if len(parts) == 1:
+            parts = [[m] for m in f.members]
+        split: List[FusedComputation] = []
+        for part in parts:
+            cost = scorer.fused_cost(part) if scorer is not None else None
+            pieces = [part] if len(part) == 1 or scorer is None or cost is not None else \
+                [[m] for m in part]
+            for piece in pieces:
+                c = cost if len(pieces) == 1 else scorer.fused_cost(piece)
+                split.append(_commit_fusion(piece, f"{f.name}_{len(split)}", c, scorer))
+        fusions[k:k + 1] = split
 
 
 def _merge_key(f: FusedComputation) -> tuple:
@@ -966,6 +1074,7 @@ def deep_fuse(module: Module, cfg: Optional[FusionConfig] = None) -> FusionPlan:
             extra.append(f.members[0])
         else:
             real_fusions.append(f)
+    real_fusions = _break_cycles(real_fusions, standalone + extra, scorer)
     plan = FusionPlan(real_fusions, standalone + extra, module, planner=stats)
 
     # --- planner accounting ----------------------------------------------

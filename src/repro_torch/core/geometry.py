@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import lru_cache
 from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -396,19 +397,7 @@ def dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
     depth = m.operands[0].shape[-1]
     itemsize = np.dtype(_NP_COMPUTE[_c_compute(m.dtype)]).itemsize
     vec = _c_compute(m.dtype) == "float"
-    keyed = []
-    for rm in (r for r in DOT_ROWS if rows % r == 0 and (vec or r <= 4)):
-        for rn in (r for r in (4, 2, 1) if cols % r == 0):
-            for bg in _divisors_of(batch, threads):
-                for tx in _divisors_of(cols // rn, threads // bg):
-                    for ty in _divisors_of(rows // rm, threads // (bg * tx)):
-                        bm, bn = ty * rm, tx * rn
-                        staged = ((1 + lhs_ops) * rows * depth * (cols // bn)
-                                  + (1 + rhs_ops) * depth * cols * (rows // bm))
-                        busy = bg * tx * ty
-                        keyed.append(((min(busy, DOT_BUSY), rm * rn, -staged, bn, busy, rn, -bg),
-                                      (bm, bn, rm, rn, bg)))
-    ranked = [tile for _, tile in sorted(keyed, reverse=True)]
+    ranked = _ranked_tiles(rows, cols, batch, depth, vec, threads, lhs_ops, rhs_ops)
     if mma_type(m) and vec and depth % 16 == 0:
         steps = ([depth] if depth <= DOT_MMA_ONE_STEP else []) + [16]
         for bm, bn, rm, rn, bg in ranked:
@@ -423,6 +412,28 @@ def dot_tiling(m: Instruction, sched: Sched, threads: int, budget: int,
             if t.stage_bytes(itemsize) <= budget:
                 return t
     return None
+
+
+@lru_cache(maxsize=4096)
+def _ranked_tiles(rows: int, cols: int, batch: int, depth: int, vec: bool, threads: int,
+                  lhs_ops: int, rhs_ops: int) -> Tuple[Tuple[int, int, int, int, int], ...]:
+    """``dot_tiling``'s ranking of the (bm, bn, rm, rn, bg) tiles of a
+    rows x cols output chunk of ``batch`` products of ``depth``, best
+    first; once an argument tuple, as the planner costs the same dots over
+    and over."""
+    keyed = []
+    for rm in (r for r in DOT_ROWS if rows % r == 0 and (vec or r <= 4)):
+        for rn in (r for r in (4, 2, 1) if cols % r == 0):
+            for bg in _divisors_of(batch, threads):
+                for tx in _divisors_of(cols // rn, threads // bg):
+                    for ty in _divisors_of(rows // rm, threads // (bg * tx)):
+                        bm, bn = ty * rm, tx * rn
+                        staged = ((1 + lhs_ops) * rows * depth * (cols // bn)
+                                  + (1 + rhs_ops) * depth * cols * (rows // bm))
+                        busy = bg * tx * ty
+                        keyed.append(((min(busy, DOT_BUSY), rm * rn, -staged, bn, busy, rn, -bg),
+                                      (bm, bn, rm, rn, bg)))
+    return tuple(tile for _, tile in sorted(keyed, reverse=True))
 
 
 def staged_itemsize(m: Instruction, t: DotTiling) -> int:

@@ -46,6 +46,12 @@ if TYPE_CHECKING:    # latency imports geometry, which imports this module
 
 #: bytes each slot of a generated CUDA kernel starts on (``geometry._slot_layout``)
 SLOT_ALIGN = 16
+#: the most members an inlined value's expression may compose where more
+#: than one member of its kernel reads it: past it the value takes a slot,
+#: since each reader composes the whole expression again, and a chain of
+#: such values (a row written into a matrix whose earlier rows the row
+#: reads, over and over) grows the kernel's text exponentially
+COMPOSE_LIMIT = 64
 
 ALLOC = "ALLOC"
 SHARE = "SHARE"
@@ -210,14 +216,18 @@ def plan_memory(
     # category: 0=required, 1=cheap multi-user, 2=expensive multi-user,
     #           3=expensive feeding dot  (shrink order: 1 -> 2 -> 3, never 0)
     candidates: Dict[int, int] = {}
+    composed: Dict[int, int] = {}     # members an inlined value composes
     for m in members:
+        composed[m.id] = 1 + sum(composed.get(o.id, 0) for o in m.operands)
         in_users = [u for u in m.users if u.id in member_ids]
         if m.id in root_ids and not in_users:
             continue  # pure output: written straight to the output ref
         if m.id in solution.index_values:
             continue  # recomputed from its index where it is read
-        if m.opcode in ("reduce", "dot", "cumsum"):
+        if m.opcode in ("reduce", "dot", "cumsum") or (
+                len(in_users) > 1 and composed[m.id] > COMPOSE_LIMIT):
             candidates[m.id] = 0
+            composed[m.id] = 1
         elif m.opcode == "elementwise":
             feeds_dot = _feeds_dot_through_shape_ops(m, member_ids)
             if m.is_expensive and feeds_dot:
@@ -226,6 +236,8 @@ def plan_memory(
                 candidates[m.id] = 2
             elif len(in_users) > 1:
                 candidates[m.id] = 1
+            if m.id in candidates:
+                composed[m.id] = 1
 
     sizes: Dict[int, Tuple[Tuple[int, ...], int]] = {}
     for m in members:

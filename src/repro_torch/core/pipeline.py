@@ -291,7 +291,7 @@ class FusionPass(Pass):
                 # stitched kernel would only be demoted later)
                 if len(members) == 1:
                     return scorer.verdict(members).verdict == CONSISTENT
-                return scorer.fused_cost(members) is not None
+                return scorer.feasible(members)
         else:
             def consistency(roots, members) -> bool:
                 # planner="greedy" is the paper's Algorithm 1 exactly: the

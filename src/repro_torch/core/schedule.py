@@ -26,6 +26,7 @@ needs that the paper leaves implicit:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
 
@@ -119,8 +120,15 @@ def _divisors(n: int, cap: int = 24) -> List[int]:
 
 def candidate_schedules(shape: Tuple[int, ...], max_blocks: int = 1 << 16) -> List[Sched]:
     """The (small) schedule space of one output shape — paper §4.1."""
+    return list(_candidates(tuple(shape), max_blocks))
+
+
+@lru_cache(maxsize=4096)
+def _candidates(shape: Tuple[int, ...], max_blocks: int) -> Tuple[Sched, ...]:
+    """``candidate_schedules``, once a (shape, max_blocks): the planner asks
+    for the same shapes over and over."""
     if not shape:
-        return [Sched(split_dim=0, sword=1, sched_type=ROW)] if False else [REPLICATED]
+        return (REPLICATED,)
     out, seen = [], set()
     for s in range(len(shape)):
         for w in _divisors(shape[s]):
@@ -134,7 +142,7 @@ def candidate_schedules(shape: Tuple[int, ...], max_blocks: int = 1 << 16) -> Li
                     continue
                 seen.add(key)
                 out.append(sched)
-    return out
+    return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -376,6 +384,8 @@ def resolve_schedules(
                 f"root blocks disagree: {launch_blocks} vs {b} ({r.name})"
             )
     assignment: Dict[int, Sched] = {}
+    visited: set = set()        # the members the current sweep has propagated from
+    late = [False]              # one of them changed after its propagation
 
     def assign(instr: Instruction, sched: Sched) -> bool:
         """Record ``sched`` for ``instr``; True if the assignment changed.
@@ -399,15 +409,22 @@ def resolve_schedules(
         if prev == sched:
             return False
         assignment[instr.id] = sched
+        late[0] |= instr.id in visited
         return True
 
     for r in roots:
         assign(r, root_scheds[r.id])
 
     # Reverse-topo sweeps to fixpoint (downgrades to Replicated can cascade;
-    # monotonicity bounds the iteration count).
+    # monotonicity bounds the iteration count).  A sweep that changed no
+    # member after propagating from it has reached the fixpoint: every
+    # propagation read its member's final schedule, and what each operand
+    # then got is its users' schedule or replicated, so the next sweep and
+    # the check below would find nothing (in topological order, one sweep).
     for _ in range(len(members) + 1):
         changed = False
+        visited.clear()
+        late[0] = False
         for instr in reversed(members):
             if instr.id not in assignment:
                 # member never reached from a root yet — replicate
@@ -419,12 +436,13 @@ def resolve_schedules(
                 read_from_l2.update(o.id for o in instr.operands)
             for o, osched in zip(instr.operands, propagate(instr, sched, rows), strict=False):
                 changed |= assign(o, osched)
-        if not changed:
+            visited.add(instr.id)
+        if not changed or not late[0]:
             break
 
     # Final soundness check: every member's operands must be readable under
     # the member's schedule (equal or replicated).
-    for instr in members:
+    for instr in members if late[0] else ():
         sched = assignment[instr.id]
         for o, osched in zip(instr.operands, propagate(instr, sched, rows), strict=False):
             got = assignment[o.id]
@@ -445,7 +463,16 @@ def any_satisfiable(
     spec=None,
 ) -> Optional[ScheduleSolution]:
     """Cheap existence check used by SchdConsistent during fusion."""
-    cands = candidates or candidate_schedules(roots[0].shape, max_blocks)
+    cands = candidates or _candidates(tuple(roots[0].shape), max_blocks)
+    # each other root shape's first schedule of a given blocks count
+    first: Dict[Tuple[int, ...], Dict[int, Sched]] = {}
+    for r in roots:
+        shape = tuple(r.shape)
+        if shape != tuple(roots[0].shape) and shape not in first:
+            by_blocks: Dict[int, Sched] = {}
+            for c in _candidates(shape, max_blocks):
+                by_blocks.setdefault(blocks_of(shape, c), c)
+            first[shape] = by_blocks
     for sched in cands:
         try:
             b = blocks_of(roots[0].shape, sched)
@@ -455,16 +482,12 @@ def any_satisfiable(
                 if tuple(r.shape) == tuple(roots[0].shape):
                     rs[r.id] = sched
                 else:
-                    # find a sched for r with the same blocks
-                    alt = [
-                        c
-                        for c in candidate_schedules(r.shape, max_blocks)
-                        if blocks_of(r.shape, c) == b
-                    ]
-                    if not alt:
+                    # a sched for r with the same blocks
+                    alt = first[tuple(r.shape)].get(b)
+                    if alt is None:
                         ok = False
                         break
-                    rs[r.id] = alt[0]
+                    rs[r.id] = alt
             if not ok:
                 continue
             return resolve_schedules(members, roots, rs, replicate_limit, spec)

@@ -120,27 +120,23 @@ def tune(
     """Find the cheapest satisfiable schedule for a fused computation
     (on a GPU, among those whose memory plan fits ``vmem_limit``)."""
     best = _Best(members, roots, lib, vmem_limit)
-    spec = lib.model.spec
-    if len(roots) == 1:
-        _tune_single(members, roots, best, max_blocks, replicate_limit, spec)
-    else:
-        _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos, spec)
+    for sol in _solutions(members, roots, max_blocks, replicate_limit, max_combos,
+                          lib.model.spec):
+        best.offer(sol)
     return best.plan
 
 
-def _tune_single(members, roots, best, max_blocks, replicate_limit, spec=None):
-    root = roots[0]
-    for sched in candidate_schedules(root.shape, max_blocks):
-        try:
-            sol = resolve_schedules(
-                members, roots, {root.id: sched}, replicate_limit, spec
-            )
-        except Unsatisfiable:
-            continue
-        best.offer(sol)
-
-
-def _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos, spec=None):
+def _solutions(members, roots, max_blocks, replicate_limit, max_combos, spec=None):
+    """Each satisfiable schedule ``tune`` weighs, in the order it weighs
+    them."""
+    if len(roots) == 1:
+        root = roots[0]
+        for sched in candidate_schedules(root.shape, max_blocks):
+            try:
+                yield resolve_schedules(members, roots, {root.id: sched}, replicate_limit, spec)
+            except Unsatisfiable:
+                continue
+        return
     # ---- stage 1: intersect valid blocks sets across roots (paper §4.3) --
     per_root: List[Dict[int, List[Sched]]] = []
     for r in roots:
@@ -151,8 +147,6 @@ def _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos, s
     agreed = set(per_root[0])
     for bb in per_root[1:]:
         agreed &= set(bb)
-    if not agreed:
-        return
 
     # ---- stage 2: iterate schedules in the agreed blocks set -------------
     for b in sorted(agreed, reverse=True):  # prefer more parallelism first
@@ -162,10 +156,9 @@ def _tune_multi(members, roots, best, max_blocks, replicate_limit, max_combos, s
         for combo in combos:
             rs = {r.id: s for r, s in zip(roots, combo, strict=False)}
             try:
-                sol = resolve_schedules(members, roots, rs, replicate_limit, spec)
+                yield resolve_schedules(members, roots, rs, replicate_limit, spec)
             except Unsatisfiable:
                 continue
-            best.offer(sol)
 
 
 def tune_kernel(
@@ -186,6 +179,27 @@ def tune_kernel(
         return tuned, plan_memory(members, roots, tuned.solution, vmem_limit, lib.model.spec)
     except MemoryInfeasible:
         return None
+
+
+def kernel_fits(
+    members: List[Instruction],
+    roots: List[Instruction],
+    lib: PerfLibrary,
+    max_blocks: int,
+    replicate_limit: int,
+    vmem_limit: int,
+) -> bool:
+    """Whether ``tune_kernel`` finds a plan (on a GPU): whether a schedule
+    it weighs has a memory plan that fits ``vmem_limit``, asked of each in
+    turn up to the first that does, with no cost computed."""
+    spec = lib.model.spec
+    for sol in _solutions(members, roots, max_blocks, replicate_limit, 64, spec):
+        try:
+            plan_memory(members, roots, sol, vmem_limit, spec)
+        except MemoryInfeasible:
+            continue
+        return True
+    return False
 
 
 def tune_phases(

@@ -65,7 +65,7 @@ RULES: Dict[str, str] = {
     "IR006": "recorded dtype disagrees with dtype re-inference",
     "IR007": "attr-declared shape/dtype contract broken (call/get/constant/slice/cumsum)",
     "IR008": "duplicate parameter name",
-    "PLAN001": "fusion group is cyclic through outside instructions",
+    "PLAN001": "fusion group is cyclic through outside instructions or groups",
     "PLAN002": "fusion component spans an LC layer roof",
     "PLAN003": "forbidden member in a kernel body (collective/library/loop)",
     "PLAN004": "non-scalar constant inside a kernel body",
@@ -292,7 +292,7 @@ def _check_call(instr: Instruction) -> List[Tuple[str, str]]:
 def verify_fusion_groups(fusions, standalone, module: Module, pass_name: str = "") -> List[Diagnostic]:
     """Structural lint of a fusion partition: acyclic groups, LC-layer
     roofs, member legality, exactly-once coverage."""
-    from .fusion import _group_cycle
+    from .fusion import _group_cycle, _groups_of
 
     diags: List[Diagnostic] = []
     span = span_lib.compute_spans(module)
@@ -302,9 +302,10 @@ def verify_fusion_groups(fusions, standalone, module: Module, pass_name: str = "
     def err(rule: str, subject: str, message: str) -> None:
         diags.append(Diagnostic(ERROR, rule, message, subject, pass_name))
 
+    group_of = _groups_of(list(fusions))
     for f in fusions:
         members = list(f.members)
-        if _group_cycle(set(members)):
+        if _group_cycle(set(members), group_of):
             err("PLAN001", f.name, "member union reaches itself through outside instructions")
         for m in members:
             if m.is_collective:

@@ -163,6 +163,17 @@ def _failed_higher_order_op(exc: BaseException) -> str:
     return name
 
 
+def _decompositions() -> dict:
+    """The core ATen decompositions but ``select_scatter``'s, which
+    ``aten_lower`` lowers as a write into a row (torch's would compare an
+    iota with the row's index in every element)."""
+    from torch._decomp import core_aten_decompositions
+
+    table = core_aten_decompositions()
+    table.pop(torch.ops.aten.select_scatter.default, None)
+    return table
+
+
 def capture(fn: Callable, leaves: Sequence, in_spec) -> Tuple[torch.fx.GraphModule, Any]:
     """Capture ``fn`` over the flattened argument ``leaves`` (of structure
     ``in_spec``) into an ATen graph; returns the graph and the output
@@ -177,7 +188,6 @@ def capture(fn: Callable, leaves: Sequence, in_spec) -> Tuple[torch.fx.GraphModu
     A failure inside a higher-order op (torch cannot capture the gradient
     of a ``scan``) raises ``UnsupportedPrimitiveError`` naming the op."""
     import torch._dynamo
-    from torch._decomp import core_aten_decompositions
     from torch._dynamo.exc import Unsupported
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -205,7 +215,7 @@ def capture(fn: Callable, leaves: Sequence, in_spec) -> Tuple[torch.fx.GraphModu
                                         assume_static_by_default=True):
             gm = make_fx(
                 torch.func.functionalize(flat_fn, remove="mutations"),
-                decomposition_table=core_aten_decompositions(),
+                decomposition_table=_decompositions(),
                 tracing_mode="fake",
                 _allow_non_fake_inputs=True,
                 record_stack_traces=True,
@@ -588,7 +598,8 @@ class StitchedFunction:
                     entry = self._compile(key, args, kwargs, static_pos, leaves, spec,
                                           dyn_args, n_args)
                     if entry.compiled is not None:
-                        sp.attrs["kernels"] = [k.fn.symbol for k in entry.compiled.kernels]
+                        sp.attrs["kernels"] = [k.fn.symbol
+                                               for k in entry.compiled.launched_kernels]
             if entry.is_fallback:
                 return self._run_eager(args, kwargs)
             feeds = {

@@ -27,7 +27,11 @@ Lowering rules worth knowing (each the reference's, by name):
     ``_print``, an in-place op left after functionalization) is kept by
     the liveness pass and raises: it is never dropped.
   * a slice (``slice``, ``select``, each part of ``split_with_sizes``) is
-    StitchIR's ``slice``, a view read at an offset index; a constant pad a
+    StitchIR's ``slice``, a view read at an offset index; a write into a
+    slice or a row, as functionalization leaves ``t[..., i, :i] = v``
+    (``slice_scatter``, ``select_scatter``), the ``concat`` of the value
+    with the slices of the base before and after it, and the functional
+    ``copy`` beneath it the value cast and broadcast to its target; a constant pad a
     ``concat`` with a broadcast constant; a depthwise 1-D convolution its
     taps, each a slice of the padded input times a broadcast column of the
     weight (``_depthwise_conv1d``); ``cumsum`` StitchIR's ``cumsum``, a
@@ -141,15 +145,24 @@ STRUCTURAL_OPS = frozenset(
      "aten.arange.start_step", "prims.iota.default"}
 )
 
-#: ops a sequence mixer (a state-space layer, a causal convolution) reads
-#: its inputs through, with bespoke lowerings below (``_Lowerer._seq_op``):
-#: slices and what is made of them, the depthwise 1-D convolution, the
-#: running sum, and the not of a bool mask
+#: ops a sequence mixer (a state-space layer, a causal convolution, a
+#: chunked delta rule) reads and writes its inputs through, with bespoke
+#: lowerings below (``_Lowerer._seq_op``): slices and what is made of them,
+#: writes into slices and rows, the depthwise 1-D convolution, the running
+#: sum, and the not of a bool mask
 SEQUENCE_OPS = frozenset(
     {"aten.slice.Tensor", "aten.select.int", "aten.split_with_sizes.default",
      "aten.constant_pad_nd.default", "aten.convolution.default", "aten.cumsum.default",
-     "aten.bitwise_not.default"}
+     "aten.bitwise_not.default", "aten.slice_scatter.default",
+     "aten.select_scatter.default", "aten.copy.default"}
 )
+
+#: the functional copies of views that a ``scan`` body's capture leaves,
+#: each lowered as its view
+VIEW_COPIES: Dict[str, str] = {
+    "aten.select_copy.int": "aten.select.int",
+    "aten.slice_copy.Tensor": "aten.slice.Tensor",
+}
 
 #: control-flow higher-order ops: ``scan`` lowers to a sub-module ``call``
 #: loop; ``while_loop`` the same way when a static trip count is provable
@@ -168,12 +181,14 @@ COLLECTIVE_OPS = frozenset(
      "_c10d_functional.wait_tensor.default"}
 )
 
-#: the lowerings the tracer counts, each as ``lower.<op>``
+#: the lowerings the tracer counts, each as ``lower.<op>`` (``VIEW_COPIES``'
+#: too, under their own names)
 COUNTED_OPS = SEQUENCE_OPS | {"aten.log1p.default"}
 
 SUPPORTED_OPS = frozenset(
     set(UNARY_OPS) | set(BINARY_OPS) | set(REDUCE_OPS)
     | IDENTITY_OPS | STRUCTURAL_OPS | SEQUENCE_OPS | CONTROL_FLOW_OPS | COLLECTIVE_OPS
+    | set(VIEW_COPIES)
 )
 
 _COMPARE = frozenset({"lt", "le", "gt", "ge", "eq", "ne", "and", "or"})
@@ -471,6 +486,9 @@ class _Lowerer:
 
     def lower_node(self, env: Dict, node):
         name = op_name(node.target)
+        if name in VIEW_COPIES:
+            tracing.count(f"lower.{name.split('.')[1]}", 1)
+            name = VIEW_COPIES[name]
         if name == "higher_order.scan":
             return self._lower_scan(env, node)
         if name == "higher_order.while_loop":
@@ -615,7 +633,12 @@ class _Lowerer:
             return b.cumsum(x, int(args[1]) % max(x.ndim, 1)) if x.ndim else x
         if name == "aten.convolution.default":
             return self._depthwise_conv1d(env, node, name, out_dtype)
+        if name == "aten.copy.default":
+            # functional: the target's shape and type, the source's values
+            return self.operand(env, args[1], out_dtype, out_shape)
         x = self.read(env, args[0])
+        if name in ("aten.slice_scatter.default", "aten.select_scatter.default"):
+            return self._scatter(env, node, name, x, out_dtype)
         if name == "aten.constant_pad_nd.default":
             value = args[2] if len(args) > 2 else node.kwargs.get("value", 0)
             return self._pad(x, list(args[1]), value, out_dtype)
@@ -627,6 +650,31 @@ class _Lowerer:
         start, stop = (args[2] if len(args) > 2 else None), (args[3] if len(args) > 3 else None)
         step = int(args[4] if len(args) > 4 else node.kwargs.get("step", 1))
         return self.slice(x, dim, start, stop, step)
+
+    def _scatter(self, env: Dict, node, name: str, base: Tensor, out_dtype) -> Tensor:
+        """``slice_scatter(base, src, dim, start, end, step)`` and
+        ``select_scatter(base, src, dim, index)``: ``base`` with ``src``
+        written into the slice (a step of 1) or the row, as the ``concat``
+        of the slice of ``base`` before it, ``src`` and the slice after."""
+        args = node.args
+        src = self.b.convert(self.read(env, args[1]), out_dtype)
+        dim = int(args[2] if len(args) > 2 else node.kwargs.get("dim", 0)) % base.ndim
+        n = int(base.shape[dim])
+        if name == "aten.select_scatter.default":
+            start = int(args[3]) % n
+            stop, step = start + 1, 1
+            shape = tuple(base.shape)
+            src = self.reshape(src, shape[:dim] + (1,) + shape[dim + 1:])
+        else:
+            start, stop = (args[3] if len(args) > 3 else None), (args[4] if len(args) > 4 else None)
+            start, stop, step = slice(start, stop, int(args[5] if len(args) > 5 else 1)).indices(n)
+        if step != 1:
+            raise UnsupportedPrimitiveError(name, node, "a write into a slice of step 1 lowers")
+        base = self.b.convert(base, out_dtype)
+        pieces = [p for p in (self.slice(base, dim, 0, start) if start > 0 else None, src,
+                              self.slice(base, dim, stop, n) if stop < n else None)
+                  if p is not None]
+        return self.b.concat(pieces, dim) if len(pieces) > 1 else src
 
     def _split(self, env: Dict, node) -> List[Tensor]:
         """``split_with_sizes``: one slice a part, in order."""
